@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+Each source ``csrc/<name>.cu`` exports a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` into its own shared library, which
+is loaded with ``ctypes``.  Libraries go to ``_build/`` inside the
+package (ignored by git), named by a hash of the source, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing is compiled
+at import: the first wrapper that launches a kernel builds it, and
+:func:`build_all` builds every source at once, one ``nvcc`` process per
+source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[str]:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on
+    ``PATH``, else the toolkit's default install location."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    if shutil.which("nvcc"):
+        cands.append(shutil.which("nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
+        "CUDA kernels are compiled from csrc/ at first use")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for *name* unless its library is already built;
+    returns ``(process, temporary output)`` or None."""
+    if _lib_path(name).exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish(name: str, started) -> str:
+    """Wait for a build from :func:`_start` and move its library into
+    place.  Returns the compiler's report (registers, shared memory and
+    spills per kernel), or "" when nothing was built."""
+    if started is None:
+        return ""
+    proc, tmp = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, _lib_path(name))
+    return log
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source, in parallel; returns ``{name: nvcc log}``
+    (empty for a library that was already built)."""
+    with _lock:
+        procs = {n: _start(n) for n in sources()}
+        logs, errors = {}, []
+        for n, p in procs.items():  # wait for every nvcc, then report
+            try:
+                logs[n] = _finish(n, p)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,145 @@
+"""Serving benchmark: tokens/sec of the decode loop, and the prefill time.
+
+The uniform mode of the JAX package's ``bench_serving``: one batch of
+prompts of one length, greedy, prefill once, then the decode loop timed
+best-of-rounds.  Weights are random, built on the device from a seed:
+
+    python -m tpu_k8s_device_plugin_torch.workloads.bench_serving \\
+        --config llama3-8b --batch 4 --prompt-len 1024 --steps 32 \\
+        --max-len 2048
+
+prints one JSON line.  The engine, HTTP, speculative and quantized
+modes of the JAX benchmark are not yet ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+
+import torch
+
+from . import llama
+from .inference import decode_throughput, resolve_device
+
+CONFIGS = {
+    "llama3-8b": llama.LLAMA3_8B,
+    "llama3-1b": llama.LLAMA32_1B,
+    "llama2-7b": llama.LLAMA2_7B,
+    "tiny": llama.TINY_LLAMA,
+    "tiny-draft": llama.TINY_DRAFT,
+}
+
+# elements per random-fill chunk: bounds the f32 scratch of the fill to
+# about 256 MB whatever the leaf
+_FILL_ELEMS = 1 << 26
+# flax's truncated normal cuts at two standard deviations and rescales
+# so that the truncated distribution has the asked-for deviation
+_TRUNC_STD = 0.87962566103423978
+
+
+def _fill_(w: torch.Tensor, gen: torch.Generator, std: float,
+           truncated: bool) -> None:
+    """Fill *w* in place with N(0, std^2), truncated at +-2 sd (and
+    rescaled like ``jax.nn.initializers.truncated_normal``) when
+    *truncated*; drawn in f32 chunks of rows and cast into *w*."""
+    rows = max(1, _FILL_ELEMS // max(1, w[0].numel()))
+    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    for r0 in range(0, w.shape[0], rows):
+        part = w[r0:r0 + rows]
+        if truncated:
+            u = torch.rand(part.shape, generator=gen, device=w.device,
+                           dtype=torch.float32)
+            x = torch.erfinv(u * (hi - lo) + lo) * math.sqrt(2)
+            x = x.clamp_(-2.0, 2.0) * (std / _TRUNC_STD)
+        else:
+            x = torch.randn(part.shape, generator=gen, device=w.device,
+                            dtype=torch.float32) * std
+        part.copy_(x)
+
+
+@torch.no_grad()
+def random_init_(model: torch.nn.Module, seed: int = 0) -> None:
+    """Random weights at flax's initializer scales, made on the model's
+    device from *seed*: Dense weights lecun-normal (truncated normal,
+    sd 1/sqrt(fan_in)), the embedding the flax Embed default (normal,
+    sd 1/sqrt(d_model)), norm scales 1.  Each leaf is written in the
+    model dtype directly; no f32 copy of the model is made."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.endswith("_norm.scale"):
+            p.fill_(1.0)
+        elif name == "embed.weight":
+            _fill_(p, gen, 1.0 / math.sqrt(p.shape[1]), truncated=False)
+        else:  # Dense weight [out, in]
+            _fill_(p, gen, 1.0 / math.sqrt(p.shape[1]), truncated=True)
+
+
+def build_model_and_params(config: str, max_len: int, device=None,
+                           seed: int = 0):
+    """``(cfg, model)`` for a named config with random bf16 weights
+    built directly on *device* (CUDA unless given).  The model holds its
+    weights, so there is no separate params tree."""
+    cfg = CONFIGS[config]
+    model = llama.decoder(cfg, max_len=max_len, device=device)
+    random_init_(model, seed)
+    return cfg, model
+
+
+def run(config: str, batch: int, steps: int, prompt_len: int,
+        max_len: int, seed: int = 0, device=None, engine: bool = False,
+        spec: int = 0, http_clients: int = 0, quantized=False):
+    """Uniform-batch decode benchmark; returns the stats dict of
+    ``decode_throughput`` with the config and device added."""
+    for flag, on in (("--engine", engine), ("--spec", spec),
+                     ("--http", http_clients), ("--quantized", quantized)):
+        if on:
+            raise NotImplementedError(f"{flag} is not yet ported")
+    if prompt_len + steps > max_len:
+        raise ValueError(
+            f"prompt_len {prompt_len} + steps {steps} exceed max_len "
+            f"{max_len}")
+    device = resolve_device(device)
+    cfg, model = build_model_and_params(config, max_len, device, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                           generator=gen).to(device)
+    stats = decode_throughput(model, prompt, steps)
+    stats["config"] = config
+    stats["prompt_len"] = float(prompt_len)
+    stats["device"] = (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu")
+    return stats
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="torch-serving-bench")
+    p.add_argument("--config", choices=sorted(CONFIGS), default="tiny")
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--steps", type=int, default=64)
+    p.add_argument("--prompt-len", type=int, default=128)
+    p.add_argument("--max-len", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda, required)")
+    for flag in ("--engine", "--quantized"):
+        p.add_argument(flag, action="store_true", help="not yet ported")
+    for flag in ("--spec", "--http"):
+        p.add_argument(flag, type=int, default=0, help="not yet ported")
+    args = p.parse_args(argv)
+    try:
+        stats = run(args.config, args.batch, args.steps, args.prompt_len,
+                    args.max_len, seed=args.seed, device=args.device,
+                    engine=args.engine, spec=args.spec,
+                    http_clients=args.http, quantized=args.quantized)
+    except (ValueError, NotImplementedError) as e:
+        p.error(str(e))
+    print(json.dumps(stats), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
