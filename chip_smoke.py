@@ -9,17 +9,27 @@ Phases, each fatal on failure:
 2. build every kernel from ``tpu_k8s_device_plugin_torch/csrc`` (one
    nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and a few edge shapes, and time the kernel,
+   the main paths' shapes and a few edge shapes, and time the kernel,
    the plain version and one PyTorch library call for the same function
-   (a yardstick only; the port never calls it);
-4. the main path: Llama-3-8B at full width and depth, bf16, random
+   (a yardstick only; the port never calls it): K4 (flash attention) at
+   the Llama-3-8B prefill, K1/K2 (max-pool forward/backward) and K3
+   (fused conv+pool) at AlexNet's three stage shapes, batch 1024, bf16;
+4. the generation path: Llama-3-8B at full width and depth, bf16, random
    weights from a seed, through ``greedy_generate`` (batch 4, prompt
    1024, 32 new tokens): the launch counts are zeroed just before and
-   read just after, and every kernel of the path must have run; then
-   prefill ms and decode tokens/s, and a 4-layer model at the same width
-   with the flash prefill against the einsum prefill; a profile of one
-   prefill and of a few decode steps by kernel;
-5. print the ``kernels`` JSON line, then the result line.
+   read just after, and K4 must have run once per layer; then prefill ms
+   and decode tokens/s, and a 4-layer model at the same width with the
+   flash prefill against the einsum prefill; a profile of one prefill
+   and of a few decode steps by kernel;
+5. the training path: AlexNet at full width (224 px, 1000 classes, s2d,
+   bf16 compute, f32 parameters from a seed), batch 1024, one
+   ``train_step`` under each ``pool`` with the launch counts zeroed just
+   before and read just after (``pallas``: K1 and K2 three times each;
+   ``fused``: K3 and K2 three times each), the first-step losses held
+   against ``xla``'s; images/sec and MFU of ``bench_main.run_single``
+   (3 warmup, 10 steps) per ``pool``; a profile of one ``pallas`` and
+   one ``fused`` step by kernel;
+6. print the ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -43,6 +53,13 @@ TOL = {"bfloat16": (3e-2, 3e-2), "float32": (2e-5, 2e-5)}
 
 # the main path's prefill: Llama-3-8B, batch 4, prompt 1024
 BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 4, 1024, 32, 2048
+
+# the training path: AlexNet, batch 1024 (224 px, s2d), and its three
+# conv->pool stages: (pool input = conv output, conv input, window)
+ALEX_BATCH, ALEX_WARMUP, ALEX_STEPS = 1024, 3, 10
+STAGES = [((56, 56, 64), (56, 56, 48), 3),
+          ((27, 27, 192), (27, 27, 64), 5),
+          ((13, 13, 256), (13, 13, 256), 3)]
 
 
 def fail(msg: str) -> None:
@@ -143,13 +160,39 @@ def check_flash(torch, fa):
     return result
 
 
-def profile_split(torch, inference, model, prompt, steps: int = 8):
-    """Where the time goes: device time by kernel over one prefill and
-    over *steps* decode steps (``torch.profiler``), against the wall
-    time of the same region; the difference is device idle time."""
+def profile_region(torch, name: str, fn) -> None:
+    """Where the time goes: device time by kernel over one call of *fn*
+    (``torch.profiler``), against the wall time of the same region; the
+    difference is device idle time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: a CPU op's device time repeats the
+    # time of the kernels it launched
+    kernels = [(e.key, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation
+               and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms in kernels)
+    print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f}", flush=True)
+    for key, ms in sorted(kernels, key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  "
+              f"{key[:90]}", flush=True)
+
+
+def profile_split(torch, inference, model, prompt, steps: int = 8):
+    """Device time by kernel over one prefill and over *steps* decode
+    steps."""
     B, T = prompt.shape
     pos = torch.arange(T, dtype=torch.int32, device="cuda").expand(B, T)
     logits, cache = inference._prefill(model, prompt, pos)
@@ -162,31 +205,11 @@ def profile_split(torch, inference, model, prompt, steps: int = 8):
         inference._decode_loop(model, cache, logits[:, -1], steps + 1, pos0,
                                None, inference._greedy_pick, 1.0, None)
 
-    for name, fn in (("prefill", prefill), (f"decode x{steps}", decode)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only: a CPU op's device time repeats the
-        # time of the kernels it launched
-        kernels = [(e.key, e.self_device_time_total / 1e3)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.is_user_annotation
-                   and e.self_device_time_total > 0]
-        busy = sum(ms for _, ms in kernels)
-        print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
-              f"{busy:.3f} ms, idle share "
-              f"{max(0.0, 1 - busy / wall_ms):.3f}", flush=True)
-        for key, ms in sorted(kernels, key=lambda kv: -kv[1])[:8]:
-            print(f"  {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  "
-                  f"{key[:90]}", flush=True)
+    profile_region(torch, "prefill", prefill)
+    profile_region(torch, f"decode x{steps}", decode)
 
 
-def main_path(torch, fa, inference, llama, bench_serving):
+def main_path(torch, counts, inference, llama, bench_serving):
     """Phase 4: Llama-3-8B greedy generation through the port."""
     t0 = time.perf_counter()
     cfg, model = bench_serving.build_model_and_params(
@@ -199,14 +222,15 @@ def main_path(torch, fa, inference, llama, bench_serving):
                            generator=torch.Generator().manual_seed(1))
     prompt = prompt.to("cuda")
 
-    fa.flash_attention_cuda.launches = 0
+    counts.zero()
     t0 = time.perf_counter()
     toks, logits = inference.greedy_generate(model, prompt, NEW_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.flash_attention_cuda.launches
+    got = counts.read()
+    launches = got["flash_attn_fwd"]
     print(f"greedy_generate: batch {BATCH}, prompt {PROMPT}, {NEW_TOKENS} "
-          f"tokens in {wall:.3f} s; flash launches {launches}", flush=True)
+          f"tokens in {wall:.3f} s; launches {got}", flush=True)
     if launches != cfg.n_layers:
         fail(f"flash kernel launched {launches} times in the prefill, "
              f"expected {cfg.n_layers} (one per layer)")
@@ -259,17 +283,267 @@ def main_path(torch, fa, inference, llama, bench_serving):
     return launches, stats
 
 
+class Counts:
+    """Every kernel wrapper's launch count, by kernel name."""
+
+    def __init__(self, **wrappers):
+        self.wrappers = wrappers
+
+    def zero(self) -> None:
+        for w in self.wrappers.values():
+            w.launches = 0
+
+    def read(self) -> dict:
+        return {n: w.launches for n, w in self.wrappers.items()}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bytes_bound_ms(*tensors) -> float:
+    """Least time to read or write each tensor once at the HBM rate."""
+    return nbytes(*tensors) / PEAK_BYTES * 1e3
+
+
+def _timed_stage(torch, kernel, plain, library, iters=20):
+    return (time_ms(torch, kernel, iters), time_ms(torch, plain, 3),
+            time_ms(torch, library, iters))
+
+
+def check_pool(torch, mp):
+    """Phase 3: K1 and K2 bit-exact against their plain versions at the
+    training path's three pool shapes (batch 1024, bf16) and at small f32
+    and edge cases; kernel, plain and library (``F.max_pool2d`` and its
+    backward) times summed over the three stages."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [(f"stage{i + 1}", (ALEX_BATCH, *pool_in), torch.bfloat16)
+             for i, (pool_in, _, _) in enumerate(STAGES)]
+    cases += [(f"f32-stage{i + 1}", (3, *pool_in), torch.float32)
+              for i, (pool_in, _, _) in enumerate(STAGES)]
+    totals = {"fwd": [0.0] * 4, "bwd": [0.0] * 4}
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    for name, shape, dtype in cases:
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+        y, idx = mp.max_pool_fwd_cuda(x)
+        dp = torch.randn(y.shape, generator=gen, device="cuda", dtype=dtype)
+        dy = mp.max_pool_bwd_cuda(idx, dp, x.shape)
+        torch.cuda.synchronize()
+        py, pidx = mp.max_pool_fwd_plain(x)
+        pdy = mp.max_pool_bwd_plain(pidx, dp, x.shape)
+        same = (torch.equal(y, py), torch.equal(idx, pidx),
+                torch.equal(dy, pdy))
+        print(f"pool {name}: x {list(shape)} {str(dtype)[6:]} y/idx/dy "
+              f"equal to the plain version: {same}", flush=True)
+        if not all(same):
+            fail(f"pool kernels disagree with their plain versions "
+                 f"({name})")
+        if dtype != torch.bfloat16:
+            continue
+        for key, got, want in (("fwd", y, py), ("bwd", dy, pdy)):
+            err = float((got.float() - want.float()).abs().max())
+            max_err[key] = max(max_err[key], err)
+        xc = x.permute(0, 3, 1, 2)
+        ly, lind = F.max_pool2d(xc, 3, 2, return_indices=True)
+        dpc = dp.permute(0, 3, 1, 2)
+        fwd = _timed_stage(
+            torch, lambda: mp.max_pool_fwd_cuda(x),
+            lambda: mp.max_pool_fwd_plain(x),
+            lambda: F.max_pool2d(xc, 3, 2, return_indices=True))
+        bwd = _timed_stage(
+            torch, lambda: mp.max_pool_bwd_cuda(idx, dp, x.shape),
+            lambda: mp.max_pool_bwd_plain(idx, dp, x.shape),
+            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                dpc, xc, [3, 3], [2, 2], [0, 0], [1, 1], False, lind))
+        for key, t, bound in (("fwd", fwd, bytes_bound_ms(x, y, idx)),
+                              ("bwd", bwd, bytes_bound_ms(idx, dp, dy))):
+            totals[key] = [a + b for a, b in zip(totals[key], (*t, bound))]
+            print(f"  K{1 if key == 'fwd' else 2} {name}: kernel "
+                  f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library "
+                  f"{t[2]:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+        del ly, lind
+    return {key: dict(max_abs_err=max_err[key], ms=v[0], kernel_ms=v[0],
+                      plain_ms=v[1], library_ms=v[2], bound_ms=v[3],
+                      bound_by="bytes")
+            for key, v in totals.items()}
+
+
+def _pool_decided(torch, conv, rel):
+    """Where a pool window's best candidate beats the second by more than
+    *rel* of its magnitude: there no accumulation order can change which
+    offset wins."""
+    win = conv.float().unfold(1, 3, 2).unfold(2, 3, 2).flatten(-2)
+    top = win.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1] > rel * top.abs().amax(-1)
+
+
+def check_conv_pool(torch, cp):
+    """Phase 3: K3 against its plain version at the training path's three
+    stage shapes (batch 1024, bf16: values at 2e-2, the index where the
+    plain version's best and second-best differ by more than two bf16
+    units in the last place) and at small f32 shapes (1e-5; the index
+    where they differ by more than 1e-4), and on small integer inputs,
+    where every sum is exact, bit for bit; kernel, plain and library
+    (``F.conv2d`` + ``F.max_pool2d``) times summed over the stages."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(f"stage{i + 1}", (ALEX_BATCH, *conv_in), win, pool_in[2],
+              torch.bfloat16) for i, (pool_in, conv_in, win)
+             in enumerate(STAGES)]
+    cases += [(f"{tag}-stage{i + 1}", (3, *conv_in), win, pool_in[2],
+               dtype) for i, (pool_in, conv_in, win) in enumerate(STAGES)
+              for tag, dtype in (("small", torch.bfloat16),
+                                 ("f32", torch.float32))]
+    totals, max_err = [0.0] * 4, 0.0
+    bound_flops = bound_bytes = 0.0
+    for name, shape, win, feat, dtype in cases:
+        # integer inputs at the small batch only: there cuDNN's f32 conv,
+        # which the plain version uses, sums them exactly (at batch 1024
+        # it may pick a transform-based algorithm that rounds)
+        for integer in (False, True) if shape[0] == 3 else (False,):
+            if integer:
+                x = torch.randint(-1, 2, shape, generator=gen,
+                                  device="cuda").to(dtype)
+                k = torch.randint(-1, 2, (win, win, shape[-1], feat),
+                                  generator=gen, device="cuda").to(dtype)
+            else:
+                x = torch.randn(shape, generator=gen, device="cuda",
+                                dtype=dtype)
+                k = (torch.randn((win, win, shape[-1], feat), generator=gen,
+                                 device="cuda")
+                     * (win * win * shape[-1]) ** -0.5).to(dtype)
+            y, idx = cp.conv_pool_cuda(x, k)
+            torch.cuda.synchronize()
+            py, pidx = cp.conv_pool_plain(x, k)
+            if integer:
+                if not (torch.equal(y, py) and torch.equal(idx, pidx)):
+                    fail(f"conv+pool kernel not exact on integers ({name})")
+                print(f"conv_pool {name}: exact on integer inputs",
+                      flush=True)
+                continue
+            conv = cp._conv(x.float(), k.float()).to(dtype)
+            bf16 = dtype == torch.bfloat16
+            decided = _pool_decided(torch, conv, 2 ** -6 if bf16 else 1e-4)
+            del conv
+            err = (y.float() - py.float()).abs()
+            tol = 2e-2 if bf16 else 1e-5
+            bad = int((err > tol + tol * py.float().abs()).sum())
+            idx_bad = int((idx[decided] != pidx[decided]).sum())
+            print(f"conv_pool {name}: x {list(shape)} k {list(k.shape)} "
+                  f"{str(dtype)[6:]} max_abs_err={float(err.max()):.3e} "
+                  f"(atol {tol}, rtol {tol}) mismatches={bad}; index "
+                  f"checked at {float(decided.float().mean()):.4f} of "
+                  f"outputs, mismatches={idx_bad}", flush=True)
+            if bad or idx_bad or decided.float().mean() < 0.8 or \
+                    not torch.isfinite(y).all():
+                fail(f"conv+pool kernel disagrees with its plain version "
+                     f"({name})")
+            if shape[0] != ALEX_BATCH:
+                continue
+            max_err = max(max_err, float(err.max()))
+            xc = x.permute(0, 3, 1, 2)
+            wc = k.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            t = _timed_stage(
+                torch, lambda: cp.conv_pool_cuda(x, k),
+                lambda: cp.conv_pool_plain(x, k),
+                lambda: F.max_pool2d(F.conv2d(xc, wc, padding=win // 2),
+                                     3, 2, return_indices=True))
+            # the conv values the pool reads: rows and columns up to
+            # 2 * OH and 2 * OW
+            oh, ow = y.shape[1], y.shape[2]
+            flops = 2 * shape[0] * (2 * oh + 1) * (2 * ow + 1) * feat \
+                * win * win * shape[-1]
+            moved = nbytes(x, k, y, idx)
+            bound = max(flops / PEAK_BF16, moved / PEAK_BYTES) * 1e3
+            bound_flops += flops
+            bound_bytes += moved
+            totals = [a + b for a, b in zip(totals, (*t, bound))]
+            print(f"  K3 {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms,"
+                  f" library {t[2]:.4f} ms, bound {bound:.4f} ms "
+                  f"({flops:.3e} FLOPs, {moved:.3e} bytes)", flush=True)
+    bound_by = "operations" if bound_flops / PEAK_BF16 >= \
+        bound_bytes / PEAK_BYTES else "bytes"
+    return dict(max_abs_err=max_err, ms=totals[0], kernel_ms=totals[0],
+                plain_ms=totals[1], library_ms=totals[2],
+                bound_ms=totals[3], bound_by=bound_by)
+
+
+# the launches one training step must make under each pool
+ALEX_LAUNCHES = {
+    "xla": {},
+    "pallas": {"maxpool_fwd": 3, "maxpool_bwd": 3},
+    "fused": {"conv_pool_fwd": 3, "maxpool_bwd": 3},
+}
+
+
+def training_path(torch, counts, alexnet, bench_main):
+    """Phase 5: AlexNet training at full width through the port, under
+    each pool; returns the launches of the counted steps, by kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images, labels = alexnet.synthetic_batch(gen, ALEX_BATCH, s2d=True)
+    launches = {n: 0 for n in counts.read()}
+    losses = {}
+    for pool, expected in ALEX_LAUNCHES.items():
+        model, opt = alexnet.create_train_state(seed=0, s2d=True, pool=pool,
+                                                device="cuda")
+        counts.zero()
+        loss = alexnet.train_step(model, opt, images, labels)
+        torch.cuda.synchronize()
+        got = counts.read()
+        print(f"alexnet {pool}: first step loss {float(loss):.6f}; "
+              f"launches {got}", flush=True)
+        if got != {n: expected.get(n, 0) for n in got}:
+            fail(f"pool={pool}: launches {got}, expected {expected}")
+        if not torch.isfinite(loss):
+            fail(f"pool={pool}: non-finite loss")
+        losses[pool] = float(loss)
+        launches = {n: launches[n] + got[n] for n in got}
+        if pool != "xla":
+            profile_region(torch, f"alexnet {pool} step", lambda: (
+                alexnet.train_step(model, opt, images, labels)))
+        del model, opt
+    # pallas differs from xla only in the pool op, whose forward is exact;
+    # fused adds the bias after the pool and rounds its own conv to bf16
+    for pool, rel in (("pallas", 1e-3), ("fused", 2e-2)):
+        diff = abs(losses[pool] - losses["xla"]) / abs(losses["xla"])
+        print(f"alexnet {pool} vs xla first-step loss: relative "
+              f"difference {diff:.3e} (limit {rel})", flush=True)
+        if diff > rel:
+            fail(f"pool={pool} first-step loss disagrees with xla")
+    peak = bench_main.peak_flops(torch.device("cuda"))
+    for pool in ALEX_LAUNCHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ips, flops = bench_main.run_single(
+            ALEX_BATCH, ALEX_STEPS, ALEX_WARMUP, want_flops=True, pool=pool,
+            device="cuda")
+        mfu = ips * flops / ALEX_BATCH / peak if peak else None
+        print(f"alexnet {pool}: batch {ALEX_BATCH}, {ALEX_STEPS} steps: "
+              f"{ips:.1f} images/s, {flops / ALEX_BATCH:.4e} FLOPs per "
+              f"image, MFU {mfu}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+              flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_k8s_device_plugin_torch import build
     from tpu_k8s_device_plugin_torch.workloads import (
-        bench_serving, inference, llama)
+        alexnet, bench_main, bench_serving, inference, llama)
+    from tpu_k8s_device_plugin_torch.workloads import convpool as cp
     from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
+    from tpu_k8s_device_plugin_torch.workloads import pool as mp
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -287,14 +561,37 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    counts = Counts(flash_attn_fwd=fa.flash_attention_cuda,
+                    maxpool_fwd=mp.max_pool_fwd_cuda,
+                    maxpool_bwd=mp.max_pool_bwd_cuda,
+                    conv_pool_fwd=cp.conv_pool_cuda)
     flash = check_flash(torch, fa)
-    launches, _ = main_path(torch, fa, inference, llama, bench_serving)
+    pool = check_pool(torch, mp)
+    conv_pool = check_conv_pool(torch, cp)
+    launches, _ = main_path(torch, counts, inference, llama, bench_serving)
+    torch.cuda.empty_cache()
+    train = training_path(torch, counts, alexnet, bench_main)
 
-    kernels = [dict(
-        name="flash_attn_fwd", route="cuda",
-        source="tpu_k8s_device_plugin_torch/csrc/flash_attn_fwd.cu",
-        replaces="tpu_k8s_device_plugin/workloads/flash_attention.py:101",
-        launches=launches, **flash)]
+    csrc = "tpu_k8s_device_plugin_torch/csrc/"
+    ref = "tpu_k8s_device_plugin/workloads/"
+    kernels = [
+        dict(name="flash_attn_fwd", route="cuda",
+             source=csrc + "flash_attn_fwd.cu",
+             replaces=ref + "flash_attention.py:101",
+             launches=launches, **flash),
+        dict(name="maxpool_fwd", route="cuda", source=csrc + "maxpool.cu",
+             replaces=ref + "pool.py:150",
+             launches=train["maxpool_fwd"], **pool["fwd"]),
+        dict(name="maxpool_bwd", route="cuda", source=csrc + "maxpool.cu",
+             replaces=ref + "pool.py:169",
+             launches=train["maxpool_bwd"], **pool["bwd"]),
+        dict(name="conv_pool_fwd", route="cuda",
+             source=csrc + "conv_pool_fwd.cu",
+             replaces=ref + "convpool.py:83",
+             launches=train["conv_pool_fwd"], **conv_pool),
+    ]
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions:
+K4 (flash attention), K1 and K2 (max-pool forward and backward) and K3
+(fused conv+pool).
 
 These need a CUDA device and the CUDA toolkit (the kernels build from
 ``tpu_k8s_device_plugin_torch/csrc`` at first use); elsewhere they skip.
@@ -10,7 +12,9 @@ On the GPU machine:
 import pytest
 import torch
 
+from tpu_k8s_device_plugin_torch.workloads import convpool as cp
 from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
+from tpu_k8s_device_plugin_torch.workloads import pool as mp
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +27,7 @@ def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -104,3 +109,158 @@ def test_decoder_prefill_runs_the_kernel(gen, monkeypatch):
     got, _ = inference._prefill(model, prompt, pos)
     assert fa.flash_attention_cuda.launches - before == model.n_layers
     torch.testing.assert_close(got, want, atol=0.1, rtol=0.05)
+
+
+# --- K1, K2 (csrc/maxpool.cu) and K3 (csrc/conv_pool_fwd.cu) -----------
+
+DTYPES = [torch.bfloat16, torch.float32]
+# the AlexNet stage shapes (the pools' inputs are the convs' outputs)
+POOL_SHAPES = [(2, 56, 56, 64), (2, 27, 27, 192), (2, 13, 13, 256),
+               (3, 27, 27, 64)]  # ragged batch
+CONV_SHAPES = [((2, 56, 56, 48), 3, 64), ((2, 27, 27, 64), 5, 192),
+               ((2, 13, 13, 256), 3, 256), ((3, 13, 13, 256), 3, 256)]
+
+
+def _pool_pair(x, window=3, stride=2):
+    """K1 and K2 against their plain versions, bit for bit; the
+    gradient is 2 * y, as for sum(y ** 2)."""
+    before = (mp.max_pool_fwd_cuda.launches, mp.max_pool_bwd_cuda.launches)
+    y, idx = mp.max_pool_fwd_cuda(x, window, stride)
+    dy = mp.max_pool_bwd_cuda(idx, 2 * y, x.shape, window, stride)
+    torch.cuda.synchronize()
+    assert (mp.max_pool_fwd_cuda.launches,
+            mp.max_pool_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    py, pidx = mp.max_pool_fwd_plain(x, window, stride)
+    pdy = mp.max_pool_bwd_plain(pidx, 2 * py, x.shape, window, stride)
+    assert torch.equal(y, py) and torch.equal(idx, pidx)
+    assert torch.equal(dy, pdy)
+    return y, idx
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", POOL_SHAPES)
+def test_pool_kernels_bit_exact(gen, shape, dtype):
+    _pool_pair(torch.randn(shape, generator=gen, device="cuda", dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,window,stride", [
+    ((3, 10, 10, 16), 2, 2), ((1, 9, 9, 8), 3, 3), ((2, 8, 12, 4), 3, 1),
+    ((2, 9, 9, 6), 3, 2)])  # C % 8 != 0: one channel per thread
+def test_pool_kernels_other_windows(gen, shape, window, stride, dtype):
+    # quantised values: ties everywhere, and overlapping gradients whose
+    # bf16 sums round
+    x = 1 + torch.randint(0, 3, shape, generator=gen, device="cuda") / 128
+    _pool_pair(x.to(dtype), window, stride)
+
+
+def test_pool_kernel_edge_values(gen):
+    x = torch.full((1, 7, 7, 8), float("-inf"), device="cuda")
+    y, idx = _pool_pair(x)
+    assert torch.isneginf(y).all() and not idx.any()
+    x = torch.randn((1, 7, 7, 8), generator=gen, device="cuda")
+    x[0, 3, 4, 1] = float("nan")
+    y, idx = mp.max_pool_fwd_cuda(x)
+    py, pidx = mp.max_pool_fwd_plain(x)
+    assert torch.equal(torch.isnan(y), torch.isnan(py))
+    assert torch.equal(y.nan_to_num(), py.nan_to_num())
+    assert torch.equal(idx, pidx)
+    assert torch.isnan(y[0, 1, 1:3, 1]).all() and not idx[0, 1, 1:3, 1].any()
+
+
+def _conv_inputs(gen, shape, window, feat, dtype, integer=False):
+    if integer:  # small integers: every sum is exact in f32
+        x = torch.randint(-1, 2, shape, generator=gen, device="cuda")
+        k = torch.randint(-1, 2, (window, window, shape[-1], feat),
+                          generator=gen, device="cuda")
+        return x.to(dtype), k.to(dtype)
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn((window, window, shape[-1], feat), generator=gen,
+                    device="cuda") * (window * window * shape[-1]) ** -0.5
+    return x, k.to(dtype)
+
+
+def _decided(x, k):
+    """Where the plain version's best pool candidate beats the second by
+    more than another accumulation order can move them: two bf16 units
+    in the last place (2^-6 of the magnitude) in bf16, 1e-4 of it in
+    f32."""
+    conv = cp._conv(x.float(), k.float()).to(x.dtype).float()
+    win = conv.unfold(1, 3, 2).unfold(2, 3, 2).flatten(-2)
+    top = win.topk(2, dim=-1).values
+    mag = top.abs().amax(-1)
+    rel = 2 ** -6 if x.dtype == torch.bfloat16 else 1e-4
+    return top[..., 0] - top[..., 1] > rel * mag
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,window,feat", CONV_SHAPES)
+def test_conv_pool_kernel_matches_plain(gen, shape, window, feat, dtype):
+    x, k = _conv_inputs(gen, shape, window, feat, dtype)
+    before = cp.conv_pool_cuda.launches
+    y, idx = cp.conv_pool_cuda(x, k)
+    torch.cuda.synchronize()
+    assert cp.conv_pool_cuda.launches == before + 1
+    py, pidx = cp.conv_pool_plain(x, k)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), py.float(), atol=tol, rtol=tol)
+    decided = _decided(x, k)
+    assert decided.float().mean() > 0.8
+    assert torch.equal(idx[decided], pidx[decided])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,window,feat", CONV_SHAPES[:3])
+def test_conv_pool_kernel_exact_on_integers(gen, shape, window, feat, dtype):
+    """Integer inputs make every conv sum exact, so the kernel must give
+    the plain version's values and index bit for bit, ties included."""
+    x, k = _conv_inputs(gen, shape, window, feat, dtype, integer=True)
+    y, idx = cp.conv_pool_cuda(x, k)
+    py, pidx = cp.conv_pool_plain(x, k)
+    assert torch.equal(y, py) and torch.equal(idx, pidx)
+
+
+def test_pool_and_conv_pool_kernels_refuse(gen):
+    x = torch.randn((2, 9, 9, 8), generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        mp.max_pool_fwd_cuda(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        mp.max_pool_fwd_cuda(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="smaller"):
+        mp.max_pool_fwd_cuda(x[:, :2])
+    y, idx = mp.max_pool_fwd_cuda(x)
+    with pytest.raises(ValueError, match="int8"):
+        mp.max_pool_bwd_cuda(idx.int(), y, x.shape)
+    k = torch.randn((3, 3, 8, 64), generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        cp.conv_pool_cuda(x.half(), k.half())
+    with pytest.raises(ValueError, match="F % 64"):
+        cp.conv_pool_cuda(x, k[..., :32])
+    with pytest.raises(ValueError, match="C % 8"):
+        cp.conv_pool_cuda(x[..., :4].contiguous().bfloat16(),
+                          k[:, :, :4].bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        cp.conv_pool_cuda(x.transpose(1, 2), k)
+    with pytest.raises(ValueError, match="odd-square"):
+        cp.conv_pool_cuda(x, k[:2, :2])
+
+
+@pytest.mark.parametrize("pool,expect", [
+    ("pallas", (3, 3, 0)), ("fused", (0, 3, 3)), ("xla", (0, 0, 0))])
+def test_alexnet_step_launches_the_kernels(gen, pool, expect):
+    """One bf16 training step at 64 px: K1 per pool and K2 per pool
+    backward under "pallas"; K3 per stage and K2 per stage backward
+    under "fused"; none under "xla"."""
+    from tpu_k8s_device_plugin_torch.workloads import alexnet
+
+    model, opt = alexnet.create_train_state(
+        image_size=64, num_classes=10, s2d=True, pool=pool, device="cuda")
+    images, labels = alexnet.synthetic_batch(gen, 4, image_size=64,
+                                             num_classes=10, s2d=True)
+    counters = (mp.max_pool_fwd_cuda, mp.max_pool_bwd_cuda,
+                cp.conv_pool_cuda)
+    before = [c.launches for c in counters]
+    loss = alexnet.train_step(model, opt, images, labels)
+    torch.cuda.synchronize()
+    assert tuple(c.launches - b for c, b in zip(counters, before)) == expect
+    assert torch.isfinite(loss)
