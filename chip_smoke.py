@@ -9,11 +9,17 @@ Phases, each fatal on failure:
 2. build every kernel from ``tpu_k8s_device_plugin_torch/csrc`` (one
    nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and a few edge shapes, and time the kernel,
+   the main paths' shapes and a few edge shapes (attention by blocks of
+   64 rows, each with bars scaled to its own values), and time the kernel,
    the plain version and one PyTorch library call for the same function
    (a yardstick only; the port never calls it): K4 (flash attention) at
-   the Llama-3-8B prefill, K1/K2 (max-pool forward/backward) and K3
-   (fused conv+pool) at AlexNet's three stage shapes, batch 1024, bf16;
+   the Llama-3-8B prefill; K4 with its lse residual, K5 (dQ) and K6
+   (dK, dV) on a head slice of the LM training call (q [1, 8192, 8, 128],
+   K/V [1, 8192, 2, 128], where the plain version's [T, T] f32 scores
+   fit) and edge shapes, timed at the full call (q [1, 8192, 32, 128],
+   K/V [1, 8192, 8, 128]) against ``scaled_dot_product_attention``'s
+   forward and backward; K1/K2 (max-pool forward/backward) and K3 (fused
+   conv+pool) at AlexNet's three stage shapes, batch 1024, bf16;
 4. the generation path: Llama-3-8B at full width and depth, bf16, random
    weights from a seed, through ``greedy_generate`` (batch 4, prompt
    1024, 32 new tokens): the launch counts are zeroed just before and
@@ -29,7 +35,17 @@ Phases, each fatal on failure:
    against ``xla``'s; images/sec and MFU of ``bench_main.run_single``
    (3 warmup, 10 steps) per ``pool``; a profile of one ``pallas`` and
    one ``fused`` step by kernel;
-6. print the ``kernels`` JSON line, then the result line.
+6. the LM training path: Llama-3-8B at full width and 4 of its 32
+   layers, bf16 compute, f32 parameters from seed 0, the flash kernels
+   as attention, ``torch.optim.Adam(3e-4)``, one sequence of 8192
+   tokens from ``synthetic_lm_batch``: the same model with the einsum
+   attention at 1024 tokens (first-step loss within 1e-2, every
+   gradient within 5e-2 in relative norm); one ``lm_train_step`` with
+   the launch counts zeroed just before and read just after (K4, K5 and
+   K6 four times each); the loss finite and lower after 5 steps on the
+   same batch; tokens/s and MFU over 5 steps after 2 warmup, the peak
+   memory, and a profile of one step by kernel;
+7. print the ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -38,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -60,6 +77,27 @@ ALEX_BATCH, ALEX_WARMUP, ALEX_STEPS = 1024, 3, 10
 STAGES = [((56, 56, 64), (56, 56, 48), 3),
           ((27, 27, 192), (27, 27, 64), 5),
           ((13, 13, 256), (13, 13, 256), 3)]
+
+
+# the LM training path: Llama-3-8B at full width, 4 layers, one sequence
+# of 8192 tokens (the model's context); Adam at the Llama papers' peak
+# rate for this size; the flash-vs-einsum check at 1024 tokens
+LM_LAYERS, LM_SEQ, LM_LR, LM_WARMUP, LM_STEPS = 4, 8192, 3e-4, 2, 5
+LM_CHECK_SEQ = 1024
+# its attention call (q shape, KV heads), and the head slice of it at
+# which the plain version's f32 [T, T] scores fit
+ATTN_FULL = ((1, LM_SEQ, 32, 128), 8)
+ATTN_SLICE = ((1, LM_SEQ, 8, 128), 2)
+GRAD_TOL = {"bfloat16": 5e-2, "float32": 5e-4}
+# attention outputs and gradients are held by blocks of BLOCK_ROWS rows
+# of one (batch, head): their values fall as 1/sqrt(row) along a causal
+# sequence, so each entry's bar is TOL or GRAD_TOL times its block's rms
+# (plus |want|), and each block's ||got - want|| / ||want|| is within
+# BLOCK_REL; rounding the plain f32 result to bf16 alone gives about 2e-3
+# (printed beside each reading), and a block that is 10% off or missing
+# gives 0.1 or 1
+BLOCK_ROWS = 64
+BLOCK_REL = {"bfloat16": 1e-2, "float32": 1e-5}
 
 
 def fail(msg: str) -> None:
@@ -89,17 +127,18 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(q, k, causal: bool):
-    """Least time for the attention on these inputs: the visible
-    (query, key) pairs at 4*D FLOPs each against the peak for the
-    dtype, or q, k, v read and o written once against HBM."""
+def attention_bound_ms(q, k, causal: bool, per_pair: int, *moved):
+    """Least time for an attention pass on these inputs: the visible
+    (query, key) pairs at *per_pair* x D FLOPs each (4 forward, 6 for
+    dQ, 8 for dK and dV) against the peak for the dtype, or each tensor
+    in *moved* (every input read, every output written) once against
+    HBM."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    flops = 4 * D * pairs * B * H
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = per_pair * D * pairs * B * H
     peak = PEAK_BF16 if q.element_size() == 2 else PEAK_F32
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes(*moved) / PEAK_BYTES
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -130,14 +169,14 @@ def check_flash(torch, fa):
         got = fa.flash_attention_cuda(q, k, v, causal)
         want = fa.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        atol, rtol = TOL[str(dtype).split(".")[-1]]
-        bad = int((err > atol + rtol * want.float().abs()).sum())
-        max_err = float(err.max())
-        print(f"flash {name}: q {list(qs)} kv {[B, tk, hkv, D]} "
-              f"{str(dtype)[6:]} causal={causal} max_abs_err={max_err:.3e} "
-              f"(atol {atol}, rtol {rtol}) mismatches={bad}", flush=True)
-        if bad or not torch.isfinite(got).all():
+        key = str(dtype).split(".")[-1]
+        held = _held(torch, got, want, TOL[key][0], BLOCK_REL[key])
+        max_err = held["max_abs_err"]
+        print(f"flash {name}: q {list(qs)} kv {[B, tk, hkv, D]} {key} "
+              f"causal={causal} " + _held_line("o", held)
+              + f" (tol {TOL[key][0]} x (block rms + |want|), block bar "
+              f"{BLOCK_REL[key]})", flush=True)
+        if held["mismatches"] or not torch.isfinite(got).all():
             fail(f"flash kernel disagrees with its plain version ({name})")
         if name != "main":
             continue
@@ -150,14 +189,207 @@ def check_flash(torch, fa):
         library_ms = time_ms(
             torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
-        bound_ms, bound_by = attention_bound_ms(q, k, causal)
+        bound_ms, bound_by = attention_bound_ms(
+            q, k, causal, 4, q, k, v, got)
         print(f"flash main: kernel {kernel_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        result = dict(max_abs_err=max_err, ms=kernel_ms, kernel_ms=kernel_ms,
+        result = dict(max_abs_err=max_err,
+                      max_block_rel_err=held["block_rel"], ms=kernel_ms,
+                      kernel_ms=kernel_ms,
                       plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=library_ms)
     return result
+
+
+def _attention_inputs(torch, gen, q_shape, tk, hkv, dtype, fused=False):
+    """q, k, v and an upstream gradient dO; with *fused*, q/k/v are views
+    of one fused projection, as the model passes them."""
+    B, Tq, H, D = q_shape
+    if fused:
+        qkv = torch.randn(B, Tq, (H + 2 * hkv) * D, generator=gen,
+                          device="cuda", dtype=dtype)
+        q = qkv[..., :H * D].view(B, Tq, H, D)
+        k = qkv[..., H * D:(H + hkv) * D].view(B, Tq, hkv, D)
+        v = qkv[..., (H + hkv) * D:].view(B, Tq, hkv, D)
+    else:
+        q = torch.randn(q_shape, generator=gen, device="cuda", dtype=dtype)
+        k, v = (torch.randn((B, tk, hkv, D), generator=gen, device="cuda",
+                            dtype=dtype) for _ in range(2))
+    do = torch.randn(q_shape, generator=gen, device="cuda", dtype=dtype)
+    return q, k, v, do
+
+
+def _mismatches(torch, got, want, atol, rtol):
+    err = (got.float() - want.float()).abs()
+    bad = ~(err <= atol + rtol * want.float().abs())  # NaN counts as bad
+    return float(err.nan_to_num(float("inf")).max()), int(bad.sum())
+
+
+def _block_stats(torch, got, want, rows: int = BLOCK_ROWS):
+    """*got* against *want* ([B, T, H, D]) by blocks of *rows* rows of one
+    (batch, head): the f32 difference, *want*, each block's root mean
+    square of *want* (over its rows within T) and its ||got - want|| /
+    ||want||, all-zero blocks at 0 where *got* is 0 there too."""
+    import torch.nn.functional as F
+
+    B, T, H, D = want.shape
+    pad = (0, 0, 0, 0, 0, (-T) % rows)
+    w = F.pad(want.float(), pad).view(B, -1, rows, H, D)
+    diff = F.pad(got.float(), pad).view(B, -1, rows, H, D) - w
+    n = torch.full((w.shape[1], 1), float(rows * D), device=w.device)
+    n[-1] = (T - rows * (w.shape[1] - 1)) * D
+    sq, err_sq = w.square().sum((2, 4)), diff.square().sum((2, 4))
+    rel = torch.where(sq > 0, (err_sq / sq).sqrt(),
+                      torch.where(err_sq > 0, float("inf"), 0.0))
+    return diff, w, (sq / n).sqrt(), rel
+
+
+def _held(torch, got, want, tol: float, rel_bar: float):
+    """Hold *got* against *want* with bars scaled to each block's own
+    values, so that late rows, whose values are small, cannot hide under a
+    bar set by the early ones: every entry within tol x (the block's rms +
+    |want|), and every block's ||got - want|| / ||want|| within
+    *rel_bar*.  Returns the readings and the mismatches (NaN counts as
+    one): max abs error, largest block error, the same for *want* rounded
+    to *got*'s dtype (the rounding alone), the smallest and largest block
+    rms."""
+    diff, w, rms, rel = _block_stats(torch, got, want)
+    err = diff.abs()
+    bad = ~(err <= tol * (rms[:, :, None, :, None] + w.abs()))
+    bad_blocks = ~(rel <= rel_bar)
+    rounding = _block_stats(torch, want.to(got.dtype), want)[3]
+    return dict(max_abs_err=float(err.nan_to_num(float("inf")).max()),
+                block_rel=float(rel.nan_to_num(float("inf")).max()),
+                rounding_rel=float(rounding.max()),
+                rms=(float(rms.min()), float(rms.max())),
+                mismatches=int(bad.sum()) + int(bad_blocks.sum()))
+
+
+def _held_line(name: str, r: dict) -> str:
+    return (f"{name} max_abs_err={r['max_abs_err']:.3e} block_rel="
+            f"{r['block_rel']:.3e} (rounding alone {r['rounding_rel']:.3e})"
+            f" ref rms {r['rms'][0]:.3e}..{r['rms'][1]:.3e} "
+            f"mismatches={r['mismatches']}")
+
+
+def check_flash_training(torch, fa):
+    """Phase 3: K4 with its lse, K5 and K6 against their plain versions on
+    the LM training call's head slice and on edge shapes (the plain
+    forward's lse and delta feed both backward versions, so each kernel is
+    held alone); then the kernels' times at the full call against their
+    bounds and ``scaled_dot_product_attention``, and the plain versions'
+    at the slice."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, q shape, Tk, KV heads, dtype, causal
+        ("slice", ATTN_SLICE[0], LM_SEQ, ATTN_SLICE[1], bf16, True),
+        ("ragged", (1, 200, 4, 128), 200, 1, bf16, True),
+        ("short", (2, 40, 2, 64), 40, 2, bf16, True),
+        ("cross", (1, 100, 4, 48), 150, 4, bf16, False),
+        ("fused", (2, 96, 4, 64), 96, 2, bf16, True),
+        ("f32", (1, 256, 8, 64), 256, 2, f32, True),
+        ("f32-ragged", (1, 130, 6, 16), 130, 3, f32, True),
+    ]
+    err = {}
+    for name, qs, tk, hkv, dtype, causal in cases:
+        q, k, v, do = _attention_inputs(torch, gen, qs, tk, hkv, dtype,
+                                        fused=name == "fused")
+        o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+        po, plse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        delta = fa.attention_delta(do, po)
+        dq = fa.flash_attention_dq_cuda(q, k, v, do, plse, delta, causal)
+        dk, dv = fa.flash_attention_dkv_cuda(q, k, v, do, plse, delta,
+                                             causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, do, plse, delta, causal)
+        key = str(dtype).split(".")[-1]
+        tol, gtol, bar = TOL[key][0], GRAD_TOL[key], BLOCK_REL[key]
+        held = {"o": _held(torch, o, po, tol, bar),
+                "dq": _held(torch, dq, want[0], gtol, bar),
+                "dk": _held(torch, dk, want[1], gtol, bar),
+                "dv": _held(torch, dv, want[2], gtol, bar)}
+        # lse is f32 in both, of order log(T): only the order of the f32
+        # sums differs
+        lse_err, lse_bad = _mismatches(torch, lse, plse, 1e-4, 1e-5)
+        print(f"flash training {name}: q {list(qs)} kv "
+              f"{[qs[0], tk, hkv, qs[3]]} {key} causal={causal} "
+              f"lse max_abs_err={lse_err:.3e} mismatches={lse_bad}, "
+              + ", ".join(_held_line(n, r) for n, r in held.items())
+              + f" (lse atol 1e-4 rtol 1e-5; o {tol}, gradients {gtol} x "
+              f"(block rms + |want|); block bar {bar})", flush=True)
+        if lse_bad or any(r["mismatches"] for r in held.values()):
+            fail(f"K4 (lse), K5 or K6 disagrees with its plain version "
+                 f"({name})")
+        if name == "slice":
+            err = {"lse": (max(held["o"]["max_abs_err"], lse_err),
+                           held["o"]["block_rel"]),
+                   "dq": (held["dq"]["max_abs_err"], held["dq"]["block_rel"]),
+                   "dkv": (max(held["dk"]["max_abs_err"],
+                               held["dv"]["max_abs_err"]),
+                           max(held["dk"]["block_rel"],
+                               held["dv"]["block_rel"]))}
+            plain_fwd_ms = time_ms(
+                torch, lambda: fa.flash_attention_fwd_plain(q, k, v, True), 2,
+                warmup=1)
+            plain_bwd_ms = time_ms(
+                torch, lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, do, plse, delta, True), 2, warmup=1)
+        del q, k, v, do, o, lse, po, plse, delta, dq, dk, dv, want
+        torch.cuda.empty_cache()
+
+    # times at the full call of the training path
+    q, k, v, do = _attention_inputs(torch, gen, ATTN_FULL[0], LM_SEQ,
+                                    ATTN_FULL[1], bf16)
+    o, lse = fa.flash_attention_cuda(q, k, v, True, return_lse=True)
+    delta = fa.attention_delta(do, o)
+    dq = fa.flash_attention_dq_cuda(q, k, v, do, lse, delta, True)
+    dk, dv = fa.flash_attention_dkv_cuda(q, k, v, do, lse, delta, True)
+    fwd_ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, True, return_lse=True), 10)
+    dq_ms = time_ms(torch, lambda: fa.flash_attention_dq_cuda(
+        q, k, v, do, lse, delta, True), 10)
+    dkv_ms = time_ms(torch, lambda: fa.flash_attention_dkv_cuda(
+        q, k, v, do, lse, delta, True), 10)
+    # the library yardstick: SDPA on [B, H, T, D] transposes; its forward
+    # runs before the timer and only its backward (dQ, dK and dV in one
+    # call) is timed
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    bounds = {
+        "lse": attention_bound_ms(q, k, True, 4, q, k, v, o, lse),
+        "dq": attention_bound_ms(q, k, True, 6, q, k, v, do, lse, delta, dq),
+        "dkv": attention_bound_ms(q, k, True, 8, q, k, v, do, lse, delta,
+                                  dk, dv),
+    }
+    times = {"lse": (fwd_ms, plain_fwd_ms, lib_fwd_ms),
+             "dq": (dq_ms, plain_bwd_ms, lib_bwd_ms),
+             "dkv": (dkv_ms, plain_bwd_ms, lib_bwd_ms)}
+    for key, label in (("lse", "K4 with lse"), ("dq", "K5 dQ"),
+                       ("dkv", "K6 dK/dV")):
+        t, (b, by) = times[key], bounds[key]
+        print(f"{label}: kernel {t[0]:.4f} ms at q {list(ATTN_FULL[0])} kv "
+              f"{list(k.shape)} bf16 causal, bound "
+              f"{b:.4f} ms ({by}); plain {t[1]:.4f} ms at the slice q "
+              f"{list(ATTN_SLICE[0])}; library (sdpa "
+              f"{'forward' if key == 'lse' else 'backward'}) {t[2]:.4f} ms",
+              flush=True)
+    print(f"K5 + K6 {dq_ms + dkv_ms:.4f} ms against the sdpa backward "
+          f"{lib_bwd_ms:.4f} ms", flush=True)
+    return {key: dict(max_abs_err=err[key][0], max_block_rel_err=err[key][1],
+                      ms=times[key][0],
+                      plain_ms=times[key][1], bound_ms=bounds[key][0],
+                      bound_by=bounds[key][1], library_ms=times[key][2])
+            for key in times}
 
 
 def profile_region(torch, name: str, fn) -> None:
@@ -482,10 +714,11 @@ ALEX_LAUNCHES = {
 
 def training_path(torch, counts, alexnet, bench_main):
     """Phase 5: AlexNet training at full width through the port, under
-    each pool; returns the launches of the counted steps, by kernel."""
+    each pool; returns the launches of each pool's counted step, by
+    kernel."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     images, labels = alexnet.synthetic_batch(gen, ALEX_BATCH, s2d=True)
-    launches = {n: 0 for n in counts.read()}
+    launches = {}
     losses = {}
     for pool, expected in ALEX_LAUNCHES.items():
         model, opt = alexnet.create_train_state(seed=0, s2d=True, pool=pool,
@@ -501,7 +734,7 @@ def training_path(torch, counts, alexnet, bench_main):
         if not torch.isfinite(loss):
             fail(f"pool={pool}: non-finite loss")
         losses[pool] = float(loss)
-        launches = {n: launches[n] + got[n] for n in got}
+        launches[pool] = got
         if pool != "xla":
             profile_region(torch, f"alexnet {pool} step", lambda: (
                 alexnet.train_step(model, opt, images, labels)))
@@ -530,6 +763,119 @@ def training_path(torch, counts, alexnet, bench_main):
     return launches
 
 
+def lm_flops_per_step(cfg, seq: int) -> float:
+    """Analytic FLOPs of one training step on one sequence: 6 per matmul
+    parameter per token (the embedding is a gather and counts nothing),
+    and 12 * D per visible (query, key) pair per head per layer for the
+    attention (forward 4 * D, backward 8 * D; the backward's recomputed
+    S is not counted)."""
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.head_dim
+    per_layer = d * (d + 2 * kv) + d * d + 3 * d * f
+    matmul = cfg.n_layers * per_layer + d * cfg.vocab
+    pairs = seq * (seq + 1) // 2
+    return (6 * matmul * seq
+            + 12 * cfg.head_dim * pairs * cfg.n_heads * cfg.n_layers)
+
+
+def _loss_and_grads(transformer, model, batch):
+    model.zero_grad(set_to_none=True)
+    loss = transformer.lm_loss(model, *batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def lm_training_path(torch, counts, fa, llama, transformer, bench_serving):
+    """Phase 6: Llama-3-8B LM training at full width, 4 layers, through the
+    port; returns the launches of the counted step, by kernel."""
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=LM_LAYERS)
+    t0 = time.perf_counter()
+    model = llama.train_model(cfg, attn_fn=fa.flash_causal_attention,
+                              device="cuda")
+    bench_serving.random_init_(model, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"llama3-8b training: {cfg.n_layers} of 32 layers at full width, "
+          f"{n_params / 1e9:.3f}B f32 parameters, bf16 compute, random "
+          f"weights built in {time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    # flash against einsum attention on the initial weights, at a length
+    # where the einsum's [T, T] scores fit
+    check = transformer.synthetic_lm_batch(gen, 1, LM_CHECK_SEQ, cfg.vocab)
+    blocks = [getattr(model, f"block_{i}") for i in range(cfg.n_layers)]
+    flash_loss, flash_grads = _loss_and_grads(transformer, model, check)
+    for b in blocks:
+        b.attn_fn = transformer.local_causal_attention
+    ein_loss, ein_grads = _loss_and_grads(transformer, model, check)
+    for b in blocks:
+        b.attn_fn = fa.flash_causal_attention
+    loss_rel = abs(flash_loss - ein_loss) / abs(ein_loss)
+    grad_rel = {n: float((flash_grads[n] - g).norm() / g.norm().clamp(
+        min=1e-30)) for n, g in ein_grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"llama3-8b training, {LM_CHECK_SEQ} tokens: first-step loss "
+          f"flash {flash_loss:.6f}, einsum {ein_loss:.6f} (relative "
+          f"difference {loss_rel:.3e}, limit 1e-2); gradients: largest "
+          f"|g_flash - g_einsum| / |g_einsum| {grad_rel[worst]:.3e} at "
+          f"{worst} (limit 5e-2), median "
+          f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.3e}",
+          flush=True)
+    if not (loss_rel <= 1e-2 and all(r <= 5e-2 for r in grad_rel.values())
+            and math.isfinite(flash_loss)):  # a NaN fails every comparison
+        fail("flash LM disagrees with the einsum LM")
+    del flash_grads, ein_grads, check
+    torch.cuda.empty_cache()
+
+    tokens, labels, positions = transformer.synthetic_lm_batch(
+        gen, 1, LM_SEQ, cfg.vocab)
+    opt = torch.optim.Adam(model.parameters(), lr=LM_LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+
+    def step():
+        return transformer.lm_train_step(model, opt, tokens, labels,
+                                         positions)
+
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    loss = step()
+    torch.cuda.synchronize()
+    got = counts.read()
+    expect = {"flash_attn_fwd": cfg.n_layers, "flash_attn_dq": cfg.n_layers,
+              "flash_attn_dkv": cfg.n_layers}
+    print(f"lm_train_step: 1 x {LM_SEQ} tokens, loss {float(loss):.6f}; "
+          f"launches {got}", flush=True)
+    if got != {n: expect.get(n, 0) for n in got}:
+        fail(f"LM training step launches {got}, expected {expect}")
+    losses = [float(loss)] + [float(step()) for _ in range(5)]
+    print(f"losses over 6 steps on one batch: "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    if not losses[-1] < losses[0]:
+        fail("LM training loss did not fall over 5 steps")
+
+    later = [step() for _ in range(LM_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    later += [step() for _ in range(LM_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LM_STEPS
+    flops = lm_flops_per_step(cfg, LM_SEQ)
+    print(f"llama3-8b training ({cfg.n_layers} layers, 1 x {LM_SEQ} "
+          f"tokens): {LM_SEQ / step_s:.1f} tokens/s, {step_s * 1e3:.3f} ms "
+          f"per step over {LM_STEPS} steps after {LM_WARMUP} warmup, "
+          f"{flops:.4e} FLOPs per step, MFU {flops / step_s / PEAK_BF16:.4f}"
+          f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB", flush=True)
+    profile_region(torch, "llama train step", lambda: later.append(step()))
+    losses += torch.stack(later).tolist()
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite LM training loss in {losses}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -540,7 +886,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_k8s_device_plugin_torch import build
     from tpu_k8s_device_plugin_torch.workloads import (
-        alexnet, bench_main, bench_serving, inference, llama)
+        alexnet, bench_main, bench_serving, inference, llama, transformer)
     from tpu_k8s_device_plugin_torch.workloads import convpool as cp
     from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
     from tpu_k8s_device_plugin_torch.workloads import pool as mp
@@ -562,15 +908,21 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     counts = Counts(flash_attn_fwd=fa.flash_attention_cuda,
+                    flash_attn_dq=fa.flash_attention_dq_cuda,
+                    flash_attn_dkv=fa.flash_attention_dkv_cuda,
                     maxpool_fwd=mp.max_pool_fwd_cuda,
                     maxpool_bwd=mp.max_pool_bwd_cuda,
                     conv_pool_fwd=cp.conv_pool_cuda)
     flash = check_flash(torch, fa)
+    flash_train = check_flash_training(torch, fa)
     pool = check_pool(torch, mp)
     conv_pool = check_conv_pool(torch, cp)
     launches, _ = main_path(torch, counts, inference, llama, bench_serving)
     torch.cuda.empty_cache()
     train = training_path(torch, counts, alexnet, bench_main)
+    torch.cuda.empty_cache()
+    lm = lm_training_path(torch, counts, fa, llama, transformer,
+                          bench_serving)
 
     csrc = "tpu_k8s_device_plugin_torch/csrc/"
     ref = "tpu_k8s_device_plugin/workloads/"
@@ -578,17 +930,39 @@ def main() -> int:
         dict(name="flash_attn_fwd", route="cuda",
              source=csrc + "flash_attn_fwd.cu",
              replaces=ref + "flash_attention.py:101",
-             launches=launches, **flash),
+             launches=launches, **flash,
+             note="launches and times: greedy_generate's prefill, without "
+                  "the lse write; under lse_mode, the same for one "
+                  "lm_train_step, whose forward writes the lse",
+             lse_mode=dict(launches=lm["flash_attn_fwd"],
+                           **flash_train["lse"])),
+        dict(name="flash_attn_dq", route="cuda",
+             source=csrc + "flash_attn_bwd.cu",
+             replaces=ref + "flash_attention.py:208",
+             launches=lm["flash_attn_dq"], **flash_train["dq"],
+             note="plain_ms is the plain backward (dQ, dK and dV) at the "
+                  "head slice; library_ms is sdpa's whole backward, the "
+                  "yardstick for K5 and K6 together"),
+        dict(name="flash_attn_dkv", route="cuda",
+             source=csrc + "flash_attn_bwd.cu",
+             replaces=ref + "flash_attention.py:254",
+             launches=lm["flash_attn_dkv"], **flash_train["dkv"],
+             note="plain_ms is the plain backward (dQ, dK and dV) at the "
+                  "head slice; library_ms is sdpa's whole backward, the "
+                  "yardstick for K5 and K6 together"),
         dict(name="maxpool_fwd", route="cuda", source=csrc + "maxpool.cu",
              replaces=ref + "pool.py:150",
-             launches=train["maxpool_fwd"], **pool["fwd"]),
+             launches=train["pallas"]["maxpool_fwd"], **pool["fwd"]),
         dict(name="maxpool_bwd", route="cuda", source=csrc + "maxpool.cu",
              replaces=ref + "pool.py:169",
-             launches=train["maxpool_bwd"], **pool["bwd"]),
+             launches=train["pallas"]["maxpool_bwd"], **pool["bwd"],
+             note="launches: the pool=pallas step; the pool=fused step's "
+                  "are under launches_fused",
+             launches_fused=train["fused"]["maxpool_bwd"]),
         dict(name="conv_pool_fwd", route="cuda",
              source=csrc + "conv_pool_fwd.cu",
              replaces=ref + "convpool.py:83",
-             launches=train["conv_pool_fwd"], **conv_pool),
+             launches=train["fused"]["conv_pool_fwd"], **conv_pool),
     ]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

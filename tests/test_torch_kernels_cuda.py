@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions:
-K4 (flash attention), K1 and K2 (max-pool forward and backward) and K3
-(fused conv+pool).
+K4 (flash attention, with and without its lse residual), K5 and K6 (the
+flash backward), K1 and K2 (max-pool forward and backward) and K3 (fused
+conv+pool).
 
 These need a CUDA device and the CUDA toolkit (the kernels build from
 ``tpu_k8s_device_plugin_torch/csrc`` at first use); elsewhere they skip.
@@ -109,6 +110,142 @@ def test_decoder_prefill_runs_the_kernel(gen, monkeypatch):
     got, _ = inference._prefill(model, prompt, pos)
     assert fa.flash_attention_cuda.launches - before == model.n_layers
     torch.testing.assert_close(got, want, atol=0.1, rtol=0.05)
+
+
+# --- K4's lse, K5 and K6 (csrc/flash_attn_bwd.cu) ---------------------
+
+# the JAX package's flash gradient contract: 5e-2 in bf16, 5e-4 in f32
+GRAD_TOL = {torch.bfloat16: 5e-2, torch.float32: 5e-4}
+BWD_CASES = [  # q shape, Tk, KV heads, causal
+    ((1, 200, 4, 128), 200, 1, True),     # ragged T, GQA 4:1, D = 128
+    ((2, 40, 2, 64), 40, 2, True),        # T < 64, MHA
+    ((1, 256, 8, 32), 256, 2, False),     # whole tiles, full attention
+    ((2, 100, 4, 48), 150, 4, False),     # Tq != Tk, MHA, D = 48
+    ((1, 130, 6, 16), 130, 3, True),      # GQA 2:1, D = 16
+]
+
+
+def _bwd_inputs(gen, q_shape, tk, hkv, dtype, causal):
+    q, k, v = _qkv(gen, q_shape, tk, hkv, dtype)
+    do = torch.randn(q_shape, generator=gen, device="cuda", dtype=dtype)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    return q, k, v, do, lse, fa.attention_delta(do, o)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("q_shape,tk,hkv,causal", BWD_CASES)
+def test_kernel_lse_matches_plain(gen, q_shape, tk, hkv, causal, dtype):
+    q, k, v = _qkv(gen, q_shape, tk, hkv, dtype)
+    before = fa.flash_attention_cuda.launches
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
+    # lse is f32 in both: only the order of the f32 sums differs
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("q_shape,tk,hkv,causal", BWD_CASES)
+def test_backward_kernels_match_plain(gen, q_shape, tk, hkv, causal, dtype):
+    q, k, v, do, lse, delta = _bwd_inputs(gen, q_shape, tk, hkv, dtype,
+                                          causal)
+    before = (fa.flash_attention_dq_cuda.launches,
+              fa.flash_attention_dkv_cuda.launches)
+    dq = fa.flash_attention_dq_cuda(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_attention_dkv_cuda(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_dq_cuda.launches,
+            fa.flash_attention_dkv_cuda.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal)
+    tol = GRAD_TOL[dtype]
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
+
+
+def test_backward_kernels_read_strided_views(gen):
+    """q/k/v as views of one fused projection and a dO with padded rows:
+    the kernels read them through their strides."""
+    B, T, H, hkv, D = 2, 96, 4, 2, 64
+    qkv = torch.randn(B, T, (H + 2 * hkv) * D, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    q = qkv[..., :H * D].view(B, T, H, D)
+    k = qkv[..., H * D:(H + hkv) * D].view(B, T, hkv, D)
+    v = qkv[..., (H + hkv) * D:].view(B, T, hkv, D)
+    do = torch.randn(B, T, H, D + 8, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)[..., :D]
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, True)
+    delta = fa.attention_delta(do, o)
+    got = (fa.flash_attention_dq_cuda(q, k, v, do, lse, delta, True),
+           *fa.flash_attention_dkv_cuda(q, k, v, do, lse, delta, True))
+    want = fa.flash_attention_bwd_plain(
+        *(x.contiguous() for x in (q, k, v, do)), lse, delta, True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_training_form_gradients_match_plain(gen, dtype):
+    """flash_attention with gradients on: K4 with lse, then K5 and K6,
+    against autograd through the plain forward on the same inputs."""
+    q, k, v = (x.requires_grad_() for x in
+               _qkv(gen, (2, 150, 8, 64), 150, 2, dtype))
+    do = torch.randn(q.shape, generator=gen, device="cuda", dtype=dtype)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, True), (q, k, v),
+                              do)
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, True),
+                               (q, k, v), do)
+    tol = GRAD_TOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+def test_backward_kernels_refuse(gen):
+    q, k, v, do, lse, delta = _bwd_inputs(gen, (1, 32, 2, 32), 32, 2,
+                                          torch.bfloat16, True)
+    with pytest.raises(ValueError, match="lse and delta"):
+        fa.flash_attention_dq_cuda(q, k, v, do, lse.transpose(1, 2),
+                                   delta, True)
+    with pytest.raises(TypeError):
+        fa.flash_attention_dkv_cuda(q, k, v, do.float(), lse, delta, True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_dkv_cuda(q[..., :24], k[..., :24], v[..., :24],
+                                    do[..., :24], lse, delta, True)
+
+
+def test_lm_train_step_runs_k4_k5_k6_per_layer(gen):
+    """One bf16 training step of a Llama-shaped LM on the card: K4 (with
+    lse), K5 and K6 once per layer each; its loss agrees with the einsum
+    model's on the same weights."""
+    from tpu_k8s_device_plugin_torch.workloads import (
+        bench_serving, llama, transformer)
+
+    cfg = llama.TINY_LLAMA
+    model = llama.train_model(cfg, attn_fn=fa.flash_causal_attention,
+                              device="cuda")
+    bench_serving.random_init_(model, seed=0)
+    ref = llama.train_model(cfg, device="cuda")
+    ref.load_state_dict(model.state_dict())
+    tokens, labels, pos = transformer.synthetic_lm_batch(gen, 2, 64,
+                                                         cfg.vocab)
+    want = transformer.lm_loss(ref, tokens, labels, pos)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    counters = (fa.flash_attention_cuda, fa.flash_attention_dq_cuda,
+                fa.flash_attention_dkv_cuda)
+    before = [c.launches for c in counters]
+    loss = transformer.lm_train_step(model, opt, tokens, labels, pos)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [cfg.n_layers] * 3
+    assert torch.isfinite(loss)
+    torch.testing.assert_close(loss, want.detach(), atol=0, rtol=1e-2)
 
 
 # --- K1, K2 (csrc/maxpool.cu) and K3 (csrc/conv_pool_fwd.cu) -----------

@@ -54,3 +54,21 @@ def test_make_decoder_refuses_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         inference.make_decoder(vocab=64)
     assert inference.make_decoder(vocab=64, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["TransformerLM", "Block", "train_model"])
+def test_training_entry_points_refuse_cpu_fallback(monkeypatch, entry):
+    from tpu_k8s_device_plugin_torch.workloads import llama, transformer
+
+    build = {
+        "TransformerLM": lambda **kw: transformer.TransformerLM(
+            vocab=64, d_model=32, **kw),
+        "Block": lambda **kw: transformer.Block(32, 4, 64, **kw),
+        "train_model": lambda **kw: llama.train_model(llama.TINY_LLAMA,
+                                                      **kw),
+    }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build()
+    model = build(device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

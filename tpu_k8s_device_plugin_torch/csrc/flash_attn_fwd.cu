@@ -23,6 +23,13 @@
 // so grouped K/V are read at their compact size.  This is the simple
 // first form: no cp.async/TMA pipelining, no wgmma, no warp
 // specialisation.  An f32 path with plain FMAs serves f32 inputs.
+//
+// With a non-null `lse` the kernel also writes the per-row logsumexp
+// m + log(l) (f32, [B, H, Tq]; -inf for a row with no visible key), the
+// residual the backward kernels (flash_attn_bwd.cu) rebuild P from, as
+// the TPU kernel does under `save_residuals`.  The running max and sum
+// are already in registers at the end, so the cost is one f32 write per
+// row; the inference path passes null and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +91,8 @@ __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
                           const uint16_t* __restrict__ k,
                           const uint16_t* __restrict__ v,
-                          uint16_t* __restrict__ o, int Tq, int Tk,
+                          uint16_t* __restrict__ o,
+                          float* __restrict__ lse, int Tq, int Tk,
                           int group, Strides qs, Strides ks, Strides vs,
                           Strides os, float scale, int causal) {
   // +8 columns: rows start 16 bytes apart mod 128, so the fragment
@@ -220,6 +228,9 @@ __global__ void __launch_bounds__(NTHREADS)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     if (row[i] >= Tq) continue;
     const float denom = (l[i] == 0.f) ? 1.f : l[i];
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Tq + row[i]] =
+          (l[i] == 0.f) ? -INFINITY : m[i] + logf(l[i]);
     uint16_t* op = o + b * os.b + static_cast<long long>(row[i]) * os.t +
                    h * os.h;
 #pragma unroll
@@ -239,7 +250,8 @@ __global__ void __launch_bounds__(F_BQ)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int Tq, int Tk, int group, Strides qs, Strides ks,
+                         float* __restrict__ lse, int Tq, int Tk, int group,
+                         Strides qs, Strides ks,
                          Strides vs, Strides os, float scale, int causal) {
   extern __shared__ float smem[];
   float* sQ = smem;              // [D][F_BQ]
@@ -294,6 +306,9 @@ __global__ void __launch_bounds__(F_BQ)
   }
   if (row >= Tq) return;
   const float denom = (l == 0.f) ? 1.f : l;
+  if (lse != nullptr)
+    lse[(static_cast<long long>(b) * gridDim.y + h) * Tq + row] =
+        (l == 0.f) ? -INFINITY : m + logf(l);
   float* op = o + b * os.b + static_cast<long long>(row) * os.t + h * os.h;
 #pragma unroll
   for (int d = 0; d < D; ++d) op[d] = acc[d] / denom;
@@ -301,15 +316,15 @@ __global__ void __launch_bounds__(F_BQ)
 
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   void* o, int B, int Tq, int Tk, int H, int group,
-                   Strides qs, Strides ks, Strides vs, Strides os,
+                   void* o, float* lse, int B, int Tq, int Tk, int H,
+                   int group, Strides qs, Strides ks, Strides vs, Strides os,
                    float scale, int causal, cudaStream_t stream) {
   if (dtype == 0) {
     const dim3 grid((Tq + BQ - 1) / BQ, H, B);
     flash_fwd_bf16_kernel<D><<<grid, NTHREADS, 0, stream>>>(
         static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), Tq, Tk,
-        group, qs, ks, vs, os, scale, causal);
+        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), lse, Tq,
+        Tk, group, qs, ks, vs, os, scale, causal);
   } else {
     const int smem = (D * F_BQ + 2 * F_BK * D) * static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(
@@ -319,8 +334,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
     const dim3 grid((Tq + F_BQ - 1) / F_BQ, H, B);
     flash_fwd_f32_kernel<D><<<grid, F_BQ, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), Tq, Tk, group,
-        qs, ks, vs, os, scale, causal);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, Tk,
+        group, qs, ks, vs, os, scale, causal);
   }
   return cudaGetLastError();
 }
@@ -328,11 +343,13 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B, Tq, H, D], k/v [B, Tk, Hkv, D], o [B, Tq, H, D], all with unit
-// stride on D.  dtype 0 = bf16, 1 = f32.  Launches on `stream` without
-// synchronising.  Returns 0, a cudaError_t, or -1 for an unsupported D.
+// stride on D; lse [B, H, Tq] f32 contiguous, or null for no write.
+// dtype 0 = bf16, 1 = f32.  Launches on `stream` without synchronising.
+// Returns 0, a cudaError_t, or -1 for an unsupported D.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int dtype, int B, int Tq, int Tk,
-                              int H, int Hkv, int D, long long qsb,
+                              void* o, void* lse, int dtype, int B,
+                              int Tq, int Tk, int H, int Hkv, int D,
+                              long long qsb,
                               long long qst, long long qsh, long long ksb,
                               long long kst, long long ksh, long long vsb,
                               long long vst, long long vsh, long long osb,
@@ -345,9 +362,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   switch (D) {
 #define FLASH_CASE(DD)                                                    \
   case DD:                                                                \
-    return static_cast<int>(launch<DD>(dtype, q, k, v, o, B, Tq, Tk, H,   \
-                                       group, qs, ks, vs, os, scale,      \
-                                       causal, st));
+    return static_cast<int>(launch<DD>(dtype, q, k, v, o,                \
+                                       static_cast<float*>(lse), B, Tq,   \
+                                       Tk, H, group, qs, ks, vs, os,      \
+                                       scale, causal, st));
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(48)

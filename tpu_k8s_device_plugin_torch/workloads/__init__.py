@@ -1,7 +1,7 @@
-"""PyTorch workloads of the port: the Llama-family decoder and its
-flash-attention kernel, and AlexNet training with its max-pool and fused
-conv+pool kernels.  Module names mirror the JAX package's
-``workloads/``; the kernel functions live in ``workloads.flash_attention``,
+"""PyTorch workloads of the port: the Llama-family decoder and LM trainer
+with their flash-attention kernels (forward and backward), and AlexNet
+training with its max-pool and fused conv+pool kernels.  Module names
+mirror the JAX package's ``workloads/``; the kernel functions live in ``workloads.flash_attention``,
 ``workloads.pool`` and ``workloads.convpool`` (not re-exported here, so
 those names stay the modules)."""
 
@@ -20,4 +20,10 @@ from .inference import (
     greedy_generate,
     make_decoder,
     sample_generate,
+)
+from .transformer import (
+    TransformerLM,
+    lm_loss,
+    lm_train_step,
+    synthetic_lm_batch,
 )

@@ -29,17 +29,19 @@ import time
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .flash_attention import flash_attention
 from .transformer import (
     COMPUTE_DTYPE,
-    _validate_attn_ffn,
-    apply_rope,
+    Block,
+    Dense,
+    Embed,
+    RMSNorm,
+    _unported,
     f32_rsqrt,
     local_causal_attention,
-    split_qkv_heads,
+    resolve_device,
 )
 
 # prompts at or above this length prefill through the flash kernel (no
@@ -49,94 +51,10 @@ _FLASH_PREFILL_MIN_T = 512
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
 
-def resolve_device(device=None) -> torch.device:
-    """*device* as a ``torch.device``; ``None`` means CUDA, and raises
-    when there is none (the port never falls back to the CPU by
-    itself)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run on "
-                "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def _unported(**features) -> None:
-    """Raise for a feature of the JAX decoder that a later slice of the
-    port brings."""
-    later = {
-        "quantized": "int8/int4 weights arrive with the quantization "
-                     "slice (ROADMAP.md, slice 6)",
-        "n_experts": "MoE FFNs arrive with the LM-training slice "
-                     "(ROADMAP.md, slice 3)",
-        "n_adapters": "LoRA adapters arrive with the quantization and "
-                      "adapter slice (ROADMAP.md, slice 6)",
-        "adapter_ids": "LoRA adapters arrive with the quantization and "
-                       "adapter slice (ROADMAP.md, slice 6)",
-        "kv_page_size": "the paged KV pool arrives with the serving-"
-                        "engine slice (ROADMAP.md, slice 4)",
-        "block_tables": "the paged KV pool arrives with the serving-"
-                        "engine slice (ROADMAP.md, slice 4)",
-    }
-    for name, value in features.items():
-        if isinstance(value, torch.Tensor) or value not in (None, False, 0):
-            raise NotImplementedError(f"{name}: not yet ported; "
-                                      f"{later[name]}")
-
-
-class RMSNorm(nn.Module):
-    """flax ``nn.RMSNorm``: statistics in f32, eps 1e-6, the f32 scale
-    multiplies the reciprocal rms before it meets ``x``, one cast to
-    the module dtype at the end."""
-
-    def __init__(self, dim: int, dtype: torch.dtype, device,
-                 eps: float = 1e-6):
-        super().__init__()
-        self.dtype, self.eps = dtype, eps
-        self.scale = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32, device=device),
-            requires_grad=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        mul = torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
-        return (xf * (mul * self.scale)).to(self.dtype)
-
-
-class Dense(nn.Module):
-    """Bias-free projection with its weight stored ``[out, in]`` in the
-    module dtype; the input is cast to that dtype first (what a flax
-    Dense with ``dtype`` does to both operands).  The weight is left
-    uninitialised: load it, or fill it."""
-
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device):
-        super().__init__()
-        self.weight = nn.Parameter(
-            torch.empty(d_out, d_in, dtype=dtype, device=device),
-            requires_grad=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight)
-
-
-class Embed(nn.Module):
-    """Token embedding ``[vocab, d_model]`` in the module dtype
-    (uninitialised until loaded or filled)."""
-
-    def __init__(self, vocab: int, dim: int, dtype: torch.dtype, device):
-        super().__init__()
-        self.weight = nn.Parameter(
-            torch.empty(vocab, dim, dtype=dtype, device=device),
-            requires_grad=False)
-
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.weight)
-
-
-class CachedBlock(nn.Module):
-    """Pre-norm transformer block with a KV cache; GELU or SwiGLU FFN,
-    multi-head or grouped-query attention.
+class CachedBlock(Block):
+    """Pre-norm transformer block with a KV cache; the training
+    ``Block``'s layers and FFN with its parameters stored in the compute
+    dtype, and the attention against the cache.
 
     The cache of one layer holds ``cached_k`` / ``cached_v``
     ``[B, max_len, Hkv, Dh]`` (the grouped head count) and
@@ -151,33 +69,17 @@ class CachedBlock(nn.Module):
                  max_len: int, dtype: torch.dtype = COMPUTE_DTYPE,
                  n_kv_heads: Optional[int] = None, ffn: str = "gelu",
                  rope_theta: float = 10000.0, device=None):
-        super().__init__()
-        self.n_heads = n_heads
-        self.n_kv = n_kv_heads or n_heads
-        _validate_attn_ffn(n_heads, self.n_kv, ffn)
-        self.d_model, self.max_len = d_model, max_len
-        self.head_dim = d_model // n_heads
-        self.ffn, self.rope_theta = ffn, rope_theta
-        self.attn_norm = RMSNorm(d_model, dtype, device)
-        self.qkv = Dense(
-            d_model, (n_heads + 2 * self.n_kv) * self.head_dim, dtype,
-            device)
-        self.out_proj = Dense(d_model, d_model, dtype, device)
-        self.mlp_norm = RMSNorm(d_model, dtype, device)
-        if ffn == "swiglu":
-            self.mlp_gate = Dense(d_model, d_ff, dtype, device)
-        self.mlp_up = Dense(d_model, d_ff, dtype, device)
-        self.mlp_down = Dense(d_ff, d_model, dtype, device)
+        super().__init__(d_model, n_heads, d_ff, dtype=dtype,
+                         n_kv_heads=n_kv_heads, ffn=ffn,
+                         rope_theta=rope_theta, device=device,
+                         param_dtype=dtype)
+        self.max_len = max_len
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 layer_cache: Dict[str, torch.Tensor],
                 decode: bool = False) -> torch.Tensor:
         B, T, _ = x.shape
-        h = self.attn_norm(x)
-        q, k, v = split_qkv_heads(
-            self.qkv(h), self.n_heads, self.n_kv, self.head_dim)
-        q = apply_rope(q, positions, self.rope_theta)
-        k = apply_rope(k, positions, self.rope_theta)
+        q, k, v = self.attention_inputs(x, positions)
         cached_k = layer_cache["cached_k"]
         cached_v = layer_cache["cached_v"]
         lens = layer_cache["cache_lens"]
@@ -204,15 +106,7 @@ class CachedBlock(nn.Module):
             cached_v[rows, idx] = v
             att = _decode_attention(q, cached_k, cached_v, lens)
             lens += T
-
-        x = x + self.out_proj(att.reshape(B, T, self.d_model))
-        h = self.mlp_norm(x)
-        if self.ffn == "swiglu":
-            return x + self.mlp_down(
-                F.silu(self.mlp_gate(h)) * self.mlp_up(h))
-        # flax nn.gelu is the tanh approximation
-        return x + self.mlp_down(
-            F.gelu(self.mlp_up(h), approximate="tanh"))
+        return self.finish(x, att)
 
 
 def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -266,6 +160,7 @@ class DecodeTransformerLM(nn.Module):
                 device=device))
         self.final_norm = RMSNorm(d_model, dtype, device)
         self.lm_head = Dense(d_model, vocab, dtype, device)
+        self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:

@@ -1,13 +1,17 @@
-"""Llama-family model configs over the port's decoder.
+"""Llama-family model configs over the port's decoder and trainer.
 
-The three Llama ingredients on the same ``DecodeTransformerLM``:
-grouped-query attention (``n_kv_heads < n_heads``), the SwiGLU MLP and a
-large RoPE base.  The configs are the JAX package's, value for value.
+The three Llama ingredients on the same ``DecodeTransformerLM`` and
+``TransformerLM``: grouped-query attention (``n_kv_heads < n_heads``),
+the SwiGLU MLP and a large RoPE base.  The configs are the JAX package's,
+value for value.
 
 Memory on one H100 (80 GB): Llama-3-8B's bf16 weights take about 16 GB
 (``LLAMA3_8B.n_params() * 2`` bytes), and its grouped KV cache
 8 heads x 128 dims x 2 (K and V) x 2 bytes x 32 layers = 131 kB per
-token, so the whole model serves from one card without quantization.
+token, so the whole model serves from one card without quantization.  Training
+is another matter: f32 parameters, their gradients and Adam's two
+moments take 16 bytes per parameter, 128 GB for the 8.03 B of
+Llama-3-8B, so one card trains it at full width with fewer layers.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Optional
 import torch
 
 from .inference import DecodeTransformerLM, make_decoder
-from .transformer import COMPUTE_DTYPE
+from .transformer import COMPUTE_DTYPE, TransformerLM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +83,19 @@ TINY_DRAFT = LlamaConfig(
     vocab=256, d_model=64, n_heads=4, n_kv_heads=2,
     n_layers=1, d_ff=128, max_len=128,
 )
+
+
+def train_model(cfg: LlamaConfig, dtype: torch.dtype = COMPUTE_DTYPE,
+                device=None, **overrides) -> TransformerLM:
+    """Training model for *cfg* (f32 parameters, uninitialised: load or
+    fill them); ``attn_fn`` and the rest through *overrides*, as in the
+    JAX package."""
+    return TransformerLM(
+        vocab=cfg.vocab, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_layers=cfg.n_layers, d_ff=cfg.d_ff, dtype=dtype,
+        n_kv_heads=cfg.n_kv_heads, ffn="swiglu",
+        rope_theta=cfg.rope_theta, device=device, **overrides,
+    )
 
 
 def decoder(
