@@ -7,7 +7,9 @@ Phases, each fatal on failure:
 
 1. require CUDA; print the card's name and power limit;
 2. build every kernel from ``tpu_k8s_device_plugin_torch/csrc`` (one
-   nvcc per source, in parallel) and print the build time;
+   nvcc per source, in parallel) and print the build time; K5's and K6's
+   bf16 kernels must spill nothing and issue ``wgmma`` (``HGMMA`` in the
+   built library's SASS);
 3. hold each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few edge shapes (attention by blocks of
    64 rows, each with bars scaled to its own values), and time the kernel,
@@ -16,8 +18,9 @@ Phases, each fatal on failure:
    the Llama-3-8B prefill; K4 with its lse residual, K5 (dQ) and K6
    (dK, dV) on a head slice of the LM training call (q [1, 8192, 8, 128],
    K/V [1, 8192, 2, 128], where the plain version's [T, T] f32 scores
-   fit) and edge shapes, timed at the full call (q [1, 8192, 32, 128],
-   K/V [1, 8192, 8, 128]) against ``scaled_dot_product_attention``'s
+   fit) and edge shapes (among them T 1024 with GQA 4:1, and D 96, which
+   the bf16 kernels pad to 128), timed at the full call (q [1, 8192, 32,
+   128], K/V [1, 8192, 8, 128]) against ``scaled_dot_product_attention``'s
    forward and backward; K1/K2 (max-pool forward/backward) and K3 (fused
    conv+pool) at AlexNet's three stage shapes, batch 1024, bf16;
 4. the generation path: Llama-3-8B at full width and depth, bf16, random
@@ -56,6 +59,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +102,7 @@ GRAD_TOL = {"bfloat16": 5e-2, "float32": 5e-4}
 # gives 0.1 or 1
 BLOCK_ROWS = 64
 BLOCK_REL = {"bfloat16": 1e-2, "float32": 1e-5}
+ROUNDING_X = 1.5
 
 
 def fail(msg: str) -> None:
@@ -142,6 +147,63 @@ def attention_bound_ms(q, k, causal: bool, per_pair: int, *moved):
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+# the bf16 kernels of K5 and K6 (csrc/flash_attn_bwd.cu), by name in the
+# built library
+BWD_KERNELS = ("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")
+
+
+def _cuobjdump(build, *args) -> str:
+    """The output of the toolkit's ``cuobjdump`` (beside nvcc)."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, *args], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+
+
+def check_bwd_build(build) -> None:
+    """Phase 2: each bf16 kernel of K5 and K6 spills nothing (no stack
+    and no local memory in ``cuobjdump -res-usage``) and issues its
+    products as ``wgmma`` (``HGMMA`` instructions in ``cuobjdump -sass``
+    of the built library); its registers are printed beside them (at
+    launch: ``setmaxnreg`` then moves them from the producer warpgroup
+    to the consumers)."""
+    lib = str(build.lib_path("flash_attn_bwd"))
+    usage, name = {}, None
+    for line in _cuobjdump(build, "-res-usage", lib).splitlines():
+        head = re.match(r"\s*Function (\S+?):?\s*$", line)
+        if head:
+            name = head.group(1)
+        elif name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in
+                           re.findall(r"(\w+):(\d+)", line)}
+            name = None
+    hgmma, name = {}, None
+    for line in _cuobjdump(build, "-sass", lib).splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            hgmma[name] = 0
+        elif name and "HGMMA" in line:
+            hgmma[name] += 1
+    for kernel in BWD_KERNELS:
+        found = sorted(n for n in hgmma if kernel in n)
+        if not found:
+            fail(f"{kernel} not in the SASS of {lib}")
+        for n in found:
+            u = usage.get(n)
+            if u is None:
+                fail(f"no resource usage for {n}")
+            pad = re.search(r"ILi(\d+)E", n)
+            print(f"  {kernel}<{pad.group(1) if pad else '?'}>: "
+                  f"{u.get('REG')} registers at launch, stack "
+                  f"{u.get('STACK')} B, "
+                  f"local {u.get('LOCAL')} B, {hgmma[n]} HGMMA "
+                  f"instructions", flush=True)
+            if u.get("STACK", 0) or u.get("LOCAL", 0):
+                fail(f"{kernel} spills to local memory")
+            if not hgmma[n]:
+                fail(f"{kernel} issues no wgmma")
 
 
 def check_flash(torch, fa):
@@ -287,6 +349,8 @@ def check_flash_training(torch, fa):
     cases = [  # name, q shape, Tk, KV heads, dtype, causal
         ("slice", ATTN_SLICE[0], LM_SEQ, ATTN_SLICE[1], bf16, True),
         ("ragged", (1, 200, 4, 128), 200, 1, bf16, True),
+        ("t1024", (1, 1024, 8, 128), 1024, 2, bf16, True),
+        ("d96", (1, 200, 4, 96), 200, 2, bf16, True),
         ("short", (2, 40, 2, 64), 40, 2, bf16, True),
         ("cross", (1, 100, 4, 48), 150, 4, bf16, False),
         ("fused", (2, 96, 4, 64), 96, 2, bf16, True),
@@ -323,6 +387,13 @@ def check_flash_training(torch, fa):
         if lse_bad or any(r["mismatches"] for r in held.values()):
             fail(f"K4 (lse), K5 or K6 disagrees with its plain version "
                  f"({name})")
+        # in bf16 the gradients are the f32 ones rounded: a block reads at
+        # most 1.5x what rounding the reference to bf16 alone reads
+        if dtype == bf16 and any(held[n]["block_rel"]
+                                 > ROUNDING_X * held[n]["rounding_rel"]
+                                 for n in ("dq", "dk", "dv")):
+            fail(f"K5 or K6 is further from its plain version than "
+                 f"{ROUNDING_X}x rounding to bf16 ({name})")
         if name == "slice":
             err = {"lse": (max(held["o"]["max_abs_err"], lse_err),
                            held["o"]["block_rel"]),
@@ -904,8 +975,9 @@ def main() -> int:
           "s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 print(f"  {name}: {line.strip()}", flush=True)
+    check_bwd_build(build)
 
     counts = Counts(flash_attn_fwd=fa.flash_attention_cuda,
                     flash_attn_dq=fa.flash_attention_dq_cuda,

@@ -122,7 +122,39 @@ BWD_CASES = [  # q shape, Tk, KV heads, causal
     ((1, 256, 8, 32), 256, 2, False),     # whole tiles, full attention
     ((2, 100, 4, 48), 150, 4, False),     # Tq != Tk, MHA, D = 48
     ((1, 130, 6, 16), 130, 3, True),      # GQA 2:1, D = 16
+    # the bf16 kernels stream tiles through a ring of three stages: at
+    # T 1024 it wraps many times and every causal diagonal case occurs
+    ((1, 1024, 8, 128), 1024, 2, True),   # GQA 4:1
+    ((1, 320, 8, 64), 320, 1, True),      # group 8
+    ((1, 320, 2, 128), 320, 2, True),     # group 1
+    ((1, 200, 4, 96), 200, 2, True),      # D = 96, padded to 128
+    ((2, 130, 4, 64), 40, 2, False),      # Tk < 64, full attention
 ]
+# gradients are also held by blocks of 64 rows of one (batch, head):
+# along a causal sequence their values fall as 1/sqrt(row), so a flat
+# atol lets a wrong late tile pass; each entry within the gradient
+# tolerance x (its block's rms + |ref|), and each block's
+# ||err|| / ||ref|| within BLOCK_REL (rounding to bf16 alone reads
+# about 2e-3)
+BLOCK_ROWS = 64
+BLOCK_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def _assert_blocks_close(got, want, tol, rel_bar):
+    B, T, H, D = want.shape
+    pad = (-T) % BLOCK_ROWS
+    w = torch.nn.functional.pad(want.float(), (0, 0, 0, 0, 0, pad))
+    g = torch.nn.functional.pad(got.float(), (0, 0, 0, 0, 0, pad))
+    w = w.view(B, -1, BLOCK_ROWS, H, D)
+    diff = g.view(B, -1, BLOCK_ROWS, H, D) - w
+    n = torch.full((w.shape[1], 1), float(BLOCK_ROWS * D), device=w.device)
+    n[-1] = (T - BLOCK_ROWS * (w.shape[1] - 1)) * D
+    sq, err_sq = w.square().sum((2, 4)), diff.square().sum((2, 4))
+    rms = (sq / n).sqrt()[:, :, None, :, None]
+    assert (diff.abs() <= tol * (rms + w.abs())).all()
+    rel = torch.where(sq > 0, (err_sq / sq).sqrt(),
+                      torch.where(err_sq > 0, float("inf"), 0.0))
+    assert float(rel.max()) <= rel_bar, float(rel.max())
 
 
 def _bwd_inputs(gen, q_shape, tk, hkv, dtype, causal):
@@ -167,6 +199,21 @@ def test_backward_kernels_match_plain(gen, q_shape, tk, hkv, causal, dtype):
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == ref.shape
         torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
+        _assert_blocks_close(got, ref, tol, BLOCK_REL[dtype])
+
+
+def test_backward_kernels_are_deterministic(gen):
+    """K6 sums the group's query heads in a fixed order without atomics,
+    and K5 owns its rows: two launches on the same inputs give the same
+    bits."""
+    q, k, v, do, lse, delta = _bwd_inputs(gen, (1, 1024, 8, 128), 1024, 2,
+                                          torch.bfloat16, True)
+    runs = [(fa.flash_attention_dq_cuda(q, k, v, do, lse, delta, True),
+             *fa.flash_attention_dkv_cuda(q, k, v, do, lse, delta, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_backward_kernels_read_strided_views(gen):

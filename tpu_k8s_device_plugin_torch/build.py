@@ -28,6 +28,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+# after the source: libcuda, for the TMA tensor maps encoded per call
+NVCC_LIBS = ["-lcuda"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,20 +57,23 @@ def nvcc_path() -> str:
         "CUDA kernels are compiled from csrc/ at first use")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is, or will be, built."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS + NVCC_LIBS)
+    tag = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:16]}.so"
 
 
 def _start(name: str):
     """Start nvcc for *name* unless its library is already built;
     returns ``(process, temporary output)`` or None."""
-    if _lib_path(name).exists():
+    if lib_path(name).exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+           *NVCC_LIBS]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp
 
@@ -83,7 +88,7 @@ def _finish(name: str, started) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    os.replace(tmp, _lib_path(name))
+    os.replace(tmp, lib_path(name))
     return log
 
 
@@ -109,6 +114,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             _libs[name] = lib
         return lib

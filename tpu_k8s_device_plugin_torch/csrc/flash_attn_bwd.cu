@@ -12,44 +12,80 @@
 //
 // with the TPU kernels' rounding points: S and dP accumulate in f32, P is
 // rounded to the input dtype before P^T dO and dS before dS K and dS^T Q,
-// and dQ is scaled once at the end.
+// and dQ and dK are scaled once at the end.
 //
 // What bounds them on this card.  Per visible (query, key) pair K5 does
 // three products (6*D FLOPs) and K6 four (8*D), against O(T*D) bytes: at
 // T >= 512 both sit far above the H100's ridge point, so they are bound
-// by tensor-core operations.
+// by tensor-core operations.  Only `wgmma` reaches the tensor cores' full
+// rate; it reads its shared-memory operands through descriptors in one of
+// a few swizzled layouts, runs asynchronously, and stalls whenever a tile
+// it needs is still on its way from memory.
 //
-// What the design does about it.  Both run on `mma.sync.m16n8k16` in
-// bf16 with f32 accumulation, with the fragment layouts of K4
-// (flash_attn_fwd.cu), so the products of S and dP feed the next product
-// from registers.
+// What the design does about it (bf16).  Every product is `wgmma` (bf16 in,
+// f32 accumulate), issued by two consumer warpgroups that each own 64 rows
+// of a 128-row block.  A third, producer warpgroup keeps the ring of
+// shared-memory tiles filled by TMA (below) and gives its registers to the
+// consumers (`setmaxnreg`: 24 for it, 240 for each of them), so that the
+// two consumers never wait for each other: while one computes P and dS,
+// the other's products run.  The exponent is
+// exp2(S * scale * log2(e) - lse * log2(e)) with `ex2.approx`.
 //
-// K5: one block of 4 warps per 64-row query tile of one (batch, head);
-// each warp owns 16 rows and keeps their Q and dO fragments, lse, delta
-// and the dQ accumulator in registers.  K/V tiles of 64 keys stream
-// through shared memory, and the causal loop stops at the diagonal.  The
-// heaviest causal tiles (the last rows) are launched first.
+// K5: one block per 128 query rows of one (batch, head).  Q and dO sit in
+// shared memory for the whole block; the K/V tiles of 64 keys stream
+// through the ring.  Per tile and warpgroup, S = Q K^T and dP = dO V^T are
+// m64n64k16 with both operands read from shared memory (K-major).  P and
+// dS = P (dP - delta) are computed in registers.  The f32 accumulator
+// fragment of a wgmma is laid out as the A fragment of the next one, so
+// dS, rounded to bf16, feeds dQ += dS K (m64nDk16) straight from
+// registers, with the same K tile read MN-major (the transpose bit).  dQ
+// stays in registers (64 f32 a thread at D = 128).  The causal loop stops
+// at the diagonal, a warpgroup skips a tile hidden from all its rows, and
+// the heaviest causal blocks (the last rows) are launched first.
 //
 // K6: the TPU kernel carries dK/dV accumulators across a sequential grid
 // dimension; blocks on Hopper run in no order, so that dimension is a
-// loop inside the block.  One block of 4 warps owns a 64-row key tile of
-// one (batch, KV head) and keeps dK and dV for it in registers (each warp
-// 16 keys).  It loops over the `group` query heads that read this KV
-// head and, for each, over the query tiles from the causal diagonal to
-// the end, staging Q, dO, lse and delta in shared memory.  The group is
-// summed inside the kernel in a fixed order in f32 and rounded once: no
-// atomics, deterministic, and closer to exact than the TPU path, which
-// rounds each head's dK/dV to bf16 before repeat_kv's gradient adds them.
+// loop inside the block.  One block per 128 keys of one (batch, KV head)
+// keeps K and V in shared memory (loaded once) and dK and dV in registers
+// (2 x 64 f32 a thread).  It loops over the `group` query heads that read
+// this KV head and, for each, over the query tiles from the causal
+// diagonal to the end; Q, dO and the tile's lse and delta stream through
+// the ring in tiles of 64 queries.  Per tile and warpgroup, S^T = K Q^T
+// and dP^T = V dO^T read both operands from shared memory, then
+// dV += P^T dO and dK += dS^T Q take P^T and dS^T from registers and dO
+// and Q MN-major.  The group is summed inside the kernel in a fixed order
+// in f32 and rounded once: no atomics, deterministic, and closer to exact
+// than the TPU path, which rounds each head's dK/dV to bf16 before
+// repeat_kv's gradient adds them.  The heaviest causal blocks (the first
+// keys) are launched first.
 //
-// Layout: q/do/dq [B, Tq, H, D], k/v/dk/dv [B, Tk, Hkv, D], read and
-// written through their (batch, time, head) strides with unit stride on
-// D, so the fused-projection views of the model need no copy.  Rows past
-// T in a ragged last tile are zero-filled on load, contribute exactly 0
-// to every sum (P is set to 0 wherever the causal or ragged mask hides a
-// pair, never computed from -inf) and are not written.  An f32 path with
-// plain FMAs serves f32 inputs.  This is the simple first form: no
-// cp.async/TMA pipelining, no wgmma.
+// The ring.  Streamed tiles go through NS = 3 stages.  The producer waits
+// for a stage's `empty` mbarrier (both consumers have handed it back),
+// then loads it with TMA, which reports the bytes to the stage's `full`
+// mbarrier; a consumer waits for `full`, and hands the stage back once
+// the wgmmas that read it have ended (in K5 at the next tile's first wait,
+// so the last product of a tile overlaps the next tile's first two).  K6's
+// lse and delta are read by the producer warp's lanes, which arrive on
+// `full` after their stores.  The tensor maps are encoded per call over
+// the tensors' strides, and TMA reads rows past T and columns past D as 0.
+//
+// Layout.  A tile of `rows` x D bf16 is stored as [Dp / 64][rows][64] in
+// the 128-byte swizzle that TMA writes and the descriptors name (16-byte
+// chunk c of row r at chunk (c ^ r) % 8 of its 128-byte line), one TMA
+// box per 64 columns, so one stored tile serves as a K-major and as an
+// MN-major operand.  Dp is 64 or 128: head dims below are zero-padded in
+// shared memory (columns past D load as 0 and are never written back), so
+// one kernel serves every D and D = 128 pays nothing.
+//
+// Layout in memory: q/do/dq [B, Tq, H, D], k/v/dk/dv [B, Tk, Hkv, D], read
+// and written through their (batch, time, head) strides with unit stride
+// on D, so the fused-projection views of the model need no copy.  P is set
+// to 0 wherever the causal or ragged mask hides a pair, never computed
+// from -inf; rows past T in a ragged last tile load as 0, contribute
+// exactly 0 to every sum and are not written.  An f32 path with plain
+// FMAs serves f32 inputs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,10 +93,12 @@
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per tile
-constexpr int BK = 64;  // key rows per tile
-constexpr int NTHREADS = 128;
-constexpr int QC = 32;  // K6: queries per register chunk
+constexpr int NT = 384;  // bf16: a producer and two consumer warpgroups
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // setmaxnreg
+constexpr int BM = 128;  // K5: query rows per block; K6: keys per block
+constexpr int BN = 64;   // K5: keys per streamed tile; K6: queries
+constexpr int NS = 3;    // stages of the ring
+constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int F_BQ = 64;   // f32 dQ: one thread per query row
 constexpr int F_BK = 32;   // f32 dQ: key rows per shared-memory tile
@@ -71,13 +109,83 @@ struct Strides {
   long long b, t, h;  // element strides; the head dim has stride 1
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers in shared memory: a phase completes when its arrivals are in
+// and the bytes announced with expect_tx have landed
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(arrivals)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// arrive, announcing `bytes` of TMA copies that complete on `bar`
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the box at (d, t, h, b) of a 4-D tensor map into shared memory,
+// completing on `bar`; rows and columns past the tensor's ends read as 0
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int t, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(t), "r"(h),
+      "r"(b)
+      : "memory");
+}
+
+// hand registers from the producer warpgroup to the consumers
+template <int N>
+__device__ __forceinline__ void regs_down() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_up() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// ties each register to the wait before it, so no read of an accumulator
+// is moved above the wait that completes it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two floats -> bf16x2, round to nearest even; `lo` in the low half
@@ -86,166 +194,289 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+// wgmma shared-memory descriptor, 128-byte swizzle: start address and the
+// leading and stride byte offsets, in 16-byte units
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: rows [r0, r0 + 64) (A) or all N rows (B) of a tile of
+// `rows`, head-dim columns [16 kk, 16 kk + 16); 8-row groups 1024 B apart
+// (the leading byte offset is not read)
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0,
+                                           int kk) {
+  return desc(tile + (kk >> 2) * rows * 128 + r0 * 128 + (kk & 3) * 32, 16,
+              1024);
+}
+// MN-major operand (the transpose bit): rows [16 kk, 16 kk + 16) of a tile
+// of `rows` as the reduction, every head-dim column as N; 64-column
+// halves `rows` x 128 B apart (leading), 8-row groups 1024 B apart
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  return desc(tile + kk * 16 * 128, rows * 128, 1024);
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D[64 x 64] (+)= A B^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Rows [row0, row0 + 64) of one head into a shared tile, 16 bytes per
-// thread per step; rows at or past T are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t (*dst)[D + 8],
-                                          const uint16_t* src,
-                                          long long t_stride, int row0,
-                                          int T) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < 64 * CH; c += NTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * t_stride + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
+// D[64 x 64] += A B, A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A B, A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DP == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
   }
 }
 
-// The A fragment of a 16 x 16 block of a shared tile, for the thread
-// whose fragment rows are r, r + 8 and columns c, c + 1, c + 8, c + 9.
-template <int D>
-__device__ __forceinline__ void frag_a(uint32_t a[4], uint16_t (*s)[D + 8],
-                                       int r, int c) {
-  a[0] = ld32(&s[r][c]);
-  a[1] = ld32(&s[r + 8][c]);
-  a[2] = ld32(&s[r][c + 8]);
-  a[3] = ld32(&s[r + 8][c + 8]);
+// the dynamic shared memory, from its first 1024-byte boundary: the
+// 128-byte swizzle repeats every 1024 bytes, and TMA and the wgmma
+// descriptors count it from such a boundary
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// Pack two m64n16 slices of an accumulator (n8 fragments 2 kk and
+// 2 kk + 1) into the bf16 A fragment of a k16 step.
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float* x,
+                                       int kk) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    a[j] = pack_bf16(x[kk * 8 + j * 2], x[kk * 8 + j * 2 + 1]);
 }
 
 // ---------------------------------------------------------------- K5 --
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_dq_bf16_kernel(const uint16_t* __restrict__ q,
-                         const uint16_t* __restrict__ k,
-                         const uint16_t* __restrict__ v,
-                         const uint16_t* __restrict__ dout,
+template <int DP>
+__global__ void __launch_bounds__(NT, 1)
+    flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         uint16_t* __restrict__ dq, int Tq, int Tk,
-                         int group, Strides qs, Strides ks, Strides vs,
-                         Strides dos, Strides dqs, float scale, int causal) {
-  __shared__ __align__(16) uint16_t sK[BK][D + 8];
-  __shared__ __align__(16) uint16_t sV[BK][D + 8];
+                         uint16_t* __restrict__ dq, int D, int Tq, int Tk,
+                         int group, Strides dqs, float scale, int causal) {
+  constexpr int QB = BM * DP * 2, KB = BN * DP * 2;  // tile bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  // Q, dO, the ring (stage s: K at ring + 2 s KB, V after it), then the
+  // barriers: Q and dO in, stage s full, stage s empty
+  const uint32_t sQ = smem_u32(smem), sD = sQ + QB, ring = sQ + 2 * QB;
+  const uint32_t qbar = ring + NS * 2 * KB, full = qbar + 8,
+                 empty = full + 8 * NS;
 
-  // last query tiles first: under a causal mask they have the most work
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int hk = h / group;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const uint16_t* qp = q + b * qs.b + h * qs.h;
-  const uint16_t* dop = dout + b * dos.b + h * dos.h;
-  const uint16_t* kp = k + b * ks.b + hk * ks.h;
-  const uint16_t* vp = v + b * vs.b + hk * vs.h;
-
-  // Q and dO tiles through sK/sV into A fragments, kept in registers
-  load_tile<D>(sK, qp, qs.t, q0, Tq);
-  load_tile<D>(sV, dop, dos.t, q0, Tq);
+  const int h = blockIdx.x, b = blockIdx.z, H = gridDim.x;
+  // last query rows first: under a causal mask they have the most work
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (Tk + BN - 1) / BN;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BM, Tq) + BN - 1) / BN);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int r = warp * 16 + g;
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    frag_a<D>(qf[kk], sK, r, kk * 16 + t4 * 2);
-    frag_a<D>(df[kk], sV, r, kk * 16 + t4 * 2);
-  }
 
-  const int row[2] = {q0 + r, q0 + r + 8};
-  float lrow[2], drow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long ri = (static_cast<long long>(b) * H + h) * Tq + row[i];
-    lrow[i] = row[i] < Tq ? lse[ri] : 0.f;
-    drow[i] = row[i] < Tq ? delta[ri] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  int n_tiles = (Tk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(sK, kp, ks.t, k0, Tk);
-    load_tile<D>(sV, vp, vs.t, k0, Tk);
-    __syncthreads();
-
-#pragma unroll
-    for (int c = 0; c < BK / 32; ++c) {  // 32 keys at a time
-      // S = Q K^T and dP = dO V^T for 4 n-tiles of 8 keys
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int col = kk * 16 + t4 * 2;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int key = c * 32 + nt * 8 + g;
-          mma_bf16_16816(s[nt], qf[kk], ld32(&sK[key][col]),
-                         ld32(&sK[key][col + 8]));
-          mma_bf16_16816(dp[nt], df[kk], ld32(&sV[key][col]),
-                         ld32(&sV[key][col + 8]));
-        }
+  if (threadIdx.x < 128) {  // producer: one thread issues every copy
+    regs_down<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const int hk = h / group;
+      mbar_expect_tx(qbar, 2 * QB);
+      for (int c = 0; c < DP / 64; ++c) {
+        tma_load(sQ + c * BM * 128, &tq, qbar, c * 64, q0, h, b);
+        tma_load(sD + c * BM * 128, &tdo, qbar, c * 64, q0, h, b);
       }
-      // P = exp(S * scale - lse), 0 where masked; dS = P (dP - delta)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + c * 32 + nt * 8 + t4 * 2 + (e & 1);
-          const int i = e >> 1;
-          const bool ok =
-              row[i] < Tq && col < Tk && !(causal && col > row[i]);
-          const float p = ok ? expf(s[nt][e] * scale - lrow[i]) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - drow[i]);
-        }
-      // dQ += dS K: dS rounded to bf16, straight from the fragments
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const uint32_t a[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
-        const int kr = c * 32 + kk * 16 + t4 * 2;
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          const int n = dt * 8 + g;
-          mma_bf16_16816(acc[dt], a, pack_raw(sK[kr][n], sK[kr + 1][n]),
-                         pack_raw(sK[kr + 8][n], sK[kr + 9][n]));
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        const uint32_t sK = ring + s * 2 * KB;
+        if (j >= NS) mbar_wait(empty + 8 * s, (j / NS - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * KB);
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load(sK + c * BN * 128, &tk, full + 8 * s, c * 64, j * BN, hk,
+                   b);
+          tma_load(sK + KB + c * BN * 128, &tv, full + 8 * s, c * 64, j * BN,
+                   hk, b);
         }
       }
     }
+    return;
   }
+  regs_up<CONSUMER_REGS>();
 
+  const int wg = threadIdx.x / 128 - 1, warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;  // arrives for its warpgroup
+  const int wrow0 = q0 + wg * 64;  // this warpgroup's first row
+  // this thread's rows: row[0] and row[0] + 8; a row past Tq gets lse =
+  // +inf, so P = 0 there
+  int row[2];
+  float l2[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (row[i] >= Tq) continue;
-    uint16_t* out = dq + b * dqs.b + static_cast<long long>(row[i]) * dqs.t +
-                    h * dqs.h;
+    row[i] = wrow0 + warp * 16 + g + 8 * i;
+    const long long ri = (static_cast<long long>(b) * H + h) * Tq + row[i];
+    l2[i] = row[i] < Tq ? lse[ri] * LOG2E : INFINITY;
+    dl[i] = row[i] < Tq ? delta[ri] : 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+  float acc[DP / 2];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(out + dt * 8 + t4 * 2) = pack_bf16(
-          acc[dt][2 * i] * scale, acc[dt][2 * i + 1] * scale);
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  int held = -1;  // the stage that the last dS K may still be reading
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN, s = j % NS;
+    const uint32_t sK = ring + s * 2 * KB, sV = sK + KB;
+    mbar_wait(full + 8 * s, (j / NS) & 1);
+    if (causal && k0 > wrow0 + 63) {  // hidden from all 64 rows
+      wgmma_wait<0>();
+      if (leader) {
+        if (held >= 0) mbar_arrive(empty + 8 * held);
+        mbar_arrive(empty + 8 * s);
+      }
+      held = -1;
+      continue;
+    }
+
+    float s_[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(s_, desc_k(sQ, BM, wg * 64, kk), desc_k(sK, BN, 0, kk),
+                   kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k(sD, BM, wg * 64, kk), desc_k(sV, BN, 0, kk),
+                   kk);
+    wgmma_commit();
+
+    // P = exp(S * scale - lse), 0 where masked, while dP is computed; the
+    // last tile's dS K has ended, so its stage goes back to the producer
+    wgmma_wait<1>();
+    fence_regs(s_);
+    if (leader && held >= 0) mbar_arrive(empty + 8 * held);
+    held = s;
+    const bool edge = (causal && k0 + BN - 1 > wrow0) || k0 + BN > Tk;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {  // fragment i / 4, row (i / 2) % 2
+      float p = ex2(fmaf(s_[i], sl2, -l2[(i >> 1) & 1]));
+      if (edge) {
+        const int col = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
+        if (col >= Tk || (causal && col > row[(i >> 1) & 1])) p = 0.f;
+      }
+      s_[i] = p;
+    }
+    // dS = P (dP - delta), rounded to bf16 as the A fragments of dS K
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s_[i] *= dp[i] - dl[(i >> 1) & 1];
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(a[kk], s_, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(acc, a[kk], desc_mn(sK, BN, kk));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+#pragma unroll
+  for (int n8 = 0; n8 < DP / 8; ++n8) {
+    if (n8 * 8 >= D) break;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= Tq) continue;
+      uint16_t* out = dq + b * dqs.b + static_cast<long long>(row[i]) * dqs.t +
+                      h * dqs.h + n8 * 8 + t4 * 2;
+      *reinterpret_cast<uint32_t*>(out) = pack_bf16(
+          acc[n8 * 4 + 2 * i] * scale, acc[n8 * 4 + 2 * i + 1] * scale);
+    }
   }
 }
 
@@ -327,142 +558,190 @@ __global__ void __launch_bounds__(F_BQ)
 
 // ---------------------------------------------------------------- K6 --
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_dkv_bf16_kernel(const uint16_t* __restrict__ q,
-                          const uint16_t* __restrict__ k,
-                          const uint16_t* __restrict__ v,
-                          const uint16_t* __restrict__ dout,
+template <int DP>
+__global__ void __launch_bounds__(NT, 1)
+    flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
-                          int Tq, int Tk, int H, int group, Strides qs,
-                          Strides ks, Strides vs, Strides dos, Strides dks,
+                          int D, int Tq, int Tk, int H, int group, Strides dks,
                           Strides dvs, float scale, int causal) {
-  // K, V (the block's keys), Q, dO (one query tile): 64 rows each
+  constexpr int KB = BM * DP * 2, QB = BN * DP * 2;  // tile bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto sK = reinterpret_cast<uint16_t (*)[D + 8]>(smem_raw);
-  auto sV = sK + BK;
-  auto sQ = sV + BK;
-  auto sD = sQ + BQ;
-  float* sL = reinterpret_cast<float*>(sD + BQ);  // lse of the tile's rows
-  float* sDl = sL + BQ;                            // delta
+  unsigned char* smem = aligned_smem(smem_raw);
+  // K, V, the ring (stage s: Q at ring + 2 s QB, dO after it, its lse and
+  // delta at rows + 2 s BN), then the barriers: K and V in, stage s full,
+  // stage s empty
+  const uint32_t sK = smem_u32(smem), sV = sK + KB, ring = sK + 2 * KB;
+  float* rows = reinterpret_cast<float*>(smem + 2 * KB + NS * 2 * QB);
+  const uint32_t kvbar = smem_u32(rows + NS * 2 * BN), full = kvbar + 8,
+                 empty = full + 8 * NS;
 
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kr = warp * 16 + g;  // this thread's key rows: kr, kr + 8
-  const int key[2] = {k0 + kr, k0 + kr + 8};
+  const int hk = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * BM;  // first keys first: the most causal work
+  // the work: the group's query heads, each from the first query tile
+  // whose last row reaches this block's keys
+  const int qt0 = causal ? k0 / BN : 0;
+  const int nq = (Tq + BN - 1) / BN - qt0;
+  const int n_items = group * nq;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  load_tile<D>(sK, k + b * ks.b + hk * ks.h, ks.t, k0, Tk);
-  load_tile<D>(sV, v + b * vs.b + hk * vs.h, vs.t, k0, Tk);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
-
-  const int n_qtiles = (Tq + BQ - 1) / BQ;
-  // the first query tile whose last row reaches this key tile
-  const int qt0 = causal ? k0 / BQ : 0;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const uint16_t* qp = q + b * qs.b + h * qs.h;
-    const uint16_t* dop = dout + b * dos.b + h * dos.h;
-    const long long rows = (static_cast<long long>(b) * H + h) * Tq;
-    for (int qt = qt0; qt < n_qtiles; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // every warp is done with the previous tile
-      load_tile<D>(sQ, qp, qs.t, q0, Tq);
-      load_tile<D>(sD, dop, dos.t, q0, Tq);
-      if (threadIdx.x < BQ) {
-        const bool ok = q0 + threadIdx.x < Tq;
-        sL[threadIdx.x] = ok ? lse[rows + q0 + threadIdx.x] : 0.f;
-        sDl[threadIdx.x] = ok ? delta[rows + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int c = 0; c < BQ / QC; ++c) {
-        // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys against 32
-        // queries (4 n-tiles of 8)
-        float s[4][4], dp[4][4];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const int col = kk * 16 + t4 * 2;
-          uint32_t ak[4], av[4];
-          frag_a<D>(ak, sK, kr, col);
-          frag_a<D>(av, sV, kr, col);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int qr = c * QC + nt * 8 + g;
-            mma_bf16_16816(s[nt], ak, ld32(&sQ[qr][col]),
-                           ld32(&sQ[qr][col + 8]));
-            mma_bf16_16816(dp[nt], av, ld32(&sD[qr][col]),
-                           ld32(&sD[qr][col + 8]));
-          }
+  if (threadIdx.x < 128) {  // producer: one warp
+    regs_down<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * KB);
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load(sK + c * BM * 128, &tk, kvbar, c * 64, k0, hk, b);
+          tma_load(sV + c * BM * 128, &tv, kvbar, c * 64, k0, hk, b);
         }
-        // P^T = exp(S^T * scale - lse), 0 where masked;
-        // dS^T = P^T (dP^T - delta)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = c * QC + nt * 8 + t4 * 2 + (e & 1);
-            const int qg = q0 + qc, kg = key[e >> 1];
-            const bool ok = qg < Tq && kg < Tk && !(causal && kg > qg);
-            const float p = ok ? expf(s[nt][e] * scale - sL[qc]) : 0.f;
-            s[nt][e] = p;
-            dp[nt][e] = p * (dp[nt][e] - sDl[qc]);
+      }
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % NS, h = hk * group + it / nq;
+        const int q0 = (qt0 + it % nq) * BN;
+        if (it >= NS) mbar_wait(empty + 8 * s, (it / NS - 1) & 1);
+        // lse and delta of the tile's rows, 0 past Tq, by the lanes
+        const long long r0 = (static_cast<long long>(b) * H + h) * Tq + q0;
+        float* st = rows + s * 2 * BN;
+        for (int r = lane; r < BN; r += 32) {
+          const bool ok = q0 + r < Tq;
+          st[r] = ok ? lse[r0 + r] : 0.f;
+          st[BN + r] = ok ? delta[r0 + r] : 0.f;
+        }
+        if (lane == 0) {  // Q and dO by TMA
+          const uint32_t sQ = ring + s * 2 * QB;
+          mbar_expect_tx(full + 8 * s, 2 * QB);
+          for (int c = 0; c < DP / 64; ++c) {
+            tma_load(sQ + c * BN * 128, &tq, full + 8 * s, c * 64, q0, h, b);
+            tma_load(sQ + QB + c * BN * 128, &tdo, full + 8 * s, c * 64, q0,
+                     h, b);
           }
-        // dV += P^T dO and dK += dS^T Q, P and dS rounded to bf16
-#pragma unroll
-        for (int kk = 0; kk < QC / 16; ++kk) {
-          const uint32_t ap[4] = {
-              pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-          };
-          const uint32_t ad[4] = {
-              pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]),
-          };
-          const int qr = c * QC + kk * 16 + t4 * 2;
-#pragma unroll
-          for (int dt = 0; dt < D / 8; ++dt) {
-            const int n = dt * 8 + g;
-            mma_bf16_16816(dva[dt], ap, pack_raw(sD[qr][n], sD[qr + 1][n]),
-                           pack_raw(sD[qr + 8][n], sD[qr + 9][n]));
-            mma_bf16_16816(dka[dt], ad, pack_raw(sQ[qr][n], sQ[qr + 1][n]),
-                           pack_raw(sQ[qr + 8][n], sQ[qr + 9][n]));
-          }
+        } else {
+          mbar_arrive(full + 8 * s);
         }
       }
     }
+    return;
   }
+  regs_up<CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128 - 1, warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;  // arrives for its warpgroup
+  const int wkey0 = k0 + wg * 64;  // this warpgroup's first key
+  const int key[2] = {wkey0 + warp * 16 + g, wkey0 + warp * 16 + g + 8};
+  const float sl2 = scale * LOG2E;
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int it = 0; it < n_items; ++it) {
+    const int q0 = (qt0 + it % nq) * BN, s = it % NS;
+    const uint32_t sQ = ring + s * 2 * QB, sD = sQ + QB;
+    const float* sL = rows + s * 2 * BN;
+    const float* sDl = sL + BN;
+    mbar_wait(full + 8 * s, (it / NS) & 1);
+    if (causal && q0 + BN - 1 < wkey0) {  // before all 64 keys
+      if (leader) mbar_arrive(empty + 8 * s);
+      continue;
+    }
+
+    // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x 64 queries
+    float s_[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(s_, desc_k(sK, BM, wg * 64, kk), desc_k(sQ, BN, 0, kk),
+                   kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k(sV, BM, wg * 64, kk), desc_k(sD, BN, 0, kk),
+                   kk);
+    wgmma_commit();
+
+    // P^T = exp(S^T * scale - lse), 0 where masked; a column is a query
+    wgmma_wait<1>();
+    fence_regs(s_);
+    const bool edge = (causal && wkey0 + 63 > q0) || q0 + BN > Tq;
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8) {
+      const float2 l = *reinterpret_cast<const float2*>(sL + n8 * 8 + t4 * 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = n8 * 4 + e;
+        float p = ex2(fmaf(s_[i], sl2, -(e & 1 ? l.y : l.x) * LOG2E));
+        if (edge) {
+          const int qg = q0 + n8 * 8 + t4 * 2 + (e & 1);
+          if (qg >= Tq || (causal && key[e >> 1] > qg)) p = 0.f;
+        }
+        s_[i] = p;
+      }
+    }
+    // dS^T = P^T (dP^T - delta); P^T and dS^T rounded to bf16 as the A
+    // fragments of P^T dO and dS^T Q
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8) {
+      const float2 d = *reinterpret_cast<const float2*>(sDl + n8 * 8 + t4 * 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = n8 * 4 + e;
+        dp[i] = s_[i] * (dp[i] - (e & 1 ? d.y : d.x));
+      }
+    }
+    uint32_t ap[4][4], ad[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a_frag(ap[kk], s_, kk);
+      a_frag(ad[kk], dp, kk);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(dva, ap[kk], desc_mn(sD, BN, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(dka, ad[kk], desc_mn(sQ, BN, kk));
+    wgmma_commit();
+    // wait here, then hand the stage back: until these wgmmas end, their
+    // 32 A-fragment registers stay taken, and beside the next tile's S^T
+    // and dP^T they would spill
+    wgmma_wait<0>();
+    if (leader) mbar_arrive(empty + 8 * s);
+  }
+  fence_regs(dka);
+  fence_regs(dva);
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= Tk) continue;
-    uint16_t* kout = dk + b * dks.b + static_cast<long long>(key[i]) * dks.t +
-                     hk * dks.h;
-    uint16_t* vout = dv + b * dvs.b + static_cast<long long>(key[i]) * dvs.t +
-                     hk * dvs.h;
+  for (int n8 = 0; n8 < DP / 8; ++n8) {
+    if (n8 * 8 >= D) break;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const int col = dt * 8 + t4 * 2;
-      *reinterpret_cast<uint32_t*>(kout + col) = pack_bf16(
-          dka[dt][2 * i] * scale, dka[dt][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vout + col) =
-          pack_bf16(dva[dt][2 * i], dva[dt][2 * i + 1]);
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= Tk) continue;
+      const int col = n8 * 8 + t4 * 2;
+      uint16_t* kout = dk + b * dks.b + static_cast<long long>(key[i]) * dks.t +
+                       hk * dks.h + col;
+      uint16_t* vout = dv + b * dvs.b + static_cast<long long>(key[i]) * dvs.t +
+                       hk * dvs.h + col;
+      *reinterpret_cast<uint32_t*>(kout) = pack_bf16(
+          dka[n8 * 4 + 2 * i] * scale, dka[n8 * 4 + 2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vout) =
+          pack_bf16(dva[n8 * 4 + 2 * i], dva[n8 * 4 + 2 * i + 1]);
     }
   }
 }
@@ -571,65 +850,126 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// A TMA map over one bf16 tensor [B, T, H, D] with element strides
+// (batch, time, head) and unit stride on D: boxes of `rows` rows x 64
+// columns of one (batch, head), written in the 128-byte swizzle; rows
+// past T and columns past D read as 0.  A size-1 dim's stride is unused
+// (and passed as 0): it is set to the packed one, which the encoder takes.
+CUresult make_map(CUtensorMap* map, const void* p, int B, int T, int H,
+                  int D, Strides st, int rows) {
+  cuuint64_t t = st.t ? st.t * 2 : D * 2;
+  cuuint64_t h = st.h ? st.h * 2 : t * T;
+  cuuint64_t b = st.b ? st.b * 2 : h * H;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {t, h, b};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// the maps of q, dout (boxes of q_rows) and k, v (boxes of k_rows), from
+// the strides of q, k, v, dout in turn; a failed encode is returned as
+// TMA_ERROR + its CUresult
+constexpr int TMA_ERROR = 10000;
+int make_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+              const void* v, const void* dout, int B, int Tq, int Tk, int H,
+              int Hkv, int D, const long long* st, int q_rows, int k_rows) {
+  CUresult r = make_map(&m[0], q, B, Tq, H, D, at(st, 0), q_rows);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&m[1], dout, B, Tq, H, D, at(st, 3), q_rows);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&m[2], k, B, Tk, Hkv, D, at(st, 1), k_rows);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&m[3], v, B, Tk, Hkv, D, at(st, 2), k_rows);
+  return r == CUDA_SUCCESS ? 0 : TMA_ERROR + static_cast<int>(r);
+}
+
+// bf16: the head dim padded to DP = 64 or 128 in shared memory
+template <int DP>
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int Tq, int Tk, int H, int Hkv, int D,
+                   const long long* st, float scale, int causal,
+                   cudaStream_t stream) {
+  CUtensorMap m[4];
+  const int err =
+      make_maps(m, q, k, v, dout, B, Tq, Tk, H, Hkv, D, st, BM, BN);
+  if (err) return err;
+  const int smem = 1024 + (2 * BM + NS * 2 * BN) * DP * 2 + (1 + 2 * NS) * 8;
+  cudaError_t e = set_smem(flash_dq_bf16_kernel<DP>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(H, (Tq + BM - 1) / BM, B);
+  flash_dq_bf16_kernel<DP><<<grid, NT, smem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(dq), D, Tq,
+      Tk, H / Hkv, at(st, 4), scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, int B, int Tq, int Tk, int H, int Hkv,
+                    int D, const long long* st, float scale, int causal,
+                    cudaStream_t stream) {
+  CUtensorMap m[4];
+  const int err =
+      make_maps(m, q, k, v, dout, B, Tq, Tk, H, Hkv, D, st, BN, BM);
+  if (err) return err;
+  const int smem = 1024 + (2 * BM + NS * 2 * BN) * DP * 2 +
+                   NS * 2 * BN * static_cast<int>(sizeof(float)) +
+                   (1 + 2 * NS) * 8;
+  cudaError_t e = set_smem(flash_dkv_bf16_kernel<DP>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(Hkv, (Tk + BM - 1) / BM, B);
+  flash_dkv_bf16_kernel<DP><<<grid, NT, smem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), D, Tq, Tk, H, H / Hkv, at(st, 4), at(st, 5),
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
-cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int Tq, int Tk, int H, int group,
-                      const long long* st, float scale, int causal,
-                      cudaStream_t stream) {
-  if (dtype == 0) {
-    const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-    flash_dq_bf16_kernel<D><<<grid, NTHREADS, 0, stream>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-        lse, delta, static_cast<uint16_t*>(dq), Tq, Tk, group, at(st, 0),
-        at(st, 1), at(st, 2), at(st, 3), at(st, 4), scale, causal);
-  } else {
-    const int smem = (2 * D * F_BQ + 2 * F_BK * D) * sizeof(float);
-    cudaError_t err = set_smem(flash_dq_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Tq + F_BQ - 1) / F_BQ, H, B);
-    flash_dq_f32_kernel<D><<<grid, F_BQ, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), Tq, Tk, group, at(st, 0), at(st, 1),
-        at(st, 2), at(st, 3), at(st, 4), scale, causal);
-  }
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, void* dq, int B, int Tq,
+                          int Tk, int H, int group, const long long* st,
+                          float scale, int causal, cudaStream_t stream) {
+  const int smem = (2 * D * F_BQ + 2 * F_BK * D) * sizeof(float);
+  cudaError_t err = set_smem(flash_dq_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + F_BQ - 1) / F_BQ, H, B);
+  flash_dq_f32_kernel<D><<<grid, F_BQ, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), Tq, Tk, group, at(st, 0), at(st, 1),
+      at(st, 2), at(st, 3), at(st, 4), scale, causal);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(int dtype, const void* q, const void* k,
-                       const void* v, const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int B, int Tq,
-                       int Tk, int H, int Hkv, const long long* st,
-                       float scale, int causal, cudaStream_t stream) {
-  const int group = H / Hkv;
-  if (dtype == 0) {
-    const int smem = (2 * BK + 2 * BQ) * (D + 8) * sizeof(uint16_t) +
-                     2 * BQ * sizeof(float);
-    cudaError_t err = set_smem(flash_dkv_bf16_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Tk + BK - 1) / BK, Hkv, B);
-    flash_dkv_bf16_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-        lse, delta, static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv),
-        Tq, Tk, H, group, at(st, 0), at(st, 1), at(st, 2), at(st, 3),
-        at(st, 4), at(st, 5), scale, causal);
-  } else {
-    const int smem =
-        (4 * D * F_KR + 2 * F_QT * D + 2 * F_QT) * sizeof(float);
-    cudaError_t err = set_smem(flash_dkv_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Tk + F_KR - 1) / F_KR, Hkv, B);
-    flash_dkv_f32_kernel<D><<<grid, F_KR, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, H,
-        group, at(st, 0), at(st, 1), at(st, 2), at(st, 3), at(st, 4),
-        at(st, 5), scale, causal);
-  }
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv, int B,
+                           int Tq, int Tk, int H, int Hkv,
+                           const long long* st, float scale, int causal,
+                           cudaStream_t stream) {
+  const int smem = (4 * D * F_KR + 2 * F_QT * D + 2 * F_QT) * sizeof(float);
+  cudaError_t err = set_smem(flash_dkv_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tk + F_KR - 1) / F_KR, Hkv, B);
+  flash_dkv_f32_kernel<D><<<grid, F_KR, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, H,
+      H / Hkv, at(st, 0), at(st, 1), at(st, 2), at(st, 3), at(st, 4),
+      at(st, 5), scale, causal);
   return cudaGetLastError();
 }
 
@@ -642,7 +982,8 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k,
 // on D; lse and delta [B, H, Tq] f32 contiguous.  `strides` holds the
 // (batch, time, head) element strides of q, k, v, dout, dq.  dtype 0 =
 // bf16, 1 = f32.  Launches on `stream` without synchronising.  Returns 0,
-// a cudaError_t, or -1 for an unsupported D.
+// a cudaError_t, -1 for an unsupported D, or TMA_ERROR (10000) + the
+// CUresult of a bf16 tensor map that could not be encoded.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int dtype,
@@ -652,12 +993,19 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D < 16 || D > 128 || D % 16) return -1;
+  if (dtype == 0)
+    return static_cast<int>(
+        D <= 64 ? launch_dq_bf16<64>(q, k, v, dout, l, dl, dq, B, Tq, Tk, H,
+                                     Hkv, D, strides, scale, causal, st)
+                : launch_dq_bf16<128>(q, k, v, dout, l, dl, dq, B, Tq, Tk, H,
+                                      Hkv, D, strides, scale, causal, st));
   switch (D) {
-#define DQ_CASE(DD)                                                         \
-  case DD:                                                                  \
-    return static_cast<int>(launch_dq<DD>(dtype, q, k, v, dout, l, dl, dq,  \
-                                          B, Tq, Tk, H, H / Hkv, strides,   \
-                                          scale, causal, st));
+#define DQ_CASE(DD)                                                          \
+  case DD:                                                                   \
+    return static_cast<int>(launch_dq_f32<DD>(q, k, v, dout, l, dl, dq, B,   \
+                                              Tq, Tk, H, H / Hkv, strides,   \
+                                              scale, causal, st));
     FLASH_BWD_CASES(DQ_CASE)
 #undef DQ_CASE
     default:
@@ -677,12 +1025,20 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D < 16 || D > 128 || D % 16) return -1;
+  if (dtype == 0)
+    return static_cast<int>(
+        D <= 64 ? launch_dkv_bf16<64>(q, k, v, dout, l, dl, dk, dv, B, Tq, Tk,
+                                      H, Hkv, D, strides, scale, causal, st)
+                : launch_dkv_bf16<128>(q, k, v, dout, l, dl, dk, dv, B, Tq,
+                                       Tk, H, Hkv, D, strides, scale, causal,
+                                       st));
   switch (D) {
-#define DKV_CASE(DD)                                                        \
-  case DD:                                                                  \
-    return static_cast<int>(launch_dkv<DD>(dtype, q, k, v, dout, l, dl, dk, \
-                                           dv, B, Tq, Tk, H, Hkv, strides,  \
-                                           scale, causal, st));
+#define DKV_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return static_cast<int>(launch_dkv_f32<DD>(q, k, v, dout, l, dl, dk, dv, \
+                                               B, Tq, Tk, H, Hkv, strides,   \
+                                               scale, causal, st));
     FLASH_BWD_CASES(DKV_CASE)
 #undef DKV_CASE
     default:
