@@ -7,22 +7,27 @@ Phases, each fatal on failure:
 
 1. require CUDA; print the card's name and power limit;
 2. build every kernel from ``tpu_k8s_device_plugin_torch/csrc`` (one
-   nvcc per source, in parallel) and print the build time; K5's and K6's
-   bf16 kernels must spill nothing and issue ``wgmma`` (``HGMMA`` in the
-   built library's SASS);
+   nvcc per source, in parallel) and print the build time; the bf16
+   kernels of K3, K4, K5 and K6 must spill nothing and run on ``wgmma``
+   (``HGMMA`` in the built library's SASS);
 3. hold each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few edge shapes (attention by blocks of
    64 rows, each with bars scaled to its own values), and time the kernel,
    the plain version and one PyTorch library call for the same function
    (a yardstick only; the port never calls it): K4 (flash attention) at
-   the Llama-3-8B prefill; K4 with its lse residual, K5 (dQ) and K6
+   the Llama-3-8B prefill and at edge shapes (D 96 and 64, T 1024 with
+   GQA 4:1 and with group 1, fewer than 64 keys, Tq and Tk ragged, views
+   of one fused projection, no key at all), each bf16 block within 1.5x
+   of rounding alone and a second launch giving the same bits; K4 with
+   its lse residual, K5 (dQ) and K6
    (dK, dV) on a head slice of the LM training call (q [1, 8192, 8, 128],
    K/V [1, 8192, 2, 128], where the plain version's [T, T] f32 scores
    fit) and edge shapes (among them T 1024 with GQA 4:1, and D 96, which
    the bf16 kernels pad to 128), timed at the full call (q [1, 8192, 32,
    128], K/V [1, 8192, 8, 128]) against ``scaled_dot_product_attention``'s
    forward and backward; K1/K2 (max-pool forward/backward) and K3 (fused
-   conv+pool) at AlexNet's three stage shapes, batch 1024, bf16;
+   conv+pool) at AlexNet's three stage shapes, batch 1024, bf16, K3 also
+   at 128 features and at an odd size with 8 channels;
 4. the generation path: Llama-3-8B at full width and depth, bf16, random
    weights from a seed, through ``greedy_generate`` (batch 4, prompt
    1024, 32 new tokens): the launch counts are zeroed just before and
@@ -149,9 +154,13 @@ def attention_bound_ms(q, k, causal: bool, per_pair: int, *moved):
     return t_bytes * 1e3, "bytes"
 
 
-# the bf16 kernels of K5 and K6 (csrc/flash_attn_bwd.cu), by name in the
-# built library
-BWD_KERNELS = ("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")
+# the bf16 kernels that must run on the tensor cores through `wgmma`, by
+# library (csrc/<library>.cu) and by name in the built library
+WGMMA_KERNELS = (
+    ("flash_attn_fwd", ("flash_fwd_bf16_kernel",)),
+    ("flash_attn_bwd", ("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")),
+    ("conv_pool_fwd", ("conv_pool_bf16_kernel",)),
+)
 
 
 def _cuobjdump(build, *args) -> str:
@@ -161,14 +170,14 @@ def _cuobjdump(build, *args) -> str:
                           timeout=300, check=True).stdout
 
 
-def check_bwd_build(build) -> None:
-    """Phase 2: each bf16 kernel of K5 and K6 spills nothing (no stack
-    and no local memory in ``cuobjdump -res-usage``) and issues its
-    products as ``wgmma`` (``HGMMA`` instructions in ``cuobjdump -sass``
-    of the built library); its registers are printed beside them (at
-    launch: ``setmaxnreg`` then moves them from the producer warpgroup
-    to the consumers)."""
-    lib = str(build.lib_path("flash_attn_bwd"))
+def check_wgmma_build(build, library: str, kernels) -> None:
+    """Phase 2: each of *kernels* in the built *library* spills nothing
+    (no stack and no local memory in ``cuobjdump -res-usage``) and runs
+    its products as ``wgmma`` (``HGMMA`` instructions in ``cuobjdump
+    -sass``); its registers are printed beside them (at launch: the
+    flash kernels then move them from the producer warpgroup to the
+    consumers with ``setmaxnreg``)."""
+    lib = str(build.lib_path(library))
     usage, name = {}, None
     for line in _cuobjdump(build, "-res-usage", lib).splitlines():
         head = re.match(r"\s*Function (\S+?):?\s*$", line)
@@ -186,7 +195,7 @@ def check_bwd_build(build) -> None:
             hgmma[name] = 0
         elif name and "HGMMA" in line:
             hgmma[name] += 1
-    for kernel in BWD_KERNELS:
+    for kernel in kernels:
         found = sorted(n for n in hgmma if kernel in n)
         if not found:
             fail(f"{kernel} not in the SASS of {lib}")
@@ -206,40 +215,89 @@ def check_bwd_build(build) -> None:
                 fail(f"{kernel} issues no wgmma")
 
 
+def _held_forward(torch, fa, got, want, q, k, v, causal):
+    """Hold a forward output against the plain version's (:func:`_held`).
+    In bf16 also against the unrounded function, which is the plain
+    version on f32 copies of the inputs (P and the output stay f32):
+    ``exact_rel`` is the largest block ||got - exact|| / ||exact||, and
+    ``rounding_rel`` what the plain version's own roundings (P and the
+    output, to bf16) read against it.  The kernel rounds P against its
+    running maximum and the plain version against the row's, so the two
+    are compared through the function both of them round."""
+    key = str(got.dtype).split(".")[-1]
+    held = _held(torch, got, want, TOL[key][0], BLOCK_REL[key])
+    if got.dtype == torch.bfloat16:
+        exact = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                             causal)[0]
+        held["exact_rel"] = float(_block_stats(torch, got, exact)[3]
+                                  .nan_to_num(float("inf")).max())
+        held["rounding_rel"] = float(_block_stats(torch, want, exact)[3]
+                                     .max())
+    return held
+
+
+def _forward_line(r: dict) -> str:
+    line = (f"o max_abs_err={r['max_abs_err']:.3e} block_rel="
+            f"{r['block_rel']:.3e} mismatches={r['mismatches']}")
+    if "exact_rel" in r:
+        line += (f", against the unrounded function {r['exact_rel']:.3e} "
+                 f"(the plain version's rounding alone "
+                 f"{r['rounding_rel']:.3e})")
+    return line
+
+
+def _forward_failed(r: dict) -> bool:
+    return bool(r["mismatches"]) or (
+        "exact_rel" in r
+        and r["exact_rel"] > ROUNDING_X * r["rounding_rel"])
+
+
 def check_flash(torch, fa):
-    """Phase 3: the flash kernel against its plain version."""
+    """Phase 3: the flash kernel against its plain version: every entry
+    and every block of 64 rows within the bars, every bf16 block within
+    ROUNDING_X of rounding alone, and a second launch giving the same
+    bits."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
     # (name, q shape, Tk, KV heads, dtype, causal); "main" is the
-    # Llama-3-8B prefill's call (grouped K/V, 8 KV heads for 32)
+    # Llama-3-8B prefill's call (grouped K/V, 8 KV heads for 32); "fused"
+    # passes q/k/v as views of one fused projection
     cases = [
-        ("main", (BATCH, PROMPT, 32, 128), PROMPT, 8, torch.bfloat16, True),
-        ("ragged", (2, 600, 32, 128), 600, 8, torch.bfloat16, True),
-        ("cross", (2, 100, 8, 64), 300, 2, torch.bfloat16, False),
-        ("f32", (2, 256, 8, 64), 256, 2, torch.float32, True),
-        ("f32-ragged", (1, 200, 4, 128), 200, 4, torch.float32, False),
+        ("main", (BATCH, PROMPT, 32, 128), PROMPT, 8, bf16, True),
+        ("ragged", (2, 600, 32, 128), 600, 8, bf16, True),
+        ("cross", (2, 100, 8, 64), 300, 2, bf16, False),
+        ("d96", (1, 200, 4, 96), 200, 2, bf16, True),
+        ("d64", (2, 320, 8, 64), 320, 2, bf16, True),
+        ("t1024-gqa", (1, 1024, 8, 128), 1024, 2, bf16, True),
+        ("t1024-mha", (1, 1024, 2, 128), 1024, 2, bf16, True),
+        ("short", (2, 130, 4, 64), 40, 2, bf16, False),
+        ("fused", (2, 96, 4, 64), 96, 2, bf16, True),
+        ("no-keys", (2, 70, 4, 64), 0, 2, bf16, False),
+        ("f32", (2, 256, 8, 64), 256, 2, f32, True),
+        ("f32-ragged", (1, 200, 4, 128), 200, 4, f32, False),
     ]
     result = None
     for name, qs, tk, hkv, dtype, causal in cases:
-        B, _, _, D = qs
-        q = torch.randn(qs, generator=gen, device="cuda", dtype=dtype)
-        k = torch.randn((B, tk, hkv, D), generator=gen, device="cuda",
-                        dtype=dtype)
-        v = torch.randn((B, tk, hkv, D), generator=gen, device="cuda",
-                        dtype=dtype)
+        q, k, v, _ = _attention_inputs(torch, gen, qs, tk, hkv, dtype,
+                                       fused=name == "fused")
         got = fa.flash_attention_cuda(q, k, v, causal)
+        again = fa.flash_attention_cuda(q, k, v, causal)
         want = fa.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
         key = str(dtype).split(".")[-1]
-        held = _held(torch, got, want, TOL[key][0], BLOCK_REL[key])
-        max_err = held["max_abs_err"]
-        print(f"flash {name}: q {list(qs)} kv {[B, tk, hkv, D]} {key} "
-              f"causal={causal} " + _held_line("o", held)
+        held = _held_forward(torch, fa, got, want, q, k, v, causal)
+        print(f"flash {name}: q {list(qs)} kv {[qs[0], tk, hkv, qs[3]]} "
+              f"{key} causal={causal} " + _forward_line(held)
               + f" (tol {TOL[key][0]} x (block rms + |want|), block bar "
-              f"{BLOCK_REL[key]})", flush=True)
-        if held["mismatches"] or not torch.isfinite(got).all():
+              f"{BLOCK_REL[key]}, {ROUNDING_X}x rounding)", flush=True)
+        if _forward_failed(held) or not torch.isfinite(got).all():
             fail(f"flash kernel disagrees with its plain version ({name})")
+        if not torch.equal(got, again):
+            fail(f"two launches of the flash kernel differ ({name})")
+        if tk == 0 and bool(got.any()):
+            fail("flash kernel with no keys must give zeros")
         if name != "main":
             continue
         kernel_ms = time_ms(
@@ -256,7 +314,7 @@ def check_flash(torch, fa):
         print(f"flash main: kernel {kernel_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        result = dict(max_abs_err=max_err,
+        result = dict(max_abs_err=held["max_abs_err"],
                       max_block_rel_err=held["block_rel"], ms=kernel_ms,
                       kernel_ms=kernel_ms,
                       plain_ms=plain_ms, bound_ms=bound_ms,
@@ -349,6 +407,7 @@ def check_flash_training(torch, fa):
     cases = [  # name, q shape, Tk, KV heads, dtype, causal
         ("slice", ATTN_SLICE[0], LM_SEQ, ATTN_SLICE[1], bf16, True),
         ("ragged", (1, 200, 4, 128), 200, 1, bf16, True),
+        ("ragged-long", (2, 700, 8, 128), 700, 2, bf16, True),
         ("t1024", (1, 1024, 8, 128), 1024, 2, bf16, True),
         ("d96", (1, 200, 4, 96), 200, 2, bf16, True),
         ("short", (2, 40, 2, 64), 40, 2, bf16, True),
@@ -371,7 +430,7 @@ def check_flash_training(torch, fa):
         want = fa.flash_attention_bwd_plain(q, k, v, do, plse, delta, causal)
         key = str(dtype).split(".")[-1]
         tol, gtol, bar = TOL[key][0], GRAD_TOL[key], BLOCK_REL[key]
-        held = {"o": _held(torch, o, po, tol, bar),
+        held = {"o": _held_forward(torch, fa, o, po, q, k, v, causal),
                 "dq": _held(torch, dq, want[0], gtol, bar),
                 "dk": _held(torch, dk, want[1], gtol, bar),
                 "dv": _held(torch, dv, want[2], gtol, bar)}
@@ -381,10 +440,12 @@ def check_flash_training(torch, fa):
         print(f"flash training {name}: q {list(qs)} kv "
               f"{[qs[0], tk, hkv, qs[3]]} {key} causal={causal} "
               f"lse max_abs_err={lse_err:.3e} mismatches={lse_bad}, "
-              + ", ".join(_held_line(n, r) for n, r in held.items())
+              + ", ".join(_forward_line(r) if n == "o" else _held_line(n, r)
+                          for n, r in held.items())
               + f" (lse atol 1e-4 rtol 1e-5; o {tol}, gradients {gtol} x "
               f"(block rms + |want|); block bar {bar})", flush=True)
-        if lse_bad or any(r["mismatches"] for r in held.values()):
+        if lse_bad or _forward_failed(held["o"]) or any(
+                r["mismatches"] for r in held.values()):
             fail(f"K4 (lse), K5 or K6 disagrees with its plain version "
                  f"({name})")
         # in bf16 the gradients are the f32 ones rounded: a block reads at
@@ -688,8 +749,9 @@ def check_conv_pool(torch, cp):
     plain version's best and second-best differ by more than two bf16
     units in the last place) and at small f32 shapes (1e-5; the index
     where they differ by more than 1e-4), and on small integer inputs,
-    where every sum is exact, bit for bit; kernel, plain and library
-    (``F.conv2d`` + ``F.max_pool2d``) times summed over the stages."""
+    where every sum is exact, bit for bit; at batch 1024 a second launch
+    gives the same bits; kernel, plain and library (``F.conv2d`` +
+    ``F.max_pool2d``) times summed over the stages."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -698,6 +760,15 @@ def check_conv_pool(torch, cp):
              in enumerate(STAGES)]
     cases += [(f"{tag}-stage{i + 1}", (3, *conv_in), win, pool_in[2],
                dtype) for i, (pool_in, conv_in, win) in enumerate(STAGES)
+              for tag, dtype in (("small", torch.bfloat16),
+                                 ("f32", torch.float32))]
+    # 128 features (one block of 128), and an odd size with few channels:
+    # a 64-wide slice of the im2col matrix spans eight taps, and the
+    # last slice is ragged (K = 200)
+    cases += [(f"{tag}-f128", (3, 27, 27, 64), 3, 128, dtype)
+              for tag, dtype in (("small", torch.bfloat16),
+                                 ("f32", torch.float32))]
+    cases += [(f"{tag}-odd", (3, 15, 15, 8), 5, 64, dtype)
               for tag, dtype in (("small", torch.bfloat16),
                                  ("f32", torch.float32))]
     totals, max_err = [0.0] * 4, 0.0
@@ -746,6 +817,10 @@ def check_conv_pool(torch, cp):
                      f"({name})")
             if shape[0] != ALEX_BATCH:
                 continue
+            again = cp.conv_pool_cuda(x, k)
+            if not (torch.equal(y, again[0]) and torch.equal(idx, again[1])):
+                fail(f"two launches of the conv+pool kernel differ ({name})")
+            del again
             max_err = max(max_err, float(err.max()))
             xc = x.permute(0, 3, 1, 2)
             wc = k.permute(3, 2, 0, 1).contiguous(
@@ -977,7 +1052,8 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    check_bwd_build(build)
+    for library, names in WGMMA_KERNELS:
+        check_wgmma_build(build, library, names)
 
     counts = Counts(flash_attn_fwd=fa.flash_attention_cuda,
                     flash_attn_dq=fa.flash_attention_dq_cuda,

@@ -32,6 +32,33 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# outputs and gradients are also held by blocks of 64 rows of one (batch,
+# head): along a causal sequence their values fall as 1/sqrt(row), so a flat
+# atol lets a wrong late tile pass; each entry within the
+# tolerance x (its block's rms + |ref|), and each block's
+# ||err|| / ||ref|| within BLOCK_REL (rounding to bf16 alone reads
+# about 2e-3)
+BLOCK_ROWS = 64
+BLOCK_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def _assert_blocks_close(got, want, tol, rel_bar):
+    B, T, H, D = want.shape
+    pad = (-T) % BLOCK_ROWS
+    w = torch.nn.functional.pad(want.float(), (0, 0, 0, 0, 0, pad))
+    g = torch.nn.functional.pad(got.float(), (0, 0, 0, 0, 0, pad))
+    w = w.view(B, -1, BLOCK_ROWS, H, D)
+    diff = g.view(B, -1, BLOCK_ROWS, H, D) - w
+    n = torch.full((w.shape[1], 1), float(BLOCK_ROWS * D), device=w.device)
+    n[-1] = (T - BLOCK_ROWS * (w.shape[1] - 1)) * D
+    sq, err_sq = w.square().sum((2, 4)), diff.square().sum((2, 4))
+    rms = (sq / n).sqrt()[:, :, None, :, None]
+    assert (diff.abs() <= tol * (rms + w.abs())).all()
+    rel = torch.where(sq > 0, (err_sq / sq).sqrt(),
+                      torch.where(err_sq > 0, float("inf"), 0.0))
+    assert float(rel.max()) <= rel_bar, float(rel.max())
+
+
 def _qkv(gen, q_shape, tk, hkv, dtype):
     B, _, _, D = q_shape
     return (torch.randn(q_shape, generator=gen, device="cuda", dtype=dtype),
@@ -51,6 +78,14 @@ def _qkv(gen, q_shape, tk, hkv, dtype):
         ((2, 64, 4, 16), 200, 2, False),      # Tq != Tk, full attention
         ((1, 1, 2, 32), 1, 2, True),          # one row
         ((3, 70, 6, 48), 70, 3, True),        # odd B, H, T; D = 48
+        # the bf16 kernel streams K/V tiles of 128 keys through a ring of
+        # three stages: at T 1024 it wraps, and the diagonal tile is masked
+        ((1, 1024, 8, 128), 1024, 2, True),   # GQA 4:1
+        ((1, 1024, 2, 128), 1024, 2, True),   # group 1
+        ((1, 200, 4, 96), 200, 2, True),      # D = 96, padded to 128
+        ((2, 320, 8, 64), 320, 2, True),      # D = 64
+        ((2, 130, 4, 64), 40, 2, False),      # Tk < 64, full attention
+        ((2, 100, 8, 64), 300, 2, False),     # Tq, Tk ragged, full
     ],
 )
 def test_kernel_matches_plain(gen, q_shape, tk, hkv, causal, dtype):
@@ -62,6 +97,34 @@ def test_kernel_matches_plain(gen, q_shape, tk, hkv, causal, dtype):
     want = fa.flash_attention_plain(q, k, v, causal)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    _assert_blocks_close(got, want, tol, BLOCK_REL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("return_lse", [False, True], ids=["o", "o-lse"])
+def test_kernel_with_no_keys_gives_zeros(gen, dtype, return_lse):
+    """Tk == 0 (full attention over nothing): every row is empty, so the
+    output is 0 and the lse -inf, as the plain version gives."""
+    q, k, v = _qkv(gen, (2, 70, 4, 64), 0, 2, dtype)
+    got = fa.flash_attention_cuda(q, k, v, False, return_lse=return_lse)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_fwd_plain(q, k, v, False)
+    if return_lse:
+        assert torch.equal(got[1], want[1]) and torch.isneginf(got[1]).all()
+        got = got[0]
+    assert torch.equal(got, want[0]) and not got.any()
+
+
+def test_forward_kernel_is_deterministic(gen):
+    """K4 owns its rows and sums in a fixed order: two launches on the
+    same inputs give the same bits, output and lse."""
+    q, k, v = _qkv(gen, (1, 1024, 8, 128), 1024, 2, torch.bfloat16)
+    runs = [fa.flash_attention_cuda(q, k, v, True, return_lse=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_kernel_reads_strided_views(gen):
@@ -130,33 +193,6 @@ BWD_CASES = [  # q shape, Tk, KV heads, causal
     ((1, 200, 4, 96), 200, 2, True),      # D = 96, padded to 128
     ((2, 130, 4, 64), 40, 2, False),      # Tk < 64, full attention
 ]
-# gradients are also held by blocks of 64 rows of one (batch, head):
-# along a causal sequence their values fall as 1/sqrt(row), so a flat
-# atol lets a wrong late tile pass; each entry within the gradient
-# tolerance x (its block's rms + |ref|), and each block's
-# ||err|| / ||ref|| within BLOCK_REL (rounding to bf16 alone reads
-# about 2e-3)
-BLOCK_ROWS = 64
-BLOCK_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-
-
-def _assert_blocks_close(got, want, tol, rel_bar):
-    B, T, H, D = want.shape
-    pad = (-T) % BLOCK_ROWS
-    w = torch.nn.functional.pad(want.float(), (0, 0, 0, 0, 0, pad))
-    g = torch.nn.functional.pad(got.float(), (0, 0, 0, 0, 0, pad))
-    w = w.view(B, -1, BLOCK_ROWS, H, D)
-    diff = g.view(B, -1, BLOCK_ROWS, H, D) - w
-    n = torch.full((w.shape[1], 1), float(BLOCK_ROWS * D), device=w.device)
-    n[-1] = (T - BLOCK_ROWS * (w.shape[1] - 1)) * D
-    sq, err_sq = w.square().sum((2, 4)), diff.square().sum((2, 4))
-    rms = (sq / n).sqrt()[:, :, None, :, None]
-    assert (diff.abs() <= tol * (rms + w.abs())).all()
-    rel = torch.where(sq > 0, (err_sq / sq).sqrt(),
-                      torch.where(err_sq > 0, float("inf"), 0.0))
-    assert float(rel.max()) <= rel_bar, float(rel.max())
-
-
 def _bwd_inputs(gen, q_shape, tk, hkv, dtype, causal):
     q, k, v = _qkv(gen, q_shape, tk, hkv, dtype)
     do = torch.randn(q_shape, generator=gen, device="cuda", dtype=dtype)
@@ -176,6 +212,7 @@ def test_kernel_lse_matches_plain(gen, q_shape, tk, hkv, causal, dtype):
     want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
     tol = TOL[dtype]
     torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
+    _assert_blocks_close(o, want_o, tol, BLOCK_REL[dtype])
     # lse is f32 in both: only the order of the f32 sums differs
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
@@ -302,7 +339,10 @@ DTYPES = [torch.bfloat16, torch.float32]
 POOL_SHAPES = [(2, 56, 56, 64), (2, 27, 27, 192), (2, 13, 13, 256),
                (3, 27, 27, 64)]  # ragged batch
 CONV_SHAPES = [((2, 56, 56, 48), 3, 64), ((2, 27, 27, 64), 5, 192),
-               ((2, 13, 13, 256), 3, 256), ((3, 13, 13, 256), 3, 256)]
+               ((2, 13, 13, 256), 3, 256), ((3, 13, 13, 256), 3, 256),
+               ((2, 27, 27, 64), 3, 128),   # one block of 128 features
+               ((3, 15, 15, 8), 5, 64),     # odd size, C = 8: K = 200
+               ((1, 20, 9, 16), 3, 320)]    # H != W, five blocks of 64
 
 
 def _pool_pair(x, window=3, stride=2):
@@ -394,7 +434,8 @@ def test_conv_pool_kernel_matches_plain(gen, shape, window, feat, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
-@pytest.mark.parametrize("shape,window,feat", CONV_SHAPES[:3])
+@pytest.mark.parametrize("shape,window,feat",
+                         CONV_SHAPES[:3] + CONV_SHAPES[4:])
 def test_conv_pool_kernel_exact_on_integers(gen, shape, window, feat, dtype):
     """Integer inputs make every conv sum exact, so the kernel must give
     the plain version's values and index bit for bit, ties included."""
@@ -402,6 +443,25 @@ def test_conv_pool_kernel_exact_on_integers(gen, shape, window, feat, dtype):
     y, idx = cp.conv_pool_cuda(x, k)
     py, pidx = cp.conv_pool_plain(x, k)
     assert torch.equal(y, py) and torch.equal(idx, pidx)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_conv_pool_kernel_nan_wins_with_index_0(gen, dtype):
+    """K1's rule after the conv: a pool window that holds a NaN gives NaN
+    with index 0; -inf inputs to the pool behave as numbers."""
+    x, k = _conv_inputs(gen, (2, 15, 15, 8), 3, 64, dtype)
+    x[0, 7, 8, 3] = float("nan")
+    x[1, 2:11, 2:11, :] = float("-inf")
+    k = k.abs()  # -inf * |k| stays -inf: no NaN in the second image
+    y, idx = cp.conv_pool_cuda(x, k)
+    torch.cuda.synchronize()
+    py, pidx = cp.conv_pool_plain(x, k)
+    assert torch.isnan(py[0]).any() and not torch.isnan(py[1]).any()
+    assert torch.isneginf(py[1]).any()
+    assert torch.equal(torch.isnan(y), torch.isnan(py))
+    assert not idx[torch.isnan(py)].any()
+    assert torch.equal(torch.isinf(y), torch.isinf(py))
+    assert torch.equal(idx[torch.isinf(py)], pidx[torch.isinf(py)])
 
 
 def test_pool_and_conv_pool_kernels_refuse(gen):

@@ -2,9 +2,11 @@
 
 Each source ``csrc/<name>.cu`` exports a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, which
-is loaded with ``ctypes``.  Libraries go to ``_build/`` inside the
-package (ignored by git), named by a hash of the source, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is compiled
+is loaded with ``ctypes``.  Sources share the headers beside them
+(``csrc/*.cuh``, ``csrc/*.h``).  Libraries go to ``_build/`` inside the
+package (ignored by git), named by a hash of the source, of every header
+and of the compiler flags, so an edited source or header is rebuilt and
+an unchanged tree is reused.  Nothing is compiled
 at import: the first wrapper that launches a kernel builds it, and
 :func:`build_all` builds every source at once, one ``nvcc`` process per
 source, all started together.
@@ -57,12 +59,23 @@ def nvcc_path() -> str:
         "CUDA kernels are compiled from csrc/ at first use")
 
 
+def headers() -> List[Path]:
+    """The headers that the sources may include (``csrc/*.cuh``,
+    ``csrc/*.h``)."""
+    return sorted(p for pattern in ("*.cuh", "*.h")
+                  for p in CSRC.glob(pattern))
+
+
 def lib_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is, or will be, built."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = " ".join(NVCC_FLAGS + NVCC_LIBS)
-    tag = hashlib.sha256(src + flags.encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` is, or will be, built:
+    named by a hash of the source, every header (name and content) and
+    the compiler flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in headers():
+        digest.update(b"\0" + header.name.encode() + b"\0")
+        digest.update(header.read_bytes())
+    digest.update(b"\0" + " ".join(NVCC_FLAGS + NVCC_LIBS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

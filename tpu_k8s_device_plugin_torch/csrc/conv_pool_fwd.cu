@@ -15,269 +15,297 @@
 // 1700 FLOPs per byte of HBM, at or above the H100's ridge (~295 bf16
 // FLOPs per byte).  It is bound by tensor-core operations, or close to
 // the line for the first stage; the bytes that must move are x, the
-// kernel, y and the index.
+// kernel, y and the index.  Only `wgmma` reaches the tensor cores' full
+// rate, and the im2col operand, which exists nowhere in memory, has to be
+// gathered fast enough to feed it.
 //
-// What the design does about it.  An implicit GEMM: M = conv pixels, N =
-// features, K = window^2 * C, tap-major and channel-minor (the wrapper
-// packs the kernel as [F, window^2 * C], the JAX package's tap packing).
-// One block of 4 warps owns one image, a tile of pooled rows and 64
-// features.  It computes every conv row those pooled rows need exactly
-// once (rows 2*p0 .. 2*p0 + 2*rows; neighbouring pool windows share
-// rows), 64 pixels at a time.  Each 64x64 slice of the im2col matrix and
-// of the packed kernel is copied into shared memory with `cp.async`, the
-// SAME halo and the ragged edges zero-filled by the copy itself (no
-// padded copy of x exists), through a ring of three slots, so two steps'
-// loads are in flight while one computes.  Each thread's pixel
-// coordinates are worked out once per 64-pixel tile; a step only splits
-// its column into (tap, channel).  Each warp runs `mma.sync.m16n8k16`
-// bf16 with f32 accumulation over its 16 pixels x 64 features, its
-// fragments read with `ldmatrix`.  The tile is rounded to bf16 into
-// shared memory, where the pool runs with K1's rule, and only the pooled
-// outputs are written.  Not yet done: TMA, `wgmma`, warp specialisation.
+// What the design does about it (bf16).  An implicit GEMM: M = conv
+// pixels, N = features, K = window^2 * C, tap-major and channel-minor (the
+// wrapper packs the kernel as [F, window^2 * C], the JAX package's tap
+// packing).  One block of 384 threads owns one image, a tile of pooled
+// rows and N features, N = 64, 128, 192 or 256: all of F where it divides,
+// so the gathered operand serves every feature.  It computes every conv
+// row those pooled rows need exactly once (rows 2*p0 .. 2*p0 + 2*rows;
+// neighbouring pool windows share rows), 128 pixels at a time, 64 for each
+// of two consumer warpgroups.
+//
+// A third, producer warpgroup fills a ring of stages, each a 128 x 64
+// slice of the im2col matrix and the N x 64 slice of the packed kernel
+// under it, and runs on across pixel tiles without draining.  The kernel
+// slice comes by TMA (a 2-D map over [F, K]; columns past K read as 0).
+// The im2col slice is gathered with `cp.async`, 16 bytes (8 channels of
+// one tap) a copy, the SAME halo and the ragged edges zero-filled by the
+// copy itself (no padded copy of x exists), and written in the 128-byte
+// swizzle by hand (16-byte chunk c of row r at chunk c ^ (r % 8)), which
+// keeps a 64-wide slice free to span two taps (C = 48); TMA's im2col maps
+// would want C a multiple of the slice.  Each thread's pixel coordinates
+// are worked out once per pixel tile, and its (tap, channel) advances by
+// additions.  The copies and the TMA complete on the stage's `full`
+// mbarrier; a consumer waits for it, starts the slice's `wgmma`s
+// (m64nNk16, bf16 in, f32 accumulate, both operands read from shared
+// memory by the hardware) and hands the stage back
+// through its `empty` mbarrier one step later, so a step's products
+// overlap the next step's.  There is no block barrier in the loop.
+//
+// A finished 64 x N tile is rounded to bf16 into the block's conv tile in
+// shared memory.  After the last tile the whole block runs the pool with
+// K1's rule, eight features a thread (16-byte reads and writes, packed
+// bf16 compares), and only the pooled outputs are written.  The launch code sizes the ring (4, 3 or
+// 2 stages) and the pooled rows per block from the 227 KB of shared
+// memory, taking the split that computes the fewest 128-pixel tiles.
 // f32 inputs, which only the tests use, take a plain FMA path with the
-// same epilogue.
+// same rule.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int POOL_W = 3;  // pool window (VALID)
 constexpr int POOL_S = 2;  // pool stride
-constexpr int BM = 64;     // conv pixels per GEMM tile (4 warps x 16)
-constexpr int BN = 64;     // features per block
-constexpr int BK = 64;     // contraction per shared tile (4 x 16)
-constexpr int NTHREADS = 128;
-static_assert(BM == BN, "A and B tiles share one shared-memory shape");
-constexpr int STAGES = 3;  // bf16 path: shared tiles in flight
-// +8 columns: rows start 16 bytes apart mod 128, so the fragment reads
-// and the epilogue's stores hit distinct banks
-constexpr int LDA = BK + 8;
-constexpr int LDC = BN + 8;
-// dynamic shared memory per block: two blocks fit on an SM
-constexpr int SMEM_BUDGET = 112 * 1024;
+
+constexpr int NT = 384;    // bf16: a producer and two consumer warpgroups
+constexpr int TM = 128;    // conv pixels per GEMM tile, 64 per consumer
+constexpr int TK = 64;     // contraction per stage: one 128-byte line
+constexpr int A_BYTES = TM * TK * 2;
+constexpr int PAD = 8;     // conv-tile rows start 16 bytes apart mod 128
+constexpr int SMEM_MAX = 227 * 1024;
+
+constexpr int F_BN = 64;        // f32 path: features per block
+constexpr int F_LDC = F_BN + PAD;
+constexpr int F_THREADS = 128;
+constexpr int F_SMEM_BUDGET = 112 * 1024;
 
 struct Geo {
   int B, H, W, C, F, window, pad, KK;  // KK = window * window * C
   int OH, OW, WC;  // pooled dims; WC = 2 * OW + 1 conv columns pooled
   int PR;          // pooled rows per block
+  int NS;          // bf16: stages of the ring
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(uint16_t v) {
-  return __uint_as_float(static_cast<uint32_t>(v) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2, round to nearest even; `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The pool over the block's rounded conv tile sC [nr * WC][LDC]: one
-// thread per (pooled row, pooled column, feature), features fastest so
-// the stores coalesce.  K1's rule: seed with offset 0, replace only on a
-// strictly greater value; a NaN makes the max NaN with index 0.
-template <typename T>
-__device__ void pool_epilogue(const T* sC, T* __restrict__ y,
-                              int8_t* __restrict__ idx, const Geo& g, int b,
-                              int p0, int prs, int f0) {
-  for (int o = threadIdx.x; o < prs * g.OW * BN; o += NTHREADS) {
-    const int f = o % BN;
-    const int pw = (o / BN) % g.OW;
-    const int pr = o / (BN * g.OW);
-    const T* c = sC + (POOL_S * pr * g.WC + POOL_S * pw) * LDC + f;
-    T best = c[0];
-    float m = to_f(best);
-    int bi = 0;
-#pragma unroll
-    for (int k = 1; k < POOL_W * POOL_W; ++k) {
-      const int di = k / POOL_W, dj = k % POOL_W;
-      const T v = c[(di * g.WC + dj) * LDC];
-      const float fv = to_f(v);
-      if (m != m) break;  // NaN already: stays, index 0
-      if (fv != fv) {
-        m = fv;
-        best = v;
-        bi = 0;
-      } else if (fv > m) {
-        m = fv;
-        best = v;
-        bi = k;
-      }
-    }
-    const long long out =
-        ((static_cast<long long>(b) * g.OH + p0 + pr) * g.OW + pw) * g.F +
-        f0 + f;
-    y[out] = best;
-    idx[out] = static_cast<int8_t>(bi);
+// K1's rule for one candidate at window offset k: replace only on a
+// strictly greater value; a NaN makes the max NaN with index 0 and stays
+__device__ __forceinline__ void pool_take(float& m, int& bi, float fv,
+                                          int k) {
+  if (m == m && (fv != fv || fv > m)) {
+    m = fv;
+    bi = fv != fv ? 0 : k;
   }
 }
 
-// 16 bytes global -> shared without a register round trip; src_bytes 0
-// writes zeros (the SAME halo and the ragged edges), reading nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NT, 1)
     conv_pool_bf16_kernel(const uint16_t* __restrict__ x,
-                          const uint16_t* __restrict__ kp,
+                          const __grid_constant__ CUtensorMap tkp,
                           uint16_t* __restrict__ y, int8_t* __restrict__ idx,
                           Geo g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // STAGES slots of [A tile | B tile], then the block's conv tile
-  typedef uint16_t Tile[BM][LDA];
-  Tile* sA = reinterpret_cast<Tile*>(smem);
-  Tile* sB = sA + STAGES;
-  uint16_t* sC = reinterpret_cast<uint16_t*>(sB + STAGES);
+  constexpr int B_BYTES = N * TK * 2, STAGE = A_BYTES + B_BYTES;
+  constexpr int LDC = N + PAD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  // the ring (stage s: the im2col slice, then the kernel slice), the
+  // barriers (stage s full, stage s empty), then the block's conv tile
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t full = ring + g.NS * STAGE, empty = full + 8 * g.NS;
+  uint16_t* sC =
+      reinterpret_cast<uint16_t*>(smem + g.NS * STAGE + 16 * g.NS);
 
-  const int f0 = blockIdx.x * BN, p0 = blockIdx.y * g.PR, b = blockIdx.z;
+  const int f0 = blockIdx.x * N, p0 = blockIdx.y * g.PR, b = blockIdx.z;
   const int prs = min(g.PR, g.OH - p0);
   const int M = (POOL_S * prs + 1) * g.WC;  // conv pixels of the block
   const int h0 = POOL_S * p0;               // its first conv row
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, t4 = lane & 3;
-  const uint16_t* xb = x + static_cast<long long>(b) * g.H * g.W * g.C;
-  const uint16_t* kb = kp + static_cast<long long>(f0) * g.KK;
-  const int nsteps = (g.KK + BK - 1) / BK;
+  const int nsteps = (g.KK + TK - 1) / TK, ntiles = (M + TM - 1) / TM;
 
-  // this thread's share of every tile load: 16 bytes at column kc of
-  // rows r0, r0 + 16, r0 + 32, r0 + 48 (of A and of B)
-  constexpr int ROWS = BM * (BK / 8) / NTHREADS;  // 4
-  const int kc = (threadIdx.x % (BK / 8)) * 8;
-  const int r0 = threadIdx.x / (BK / 8);
-
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    // the input pixel under tap (0, 0) of each of this thread's rows
-    int hb[ROWS], wb[ROWS];
-#pragma unroll
-    for (int j = 0; j < ROWS; ++j) {
-      const int m = m0 + r0 + j * (BM / ROWS);
-      const int row = m / g.WC;
-      hb[j] = m < M ? h0 + row - g.pad : -(1 << 20);  // invalid: masked
-      wb[j] = m - row * g.WC - g.pad;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.NS; ++s) {
+      // the producer's 128 threads (their copies landed) and the thread
+      // that announces the TMA's bytes
+      mbar_init(full + 8 * s, 129);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
     }
-    auto load = [&](int slot, int k0) {
-      const int k = k0 + kc;
-      const bool kok = k < g.KK;
-      const int tap = kok ? k / g.C : 0, ch = k - tap * g.C;
-      const int di = tap / g.window, dj = tap - di * g.window;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer.  This thread copies chunk c (8 channels) of rows r0,
+    // r0 + 16, ... of every slice; r % 8 is the same for all of them
+    const int c = threadIdx.x % 8, r0 = threadIdx.x / 8;
+    const uint32_t dst0 = r0 * 128 + ((c ^ (r0 & 7)) << 4);
+    const uint16_t* xb = x + static_cast<long long>(b) * g.H * g.W * g.C;
+    int s = 0, round = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      // the input pixel under tap (0, 0) of each of this thread's rows
+      int hb[TM / 16], wb[TM / 16];
 #pragma unroll
-      for (int j = 0; j < ROWS; ++j) {
-        const int r = r0 + j * (BM / ROWS);
-        const int hh = hb[j] + di, ww = wb[j] + dj;
-        const bool ok =
-            kok && hh >= 0 && hh < g.H && ww >= 0 && ww < g.W;
-        const uint16_t* src =
-            ok ? xb + (static_cast<long long>(hh) * g.W + ww) * g.C + ch : xb;
-        cp_async16(&sA[slot][r][kc], src, ok ? 16 : 0);
-        cp_async16(&sB[slot][r][kc],
-                   kok ? kb + static_cast<long long>(r) * g.KK + k : kb,
-                   kok ? 16 : 0);
+      for (int j = 0; j < TM / 16; ++j) {
+        const int m = t * TM + r0 + 16 * j;
+        const int row = m / g.WC;
+        hb[j] = m < M ? h0 + row - g.pad : -(1 << 20);  // invalid: masked
+        wb[j] = m - row * g.WC - g.pad;
       }
-    };
-
-    float acc[BN / 8][4];
+      // column k = 64 step + 8 c of the im2col matrix as (tap row, tap
+      // column, channel); past the last tap, di reaches the window
+      int ch = 8 * c, di = 0, dj = 0;
+      auto carry = [&]() {
+        while (ch >= g.C) {
+          ch -= g.C;
+          if (++dj == g.window) {
+            dj = 0;
+            ++di;
+          }
+        }
+      };
+      carry();
+      for (int ks = 0; ks < nsteps; ++ks) {
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        const uint32_t sA = ring + s * STAGE;
+        if (threadIdx.x == 0) {
+          mbar_expect_tx(full + 8 * s, B_BYTES);
+          tma_load_2d(sA + A_BYTES, &tkp, full + 8 * s, ks * TK, f0);
+        }
+        const bool kok = di < g.window;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-    // a ring of STAGES slots: the loads of step s + STAGES - 1 are in
-    // flight while step s computes
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      if (st < nsteps) load(st, st * BK);
-      cp_async_commit();
-    }
-    for (int s = 0; s < nsteps; ++s) {
-      cp_async_wait<STAGES - 2>();  // step s has landed (this thread's part)
-      __syncthreads();  // ... every thread's; and step s - 1 is computed
-      const int next = s + STAGES - 1;
-      if (next < nsteps) load(next % STAGES, next * BK);
-      cp_async_commit();
-      const int slot = s % STAGES;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, &sA[slot][warp * 16 + lane % 16][kk * 16 +
-                                                        (lane / 16) * 8]);
-#pragma unroll
-        for (int np = 0; np < BN / 16; ++np) {
-          uint32_t bf[4];  // b0, b1 of n-tiles 2 np and 2 np + 1
-          ldmatrix_x4(bf, &sB[slot][np * 16 + (lane / 16) * 8 + lane % 8]
-                             [kk * 16 + ((lane / 8) & 1) * 8]);
-          mma_bf16_16816(acc[2 * np], a, bf[0], bf[1]);
-          mma_bf16_16816(acc[2 * np + 1], a, bf[2], bf[3]);
+        for (int j = 0; j < TM / 16; ++j) {
+          const int hh = hb[j] + di, ww = wb[j] + dj;
+          const bool ok = kok && hh >= 0 && hh < g.H && ww >= 0 && ww < g.W;
+          const uint16_t* from =
+              ok ? xb + (static_cast<long long>(hh) * g.W + ww) * g.C + ch
+                 : xb;
+          cp_async16(sA + dst0 + j * 16 * 128, from, ok ? 16 : 0);
+        }
+        cp_async_arrive(full + 8 * s);
+        ch += TK;
+        carry();
+        if (++s == g.NS) {
+          s = 0;
+          ++round;
         }
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();  // every warp is done with the ring
+  } else {
+    const int wg = threadIdx.x / 128 - 1, warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32, gq = lane / 4, t4 = lane % 4;
+    const bool leader = threadIdx.x % 128 == 0;  // arrives for its warpgroup
+    float acc[N / 2];
+    int s = 0, round = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      int held = -1;  // the stage that the last step's wgmmas still read
+      for (int ks = 0; ks < nsteps; ++ks) {
+        const uint32_t sA = ring + s * STAGE, sB = sA + A_BYTES;
+        mbar_wait(full + 8 * s, round & 1);
+        fence_proxy_async();  // the gather's writes, before wgmma reads
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk) {
+          // the first product zeroes the accumulators
+          wgmma_ss<N>(acc, desc_k(sA, TM, wg * 64, kk), desc_k(sB, N, 0, kk),
+                      ks > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the step before has ended: its stage goes back
+        if (leader && held >= 0) mbar_arrive(empty + 8 * held);
+        held = s;
+        if (++s == g.NS) {
+          s = 0;
+          ++round;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (leader) mbar_arrive(empty + 8 * held);
 
-    // round to bf16 into the block's conv tile
+      // round to bf16 into the block's conv tile; accumulator a holds
+      // feature 8 (a / 4) + 2 t4 + a % 2 of row gq + 8 ((a / 2) % 2) of
+      // this warp's 16
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = m0 + warp * 16 + gq + 8 * i;
-      if (row >= M) continue;
+      for (int i = 0; i < 2; ++i) {
+        const int row = t * TM + wg * 64 + warp * 16 + gq + 8 * i;
+        if (row >= M) continue;
 #pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt)
-        *reinterpret_cast<uint32_t*>(&sC[row * LDC + nt * 8 + t4 * 2]) =
-            pack_bf16(acc[nt][2 * i], acc[nt][2 * i + 1]);
+        for (int a = 2 * i; a < N / 2; a += 4) {
+          const int col = (a / 4) * 8 + t4 * 2;
+          *reinterpret_cast<uint32_t*>(&sC[row * LDC + col]) =
+              pack_bf16(acc[a], acc[a + 1]);
+        }
+      }
     }
   }
   __syncthreads();
-  pool_epilogue<uint16_t>(sC, y, idx, g, b, p0, prs, f0);
+
+  // the pool over the block's rounded conv tile sC [M][LDC]: one thread
+  // per (pooled row, pooled column, 8 features), features fastest so the
+  // stores coalesce
+  constexpr int F8 = N / 8;
+  for (int o = threadIdx.x; o < prs * g.OW * F8; o += NT) {
+    const int f8 = o % F8, pw = (o / F8) % g.OW, pr = o / (F8 * g.OW);
+    const uint16_t* cell =
+        sC + (POOL_S * pr * g.WC + POOL_S * pw) * LDC + f8 * 8;
+    // K1's rule on bf16 pairs: a candidate replaces the best only where
+    // it is strictly greater (an ordered compare: false beside a NaN),
+    // so the first match wins; a pair's two 16-bit lanes of `bi` hold its
+    // window offsets.  NaNs are noted apart and win at the end with
+    // offset 0: a bf16 is a NaN when its low 15 bits exceed 0x7f80
+    uint32_t m[4], bi[4], nan[4];
+#pragma unroll
+    for (int k = 0; k < POOL_W * POOL_W; ++k) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          cell + ((k / POOL_W) * g.WC + k % POOL_W) * LDC);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t is_nan =
+            ((w[e] & 0x7fff7fffu) + 0x007f007fu) & 0x80008000u;
+        if (k == 0) {
+          m[e] = w[e];
+          bi[e] = 0;
+          nan[e] = is_nan;
+        } else {
+          const uint32_t gt = __hgt2_mask(
+              *reinterpret_cast<const __nv_bfloat162*>(&w[e]),
+              *reinterpret_cast<const __nv_bfloat162*>(&m[e]));
+          m[e] = (w[e] & gt) | (m[e] & ~gt);
+          bi[e] = ((k * 0x00010001u) & gt) | (bi[e] & ~gt);
+          nan[e] |= is_nan;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t lanes = ((nan[e] >> 15) & 0x00010001u) * 0xffffu;
+      m[e] = (m[e] & ~lanes) | (0x7fc07fc0u & lanes);
+      bi[e] &= ~lanes;
+    }
+    const uint4 best = make_uint4(m[0], m[1], m[2], m[3]);
+    // the low byte of each 16-bit lane
+    const uint2 which = make_uint2(__byte_perm(bi[0], bi[1], 0x6420),
+                                   __byte_perm(bi[2], bi[3], 0x6420));
+    const long long out =
+        ((static_cast<long long>(b) * g.OH + p0 + pr) * g.OW + pw) * g.F +
+        f0 + f8 * 8;
+    *reinterpret_cast<uint4*>(y + out) = best;
+    *reinterpret_cast<uint2*>(idx + out) = which;
+  }
 }
 
 // f32 inputs: one thread per (conv pixel, feature) at a time, plain FMAs
-// in tap-major, channel-minor order, then the same epilogue.
-__global__ void __launch_bounds__(NTHREADS)
+// in tap-major, channel-minor order, then the pool, one thread an output.
+__global__ void __launch_bounds__(F_THREADS)
     conv_pool_f32_kernel(const float* __restrict__ x,
                          const float* __restrict__ kp, float* __restrict__ y,
                          int8_t* __restrict__ idx, Geo g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sC = reinterpret_cast<float*>(smem);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sC = reinterpret_cast<float*>(smem_raw);
 
-  const int f0 = blockIdx.x * BN, p0 = blockIdx.y * g.PR, b = blockIdx.z;
+  const int f0 = blockIdx.x * F_BN, p0 = blockIdx.y * g.PR, b = blockIdx.z;
   const int prs = min(g.PR, g.OH - p0);
   const int M = (POOL_S * prs + 1) * g.WC;
   const int h0 = POOL_S * p0;
   const float* xb = x + static_cast<long long>(b) * g.H * g.W * g.C;
 
-  for (int o = threadIdx.x; o < M * BN; o += NTHREADS) {
-    const int n = o % BN, m = o / BN;
+  for (int o = threadIdx.x; o < M * F_BN; o += F_THREADS) {
+    const int n = o % F_BN, m = o / F_BN;
     const int row = m / g.WC, col = m - row * g.WC;
     const float* kr = kp + static_cast<long long>(f0 + n) * g.KK;
     float acc = 0.f;
@@ -292,18 +320,108 @@ __global__ void __launch_bounds__(NTHREADS)
         for (int c = 0; c < g.C; ++c) acc = fmaf(xp[c], kt[c], acc);
       }
     }
-    sC[m * LDC + n] = acc;
+    sC[m * F_LDC + n] = acc;
   }
   __syncthreads();
-  pool_epilogue<float>(sC, y, idx, g, b, p0, prs, f0);
+  for (int o = threadIdx.x; o < prs * g.OW * F_BN; o += F_THREADS) {
+    const int f = o % F_BN, pw = (o / F_BN) % g.OW, pr = o / (F_BN * g.OW);
+    const float* cell =
+        sC + (POOL_S * pr * g.WC + POOL_S * pw) * F_LDC + f;
+    float m = cell[0];
+    int bi = 0;
+#pragma unroll
+    for (int k = 1; k < POOL_W * POOL_W; ++k)
+      pool_take(m, bi, cell[((k / POOL_W) * g.WC + k % POOL_W) * F_LDC], k);
+    const long long out =
+        ((static_cast<long long>(b) * g.OH + p0 + pr) * g.OW + pw) * g.F +
+        f0 + f;
+    y[out] = m;
+    idx[out] = static_cast<int8_t>(bi);
+  }
 }
 
-int smem_bytes(const Geo& g, int pr, bool bf16) {
-  const int tile = (POOL_S * pr + 1) * g.WC * LDC *
-                   static_cast<int>(bf16 ? sizeof(uint16_t) : sizeof(float));
-  return tile + (bf16 ? STAGES * (BM + BN) * LDA *
-                             static_cast<int>(sizeof(uint16_t))
-                      : 0);
+// the pooled rows per block when `pr` fit: spread evenly over the row
+// tiles, so the last one is not a sliver
+int spread(int oh, int pr) {
+  const int tiles = (oh + pr - 1) / pr;
+  return (oh + tiles - 1) / tiles;
+}
+
+// bf16: the shared memory of a block of `pr` pooled rows and `ns` stages
+int bf16_smem(const Geo& g, int n, int pr, int ns) {
+  return 1024 + ns * (A_BYTES + n * TK * 2) +
+         (POOL_S * pr + 1) * g.WC * (n + PAD) * 2 + 16 * ns;
+}
+
+// bf16: the 128-pixel GEMM tiles one image costs at `pr` pooled rows a
+// block
+int bf16_tiles(const Geo& g, int pr) {
+  int tiles = 0;
+  for (int p0 = 0; p0 < g.OH; p0 += pr) {
+    const int prs = g.OH - p0 < pr ? g.OH - p0 : pr;
+    tiles += ((POOL_S * prs + 1) * g.WC + TM - 1) / TM;
+  }
+  return tiles;
+}
+
+template <int N>
+int launch_bf16(const void* x, const void* kp, void* y, void* idx, Geo g,
+                cudaStream_t stream) {
+  // the ring's depth and the pooled rows per block, from the shared-memory
+  // budget: the split with the fewest GEMM tiles, the deeper ring on a tie
+  int best = -1;
+  for (int ns = 4; ns >= 2; --ns) {
+    int pr = g.OH;
+    while (pr > 1 && bf16_smem(g, N, pr, ns) > SMEM_MAX) --pr;
+    if (bf16_smem(g, N, pr, ns) > SMEM_MAX) continue;
+    pr = spread(g.OH, pr);
+    const int tiles = bf16_tiles(g, pr);
+    if (best < 0 || tiles < best) {
+      best = tiles;
+      g.PR = pr;
+      g.NS = ns;
+    }
+  }
+  if (best < 0) return -2;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(g.KK),
+                              static_cast<cuuint64_t>(g.F)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(g.KK) * 2};
+  const cuuint32_t box[2] = {TK, N};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(kp), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return TMA_ERROR + static_cast<int>(r);
+  const int smem = bf16_smem(g, N, g.PR, g.NS);
+  const cudaError_t err = set_smem(conv_pool_bf16_kernel<N>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(g.F / N, (g.OH + g.PR - 1) / g.PR, g.B);
+  conv_pool_bf16_kernel<N><<<grid, NT, smem, stream>>>(
+      static_cast<const uint16_t*>(x), map, static_cast<uint16_t*>(y),
+      static_cast<int8_t*>(idx), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const void* x, const void* kp, void* y, void* idx, Geo g,
+               cudaStream_t stream) {
+  auto smem_bytes = [&](int pr) {
+    return (POOL_S * pr + 1) * g.WC * F_LDC * static_cast<int>(sizeof(float));
+  };
+  int pr = g.OH;
+  while (pr > 1 && smem_bytes(pr) > F_SMEM_BUDGET) --pr;
+  if (smem_bytes(pr) > F_SMEM_BUDGET) return -2;
+  g.PR = spread(g.OH, pr);
+  const int smem = smem_bytes(g.PR);
+  const cudaError_t err = set_smem(conv_pool_f32_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(g.F / F_BN, (g.OH + g.PR - 1) / g.PR, g.B);
+  conv_pool_f32_kernel<<<grid, F_THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(kp),
+      static_cast<float*>(y), static_cast<int8_t*>(idx), g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -314,15 +432,15 @@ int smem_bytes(const Geo& g, int pr, bool bf16) {
 // OW likewise.  dtype 0 = bf16, 1 = f32.  Needs F % 64 == 0, an odd
 // window, H, W >= 3, and for bf16 C % 8 == 0 with 16-byte aligned x and
 // kp.  Launches on `stream` without synchronising.  Returns 0, a
-// cudaError_t, -1 for an unsupported dtype or shape, or -2 when one
-// pooled row's tile does not fit in shared memory.
+// cudaError_t, -1 for an unsupported dtype or shape, -2 when one pooled
+// row's tile does not fit in shared memory, or TMA_ERROR (10000) + the
+// CUresult of a tensor map that could not be encoded.
 extern "C" int conv_pool_fwd(const void* x, const void* kp, void* y,
                              void* idx, int dtype, int B, int H, int W, int C,
                              int F, int window, void* stream) {
-  if ((dtype != 0 && dtype != 1) || F % BN || window % 2 == 0 ||
+  if ((dtype != 0 && dtype != 1) || F % 64 || window % 2 == 0 ||
       H < POOL_W || W < POOL_W || (dtype == 0 && C % 8))
     return -1;
-  const bool bf16 = dtype == 0;
   Geo g;
   g.B = B;
   g.H = H;
@@ -335,34 +453,13 @@ extern "C" int conv_pool_fwd(const void* x, const void* kp, void* y,
   g.OH = (H - POOL_W) / POOL_S + 1;
   g.OW = (W - POOL_W) / POOL_S + 1;
   g.WC = POOL_S * g.OW + 1;
-  // the most pooled rows whose tile fits, then spread evenly over the
-  // row tiles so the last one is not a sliver
-  int pr = g.OH;
-  while (pr > 1 && smem_bytes(g, pr, bf16) > SMEM_BUDGET) --pr;
-  if (smem_bytes(g, pr, bf16) > SMEM_BUDGET) return -2;
-  const int tiles = (g.OH + pr - 1) / pr;
-  g.PR = (g.OH + tiles - 1) / tiles;
-  const int smem = smem_bytes(g, g.PR, bf16);
-
+  g.PR = g.NS = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(F / BN, tiles, B);
-  cudaError_t err;
-  if (bf16) {
-    err = cudaFuncSetAttribute(conv_pool_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    conv_pool_bf16_kernel<<<grid, NTHREADS, smem, st>>>(
-        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(kp),
-        static_cast<uint16_t*>(y), static_cast<int8_t*>(idx), g);
-  } else {
-    err = cudaFuncSetAttribute(conv_pool_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    conv_pool_f32_kernel<<<grid, NTHREADS, smem, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(kp),
-        static_cast<float*>(y), static_cast<int8_t*>(idx), g);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) return launch_f32(x, kp, y, idx, g, st);
+  // the widest block that divides F: the gathered operand is shared by
+  // as many features as possible
+  if (F % 256 == 0) return launch_bf16<256>(x, kp, y, idx, g, st);
+  if (F % 192 == 0) return launch_bf16<192>(x, kp, y, idx, g, st);
+  if (F % 128 == 0) return launch_bf16<128>(x, kp, y, idx, g, st);
+  return launch_bf16<64>(x, kp, y, idx, g, st);
 }

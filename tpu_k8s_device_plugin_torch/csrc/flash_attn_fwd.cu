@@ -1,245 +1,253 @@
-// Flash attention forward for Hopper (sm_90a), with a plain C interface.
+// Flash attention forward (K4) for Hopper (sm_90a), with a plain C
+// interface.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` driven by `_flash_fwd_bhtd`
 // (tpu_k8s_device_plugin/workloads/flash_attention.py): causal or full
 // attention over [B, T, H, D] with an online softmax in f32, causal runs
 // stopping at the diagonal, and rows with no visible key written as 0.
 //
-// What bounds it on this card.  Prefill attention at head_dim 128 does
-// 4*D = 512 FLOPs for every visible (query, key) pair and moves only
-// O(T*D) bytes, so at T >= 512 it sits far above the H100's ridge point
-// (~295 bf16 FLOPs per byte of HBM): it is bound by tensor-core
-// operations, and the [T, T] score matrix must never reach memory.
+// What bounds it on this card.  Attention at head_dim 128 does 4*D = 512
+// FLOPs for every visible (query, key) pair and moves only O(T*D) bytes,
+// so at T >= 512 it sits far above the H100's ridge point (~295 bf16 FLOPs
+// per byte of HBM): it is bound by tensor-core operations, and the [T, T]
+// score matrix must never reach memory.  Only `wgmma` reaches the tensor
+// cores' full rate, and it stalls whenever a tile is still on its way or
+// the softmax between its two products holds the warpgroup.
 //
-// What the design does about it.  One block of 4 warps owns a 64-row
-// query tile of one (batch, head); each warp owns 16 rows.  K/V stream
-// through shared memory in 64-row tiles; S = Q K^T * scale and O += P V
-// run on `mma.sync.m16n8k16` in bf16 with f32 accumulation, and P never
-// leaves registers (the S accumulator fragments are exactly the A
-// fragments of the P V product).  The running max, sum and accumulator
-// stay in f32; P is rounded to bf16 before P V, as the TPU kernel does.
-// The kernel reads [B, T, H, D] through its strides (no transposes),
-// masks a ragged T itself, and maps query head h to KV head h / group,
-// so grouped K/V are read at their compact size.  This is the simple
-// first form: no cp.async/TMA pipelining, no wgmma, no warp
-// specialisation.  An f32 path with plain FMAs serves f32 inputs.
+// What the design does about it (bf16).  One block of 384 threads owns 128
+// query rows of one (batch, head): a producer warpgroup, which gives its
+// registers away (`setmaxnreg`: 24 for it, 240 for each consumer), and two
+// consumer warpgroups of 64 rows each.  The producer's first thread loads
+// Q once by TMA and streams the K/V tiles of BN keys through a ring of NS
+// stages: it waits for a stage's `empty` mbarrier (both consumers have
+// handed it back), then loads it with TMA, which reports the bytes to the
+// stage's `full` mbarrier.  There is no block barrier in the loop, so the
+// consumers drift apart and one's softmax overlaps the other's products.
+// Per tile a consumer computes S = Q K^T (m64nBNk16, both operands K-major
+// in shared memory), the online softmax in registers in the log2 domain
+// (`ex2.approx` of S * scale * log2(e) - max * scale * log2(e)), rounds P
+// to bf16 straight from the S accumulator fragments, which are laid out as
+// the A fragments of the next product (the TPU kernel's rounding point),
+// and starts O += P V (m64nDk16) with P from registers and the V tile read
+// MN-major (the transpose bit).  P V runs on while the next tile's S is
+// queued behind it; the stage goes back to the producer when both have
+// ended.  The mask is applied only on a tile that crosses the diagonal or
+// the end of Tk; the running max, sum and O stay in f32; a row with no
+// visible key keeps max = -inf, is shifted by 0 instead, and gives 0 (never
+// exp(-inf - (-inf))).  The heaviest causal blocks (the last rows) are
+// launched first.
 //
-// With a non-null `lse` the kernel also writes the per-row logsumexp
-// m + log(l) (f32, [B, H, Tq]; -inf for a row with no visible key), the
-// residual the backward kernels (flash_attn_bwd.cu) rebuild P from, as
-// the TPU kernel does under `save_residuals`.  The running max and sum
-// are already in registers at the end, so the cost is one f32 write per
-// row; the inference path passes null and writes nothing more.
+// Tiles are stored as hopper.cuh describes: [Dp / 64][rows][64] in the
+// 128-byte swizzle, Dp = 64 or 128 (head dims below are zero-padded in
+// shared memory: TMA reads columns past D and rows past T as 0, and they
+// are never written back).  The tensor maps are encoded per call over the
+// tensors' (batch, time, head) strides, so the fused-projection views of
+// the model need no copy, and query head h reads KV head h / group, so
+// grouped K/V are read at their compact size.  With no key at all (Tk = 0)
+// no map can be encoded: a small kernel writes the zeros.  An f32 path
+// with plain FMAs serves f32 inputs.
+//
+// With a non-null `lse` the kernel also writes the per-row natural-log
+// logsumexp max * scale + log(sum) (f32, [B, H, Tq]; -inf for a row with
+// no visible key), the residual the backward kernels (flash_attn_bwd.cu)
+// rebuild P from, as the TPU kernel does under `save_residuals`.  The
+// running max and sum are already in registers at the end, so the cost is
+// one f32 write per row; the inference path passes null and writes nothing
+// more.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block (4 warps x 16 rows)
-constexpr int BK = 64;  // key rows per shared-memory tile
-constexpr int NTHREADS = 128;
+using namespace hopper;
+
+constexpr int NT = 384;  // bf16: a producer and two consumer warpgroups
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // setmaxnreg
+constexpr int BM = 128;  // query rows per block, 64 per consumer warpgroup
+constexpr int BN = 128;  // keys per streamed tile
+constexpr int NS = 3;    // stages of the ring (Q + 3 x 64 KB at D 128: 225 KB)
 
 constexpr int F_BQ = 64;  // f32 path: one thread per query row
 constexpr int F_BK = 32;  // f32 path: key rows per shared-memory tile
 
-struct Strides {
-  long long b, t, h;  // element strides; the head dim has stride 1
-};
+template <int DP>
+__global__ void __launch_bounds__(NT, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          uint16_t* __restrict__ o, float* __restrict__ lse,
+                          int D, int Tq, int Tk, int group, Strides os,
+                          float scale, int causal) {
+  constexpr int QB = BM * DP * 2, KB = BN * DP * 2;  // tile bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  // Q, the ring (stage s: K at ring + 2 s KB, V after it), then the
+  // barriers: Q in, stage s full, stage s empty
+  const uint32_t sQ = smem_u32(smem), ring = sQ + QB;
+  const uint32_t qbar = ring + NS * 2 * KB, full = qbar + 8,
+                 empty = full + 8 * NS;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2, round to nearest even; `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// Rows [row0, row0 + 64) of one head into a shared tile, 16 bytes per
-// thread per step; rows at or past T are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t (*dst)[D + 8],
-                                          const uint16_t* src,
-                                          long long t_stride, int row0,
-                                          int T) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < BK * CH; c += NTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * t_stride + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
+  const int h = blockIdx.x, b = blockIdx.z, H = gridDim.x;
+  // last query rows first: under a causal mask they have the most work
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (Tk + BN - 1) / BN;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BM, Tq) + BN - 1) / BN);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
-                          const uint16_t* __restrict__ k,
-                          const uint16_t* __restrict__ v,
-                          uint16_t* __restrict__ o,
-                          float* __restrict__ lse, int Tq, int Tk,
-                          int group, Strides qs, Strides ks, Strides vs,
-                          Strides os, float scale, int causal) {
-  // +8 columns: rows start 16 bytes apart mod 128, so the fragment
-  // reads below hit 32 distinct banks
-  __shared__ __align__(16) uint16_t sK[BK][D + 8];
-  __shared__ __align__(16) uint16_t sV[BK][D + 8];
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / group;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const uint16_t* qp = q + b * qs.b + h * qs.h;
-  const uint16_t* kp = k + b * ks.b + hk * ks.h;
-  const uint16_t* vp = v + b * vs.b + hk * vs.h;
-
-  // Q tile through sK into A fragments, kept in registers throughout
-  load_tile<D>(sK, qp, qs.t, q0, Tq);
   __syncthreads();
-  const int r = warp * 16 + g;
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(&sK[r][c]);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(&sK[r + 8][c]);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(&sK[r][c + 8]);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(&sK[r + 8][c + 8]);
-  }
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  // this thread's two rows: g and g + 8 of its warp's 16
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + r, q0 + r + 8};
-
-  int n_tiles = (Tk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(sK, kp, ks.t, k0, Tk);
-    load_tile<D>(sV, vp, vs.t, k0, Tk);
-    __syncthreads();
-
-    // S = Q K^T: 8 n-tiles of 8 keys, f32 accumulate
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int c = kk * 16 + t4 * 2;
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(&sK[nt * 8 + g][c]);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(&sK[nt * 8 + g][c + 8]);
-        mma_bf16_16816(s[nt], qf[kk], b0, b1);
+  if (threadIdx.x < 128) {  // producer: one thread starts every copy
+    regs_down<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const int hk = h / group;
+      mbar_expect_tx(qbar, QB);
+      for (int c = 0; c < DP / 64; ++c)
+        tma_load(sQ + c * BM * 128, &tq, qbar, c * 64, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        const uint32_t sK = ring + s * 2 * KB;
+        if (j >= NS) mbar_wait(empty + 8 * s, (j / NS - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * KB);
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load(sK + c * BN * 128, &tk, full + 8 * s, c * 64, j * BN, hk,
+                   b);
+          tma_load(sK + KB + c * BN * 128, &tv, full + 8 * s, c * 64, j * BN,
+                   hk, b);
+        }
       }
     }
+    return;
+  }
+  regs_up<CONSUMER_REGS>();
 
-    // scale, mask (ragged T and the causal diagonal), row max
+  const int wg = threadIdx.x / 128 - 1, warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;  // arrives for its warpgroup
+  const int wrow0 = q0 + wg * 64;  // this warpgroup's first row
+  // this thread's rows: row[0] and row[0] + 8
+  const int row[2] = {wrow0 + warp * 16 + g, wrow0 + warp * 16 + g + 8};
+  const float sl2 = scale * LOG2E;
+  // the running max of the raw scores, this thread's share of the row sum
+  // (reduced over the quad once, at the end) and O
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  int held = -1;  // the stage that the last P V may still be reading
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN, s = j % NS;
+    const uint32_t sK = ring + s * 2 * KB, sV = sK + KB;
+    mbar_wait(full + 8 * s, (j / NS) & 1);
+
+    float s_[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<BN>(s_, desc_k(sQ, BM, wg * 64, kk), desc_k(sK, BN, 0, kk),
+                   kk);
+    wgmma_commit();
+    // S is in, and with it the last tile's P V: its stage goes back
+    wgmma_wait<0>();
+    fence_regs(s_);
+    fence_regs(acc);
+    if (leader && held >= 0) mbar_arrive(empty + 8 * held);
+    held = s;
+
+    // element i: n8 fragment i / 4, row (i / 2) % 2, column pair i % 2
+    if ((causal && k0 + BN - 1 > wrow0) || k0 + BN > Tk) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int col = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
+        if (col >= Tk || (causal && col > row[(i >> 1) & 1]))
+          s_[i] = -INFINITY;
+      }
+    }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+    for (int i = 0; i < BN / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s_[i]);
+    float off[2], corr[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        float x = s[nt][e] * scale;
-        if (col >= Tk || (causal && col > row[e >> 1])) x = -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float safe[2], corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int r = 0; r < 2; ++r) {
       // the four threads of a quad hold one row between them
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      // a row with no visible key yet keeps m = -inf; exp(-inf) = 0
-      safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
-      corr[i] = expf(m[i] - safe[i]);
-      m[i] = m_new;
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no visible key yet keeps m = -inf and is shifted by 0:
+      // ex2(-inf) = 0, and no -inf is ever subtracted from -inf
+      off[r] = (m_new == -INFINITY) ? 0.f : m_new * sl2;
+      corr[r] = ex2(m[r] * sl2 - off[r]);
+      m[r] = m_new;
     }
-    // P = exp(S - m); l holds this thread's share of the row sum and
-    // is reduced over the quad once, at the end
-    float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - safe[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
+    for (int i = 0; i < BN / 2; ++i) {
+      const float p = ex2(fmaf(s_[i], sl2, -off[(i >> 1) & 1]));
+      s_[i] = p;
+      rs[(i >> 1) & 1] += p;
     }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-    // O += P V: P rounded to bf16, straight from the S fragments
+    // O += P V: P rounded to bf16 as the A fragments, V read MN-major
+    uint32_t a[BN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-      const int kr = kk * 16 + t4 * 2;
+    for (int kk = 0; kk < BN / 16; ++kk) a_frag(a[kk], s_, kk);
+    wgmma_fence();
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const int n = dt * 8 + g;
-        const uint32_t b0 = pack_raw(sV[kr][n], sV[kr + 1][n]);
-        const uint32_t b1 = pack_raw(sV[kr + 8][n], sV[kr + 9][n]);
-        mma_bf16_16816(acc[dt], a, b0, b1);
-      }
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<DP>(acc, a[kk], desc_mn(sV, BN, kk));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = (l[r] == 0.f) ? 1.f : 1.f / l[r];
+    if (lse != nullptr && t4 == 0 && row[r] < Tq)
+      lse[(static_cast<long long>(b) * H + h) * Tq + row[r]] =
+          (l[r] == 0.f) ? -INFINITY : m[r] * scale + logf(l[r]);
+  }
+#pragma unroll
+  for (int n8 = 0; n8 < DP / 8; ++n8) {
+    if (n8 * 8 >= D) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= Tq) continue;
+      uint16_t* out = o + b * os.b + static_cast<long long>(row[r]) * os.t +
+                      h * os.h + n8 * 8 + t4 * 2;
+      *reinterpret_cast<uint32_t*>(out) = pack_bf16(
+          acc[n8 * 4 + 2 * r] * inv[r], acc[n8 * 4 + 2 * r + 1] * inv[r]);
     }
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (row[i] >= Tq) continue;
-    const float denom = (l[i] == 0.f) ? 1.f : l[i];
-    if (lse != nullptr && t4 == 0)
-      lse[(static_cast<long long>(b) * gridDim.y + h) * Tq + row[i]] =
-          (l[i] == 0.f) ? -INFINITY : m[i] + logf(l[i]);
-    uint16_t* op = o + b * os.b + static_cast<long long>(row[i]) * os.t +
-                   h * os.h;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const int col = dt * 8 + t4 * 2;
-      *reinterpret_cast<uint32_t*>(op + col) = pack_bf16(
-          acc[dt][2 * i] / denom, acc[dt][2 * i + 1] / denom);
-    }
-  }
+// bf16 with no key at all: every row is empty, so O = 0 and lse = -inf.
+// One thread per output row.
+__global__ void flash_fwd_bf16_no_keys_kernel(uint16_t* __restrict__ o,
+                                              float* __restrict__ lse, int D,
+                                              int Tq, int H, Strides os) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (row >= Tq) return;
+  uint16_t* out =
+      o + b * os.b + static_cast<long long>(row) * os.t + h * os.h;
+  for (int d = 0; d < D; ++d) out[d] = 0;
+  if (lse != nullptr)
+    lse[(static_cast<long long>(b) * H + h) * Tq + row] = -INFINITY;
 }
 
 // f32 inputs: one thread per query row, plain FMAs, online softmax one
@@ -314,38 +322,57 @@ __global__ void __launch_bounds__(F_BQ)
   for (int d = 0; d < D; ++d) op[d] = acc[d] / denom;
 }
 
-template <int D>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   void* o, float* lse, int B, int Tq, int Tk, int H,
-                   int group, Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, int causal, cudaStream_t stream) {
-  if (dtype == 0) {
-    const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-    flash_fwd_bf16_kernel<D><<<grid, NTHREADS, 0, stream>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), lse, Tq,
-        Tk, group, qs, ks, vs, os, scale, causal);
-  } else {
-    const int smem = (D * F_BQ + 2 * F_BK * D) * static_cast<int>(sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Tq + F_BQ - 1) / F_BQ, H, B);
-    flash_fwd_f32_kernel<D><<<grid, F_BQ, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, Tk,
-        group, qs, ks, vs, os, scale, causal);
+// bf16: the head dim padded to DP = 64 or 128 in shared memory
+template <int DP>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Tq, int Tk, int H, int Hkv, int D,
+                Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                int causal, cudaStream_t stream) {
+  uint16_t* out = static_cast<uint16_t*>(o);
+  if (Tk == 0) {
+    const dim3 grid((Tq + 127) / 128, H, B);
+    flash_fwd_bf16_no_keys_kernel<<<grid, 128, 0, stream>>>(out, lse, D, Tq,
+                                                            H, os);
+    return static_cast<int>(cudaGetLastError());
   }
+  CUtensorMap mq, mk, mv;
+  CUresult r = make_map(&mq, q, B, Tq, H, D, qs, BM);
+  if (r == CUDA_SUCCESS) r = make_map(&mk, k, B, Tk, Hkv, D, ks, BN);
+  if (r == CUDA_SUCCESS) r = make_map(&mv, v, B, Tk, Hkv, D, vs, BN);
+  if (r != CUDA_SUCCESS) return TMA_ERROR + static_cast<int>(r);
+  const int smem = 1024 + (BM + NS * 2 * BN) * DP * 2 + (1 + 2 * NS) * 8;
+  cudaError_t e = set_smem(flash_fwd_bf16_kernel<DP>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(H, (Tq + BM - 1) / BM, B);
+  flash_fwd_bf16_kernel<DP><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, out, lse, D, Tq, Tk, H / Hkv, os, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int Tq, int Tk, int H, int group,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       float scale, int causal, cudaStream_t stream) {
+  const int smem = (D * F_BQ + 2 * F_BK * D) * static_cast<int>(sizeof(float));
+  cudaError_t err = set_smem(flash_fwd_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + F_BQ - 1) / F_BQ, H, B);
+  flash_fwd_f32_kernel<D><<<grid, F_BQ, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, Tk,
+      group, qs, ks, vs, os, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B, Tq, H, D], k/v [B, Tk, Hkv, D], o [B, Tq, H, D], all with unit
-// stride on D; lse [B, H, Tq] f32 contiguous, or null for no write.
+// stride on D (bf16: 16-byte aligned rows); lse [B, H, Tq] f32 contiguous,
+// or null for no write.  A size-1 dim's stride may be passed as 0.
 // dtype 0 = bf16, 1 = f32.  Launches on `stream` without synchronising.
-// Returns 0, a cudaError_t, or -1 for an unsupported D.
+// Returns 0, a cudaError_t, -1 for an unsupported D, or TMA_ERROR (10000)
+// + the CUresult of a bf16 tensor map that could not be encoded.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int dtype, int B,
                               int Tq, int Tk, int H, int Hkv, int D,
@@ -357,15 +384,20 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               int causal, void* stream) {
   const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh},
       os{osb, ost, osh};
-  const int group = H / Hkv;
+  float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D < 16 || D > 128 || D % 16) return -1;
+  if (dtype == 0)
+    return D <= 64 ? launch_bf16<64>(q, k, v, o, l, B, Tq, Tk, H, Hkv, D, qs,
+                                     ks, vs, os, scale, causal, st)
+                   : launch_bf16<128>(q, k, v, o, l, B, Tq, Tk, H, Hkv, D, qs,
+                                      ks, vs, os, scale, causal, st);
   switch (D) {
-#define FLASH_CASE(DD)                                                    \
-  case DD:                                                                \
-    return static_cast<int>(launch<DD>(dtype, q, k, v, o,                \
-                                       static_cast<float*>(lse), B, Tq,   \
-                                       Tk, H, group, qs, ks, vs, os,      \
-                                       scale, causal, st));
+#define FLASH_CASE(DD)                                                      \
+  case DD:                                                                  \
+    return static_cast<int>(launch_f32<DD>(q, k, v, o, l, B, Tq, Tk, H,     \
+                                           H / Hkv, qs, ks, vs, os, scale,  \
+                                           causal, st));
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(48)

@@ -30,7 +30,7 @@ POOL_WINDOW = 3  # pool window (VALID)
 POOL_STRIDE = 2
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_BLOCK_FEATURES = 64  # features per block of the kernel
+_BLOCK_FEATURES = 64  # the kernel's blocks are multiples of this wide
 _fn = None
 
 

@@ -53,18 +53,18 @@ def _unported(**features) -> None:
     yet, naming where ROADMAP.md puts it."""
     later = {
         "quantized": "int8/int4 weights arrive with the quantization "
-                     "slice (ROADMAP.md, slice 6)",
+                     "slice (ROADMAP.md, queue 1, item 1)",
         "n_experts": "MoE FFNs (moe.py) were left out of the LM-training "
                      "slice; they follow the kernel redesigns (ROADMAP.md, "
                      "queue 1, item 3)",
         "n_adapters": "LoRA adapters arrive with the quantization and "
-                      "adapter slice (ROADMAP.md, slice 6)",
+                      "adapter slice (ROADMAP.md, queue 1, item 1)",
         "adapter_ids": "LoRA adapters arrive with the quantization and "
-                       "adapter slice (ROADMAP.md, slice 6)",
+                       "adapter slice (ROADMAP.md, queue 1, item 1)",
         "kv_page_size": "the paged KV pool arrives with the serving-"
-                        "engine slice (ROADMAP.md, slice 4)",
+                        "engine slice (ROADMAP.md, queue 1, item 4)",
         "block_tables": "the paged KV pool arrives with the serving-"
-                        "engine slice (ROADMAP.md, slice 4)",
+                        "engine slice (ROADMAP.md, queue 1, item 4)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
