@@ -9,7 +9,8 @@ Phases, each fatal on failure:
 2. build every kernel from ``tpu_k8s_device_plugin_torch/csrc`` (one
    nvcc per source, in parallel) and print the build time; the bf16
    kernels of K3, K4, K5 and K6 must spill nothing and run on ``wgmma``
-   (``HGMMA`` in the built library's SASS);
+   (``HGMMA`` in the built library's SASS), and K1 and K2 must spill
+   nothing and copy their bands with ``cp.async.bulk`` (``UBLKCP``);
 3. hold each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few edge shapes (attention by blocks of
    64 rows, each with bars scaled to its own values), and time the kernel,
@@ -25,9 +26,10 @@ Phases, each fatal on failure:
    fit) and edge shapes (among them T 1024 with GQA 4:1, and D 96, which
    the bf16 kernels pad to 128), timed at the full call (q [1, 8192, 32,
    128], K/V [1, 8192, 8, 128]) against ``scaled_dot_product_attention``'s
-   forward and backward; K1/K2 (max-pool forward/backward) and K3 (fused
-   conv+pool) at AlexNet's three stage shapes, batch 1024, bf16, K3 also
-   at 128 features and at an odd size with 8 channels;
+   forward and backward; K1/K2 (max-pool forward/backward, bit-exact,
+   each stage in the bulk-copy mode, its bands and grid printed) and K3
+   (fused conv+pool) at AlexNet's three stage shapes, batch 1024, bf16,
+   K3 also at 128 features and at an odd size with 8 channels;
 4. the generation path: Llama-3-8B at full width and depth, bf16, random
    weights from a seed, through ``greedy_generate`` (batch 4, prompt
    1024, 32 new tokens): the launch counts are zeroed just before and
@@ -39,7 +41,8 @@ Phases, each fatal on failure:
    bf16 compute, f32 parameters from a seed), batch 1024, one
    ``train_step`` under each ``pool`` with the launch counts zeroed just
    before and read just after (``pallas``: K1 and K2 three times each;
-   ``fused``: K3 and K2 three times each), the first-step losses held
+   ``fused``: K3 and K2 three times each; every K1 and K2 launch in the
+   bulk-copy mode), the first-step losses held
    against ``xla``'s; images/sec and MFU of ``bench_main.run_single``
    (3 warmup, 10 steps) per ``pool``; a profile of one ``pallas`` and
    one ``fused`` step by kernel;
@@ -154,12 +157,17 @@ def attention_bound_ms(q, k, causal: bool, per_pair: int, *moved):
     return t_bytes * 1e3, "bytes"
 
 
-# the bf16 kernels that must run on the tensor cores through `wgmma`, by
-# library (csrc/<library>.cu) and by name in the built library
-WGMMA_KERNELS = (
-    ("flash_attn_fwd", ("flash_fwd_bf16_kernel",)),
-    ("flash_attn_bwd", ("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")),
-    ("conv_pool_fwd", ("conv_pool_bf16_kernel",)),
+# what each library's kernels must contain, by library (csrc/<library>.cu),
+# kernel names in the built library and SASS instruction: the bf16 flash
+# and conv+pool kernels run their products on the tensor cores through
+# `wgmma` (HGMMA); the max-pool kernels copy their bands with
+# `cp.async.bulk` (UBLKCP)
+BUILD_CHECKS = (
+    ("flash_attn_fwd", ("flash_fwd_bf16_kernel",), "HGMMA"),
+    ("flash_attn_bwd", ("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel"),
+     "HGMMA"),
+    ("conv_pool_fwd", ("conv_pool_bf16_kernel",), "HGMMA"),
+    ("maxpool", ("maxpool_fwd_kernel", "maxpool_bwd_kernel"), "UBLKCP"),
 )
 
 
@@ -170,13 +178,14 @@ def _cuobjdump(build, *args) -> str:
                           timeout=300, check=True).stdout
 
 
-def check_wgmma_build(build, library: str, kernels) -> None:
-    """Phase 2: each of *kernels* in the built *library* spills nothing
-    (no stack and no local memory in ``cuobjdump -res-usage``) and runs
-    its products as ``wgmma`` (``HGMMA`` instructions in ``cuobjdump
-    -sass``); its registers are printed beside them (at launch: the
-    flash kernels then move them from the producer warpgroup to the
-    consumers with ``setmaxnreg``)."""
+def check_build(build, library: str, kernels, instruction: str) -> None:
+    """Phase 2: every instantiation of each of *kernels* in the built
+    *library* spills nothing (no stack and no local memory in
+    ``cuobjdump -res-usage``) and issues *instruction* (in ``cuobjdump
+    -sass``); its registers and static shared memory are printed beside
+    them (registers at launch: the flash kernels then move them from the
+    producer warpgroup to the consumers with ``setmaxnreg``; the max-pool
+    kernels' band ring is dynamic shared memory, printed by phase 3)."""
     lib = str(build.lib_path(library))
     usage, name = {}, None
     for line in _cuobjdump(build, "-res-usage", lib).splitlines():
@@ -187,32 +196,36 @@ def check_wgmma_build(build, library: str, kernels) -> None:
             usage[name] = {k: int(v) for k, v in
                            re.findall(r"(\w+):(\d+)", line)}
             name = None
-    hgmma, name = {}, None
+    hits, name = {}, None
     for line in _cuobjdump(build, "-sass", lib).splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             name = head.group(1)
-            hgmma[name] = 0
-        elif name and "HGMMA" in line:
-            hgmma[name] += 1
+            hits[name] = 0
+        elif name and instruction in line:
+            hits[name] += 1
     for kernel in kernels:
-        found = sorted(n for n in hgmma if kernel in n)
+        found = sorted(n for n in hits if kernel in n)
         if not found:
             fail(f"{kernel} not in the SASS of {lib}")
         for n in found:
             u = usage.get(n)
             if u is None:
                 fail(f"no resource usage for {n}")
-            pad = re.search(r"ILi(\d+)E", n)
-            print(f"  {kernel}<{pad.group(1) if pad else '?'}>: "
+            # the template arguments: the element type (t: bf16 bits,
+            # f: f32), if any, then the integers
+            kind = re.search(r"I([a-z])Li", n)
+            label = ",".join(([kind.group(1)] if kind else [])
+                             + re.findall(r"Li(\d+)E", n)) or "?"
+            print(f"  {kernel}<{label}>: "
                   f"{u.get('REG')} registers at launch, stack "
-                  f"{u.get('STACK')} B, "
-                  f"local {u.get('LOCAL')} B, {hgmma[n]} HGMMA "
+                  f"{u.get('STACK')} B, local {u.get('LOCAL')} B, shared "
+                  f"{u.get('SHARED', 0)} B static, {hits[n]} {instruction} "
                   f"instructions", flush=True)
             if u.get("STACK", 0) or u.get("LOCAL", 0):
                 fail(f"{kernel} spills to local memory")
-            if not hgmma[n]:
-                fail(f"{kernel} issues no wgmma")
+            if not hits[n]:
+                fail(f"{kernel} issues no {instruction}")
 
 
 def _held_forward(torch, fa, got, want, q, k, v, causal):
@@ -606,7 +619,7 @@ def main_path(torch, counts, inference, llama, bench_serving):
         fail("non-finite prefill logits")
     if not ((toks >= 0) & (toks < cfg.vocab)).all():
         fail("token id out of range")
-    if not torch.equal(toks[:, 0], logits[:, -1].argmax(-1)):
+    if not torch.equal(toks[:, 0].long(), logits[:, -1].argmax(-1)):
         fail("first token is not the argmax of the last prefill logits")
     del toks, logits
 
@@ -656,9 +669,16 @@ class Counts:
     def zero(self) -> None:
         for w in self.wrappers.values():
             w.launches = 0
+            for mode in getattr(w, "modes", {}):
+                w.modes[mode] = 0
 
     def read(self) -> dict:
         return {n: w.launches for n, w in self.wrappers.items()}
+
+    def modes(self) -> dict:
+        """Launches by load mode, for the wrappers that count them."""
+        return {n: dict(w.modes) for n, w in self.wrappers.items()
+                if hasattr(w, "modes")}
 
 
 def nbytes(*tensors) -> int:
@@ -691,6 +711,8 @@ def check_pool(torch, mp):
     max_err = {"fwd": 0.0, "bwd": 0.0}
     for name, shape, dtype in cases:
         x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+        modes = (dict(mp.max_pool_fwd_cuda.modes),
+                 dict(mp.max_pool_bwd_cuda.modes))
         y, idx = mp.max_pool_fwd_cuda(x)
         dp = torch.randn(y.shape, generator=gen, device="cuda", dtype=dtype)
         dy = mp.max_pool_bwd_cuda(idx, dp, x.shape)
@@ -699,11 +721,25 @@ def check_pool(torch, mp):
         pdy = mp.max_pool_bwd_plain(pidx, dp, x.shape)
         same = (torch.equal(y, py), torch.equal(idx, pidx),
                 torch.equal(dy, pdy))
+        # the load mode of each launch: the stage shapes take the bulk
+        # copies
+        took = [next(m for m, n in w.modes.items() if n > before[m])
+                for w, before in zip((mp.max_pool_fwd_cuda,
+                                      mp.max_pool_bwd_cuda), modes)]
+        plans = "; ".join(
+            f"K{i + 1} {took[i]}, {w.plan['rows']} pooled rows a band, "
+            f"{w.plan['channels']} channels a slice, "
+            f"{w.plan['smem']} B shared, {w.plan['blocks']} blocks"
+            for i, w in enumerate((mp.max_pool_fwd_cuda,
+                                   mp.max_pool_bwd_cuda)))
         print(f"pool {name}: x {list(shape)} {str(dtype)[6:]} y/idx/dy "
-              f"equal to the plain version: {same}", flush=True)
+              f"equal to the plain version: {same}; {plans}", flush=True)
         if not all(same):
             fail(f"pool kernels disagree with their plain versions "
                  f"({name})")
+        if took != ["bulk", "bulk"]:
+            fail(f"pool kernels at {name} took {took}, not the bulk "
+                 f"copies")
         if dtype != torch.bfloat16:
             continue
         for key, got, want in (("fwd", y, py), ("bwd", dy, pdy)):
@@ -721,12 +757,14 @@ def check_pool(torch, mp):
             lambda: mp.max_pool_bwd_plain(idx, dp, x.shape),
             lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 dpc, xc, [3, 3], [2, 2], [0, 0], [1, 1], False, lind))
-        for key, t, bound in (("fwd", fwd, bytes_bound_ms(x, y, idx)),
-                              ("bwd", bwd, bytes_bound_ms(idx, dp, dy))):
+        for k, (key, t, bound) in enumerate((
+                ("fwd", fwd, bytes_bound_ms(x, y, idx)),
+                ("bwd", bwd, bytes_bound_ms(idx, dp, dy)))):
             totals[key] = [a + b for a, b in zip(totals[key], (*t, bound))]
-            print(f"  K{1 if key == 'fwd' else 2} {name}: kernel "
-                  f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library "
-                  f"{t[2]:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+            print(f"  K{k + 1} {name} ({took[k]}): "
+                  f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library "
+                  f"{t[2]:.4f} ms, bound {bound:.4f} ms (bytes), "
+                  f"{bound / t[0]:.2f} of the bound", flush=True)
         del ly, lind
     return {key: dict(max_abs_err=max_err[key], ms=v[0], kernel_ms=v[0],
                       plain_ms=v[1], library_ms=v[2], bound_ms=v[3],
@@ -861,11 +899,10 @@ ALEX_LAUNCHES = {
 def training_path(torch, counts, alexnet, bench_main):
     """Phase 5: AlexNet training at full width through the port, under
     each pool; returns the launches of each pool's counted step, by
-    kernel."""
+    kernel, and the pool kernels' launches by load mode."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     images, labels = alexnet.synthetic_batch(gen, ALEX_BATCH, s2d=True)
-    launches = {}
-    losses = {}
+    launches, load_modes, losses = {}, {}, {}
     for pool, expected in ALEX_LAUNCHES.items():
         model, opt = alexnet.create_train_state(seed=0, s2d=True, pool=pool,
                                                 device="cuda")
@@ -873,14 +910,19 @@ def training_path(torch, counts, alexnet, bench_main):
         loss = alexnet.train_step(model, opt, images, labels)
         torch.cuda.synchronize()
         got = counts.read()
+        modes = counts.modes()
         print(f"alexnet {pool}: first step loss {float(loss):.6f}; "
-              f"launches {got}", flush=True)
+              f"launches {got}; pool launches by load mode {modes}",
+              flush=True)
         if got != {n: expected.get(n, 0) for n in got}:
             fail(f"pool={pool}: launches {got}, expected {expected}")
+        if any(m["cooperative"] for m in modes.values()):
+            fail(f"pool={pool}: a pool kernel took the cooperative loads")
         if not torch.isfinite(loss):
             fail(f"pool={pool}: non-finite loss")
         losses[pool] = float(loss)
         launches[pool] = got
+        load_modes[pool] = modes
         if pool != "xla":
             profile_region(torch, f"alexnet {pool} step", lambda: (
                 alexnet.train_step(model, opt, images, labels)))
@@ -906,7 +948,7 @@ def training_path(torch, counts, alexnet, bench_main):
               f"image, MFU {mfu}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
               flush=True)
-    return launches
+    return launches, load_modes
 
 
 def lm_flops_per_step(cfg, seq: int) -> float:
@@ -1052,8 +1094,8 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    for library, names in WGMMA_KERNELS:
-        check_wgmma_build(build, library, names)
+    for library, names, instruction in BUILD_CHECKS:
+        check_build(build, library, names, instruction)
 
     counts = Counts(flash_attn_fwd=fa.flash_attention_cuda,
                     flash_attn_dq=fa.flash_attention_dq_cuda,
@@ -1067,7 +1109,7 @@ def main() -> int:
     conv_pool = check_conv_pool(torch, cp)
     launches, _ = main_path(torch, counts, inference, llama, bench_serving)
     torch.cuda.empty_cache()
-    train = training_path(torch, counts, alexnet, bench_main)
+    train, train_modes = training_path(torch, counts, alexnet, bench_main)
     torch.cuda.empty_cache()
     lm = lm_training_path(torch, counts, fa, llama, transformer,
                           bench_serving)
@@ -1100,13 +1142,16 @@ def main() -> int:
                   "yardstick for K5 and K6 together"),
         dict(name="maxpool_fwd", route="cuda", source=csrc + "maxpool.cu",
              replaces=ref + "pool.py:150",
-             launches=train["pallas"]["maxpool_fwd"], **pool["fwd"]),
+             launches=train["pallas"]["maxpool_fwd"], **pool["fwd"],
+             load_modes=train_modes["pallas"]["maxpool_fwd"]),
         dict(name="maxpool_bwd", route="cuda", source=csrc + "maxpool.cu",
              replaces=ref + "pool.py:169",
              launches=train["pallas"]["maxpool_bwd"], **pool["bwd"],
              note="launches: the pool=pallas step; the pool=fused step's "
                   "are under launches_fused",
-             launches_fused=train["fused"]["maxpool_bwd"]),
+             launches_fused=train["fused"]["maxpool_bwd"],
+             load_modes=train_modes["pallas"]["maxpool_bwd"],
+             load_modes_fused=train_modes["fused"]["maxpool_bwd"]),
         dict(name="conv_pool_fwd", route="cuda",
              source=csrc + "conv_pool_fwd.cu",
              replaces=ref + "convpool.py:83",

@@ -370,7 +370,12 @@ def test_pool_kernels_bit_exact(gen, shape, dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
 @pytest.mark.parametrize("shape,window,stride", [
     ((3, 10, 10, 16), 2, 2), ((1, 9, 9, 8), 3, 3), ((2, 8, 12, 4), 3, 1),
-    ((2, 9, 9, 6), 3, 2)])  # C % 8 != 0: one channel per thread
+    ((2, 9, 9, 6), 3, 2),  # C % 8 != 0: one channel per thread
+    # pairs the kernels are not built for read window and stride at run
+    # time: overlapping, disjoint and gapped (stride > window) windows, in
+    # the bulk and the cooperative mode
+    *[(shape, w, s) for shape in ((2, 17, 17, 64), (2, 15, 13, 6))
+      for w, s in ((1, 1), (2, 3), (4, 2), (3, 4), (5, 1), (5, 3), (11, 2))]])
 def test_pool_kernels_other_windows(gen, shape, window, stride, dtype):
     # quantised values: ties everywhere, and overlapping gradients whose
     # bf16 sums round
@@ -390,6 +395,148 @@ def test_pool_kernel_edge_values(gen):
     assert torch.equal(y.nan_to_num(), py.nan_to_num())
     assert torch.equal(idx, pidx)
     assert torch.isnan(y[0, 1, 1:3, 1]).all() and not idx[0, 1, 1:3, 1].any()
+
+
+# the bands of whole rows (csrc/maxpool.cu): ragged last bands, one band,
+# more items than blocks, the tails past the last window, both load modes,
+# rows too wide for two bands and channel slices
+
+def _modes_of(fn):
+    """The load-mode counts of K1 and K2 after fn(), less those before."""
+    counters = (mp.max_pool_fwd_cuda, mp.max_pool_bwd_cuda)
+    before = [dict(c.modes) for c in counters]
+    fn()
+    return tuple(next(m for m in mp.MODES if c.modes[m] > b[m])
+                 for c, b in zip(counters, before))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [
+    (3, 7, 7, 16),      # OH 3: a single band
+    (37, 27, 27, 64),   # K1 bands of 4, 4, 4, 1 rows, K2 of 7 and 6
+    (5, 13, 13, 256),   # K1 two bands of 3, K2 one of 6
+    (263, 27, 27, 64),  # 1052 items over a persistent grid, unevenly
+    (2, 14, 9, 32),     # H != W, the last band short
+], ids=["one-band", "ragged-bands", "two-bands", "ragged-grid", "h-ne-w"])
+def test_pool_kernels_band_edges(gen, shape, dtype):
+    _pool_pair(torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dtype))
+
+
+@pytest.mark.parametrize("shape,dtype,window,stride,want,split", [
+    # two stages of K1's band do not fit: one stage, cooperative
+    ((2, 56, 56, 384), torch.bfloat16, 3, 2, ("cooperative", "bulk"),
+     (False, False)),
+    ((2, 224, 224, 128), torch.float32, 2, 2, ("cooperative", "bulk"),
+     (False, False)),
+    # one pooled row of every channel does not fit: channel slices
+    ((2, 7, 4096, 16), torch.float32, 3, 2,
+     ("cooperative", "cooperative"), (True, True)),
+    ((2, 5, 4096, 64), torch.bfloat16, 3, 2,
+     ("cooperative", "cooperative"), (True, True)),
+], ids=["bf16-384ch", "f32-224px", "f32-split", "bf16-split"])
+def test_pool_kernels_wide_rows(gen, shape, dtype, window, stride, want,
+                                split):
+    """Rows too wide for two bands in shared memory take one stage of
+    plain loads, and rows too wide for one band split the channels into
+    slices; both are exact."""
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    assert _modes_of(lambda: _pool_pair(x, window, stride)) == want
+    for fn, cut in zip((mp.max_pool_fwd_cuda, mp.max_pool_bwd_cuda), split):
+        assert (fn.plan["channels"] < shape[3]) == cut
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_pool_backward_writes_zero_tails(gen, dtype):
+    """Stage 1's windows cover rows and columns 0..54 of 56: the kernel
+    writes row and column 55 as zeros, over whatever dy's memory held."""
+    x = torch.randn((2, 56, 56, 64), generator=gen, device="cuda",
+                    dtype=dtype)
+    y, idx = mp.max_pool_fwd_cuda(x)
+    torch.cuda.empty_cache()
+    junk = torch.full((2, 56, 56, 64), float("nan"), device="cuda",
+                      dtype=dtype)
+    del junk  # the allocator hands this memory to dy
+    dy = mp.max_pool_bwd_cuda(idx, torch.ones_like(y), x.shape)
+    torch.cuda.synchronize()
+    assert not dy[:, 55].any() and not dy[:, :, 55].any()
+    assert torch.equal(dy, mp.max_pool_bwd_plain(idx, torch.ones_like(y),
+                                                 x.shape))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_pool_kernels_ties_and_rounding_sums(gen, dtype):
+    """Three input levels make ties everywhere (the first offset wins);
+    gradients of many magnitudes make the overlapping sums round, in
+    ascending offset order, at every add in bf16."""
+    shape = (4, 27, 27, 192)
+    x = torch.randint(0, 3, shape, generator=gen, device="cuda").to(dtype)
+    y, idx = mp.max_pool_fwd_cuda(x)
+    scale = 2.0 ** torch.randint(-8, 9, y.shape, generator=gen,
+                                 device="cuda")
+    dp = (torch.randn(y.shape, generator=gen, device="cuda")
+          * scale).to(dtype)
+    dy = mp.max_pool_bwd_cuda(idx, dp, shape)
+    torch.cuda.synchronize()
+    py, pidx = mp.max_pool_fwd_plain(x)
+    assert torch.equal(y, py) and torch.equal(idx, pidx)
+    assert torch.equal(dy, mp.max_pool_bwd_plain(pidx, dp, shape))
+    assert (idx == 0).float().mean() > 0.2  # ties took offset 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_pool_kernels_nan_and_neg_inf(gen, dtype):
+    """On a bulk-mode shape (bf16 there runs the packed compares): a NaN
+    wins its windows with index 0; an all -inf window gives -inf with
+    index 0; -inf beside numbers loses."""
+    x = torch.randn((2, 13, 13, 64), generator=gen, device="cuda",
+                    dtype=dtype)
+    x[0, 4, 5, 7] = float("nan")
+    x[0, 9, 2, 60] = float("nan")
+    x[1, :5, :5] = float("-inf")
+    x[1, 8, :, 3] = float("-inf")
+    before = mp.max_pool_fwd_cuda.modes["bulk"]
+    y, idx = mp.max_pool_fwd_cuda(x)
+    torch.cuda.synchronize()
+    assert mp.max_pool_fwd_cuda.modes["bulk"] == before + 1
+    py, pidx = mp.max_pool_fwd_plain(x)
+    nan = torch.isnan(py)
+    assert nan.any() and torch.equal(torch.isnan(y), nan)
+    assert torch.equal(y.nan_to_num(), py.nan_to_num())
+    assert torch.equal(idx, pidx) and not idx[nan].any()
+    assert torch.isneginf(y[1, :2, :2]).all() and not idx[1, :2, :2].any()
+    dp = torch.randn(y.shape, generator=gen, device="cuda", dtype=dtype)
+    dy = mp.max_pool_bwd_cuda(idx, dp, x.shape)
+    assert torch.equal(dy, mp.max_pool_bwd_plain(pidx, dp, x.shape))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,window,stride,want", [
+    ((2, 56, 56, 64), 3, 2, ("bulk", "bulk")),
+    ((2, 27, 27, 192), 3, 2, ("bulk", "bulk")),
+    ((2, 13, 13, 256), 3, 2, ("bulk", "bulk")),
+    ((2, 9, 9, 6), 3, 2, ("cooperative", "cooperative")),  # C % 4 != 0
+    ((1, 9, 9, 8), 3, 3, ("bulk", "cooperative")),  # index rows of 24 B
+])
+def test_pool_kernels_load_modes(gen, shape, window, stride, want, dtype):
+    """The launch code picks the load mode from the shape: the AlexNet
+    stages copy their bands in bulk, shapes whose rows are not multiples
+    of 16 bytes load them cooperatively; both are exact."""
+    x = 1 + torch.randint(0, 3, shape, generator=gen, device="cuda") / 128
+    assert _modes_of(lambda: _pool_pair(x.to(dtype), window, stride)) == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_pool_backward_takes_the_conv_pool_index(gen, dtype):
+    """K2 is also the first half of K3's backward: fed K3's index it is
+    exact against the plain version on the same index."""
+    x, k = _conv_inputs(gen, (2, 27, 27, 64), 5, 192, dtype)
+    y, idx = cp.conv_pool_cuda(x, k)
+    dp = torch.randn(y.shape, generator=gen, device="cuda", dtype=dtype)
+    shape = (2, 27, 27, 192)
+    dy = mp.max_pool_bwd_cuda(idx, dp, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(dy, mp.max_pool_bwd_plain(idx, dp, shape))
 
 
 def _conv_inputs(gen, shape, window, feat, dtype, integer=False):

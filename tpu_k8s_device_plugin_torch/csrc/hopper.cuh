@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernel sources of this
-// directory: mbarriers, TMA tile loads and their tensor maps, `setmaxnreg`,
+// directory: mbarriers, TMA tile loads and their tensor maps, bulk copies
+// of contiguous bytes, `setmaxnreg`,
 // `cp.async` completing on an mbarrier, `wgmma` with its shared-memory
 // descriptors in the 128-byte swizzle, and the accumulator-to-A-fragment
 // packing.  Every function is inline; each source that includes this
@@ -82,6 +83,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared in one bulk copy, completing
+// on `bar`; addresses 16-byte aligned, bytes a multiple of 16
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

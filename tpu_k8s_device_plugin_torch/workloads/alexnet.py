@@ -31,10 +31,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .bench_serving import _fill_
 from .convpool import POOL_STRIDE, POOL_WINDOW, conv_pool
-from .inference import resolve_device
 from .pool import _out_dim, max_pool
+from .transformer import _fill_, resolve_device
 
 COMPUTE_DTYPE = torch.bfloat16
 

@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from .alexnet import create_train_state, synthetic_batch, train_step
-from .inference import resolve_device
+from .transformer import resolve_device
 
 # dense bf16 tensor-core peaks in FLOP/s (NVIDIA data sheets), matched
 # against torch.cuda.get_device_name() in order: the PCIe part's name

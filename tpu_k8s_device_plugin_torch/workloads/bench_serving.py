@@ -21,7 +21,8 @@ import math
 import torch
 
 from . import llama
-from .inference import decode_throughput, resolve_device
+from .inference import decode_throughput
+from .transformer import _fill_, resolve_device
 
 CONFIGS = {
     "llama3-8b": llama.LLAMA3_8B,
@@ -30,34 +31,6 @@ CONFIGS = {
     "tiny": llama.TINY_LLAMA,
     "tiny-draft": llama.TINY_DRAFT,
 }
-
-# elements per random-fill chunk: bounds the f32 scratch of the fill to
-# about 256 MB whatever the leaf
-_FILL_ELEMS = 1 << 26
-# flax's truncated normal cuts at two standard deviations and rescales
-# so that the truncated distribution has the asked-for deviation
-_TRUNC_STD = 0.87962566103423978
-
-
-def _fill_(w: torch.Tensor, gen: torch.Generator, std: float,
-           truncated: bool) -> None:
-    """Fill *w* in place with N(0, std^2), truncated at +-2 sd (and
-    rescaled like ``jax.nn.initializers.truncated_normal``) when
-    *truncated*; drawn in f32 chunks of rows and cast into *w*."""
-    rows = max(1, _FILL_ELEMS // max(1, w[0].numel()))
-    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
-    for r0 in range(0, w.shape[0], rows):
-        part = w[r0:r0 + rows]
-        if truncated:
-            u = torch.rand(part.shape, generator=gen, device=w.device,
-                           dtype=torch.float32)
-            x = torch.erfinv(u * (hi - lo) + lo) * math.sqrt(2)
-            x = x.clamp_(-2.0, 2.0) * (std / _TRUNC_STD)
-        else:
-            x = torch.randn(part.shape, generator=gen, device=w.device,
-                            dtype=torch.float32) * std
-        part.copy_(x)
-
 
 @torch.no_grad()
 def random_init_(model: torch.nn.Module, seed: int = 0) -> None:
@@ -89,11 +62,13 @@ def build_model_and_params(config: str, max_len: int, device=None,
     return cfg, model
 
 
-def run(config: str, batch: int, steps: int, prompt_len: int,
-        max_len: int, seed: int = 0, device=None, engine: bool = False,
-        spec: int = 0, http_clients: int = 0, quantized=False):
+def run(config: str, quantized, batch: int, steps: int, prompt_len: int,
+        max_len: int, engine: bool = False, spec: int = 0,
+        http_clients: int = 0, seed: int = 0, device=None):
     """Uniform-batch decode benchmark; returns the stats dict of
-    ``decode_throughput`` with the config and device added."""
+    ``decode_throughput`` with the config and device added.  The JAX
+    package's arguments in its order, then the port's seed and device;
+    the modes not yet ported raise ``NotImplementedError``."""
     for flag, on in (("--engine", engine), ("--spec", spec),
                      ("--http", http_clients), ("--quantized", quantized)):
         if on:
@@ -131,10 +106,10 @@ def main(argv=None) -> int:
         p.add_argument(flag, type=int, default=0, help="not yet ported")
     args = p.parse_args(argv)
     try:
-        stats = run(args.config, args.batch, args.steps, args.prompt_len,
-                    args.max_len, seed=args.seed, device=args.device,
-                    engine=args.engine, spec=args.spec,
-                    http_clients=args.http, quantized=args.quantized)
+        stats = run(args.config, args.quantized, args.batch, args.steps,
+                    args.prompt_len, args.max_len, engine=args.engine,
+                    spec=args.spec, http_clients=args.http, seed=args.seed,
+                    device=args.device)
     except (ValueError, NotImplementedError) as e:
         p.error(str(e))
     print(json.dumps(stats), flush=True)

@@ -141,13 +141,20 @@ class DecodeTransformerLM(nn.Module):
     def __init__(self, vocab: int, d_model: int = 256, n_heads: int = 4,
                  n_layers: int = 2, d_ff: int = 1024, max_len: int = 512,
                  dtype: torch.dtype = COMPUTE_DTYPE, quantized=False,
-                 n_experts: int = 0, n_kv_heads: Optional[int] = None,
-                 ffn: str = "gelu", rope_theta: float = 10000.0,
-                 n_adapters: int = 0, kv_page_size: int = 0,
+                 n_experts: int = 0, moe_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 n_kv_heads: Optional[int] = None, ffn: str = "gelu",
+                 rope_theta: float = 10000.0, n_adapters: int = 0,
+                 lora_rank: int = 8, lora_scale: float = 1.0,
+                 kv_page_size: int = 0, kv_quant: bool = False,
                  device=None):
         super().__init__()
+        # moe_k and moe_capacity_factor shape the experts, lora_rank and
+        # lora_scale the adapters: they take effect with n_experts and
+        # n_adapters, which raise until ported
         _unported(quantized=quantized, n_experts=n_experts,
-                  n_adapters=n_adapters, kv_page_size=kv_page_size)
+                  n_adapters=n_adapters, kv_page_size=kv_page_size,
+                  kv_quant=kv_quant)
         device = resolve_device(device)
         self.vocab, self.d_model, self.n_heads = vocab, d_model, n_heads
         self.n_layers, self.max_len, self.dtype = n_layers, max_len, dtype
@@ -190,19 +197,28 @@ def make_decoder(
     dtype: torch.dtype = COMPUTE_DTYPE,
     quantized=False,
     n_experts: int = 0,
+    moe_k: int = 2,
+    moe_capacity_factor: float = 1.25,
     n_kv_heads: Optional[int] = None,
     ffn: str = "gelu",
     rope_theta: float = 10000.0,
     n_adapters: int = 0,
+    lora_rank: int = 8,
+    lora_scale: float = 1.0,
+    kv_quant: bool = False,
     device=None,
 ) -> DecodeTransformerLM:
     """A decoder on *device* (CUDA unless given) with uninitialised
-    weights: load a converted tree or fill them."""
+    weights: load a converted tree or fill them.  The JAX package's
+    arguments in its order, then ``kv_quant`` (its decoder's field) and
+    the device."""
     return DecodeTransformerLM(
         vocab=vocab, d_model=d_model, n_heads=n_heads,
         n_layers=n_layers, d_ff=d_ff, max_len=max_len, dtype=dtype,
-        quantized=quantized, n_experts=n_experts, n_kv_heads=n_kv_heads,
+        quantized=quantized, n_experts=n_experts, moe_k=moe_k,
+        moe_capacity_factor=moe_capacity_factor, n_kv_heads=n_kv_heads,
         ffn=ffn, rope_theta=rope_theta, n_adapters=n_adapters,
+        lora_rank=lora_rank, lora_scale=lora_scale, kv_quant=kv_quant,
         device=device,
     )
 
@@ -265,9 +281,10 @@ def validate_top_k(model: DecodeTransformerLM, top_k) -> None:
 
 
 def _greedy_pick(logits, generator, top_k, temperature):
-    """Deterministic next-token rule (ignores the generator)."""
+    """Deterministic next-token rule (ignores the generator); int32 ids,
+    as the JAX package's."""
     del generator, top_k, temperature
-    return torch.argmax(logits, dim=-1)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _sample_pick(logits, generator, top_k, temperature):
@@ -280,7 +297,8 @@ def _sample_pick(logits, generator, top_k, temperature):
     u = torch.rand(scaled.shape, generator=generator,
                    device=generator.device, dtype=torch.float32)
     u = u.to(scaled.device).clamp_(min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+    return torch.argmax(scaled - torch.log(-torch.log(u)),
+                        dim=-1).to(torch.int32)
 
 
 @torch.no_grad()
@@ -312,7 +330,7 @@ def greedy_generate(
     n_steps: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy decoding: one prefill, then ``n_steps - 1`` extends.
-    Returns ``(generated [B, n_steps] int64, prefill_logits
+    Returns ``(generated [B, n_steps] int32, prefill_logits
     [B, T_p, V] f32)``."""
     prompt = torch.as_tensor(prompt, device=model.device)
     B, T_p = _check_request(model, prompt, n_steps)

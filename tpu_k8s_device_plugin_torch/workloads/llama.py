@@ -101,14 +101,17 @@ def train_model(cfg: LlamaConfig, dtype: torch.dtype = COMPUTE_DTYPE,
 def decoder(
     cfg: LlamaConfig,
     max_len: Optional[int] = None,
+    quantized=False,
     dtype: torch.dtype = COMPUTE_DTYPE,
     device=None,
 ) -> DecodeTransformerLM:
-    """Serving model for *cfg* (weights uninitialised: load or fill)."""
+    """Serving model for *cfg* (weights uninitialised: load or fill).
+    The JAX package's arguments in its order; ``quantized`` (int8 or
+    int4 weights) raises ``NotImplementedError`` until it is ported."""
     return make_decoder(
         vocab=cfg.vocab, d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_layers=cfg.n_layers, d_ff=cfg.d_ff,
-        max_len=max_len or cfg.max_len, dtype=dtype,
+        max_len=max_len or cfg.max_len, dtype=dtype, quantized=quantized,
         n_kv_heads=cfg.n_kv_heads, ffn="swiglu",
         rope_theta=cfg.rope_theta, device=device,
     )

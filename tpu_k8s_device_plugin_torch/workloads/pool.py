@@ -14,7 +14,12 @@ gradient's dtype, and never re-reads the input.
 The index is ``[B, OH, OW, C]`` int8, the output's own layout.  CPU
 tensors take :func:`max_pool_fwd_plain` / :func:`max_pool_bwd_plain`;
 CUDA tensors launch K1 and K2 from ``csrc/maxpool.cu`` through
-:func:`max_pool_fwd_cuda` / :func:`max_pool_bwd_cuda`, or raise.
+:func:`max_pool_fwd_cuda` / :func:`max_pool_bwd_cuda`, or raise.  The
+kernels stream bands of whole rows through shared memory, copied with
+``cp.async.bulk`` ("bulk") where every copied row is a multiple of 16
+bytes, the channels fill 16-byte vectors and two bands fit, else with
+plain loads ("cooperative"); the launch code chooses from the shape, and
+each wrapper counts its launches per mode in ``modes``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from .. import build
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+MODES = ("bulk", "cooperative")
 _fns = {}
 
 
@@ -100,7 +106,7 @@ def _kernel_fn(name: str):
     if fn is None:
         fn = getattr(build.load("maxpool"), name)
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -130,10 +136,27 @@ def _vec(c: int, data: torch.Tensor, *tensors: torch.Tensor) -> int:
     return v
 
 
+def _launch(name: str, wrapper, *args, stream) -> None:
+    """Launch *name* and count it, by the load mode the launch code chose;
+    ``wrapper.plan`` keeps the launch's pooled rows a band, channels a
+    slice, shared memory bytes a block and blocks."""
+    plan = (ctypes.c_int * 5)()
+    err = _kernel_fn(name)(*args, plan, stream)
+    if err == -2:
+        raise RuntimeError(f"{name}: a band of one pooled row does not fit "
+                           "in shared memory")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: error {err}")
+    wrapper.launches += 1
+    wrapper.modes["bulk" if plan[4] else "cooperative"] += 1
+    wrapper.plan = dict(zip(("rows", "channels", "smem", "blocks"), plan))
+
+
 def max_pool_fwd_cuda(x: torch.Tensor, window: int = 3, stride: int = 2
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1; raises on what it does not take.
-    ``max_pool_fwd_cuda.launches`` counts launches."""
+    ``max_pool_fwd_cuda.launches`` counts launches, ``.modes`` them by
+    load mode, and ``.plan`` holds the last launch's bands and grid."""
     _check_pool(x.shape, window, stride)
     _check_dtype(x)
     _check_cuda(x)
@@ -144,25 +167,25 @@ def max_pool_fwd_cuda(x: torch.Tensor, window: int = 3, stride: int = 2
     if y.numel() == 0:
         return y, idx
     with torch.cuda.device(x.device):
-        err = _kernel_fn("maxpool_fwd")(
-            x.data_ptr(), y.data_ptr(), idx.data_ptr(),
-            _KERNEL_DTYPES[x.dtype], B, H, W, C, window, stride,
-            _vec(C, x, x, y),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"maxpool_fwd launch failed: error {err}")
-    max_pool_fwd_cuda.launches += 1
+        _launch("maxpool_fwd", max_pool_fwd_cuda,
+                x.data_ptr(), y.data_ptr(), idx.data_ptr(),
+                _KERNEL_DTYPES[x.dtype], B, H, W, C, window, stride,
+                _vec(C, x, x, y, idx),
+                stream=torch.cuda.current_stream(x.device).cuda_stream)
     return y, idx
 
 
 max_pool_fwd_cuda.launches = 0
+max_pool_fwd_cuda.modes = dict.fromkeys(MODES, 0)
+max_pool_fwd_cuda.plan = None
 
 
 def max_pool_bwd_cuda(idx: torch.Tensor, dp: torch.Tensor,
                       xshape: Sequence[int], window: int = 3,
                       stride: int = 2) -> torch.Tensor:
     """Launch K2; raises on what it does not take.
-    ``max_pool_bwd_cuda.launches`` counts launches."""
+    ``max_pool_bwd_cuda.launches`` counts launches, ``.modes`` them by
+    load mode, and ``.plan`` holds the last launch's bands and grid."""
     _check_pool(xshape, window, stride)
     _check_dtype(dp)
     _check_cuda(idx, dp)
@@ -177,18 +200,17 @@ def max_pool_bwd_cuda(idx: torch.Tensor, dp: torch.Tensor,
     if dy.numel() == 0:
         return dy
     with torch.cuda.device(dp.device):
-        err = _kernel_fn("maxpool_bwd")(
-            idx.data_ptr(), dp.data_ptr(), dy.data_ptr(),
-            _KERNEL_DTYPES[dp.dtype], B, H, W, C, window, stride,
-            _vec(C, dp, idx, dp, dy),
-            torch.cuda.current_stream(dp.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"maxpool_bwd launch failed: error {err}")
-    max_pool_bwd_cuda.launches += 1
+        _launch("maxpool_bwd", max_pool_bwd_cuda,
+                idx.data_ptr(), dp.data_ptr(), dy.data_ptr(),
+                _KERNEL_DTYPES[dp.dtype], B, H, W, C, window, stride,
+                _vec(C, dp, idx, dp, dy),
+                stream=torch.cuda.current_stream(dp.device).cuda_stream)
     return dy
 
 
 max_pool_bwd_cuda.launches = 0
+max_pool_bwd_cuda.modes = dict.fromkeys(MODES, 0)
+max_pool_bwd_cuda.plan = None
 
 
 def pool_fwd(x: torch.Tensor, window: int, stride: int

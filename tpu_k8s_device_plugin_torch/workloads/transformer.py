@@ -21,6 +21,7 @@ without CUDA and without that argument it raises.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -48,6 +49,42 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# elements per random-fill chunk: bounds the f32 scratch of the fill to
+# about 256 MB whatever the leaf
+_FILL_ELEMS = 1 << 26
+# flax's truncated normal cuts at two standard deviations and rescales
+# so that the truncated distribution has the asked-for deviation
+_TRUNC_STD = 0.87962566103423978
+
+
+def _fill_(w: torch.Tensor, gen: torch.Generator, std: float,
+           truncated: bool) -> None:
+    """Fill *w* in place with N(0, std^2), truncated at +-2 sd (and
+    rescaled like ``jax.nn.initializers.truncated_normal``) when
+    *truncated*; drawn in f32 chunks of rows and cast into *w*.
+
+    The truncated draw maps uniforms through the normal quantile
+    ``torch.special.ndtri``.  Not through ``torch.erfinv``: on the CPU the
+    first ``erfinv`` of a process has given one intra-op thread's share
+    of its elements other values than every later call, so two fills
+    from one seed differed."""
+    rows = max(1, _FILL_ELEMS // max(1, w[0].numel()))
+    # the normal CDF at -2 and +2
+    lo = 0.5 * math.erfc(math.sqrt(2))
+    hi = 1.0 - lo
+    for r0 in range(0, w.shape[0], rows):
+        part = w[r0:r0 + rows]
+        if truncated:
+            u = torch.rand(part.shape, generator=gen, device=w.device,
+                           dtype=torch.float32)
+            x = torch.special.ndtri(u * (hi - lo) + lo)
+            x = x.clamp_(-2.0, 2.0) * (std / _TRUNC_STD)
+        else:
+            x = torch.randn(part.shape, generator=gen, device=w.device,
+                            dtype=torch.float32) * std
+        part.copy_(x)
+
+
 def _unported(**features) -> None:
     """Raise for a feature of the JAX models that the port does not have
     yet, naming where ROADMAP.md puts it."""
@@ -65,6 +102,8 @@ def _unported(**features) -> None:
                         "engine slice (ROADMAP.md, queue 1, item 4)",
         "block_tables": "the paged KV pool arrives with the serving-"
                         "engine slice (ROADMAP.md, queue 1, item 4)",
+        "kv_quant": "int8 KV rows in the paged pool arrive with the "
+                    "serving-engine slice (ROADMAP.md, queue 1, item 4)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
