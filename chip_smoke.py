@@ -33,10 +33,21 @@ Phases, each fatal on failure:
 4. the generation path: Llama-3-8B at full width and depth, bf16, random
    weights from a seed, through ``greedy_generate`` (batch 4, prompt
    1024, 32 new tokens): the launch counts are zeroed just before and
-   read just after, and K4 must have run once per layer; then prefill ms
-   and decode tokens/s, and a 4-layer model at the same width with the
-   flash prefill against the einsum prefill; a profile of one prefill
-   and of a few decode steps by kernel;
+   read just after, and K4 must have run once per layer; the decode
+   step must have been captured and replayed once a step, and give the
+   ids of the same loop run op by op from the same prefilled cache; then
+   prefill ms, decode tokens/s and the capture ms, a profile of one
+   prefill and of a few replayed decode steps by kernel; then the
+   serving engine on the same model: ``ServingEngine(n_slots=8)``,
+   ``max_len`` 2048, eight requests (prompts of 96 to 1000 tokens; four
+   greedy, two sampled with seeds, one with stop ids, one with logprobs)
+   admitted alike into two engines, one ``run_scan`` window of 32 steps
+   replayed on the first against 32 ``step`` calls run op by op on the
+   second (identical ids, logprobs and finish reasons; 32 replays), the
+   admission ms, a profile of one window, ``_decode_attention``'s share
+   of a replayed step and ``bench_serving --engine``'s tokens/s; and a
+   4-layer model at the same width with the flash prefill against the
+   einsum prefill;
 5. the training path: AlexNet at full width (224 px, 1000 classes, s2d,
    bf16 compute, f32 parameters from a seed), batch 1024, one
    ``train_step`` under each ``pool`` with the launch counts zeroed just
@@ -82,6 +93,12 @@ TOL = {"bfloat16": (3e-2, 3e-2), "float32": (2e-5, 2e-5)}
 
 # the main path's prefill: Llama-3-8B, batch 4, prompt 1024
 BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 4, 1024, 32, 2048
+
+# the engine: Llama-3-8B (the main path's model), 8 slots, prompts of 96
+# to 1000 tokens, windows of 32 steps; logprobs of the top 5 for the slot
+# that asks; the engine benchmark's prompts of 128 tokens
+ENGINE_SLOTS, ENGINE_STEPS, ENGINE_PROMPTS = 8, 32, (96, 1000)
+ENGINE_LOGPROBS, ENGINE_BENCH_PROMPT = 5, 128
 
 # the training path: AlexNet, batch 1024 (224 px, s2d), and its three
 # conv->pool stages: (pool input = conv output, conv input, window)
@@ -565,11 +582,13 @@ def profile_region(torch, name: str, fn) -> None:
     for key, ms in sorted(kernels, key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  "
               f"{key[:90]}", flush=True)
+    return wall_ms, busy
 
 
 def profile_split(torch, inference, model, prompt, steps: int = 8):
     """Device time by kernel over one prefill and over *steps* decode
-    steps."""
+    steps, the steps replayed from the captured graph (captured before
+    the profiled region)."""
     B, T = prompt.shape
     pos = torch.arange(T, dtype=torch.int32, device="cuda").expand(B, T)
     logits, cache = inference._prefill(model, prompt, pos)
@@ -578,16 +597,64 @@ def profile_split(torch, inference, model, prompt, steps: int = 8):
     def prefill():
         inference._prefill(model, prompt, pos)
 
-    def decode():
-        inference._decode_loop(model, cache, logits[:, -1], steps + 1, pos0,
-                               None, inference._greedy_pick, 1.0, None)
-
+    # the prefill first: a capture empties the allocator's cache, and the
+    # prefill's allocations would then reach cudaMalloc
     profile_region(torch, "prefill", prefill)
-    profile_region(torch, f"decode x{steps}", decode)
+    decode_steps = inference._DecodeSteps(
+        model, cache, inference._greedy_pick, None, 1.0, 0, steps + 1,
+        graph=True)
+
+    def decode():
+        decode_steps.run(logits[:, -1], pos0, steps + 1)
+
+    before = inference._decode_loop.graph_replays
+    _, busy = profile_region(torch, f"decode x{steps} (replays)", decode)
+    if inference._decode_loop.graph_replays - before != steps:
+        fail("the profiled decode did not replay its graph once a step")
+    if busy <= 0:
+        fail("the profiler saw no device time in the replayed decode")
 
 
-def main_path(torch, counts, inference, llama, bench_serving):
-    """Phase 4: Llama-3-8B greedy generation through the port."""
+def clone_cache(cache):
+    return {name: {key: t.clone() for key, t in layer.items()}
+            for name, layer in cache.items()}
+
+
+def graph_vs_eager_decode(torch, inference, model, prompt, toks):
+    """The decode loop captured and replayed against the same loop run
+    op by op, from copies of one prefilled cache: identical ids, one
+    replay a step."""
+    B, T = prompt.shape
+    pos = torch.arange(T, dtype=torch.int32, device="cuda").expand(B, T)
+    logits, cache = inference._prefill(model, prompt, pos)
+    pos0 = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    last = logits[:, -1]
+    eager_cache = clone_cache(cache)
+    want = inference._decode_loop(model, eager_cache, last, NEW_TOKENS,
+                                  pos0, None, inference._greedy_pick, 1.0,
+                                  None, eager=True)
+    before = inference._decode_loop.graph_replays
+    got = inference._decode_loop(model, cache, last, NEW_TOKENS, pos0,
+                                 None, inference._greedy_pick, 1.0, None)
+    replays = inference._decode_loop.graph_replays - before
+    same = int((got == want).sum())
+    print(f"decode graph vs eager on one prefilled cache: "
+          f"{same}/{got.numel()} ids equal, "
+          f"{replays} replays for {NEW_TOKENS - 1} steps; "
+          f"greedy_generate's ids equal: {torch.equal(got, toks)}",
+          flush=True)
+    if replays != NEW_TOKENS - 1:
+        fail(f"{replays} replays for {NEW_TOKENS - 1} decode steps")
+    if not torch.equal(got, want):
+        fail("the replayed decode's ids differ from the eager loop's")
+    if not torch.equal(got, toks):
+        fail("greedy_generate's ids differ from the decode loop's")
+
+
+def main_path(torch, counts, inference, llama, bench_serving, serving,
+              card):
+    """Phase 4: Llama-3-8B greedy generation through the port, then the
+    serving engine."""
     t0 = time.perf_counter()
     cfg, model = bench_serving.build_model_and_params(
         "llama3-8b", MAX_LEN, device="cuda", seed=0)
@@ -600,17 +667,23 @@ def main_path(torch, counts, inference, llama, bench_serving):
     prompt = prompt.to("cuda")
 
     counts.zero()
+    replays = inference._decode_loop.graph_replays
     t0 = time.perf_counter()
     toks, logits = inference.greedy_generate(model, prompt, NEW_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts.read()
     launches = got["flash_attn_fwd"]
+    replays = inference._decode_loop.graph_replays - replays
     print(f"greedy_generate: batch {BATCH}, prompt {PROMPT}, {NEW_TOKENS} "
-          f"tokens in {wall:.3f} s; launches {got}", flush=True)
+          f"tokens in {wall:.3f} s (capture included); launches {got}; "
+          f"{replays} decode graph replays", flush=True)
     if launches != cfg.n_layers:
         fail(f"flash kernel launched {launches} times in the prefill, "
              f"expected {cfg.n_layers} (one per layer)")
+    if replays != NEW_TOKENS - 1:
+        fail(f"the decode replayed its graph {replays} times, expected "
+             f"{NEW_TOKENS - 1}")
     if tuple(toks.shape) != (BATCH, NEW_TOKENS) or \
             tuple(logits.shape) != (BATCH, PROMPT, cfg.vocab):
         fail(f"unexpected shapes {tuple(toks.shape)}, "
@@ -621,15 +694,26 @@ def main_path(torch, counts, inference, llama, bench_serving):
         fail("token id out of range")
     if not torch.equal(toks[:, 0].long(), logits[:, -1].argmax(-1)):
         fail("first token is not the argmax of the last prefill logits")
-    del toks, logits
+    del logits
+    graph_vs_eager_decode(torch, inference, model, prompt, toks)
+    del toks
 
+    replays = inference._decode_loop.graph_replays
     stats = inference.decode_throughput(model, prompt, NEW_TOKENS, rounds=3)
+    replays = inference._decode_loop.graph_replays - replays
     print(f"llama3-8b: prefill {stats['prefill_ms']:.3f} ms "
           f"({BATCH}x{PROMPT} tokens), decode "
-          f"{stats['tokens_per_sec']:.1f} tokens/s at batch {BATCH}; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+          f"{stats['tokens_per_sec']:.1f} tokens/s at batch {BATCH} "
+          f"(graph captured in {stats['capture_ms']:.1f} ms, {replays} "
+          f"replays over 4 rounds); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; {card}",
           flush=True)
+    if replays != 4 * (NEW_TOKENS - 1):
+        fail(f"decode_throughput replayed {replays} times, expected "
+             f"{4 * (NEW_TOKENS - 1)}")
     profile_split(torch, inference, model, prompt)
+    engine = engine_path(torch, inference, serving, bench_serving, model,
+                         card)
     del model
     torch.cuda.empty_cache()
 
@@ -657,7 +741,150 @@ def main_path(torch, counts, inference, llama, bench_serving):
           f" mismatches={bad}", flush=True)
     if bad:
         fail("flash prefill disagrees with the einsum prefill")
-    return launches, stats
+    return launches, stats, engine
+
+
+def engine_requests(np, vocab: int):
+    """The engine phase's eight requests: prompts of ENGINE_PROMPTS
+    tokens from a seeded numpy generator; four greedy, two sampled with
+    their own seeds (temperature 0.8, top-p 0.95), one with stop ids,
+    one asking for logprobs."""
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(ENGINE_PROMPTS[0], ENGINE_PROMPTS[1] + 1,
+                           size=ENGINE_SLOTS)
+    prompts = [rng.integers(0, vocab, size=int(n)).tolist()
+               for n in lengths]
+    sampled = dict(temperature=0.8, top_p=0.95)
+    knobs = [{}, {}, {}, {}, dict(sampled, seed=101),
+             dict(sampled, seed=202),
+             dict(stop=rng.integers(0, vocab, size=4).tolist()),
+             dict(logprobs=ENGINE_LOGPROBS)]
+    return list(zip(prompts, knobs))
+
+
+def graph_ms(torch, fn, iters: int = 10) -> float:
+    """Device ms of one call of *fn*, captured as a CUDA graph and timed
+    over replays (no host launch time in it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, iters)
+
+
+def engine_path(torch, inference, serving, bench_serving, model, card):
+    """Phase 4, the engine: the same eight admissions on two
+    ``ServingEngine(n_slots=8)``; one run_scan window of ENGINE_STEPS
+    steps replayed from the captured step on the first, as many
+    ``step`` calls run op by op on the second; identical ids (sampled
+    slots too), logprobs and finish reasons, and one replay a step.
+    Then the engine benchmark's tokens/s, a profile of one window and
+    the share of ``_decode_attention`` in a replayed step."""
+    import numpy as np
+
+    reqs = engine_requests(np, model.vocab)
+    engines, admit_ms = [], []
+    for graphs in (True, False):
+        eng = serving.ServingEngine(model, n_slots=ENGINE_SLOTS,
+                                    logprobs_k=ENGINE_LOGPROBS, rng=0,
+                                    device="cuda")
+        eng._use_graphs = graphs
+        for prompt, kw in reqs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.admit(prompt, **kw)
+            torch.cuda.synchronize()
+            admit_ms.append((time.perf_counter() - t0) * 1e3)
+        engines.append(eng)
+    graph, eager = engines
+    lengths = [len(p) for p, _ in reqs]
+    print(f"engine: {ENGINE_SLOTS} slots, max_len {MAX_LEN}, chunk "
+          f"{graph.chunk}; prompts {lengths}; admission "
+          f"{sum(admit_ms) / len(admit_ms):.1f} ms a request "
+          f"(mean of {len(admit_ms)}, chunked prefill included); {card}",
+          flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.run_scan(ENGINE_STEPS)
+    window_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(ENGINE_STEPS):
+        eager.step()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    print(f"engine: one window of {ENGINE_STEPS} steps in {window_ms:.1f} "
+          f"ms (capture {graph.capture_ms:.1f} ms of it, "
+          f"{graph.graph_replays} replays); {ENGINE_STEPS} eager steps in "
+          f"{eager_ms:.1f} ms; {card}", flush=True)
+    if graph.graph_replays != ENGINE_STEPS:
+        fail(f"a window of {ENGINE_STEPS} steps replayed "
+             f"{graph.graph_replays} times")
+    for s in range(ENGINE_SLOTS):
+        got, want = graph.output(s), eager.output(s)
+        if got != want:
+            fail(f"slot {s} ({reqs[s][1]}): graph ids {got} differ from "
+                 f"eager {want}")
+        if graph.token_logprobs(s) != eager.token_logprobs(s):
+            fail(f"slot {s}: graph logprobs differ from eager")
+        if graph.finish_reason(s) != eager.finish_reason(s):
+            fail(f"slot {s}: finish reasons differ")
+        if not all(0 <= t < model.vocab for t in got):
+            fail(f"slot {s}: token id out of range")
+        if graph.finish_reason(s) is None and len(got) != ENGINE_STEPS + 1:
+            fail(f"slot {s}: {len(got)} tokens, expected "
+                 f"{ENGINE_STEPS + 1}")
+    lp = graph.token_logprobs(7)
+    if len(lp) != len(graph.output(7)) or not all(
+            math.isfinite(c) and c <= 0 for c, _ in lp):
+        fail("logprobs missing or not finite")
+    print(f"engine: graph and eager ids identical in all {ENGINE_SLOTS} "
+          f"slots (sampled slots 4, 5: {graph.output(4)[:6]}..., "
+          f"{graph.output(5)[:6]}...); finish reasons "
+          f"{[graph.finish_reason(s) for s in range(ENGINE_SLOTS)]}",
+          flush=True)
+
+    steps = 8
+    before = graph.graph_replays
+    wall, busy = profile_region(
+        torch, f"engine window x{steps} (replays)",
+        lambda: graph.run_scan(steps))
+    if graph.graph_replays - before != steps or busy <= 0:
+        fail("the profiled window did not replay its step on the device")
+    # _decode_attention of every layer at the engine's shapes, its own
+    # graph, against the replayed step's device time
+    cfg_heads, head_dim = model.n_heads, model.d_model // model.n_heads
+    layer = graph.cache["block_0"]
+    q = torch.randn(ENGINE_SLOTS, 1, cfg_heads, head_dim,
+                    dtype=model.dtype, device="cuda")
+
+    def attention():
+        for _ in range(model.n_layers):
+            inference._decode_attention(q, layer["cached_k"],
+                                        layer["cached_v"],
+                                        layer["cache_lens"])
+
+    attn_ms = graph_ms(torch, attention)
+    step_ms = busy / steps
+    print(f"engine: _decode_attention x{model.n_layers} layers "
+          f"{attn_ms:.3f} ms of a replayed step's {step_ms:.3f} ms device "
+          f"time: share {attn_ms / step_ms:.3f}; {card}", flush=True)
+    del engines, graph, eager
+    torch.cuda.empty_cache()
+
+    prompt = torch.randint(0, model.vocab, (ENGINE_SLOTS, ENGINE_BENCH_PROMPT),
+                           generator=torch.Generator().manual_seed(3))
+    stats = bench_serving._engine_throughput(model, prompt.cuda(),
+                                             ENGINE_STEPS)
+    print(f"engine: bench_serving --engine {stats['tokens_per_sec']:.1f} "
+          f"tokens/s at {ENGINE_SLOTS} slots (windows of {ENGINE_STEPS}, "
+          f"prompts of {ENGINE_BENCH_PROMPT}, best of 3); {card}",
+          flush=True)
+    return dict(stats, window_ms=window_ms, eager_ms=eager_ms,
+                admit_ms=sum(admit_ms) / len(admit_ms),
+                attention_share=attn_ms / step_ms)
 
 
 class Counts:
@@ -1074,7 +1301,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_k8s_device_plugin_torch import build
     from tpu_k8s_device_plugin_torch.workloads import (
-        alexnet, bench_main, bench_serving, inference, llama, transformer)
+        alexnet, bench_main, bench_serving, inference, llama, serving,
+        transformer)
     from tpu_k8s_device_plugin_torch.workloads import convpool as cp
     from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
     from tpu_k8s_device_plugin_torch.workloads import pool as mp
@@ -1107,7 +1335,8 @@ def main() -> int:
     flash_train = check_flash_training(torch, fa)
     pool = check_pool(torch, mp)
     conv_pool = check_conv_pool(torch, cp)
-    launches, _ = main_path(torch, counts, inference, llama, bench_serving)
+    launches, _, _ = main_path(torch, counts, inference, llama,
+                               bench_serving, serving, card)
     torch.cuda.empty_cache()
     train, train_modes = training_path(torch, counts, alexnet, bench_main)
     torch.cuda.empty_cache()

@@ -142,9 +142,8 @@ def test_greedy_ids_have_reference_dtype(pair):
 def test_sampled_ids_are_int32(pair):
     _, _, tdec = pair
     prompt = np.zeros((2, 4), np.int32)
-    got = tinf.sample_generate(tdec, prompt, 4,
-                               torch.Generator().manual_seed(0),
-                               temperature=2.0, top_k=8)
+    got = tinf.sample_generate(tdec, prompt, 4, 0, temperature=2.0,
+                               top_k=8)
     assert got.dtype == torch.int32 and tuple(got.shape) == (2, 4)
 
 

@@ -36,6 +36,7 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names
     assert "tpu_k8s_device_plugin_torch/workloads/inference.py" in names
+    assert "tpu_k8s_device_plugin_torch/workloads/serving.py" in names
     assert all(p.exists() for p in _port_files())
 
 
@@ -72,3 +73,20 @@ def test_training_entry_points_refuse_cpu_fallback(monkeypatch, entry):
         build()
     model = build(device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_serving_engine_refuses_cpu_fallback(monkeypatch):
+    """Without CUDA, an engine over a CPU model runs only where the
+    caller asks for the CPU; a device that is not the model's raises."""
+    from tpu_k8s_device_plugin_torch.workloads import inference, serving
+
+    model = inference.make_decoder(vocab=64, d_model=32, max_len=16,
+                                   device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.ServingEngine(model, n_slots=1)
+    with pytest.raises(ValueError, match="lives on"):
+        serving.ServingEngine(model, n_slots=1, device="meta")
+    eng = serving.ServingEngine(model, n_slots=1, device="cpu")
+    assert eng.cache["block_0"]["cached_k"].device.type == "cpu"
+    assert not eng._use_graphs

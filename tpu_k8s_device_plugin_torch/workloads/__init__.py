@@ -1,6 +1,7 @@
-"""PyTorch workloads of the port: the Llama-family decoder and LM trainer
-with their flash-attention kernels (forward and backward), and AlexNet
-training with its max-pool and fused conv+pool kernels.  Module names
+"""PyTorch workloads of the port: the Llama-family decoder, its
+continuous-batching serving engine and LM trainer with their
+flash-attention kernels (forward and backward), and AlexNet training
+with its max-pool and fused conv+pool kernels.  Module names
 mirror the JAX package's ``workloads/``; the kernel functions live in ``workloads.flash_attention``,
 ``workloads.pool`` and ``workloads.convpool`` (not re-exported here, so
 those names stay the modules).
@@ -23,6 +24,8 @@ _EXPORTS = {
     "greedy_generate": "inference",
     "make_decoder": "inference",
     "sample_generate": "inference",
+    "AdmitState": "serving",
+    "ServingEngine": "serving",
     "TransformerLM": "transformer",
     "lm_loss": "transformer",
     "lm_train_step": "transformer",

@@ -8,8 +8,10 @@ best-of-rounds.  Weights are random, built on the device from a seed:
         --config llama3-8b --batch 4 --prompt-len 1024 --steps 32 \\
         --max-len 2048
 
-prints one JSON line.  The engine, HTTP, speculative and quantized
-modes of the JAX benchmark are not yet ported.
+prints one JSON line.  ``--engine`` times the same decode through the
+continuous-batching ``ServingEngine`` instead: one request a slot,
+``run_scan`` windows of ``--steps`` steps.  The HTTP, speculative and
+quantized modes of the JAX benchmark are not yet ported.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import time
 
 import torch
 
@@ -62,27 +65,68 @@ def build_model_and_params(config: str, max_len: int, device=None,
     return cfg, model
 
 
+# windows the engine benchmark runs: one warm-up, then the timed rounds
+# (run()'s headroom guard counts them)
+_ENGINE_WARMUP = 1
+_ENGINE_ROUNDS = 3
+
+
+def _engine_throughput(model, prompt, steps: int,
+                       rounds: int = _ENGINE_ROUNDS):
+    """Tokens/sec through the continuous-batching engine: one request a
+    slot, decode as ``run_scan`` windows of *steps* (on CUDA, replays
+    of the captured step), best of *rounds* after one warm-up window
+    (which captures the step).  Admission is outside the timed
+    region."""
+    from .serving import ServingEngine
+
+    batch = prompt.shape[0]
+    eng = ServingEngine(model, n_slots=batch, device=model.device)
+    prompt_host = prompt.cpu().numpy()
+    for b in range(batch):
+        eng.admit(prompt_host[b].tolist())
+    eng.run_scan(steps)
+    best = None
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        eng.run_scan(steps)  # its harvest waits for the device
+        dt = time.perf_counter() - t0
+        best = dt if best is None or dt < best else best
+    return {
+        "tokens_per_sec": batch * steps / best,
+        "tokens_per_sec_per_seq": steps / best,
+        "batch": float(batch),
+        "steps": float(steps),
+        "engine": True,
+    }
+
+
 def run(config: str, quantized, batch: int, steps: int, prompt_len: int,
         max_len: int, engine: bool = False, spec: int = 0,
         http_clients: int = 0, seed: int = 0, device=None):
     """Uniform-batch decode benchmark; returns the stats dict of
-    ``decode_throughput`` with the config and device added.  The JAX
-    package's arguments in its order, then the port's seed and device;
-    the modes not yet ported raise ``NotImplementedError``."""
-    for flag, on in (("--engine", engine), ("--spec", spec),
-                     ("--http", http_clients), ("--quantized", quantized)):
+    ``decode_throughput`` (or, with *engine*, of the engine's windows)
+    with the config and device added.  The JAX package's arguments in
+    its order, then the port's seed and device; the modes not yet ported
+    raise ``NotImplementedError``."""
+    for flag, on in (("--spec", spec), ("--http", http_clients),
+                     ("--quantized", quantized)):
         if on:
             raise NotImplementedError(f"{flag} is not yet ported")
-    if prompt_len + steps > max_len:
+    budget = steps * ((_ENGINE_WARMUP + _ENGINE_ROUNDS) if engine else 1)
+    if prompt_len + budget > max_len:
         raise ValueError(
-            f"prompt_len {prompt_len} + steps {steps} exceed max_len "
-            f"{max_len}")
+            f"prompt_len {prompt_len} + decode budget {budget} exceed "
+            f"max_len {max_len}")
     device = resolve_device(device)
     cfg, model = build_model_and_params(config, max_len, device, seed)
     gen = torch.Generator().manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
                            generator=gen).to(device)
-    stats = decode_throughput(model, prompt, steps)
+    if engine:
+        stats = _engine_throughput(model, prompt, steps)
+    else:
+        stats = decode_throughput(model, prompt, steps)
     stats["config"] = config
     stats["prompt_len"] = float(prompt_len)
     stats["device"] = (torch.cuda.get_device_name(device)
@@ -100,8 +144,10 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda, required)")
-    for flag in ("--engine", "--quantized"):
-        p.add_argument(flag, action="store_true", help="not yet ported")
+    p.add_argument("--engine", action="store_true",
+                   help="time the decode through ServingEngine windows")
+    p.add_argument("--quantized", action="store_true",
+                   help="not yet ported")
     for flag in ("--spec", "--http"):
         p.add_argument(flag, type=int, default=0, help="not yet ported")
     args = p.parse_args(argv)

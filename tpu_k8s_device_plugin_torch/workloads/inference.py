@@ -15,8 +15,12 @@ The dense, full-precision, contiguous-cache subset of the JAX package's
   keys and shapes.  JAX donates the cache buffers to each step; here
   every step updates them in place, and returns the same dict.
 
-The decode loop is a Python loop over extends: the first token comes
-from the prefill logits, then ``n_steps - 1`` extends follow.
+The decode loop takes the first token from the prefill logits, then
+runs ``n_steps - 1`` extends.  On CUDA the step (extend and pick) is
+captured once as a CUDA graph over static buffers and replayed, the
+counterpart of the JAX package's one-executable ``lax.scan``; on the
+CPU it runs op by op.  Sampling draws from a counter-based hash of
+(key, draw index, row, vocab index), so no generator state is carried.
 
 Every entry point runs on the model's device, which is CUDA unless the
 caller passes ``device="cpu"``; without CUDA and without that argument
@@ -280,44 +284,234 @@ def validate_top_k(model: DecodeTransformerLM, top_k) -> None:
             f"top_k {top_k} outside [1, vocab={model.vocab}]")
 
 
-def _greedy_pick(logits, generator, top_k, temperature):
-    """Deterministic next-token rule (ignores the generator); int32 ids,
-    as the JAX package's."""
-    del generator, top_k, temperature
+# -- counter-based draws ----------------------------------------------------
+#
+# Every random number of the port is a pure function of (key, draw index,
+# slot, vocab index): integer hashing in int64 torch ops, with no
+# generator state.  So a step draws the same numbers whether it runs
+# alone or inside a replayed window, a seeded slot's numbers do not
+# depend on its neighbours, and the draw needs no host-to-device copy.
+# The JAX package draws with ``fold_in`` on its PRNG keys; the streams
+# differ from JAX's, and the port is held to its own invariants.
+
+_MASK32 = 0xFFFFFFFF
+# tags that keep the streams apart: a request's own seed chain and the
+# vocabulary index hash never meet the engine stream's values
+_SEED_TAG = 0x5EED5EED
+_VOCAB_TAG = 0x85EBCA6B
+
+
+def _mix32(x):
+    """A 32-bit finaliser (xorshift-multiply, twice) of an int or an
+    int64 tensor holding values in [0, 2**32).  Both multipliers are
+    below 2**31, so no product reaches 2**63: the int64 arithmetic never
+    overflows, on the CPU or on the card."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _MASK32
+    return x ^ (x >> 15)
+
+
+def fold_in(key, data):
+    """A new 32-bit key from *key* and *data* (ints or int64 tensors,
+    broadcast): the counterpart of ``jax.random.fold_in``."""
+    return _mix32(key ^ _mix32((data & _MASK32) ^ 0x9E3779B9))
+
+
+def prng_key(seed: int) -> int:
+    """The key of an integer seed (all of its bits count)."""
+    seed = int(seed)
+    return fold_in(fold_in(0x243F6A88, seed & _MASK32),
+                   (seed >> 32) & _MASK32)
+
+
+def seed_key(seed: int, stream: int = 0) -> int:
+    """The key of a request's own chain: its seed, then its stream (the
+    copy index of an n > 1 request), so seed s stream 1 never meets
+    seed s + 1 stream 0."""
+    return fold_in(fold_in(prng_key(seed), _SEED_TAG), stream)
+
+
+def row_keys(keys, draws, slots):
+    """One key a row: ``fold_in(fold_in(key, draw), slot)``."""
+    return fold_in(fold_in(keys, draws), slots)
+
+
+def gumbel_rows(keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[S, vocab] f32 Gumbel noise, row s drawn from ``keys[s]`` (int64
+    [S]).  The uniform is exact integer arithmetic, the same bits on
+    every device: 24 hashed bits centred in (0, 1)."""
+    v = torch.arange(vocab, dtype=torch.int64, device=keys.device)
+    bits = _mix32(keys[:, None] ^ _mix32(v ^ _VOCAB_TAG)[None, :])
+    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _greedy_pick(logits, key, draw, top_k, temperature):
+    """Deterministic next-token rule (draws nothing); int32 ids, as the
+    JAX package's."""
+    del key, draw, top_k, temperature
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _sample_pick(logits, generator, top_k, temperature):
-    """Temperature-scaled, optionally top-k truncated sampling, drawn
-    as the argmax of logits plus Gumbel noise from *generator*."""
+def _sample_pick(logits, key, draw, top_k, temperature):
+    """Temperature-scaled, optionally top-k truncated sampling: the
+    argmax of the logits plus Gumbel noise, row b drawn from
+    ``row_keys(key, draw, b)``.  *key* and *draw* are int64 tensors on
+    the logits' device, so a captured step reads the draw index from
+    its buffer."""
     scaled = logits / max(float(temperature), 1e-6)
     if top_k is not None:
         kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
         scaled = scaled.masked_fill(scaled < kth, float("-inf"))
-    u = torch.rand(scaled.shape, generator=generator,
-                   device=generator.device, dtype=torch.float32)
-    u = u.to(scaled.device).clamp_(min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(scaled - torch.log(-torch.log(u)),
-                        dim=-1).to(torch.int32)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    noise = gumbel_rows(row_keys(key, draw, rows), logits.shape[-1])
+    return torch.argmax(scaled + noise, dim=-1).to(torch.int32)
+
+
+def scan_boundary_update(fin, frs, nxt, i, eos_vec, stop_mat, emitted0,
+                         budget):
+    """One decode step's finish detection on the device: given the
+    step's tokens ``nxt`` [S] and the first-boundary state (``fin`` [S]
+    step index, -1 = none yet; ``frs`` [S] reason code), record which
+    slots just hit a boundary.  Reason codes follow the engine's
+    ``finish_reason``: 1 = eos, 2 = stop token, 3 = length (budget).
+    ``eos_vec`` [S] is each slot's effective eos id (-1 disables),
+    ``stop_mat`` [S, K] its padded stop ids (pad -1), ``emitted0`` [S]
+    the tokens emitted before the window and ``budget`` the cap.  The
+    earliest flagged token wins, and on one token eos beats stop beats
+    length, as in the host walk.  Returns the new ``(fin, frs)``."""
+    eos_hit = nxt == eos_vec
+    stop_hit = (stop_mat == nxt[:, None]).any(dim=1)
+    len_hit = (emitted0 + i + 1) >= budget
+    zero = torch.zeros_like(frs)
+    reason = torch.where(
+        eos_hit, zero + 1,
+        torch.where(stop_hit, zero + 2, torch.where(len_hit, zero + 3,
+                                                    zero)))
+    first = (fin < 0) & (reason > 0)
+    return torch.where(first, i, fin), torch.where(first, reason, frs)
+
+
+# -- the decode step as a CUDA graph ----------------------------------------
+
+# warm-up runs of a step before its capture: they set up cuBLAS on the
+# capture stream, which a capture may not do
+_WARMUP = 2
+
+
+def capture_step(step, state, stream: "torch.cuda.Stream"):
+    """Capture one call of *step*, which reads and writes only buffers
+    that outlive the graph, as a CUDA graph on *stream*.  It is first
+    run on that stream, which sets up the libraries there; those runs
+    advance the decode state, so the buffers in *state* are put back
+    after them.  The K/V rows they wrote lie at or past each slot's
+    depth, where the replayed steps write before anything reads.  A
+    failure raises: nothing falls back to running eagerly."""
+    saved = [t.clone() for t in state]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(_WARMUP):
+            step()
+    torch.cuda.current_stream().wait_stream(stream)
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        step()
+    return graph
+
+
+def cache_lens(cache: Cache):
+    """Every layer's ``cache_lens`` (what a decode step advances)."""
+    return [layer["cache_lens"] for layer in cache.values()]
+
+
+class _DecodeSteps:
+    """The decode steps of one generation over static buffers: the
+    tokens and positions in, the draw index (which is also the output
+    column) and the output ids.  With *graph* (CUDA only) the step is
+    captured once at construction and replayed; otherwise it runs
+    eagerly (the CPU path, and the check the card holds the graph
+    against).  *cache* is updated in place and must outlive this."""
+
+    def __init__(self, model: DecodeTransformerLM, cache: Cache, pick,
+                 top_k, temperature, key: int, n_steps: int,
+                 graph: bool):
+        dev = model.device
+        B = cache["block_0"]["cache_lens"].shape[0]
+        self.model, self.cache, self.pick = model, cache, pick
+        self.top_k, self.temperature = top_k, temperature
+        self.tok = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.pos = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.draw = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.key = torch.full((1,), prng_key(key), dtype=torch.int64,
+                              device=dev)
+        self.out = torch.zeros(B, n_steps, dtype=torch.int32, device=dev)
+        self.graph = None
+        self.capture_ms = None
+        if graph:
+            _sync(dev)
+            t0 = time.perf_counter()
+            self.graph = capture_step(
+                self._step, [self.tok, self.pos, self.draw]
+                + cache_lens(cache), torch.cuda.Stream(dev))
+            _sync(dev)
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    @torch.no_grad()
+    def _step(self) -> None:
+        logits, _ = extend_step(self.model, self.cache, self.tok[:, None],
+                                self.pos[:, None])
+        nxt = self.pick(logits[:, -1, :], self.key, self.draw, self.top_k,
+                        self.temperature)
+        self.out.index_copy_(1, self.draw, nxt[:, None])
+        self.tok.copy_(nxt)
+        self.pos.add_(1)
+        self.draw.add_(1)
+
+    @torch.no_grad()
+    def run(self, first_logits: torch.Tensor, pos0: torch.Tensor,
+            n_steps: int) -> torch.Tensor:
+        """[B, n_steps]: the first token picked from *first_logits*
+        (draw 0), then ``n_steps - 1`` steps from depth *pos0*."""
+        if not 1 <= n_steps <= self.out.shape[1]:
+            raise ValueError(f"n_steps {n_steps} outside [1, "
+                             f"{self.out.shape[1]}]")
+        self.draw.zero_()
+        first = self.pick(first_logits, self.key, self.draw, self.top_k,
+                          self.temperature)
+        self.out.index_copy_(1, self.draw, first[:, None])
+        self.tok.copy_(first)
+        self.pos.copy_(pos0)
+        self.draw.fill_(1)
+        for _ in range(n_steps - 1):
+            if self.graph is None:
+                self._step()
+            else:
+                self.graph.replay()
+                _decode_loop.graph_replays += 1
+        return self.out[:, :n_steps].clone()
 
 
 @torch.no_grad()
 def _decode_loop(model: DecodeTransformerLM, cache: Cache,
                  prefill_logits_last: torch.Tensor, n_steps: int,
                  pos0: torch.Tensor, top_k, pick, temperature,
-                 generator) -> torch.Tensor:
+                 key, eager: bool = False) -> torch.Tensor:
     """``n_steps`` tokens: the first from the prefill logits, then one
-    extend per token, ``n_steps - 1`` in all.  Returns [B, n_steps]."""
-    tok = pick(prefill_logits_last, generator, top_k, temperature)
-    toks = [tok]
-    pos = pos0
-    for _ in range(n_steps - 1):
-        logits, cache = extend_step(model, cache, tok[:, None],
-                                    pos[:, None])
-        tok = pick(logits[:, -1, :], generator, top_k, temperature)
-        toks.append(tok)
-        pos = pos + 1
-    return torch.stack(toks, dim=1)
+    extend per token, ``n_steps - 1`` in all.  Returns [B, n_steps].
+    On CUDA the step is captured as a CUDA graph and replayed (counted
+    in ``_decode_loop.graph_replays``); *eager* runs it op by op
+    instead, which the CPU always does."""
+    graph = model.device.type == "cuda" and not eager
+    steps = _DecodeSteps(model, cache, pick, top_k, temperature,
+                         0 if key is None else key, n_steps, graph)
+    return steps.run(prefill_logits_last, pos0, n_steps)
+
+
+_decode_loop.graph_replays = 0
 
 
 def _positions(B: int, T: int, device) -> torch.Tensor:
@@ -345,21 +539,22 @@ def sample_generate(
     model: DecodeTransformerLM,
     prompt,
     n_steps: int,
-    generator: torch.Generator,
+    key: int,
     temperature: float = 1.0,
     top_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Temperature / top-k sampling over the same loop as
-    :func:`greedy_generate`; returns ``generated [B, n_steps]``,
-    reproducible from *generator*'s state.  ``temperature -> 0`` and
-    ``top_k=1`` recover greedy."""
+    :func:`greedy_generate`; returns ``generated [B, n_steps]``.  Token
+    t of row b is drawn from ``row_keys(prng_key(key), t, b)``, so the
+    ids are a function of the integer *key* alone.  ``temperature -> 0``
+    and ``top_k=1`` recover greedy."""
     validate_top_k(model, top_k)
     prompt = torch.as_tensor(prompt, device=model.device)
     B, T_p = _check_request(model, prompt, n_steps)
     logits, cache = _prefill(model, prompt, _positions(B, T_p, model.device))
     pos0 = torch.full((B,), T_p, dtype=torch.int32, device=model.device)
     return _decode_loop(model, cache, logits[:, -1, :], n_steps, pos0,
-                        top_k, _sample_pick, temperature, generator)
+                        top_k, _sample_pick, temperature, key)
 
 
 def _sync(device: torch.device) -> None:
@@ -373,7 +568,10 @@ def decode_throughput(
     """Tokens/sec of the decode loop, best of *rounds* after one warm
     run; the prefill runs outside that timed region, and its own best
     of *rounds* (after one warm run) is reported as ``prefill_ms``.
-    Each decode round starts from a copy of the prefilled cache."""
+    Each decode round starts from the prefilled cache, copied in place
+    into the one cache the steps run on.  On CUDA the step is captured
+    once before the rounds (``capture_ms``, not in the decode time) and
+    the rounds time the first pick and the replays."""
     prompt = torch.as_tensor(prompt, device=model.device)
     B, T_p = _check_request(model, prompt, n_steps)
     positions = _positions(B, T_p, model.device)
@@ -388,15 +586,19 @@ def decode_throughput(
             prefill_best = dt
     last = logits[:, -1, :]
     pos0 = torch.full((B,), T_p, dtype=torch.int32, device=model.device)
+    run_cache = {name: {key: t.clone() for key, t in layer.items()}
+                 for name, layer in cache.items()}
+    steps = _DecodeSteps(model, run_cache, _greedy_pick, None, 1.0, 0,
+                         n_steps, graph=model.device.type == "cuda")
 
     best = None
     for r in range(rounds + 1):
-        run_cache = {name: {key: t.clone() for key, t in layer.items()}
-                     for name, layer in cache.items()}
+        for name, layer in cache.items():
+            for key, t in layer.items():
+                run_cache[name][key].copy_(t)
         _sync(model.device)
         t0 = time.perf_counter()
-        _decode_loop(model, run_cache, last, n_steps, pos0, None,
-                     _greedy_pick, 1.0, None)
+        steps.run(last, pos0, n_steps)
         _sync(model.device)
         dt = time.perf_counter() - t0
         if r and (best is None or dt < best):
@@ -405,6 +607,7 @@ def decode_throughput(
         "tokens_per_sec": B * n_steps / best,
         "tokens_per_sec_per_seq": n_steps / best,
         "prefill_ms": prefill_best * 1e3,
+        "capture_ms": steps.capture_ms,
         "batch": float(B),
         "steps": float(n_steps),
     }

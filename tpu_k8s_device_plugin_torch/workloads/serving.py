@@ -1,0 +1,1667 @@
+"""Slot-based continuous batching on the decoder's KV cache.
+
+The contiguous-cache core of the JAX package's ``workloads/serving.py``
+in PyTorch: a fixed ``n_slots``-wide decode batch whose per-slot depths
+live in each layer's ``cache_lens [S]``, so request churn changes data,
+never shapes.
+
+* **slots**: the engine owns a ``[S, T_max, Hkv, Dh]`` cache per layer.
+  A request holds one slot from admit to completion; free slots keep
+  decoding garbage that nothing reads (masking, not branching).
+* **admit**: the prompt prefills a B=1 cache in fixed-size chunks
+  through the banded extend, then the filled rows are copied into the
+  slot and its ``cache_lens`` entry set to the prompt length.
+  Automatic prefix caching reuses rows of resident or registered
+  prompts on the chunk grid.
+* **decode**: one step for all S slots at their own depths, the
+  request's sampling knobs as per-slot data.  On CUDA the step is
+  captured once per static variant as a CUDA graph (the counterpart of
+  the reference's one compiled ``lax.scan`` step) and replayed
+  ``n_steps`` times a window; ``step`` replays it once.  The step's
+  inputs, its outputs and the state it advances live in static device
+  buffers that belong to the engine and are written only in place, so
+  the captured addresses stay valid across admissions.  On the CPU the
+  same step runs op by op.
+* **harvest**: one synchronisation a window; the host walks the
+  window's tokens for eos, stop ids and budgets, as the reference does.
+
+Sampling draws from the port's counter-based hash
+(``inference.gumbel_rows``): the engine stream keys a row by (engine
+key, global draw index, slot), a seeded request by (its seed and
+stream, its own draw index), so a window and the same steps one by one
+draw the same numbers, and a seeded request ignores its neighbours.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): tensor-parallel meshes, speculative drafts, grammars, the paged
+KV pool, LoRA adapters, sessions and prompt logprobs.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from .inference import (
+    Cache,
+    DecodeTransformerLM,
+    cache_lens,
+    capture_step,
+    extend_step,
+    init_cache,
+    gumbel_rows,
+    prng_key,
+    row_keys,
+    scan_boundary_update,
+    seed_key,
+    validate_top_k,
+)
+from .transformer import _unported, resolve_device
+
+# Upper bound for the auto-selected prefill chunk; the resolved chunk is
+# always a divisor of max_len, so padded admission never overflows the
+# cache (see _resolve_chunk).
+DEFAULT_CHUNK = 128
+
+# Default admission grid with prefix caching (prefix_chunk="auto"):
+# automatic prefix matches floor to whole chunks, so the grid bounds how
+# much of a repeated prompt is reusable.
+PREFIX_CHUNK = 32
+
+# Width step of the fused window's per-slot stop-id matrix [S, K]: K is
+# part of the captured step's key, so it grows in multiples of 4.
+_STOP_PAD = 4
+
+# Budget for the fused boundary check when the engine has no
+# max_new_tokens: beyond any emitted count reachable within max_len.
+_NO_BUDGET = 1 << 30
+
+# rows of the window's int64 block (see _Window), then its four scalars
+_IROWS = ("tok", "pos", "slot_draws", "emitted", "topks", "min_toks",
+          "seed_keys", "seed_on", "eos", "fin", "frs", "slots")
+_SCALARS = ("draws", "step", "key", "budget")
+# rows of its f32 block
+_FROWS = ("temps", "topps", "minps", "pres", "freqs", "reps")
+
+
+def _resolve_chunk(max_len: int,
+                   cap: int = DEFAULT_CHUNK) -> Optional[int]:
+    """The admission chunk for ``chunk="auto"``: the largest divisor of
+    *max_len* that is <= min(cap, max_len // 2).  A divisor guarantees
+    ceil(t_p / c) * c <= max_len, so a prompt that passes the budget
+    check is never rejected by chunk padding.  None (one extend of the
+    whole prompt) for a max_len with no divisor >= 8."""
+    c = min(cap, max(1, max_len // 2))
+    while c > 1 and max_len % c:
+        c -= 1
+    return c if c >= 8 else None
+
+
+def _splice_slot(cache: Cache, mini: Cache, slot: int) -> None:
+    """Copy the B=1 *mini* cache into row *slot* of the engine cache, in
+    place (the engine cache's addresses never move)."""
+    for layer, buf in cache.items():
+        m = mini[layer]
+        buf["cached_k"][slot].copy_(m["cached_k"][0])
+        buf["cached_v"][slot].copy_(m["cached_v"][0])
+        buf["cache_lens"][slot].copy_(m["cache_lens"][0])
+
+
+def _set_len(cache: Cache, slot: int, value: int) -> None:
+    for buf in cache.values():
+        buf["cache_lens"][slot] = value
+
+
+def _slot_to_mini(cache: Cache, slot: int) -> Cache:
+    """Row *slot* of the engine cache as a new B=1 mini cache (the
+    inverse of _splice_slot); the engine cache is not touched."""
+    return {layer: {key: t[slot:slot + 1].clone() for key, t in buf.items()}
+            for layer, buf in cache.items()}
+
+
+def _clone_cache(cache: Cache) -> Cache:
+    return {layer: {key: t.clone() for key, t in buf.items()}
+            for layer, buf in cache.items()}
+
+
+def _lcp(a: np.ndarray, b: np.ndarray) -> int:
+    """Longest common prefix of two int token arrays."""
+    L = min(len(a), len(b))
+    if L == 0:
+        return 0
+    neq = a[:L] != b[:L]
+    idx = int(np.argmax(neq))
+    return L if not neq[idx] else idx
+
+
+def _knobs_live_vec(temps, topks, topps, minps, pres, freqs,
+                    reps) -> np.ndarray:
+    """[S] bool: which slots' sampling knobs are armed."""
+    return ((np.asarray(temps) != 0) | (np.asarray(topks) != 0)
+            | (np.asarray(topps) < 1.0) | (np.asarray(minps) != 0)
+            | (np.asarray(pres) != 0) | (np.asarray(freqs) != 0)
+            | (np.asarray(reps) != 1.0))
+
+
+def _knobs_live(temps, topks, topps, minps, pres, freqs, reps) -> bool:
+    """True when any slot's knobs are armed: the predicate the draw
+    accounting hangs on.  The greedy fast path, a window's sampled flag
+    and its draw count must all agree, or ``step`` and ``run_scan``
+    would leave different draw counters behind.  Penalties arm it too
+    (a penalised temperature-0 request needs the full pick)."""
+    return bool(_knobs_live_vec(temps, topks, topps, minps, pres,
+                                freqs, reps).any())
+
+
+def _bump_counts(counts: torch.Tensor, tokens: torch.Tensor) -> None:
+    """counts[s, tokens[s]] += 1 for every row, in place (each row gets
+    one add, so the order of the adds does not matter)."""
+    counts.scatter_add_(1, tokens.long()[:, None],
+                        torch.ones_like(counts[:, :1]))
+
+
+def _apply_penalties(logits, pres, freqs, reps, counts, seen):
+    """vLLM's penalties on the raw logits (before temperature).
+    Repetition first, over tokens seen in the prompt or the output
+    (positive logits divide by r, negative multiply; r = 1 is exactly
+    off), then presence and frequency over the output histogram (0 is
+    exactly off)."""
+    r = reps[:, None]
+    logits = torch.where(seen > 0, torch.where(logits > 0, logits / r,
+                                               logits * r), logits)
+    out_seen = (counts > 0).to(torch.float32)
+    return logits - pres[:, None] * out_seen - freqs[:, None] * counts
+
+
+def _pick_tokens(logits, temps, topks, topps, minps, pres, freqs, reps,
+                 counts, seen, keys):
+    """Per-slot sampling in one pass over [S, V] logits: temperature (0 =
+    greedy), top-k (0 = all), top-p (1 = all), min-p (0 = all),
+    presence/frequency penalties over *counts* and the repetition
+    penalty over *seen*; every knob an [S] tensor, so mixed batches
+    share one step.  Gumbel-max: the argmax of the filtered scaled
+    logits plus noise drawn from ``keys[s]`` is a draw from their
+    softmax, and zero noise where the temperature is 0 gives greedy.
+    One descending sort serves both filters: top-k keeps the logits at
+    or above the k-th largest (a per-row rank read from the sorted
+    row, so k is data); top-p keeps the smallest prefix of the
+    temperature-scaled top-k distribution whose mass reaches p (the
+    argmax always survives); min-p then keeps tokens within log(min_p)
+    of the surviving maximum.  Nothing here synchronises with the
+    host."""
+    S, V = logits.shape
+    logits = _apply_penalties(logits.to(torch.float32), pres, freqs, reps,
+                              counts, seen)
+    safe_t = torch.where(temps > 0, temps, 1.0)
+    scaled = logits / safe_t[:, None]
+    k_eff = torch.where(topks > 0, topks, V).long()
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    kth = sorted_desc.gather(1, (k_eff - 1)[:, None])
+    masked = torch.where(logits >= kth, scaled, float("-inf"))
+    sorted_scaled = sorted_desc / safe_t[:, None]
+    in_topk = (torch.arange(V, device=logits.device)[None, :]
+               < k_eff[:, None])
+    sorted_masked = torch.where(in_topk, sorted_scaled, float("-inf"))
+    probs_sorted = torch.softmax(sorted_masked, dim=-1)
+    before = torch.cumsum(probs_sorted, dim=-1) - probs_sorted
+    keep = before < topps[:, None]
+    n_keep = torch.clamp(keep.sum(dim=-1), min=1)
+    pth = sorted_scaled.gather(1, (n_keep - 1)[:, None])
+    masked = torch.where(scaled >= pth, masked, float("-inf"))
+    mmax = masked.max(dim=-1, keepdim=True).values
+    thresh = mmax + torch.log(torch.clamp(minps, min=1e-30))[:, None]
+    masked = torch.where((minps[:, None] > 0) & (scaled < thresh),
+                         float("-inf"), masked)
+    noise = gumbel_rows(keys, V)
+    noised = masked + torch.where(temps[:, None] > 0, noise, 0.0)
+    return torch.argmax(noised, dim=-1)
+
+
+def _top_logprobs(logits, chosen, k: int):
+    """log-softmax stats of the emitted tokens: ([S] chosen logprob,
+    [S, k] top-k logprobs, [S, k] top-k ids), on the raw logits."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    top_lp, top_id = torch.topk(lp, k, dim=-1)
+    chosen_lp = lp.gather(1, chosen.long()[:, None])[:, 0]
+    return chosen_lp, top_lp, top_id
+
+
+class _Window:
+    """The static device buffers of the decode step: an int64 block of
+    [S] rows (``_IROWS``) and four scalars, an f32 block of [S] knob rows
+    (``_FROWS``), and the outputs of up to ``max_len`` steps.  The host
+    fills the two blocks once a window, through one copy each; the
+    step reads them, writes its outputs at row ``step`` and advances
+    ``tok``, ``pos``, ``step``, ``fin`` and ``frs`` in place."""
+
+    def __init__(self, n_slots: int, steps: int, lp_k: int, device):
+        S, R = n_slots, len(_IROWS)
+        self.ints = torch.zeros(R * S + len(_SCALARS), dtype=torch.int64,
+                                device=device)
+        self.floats = torch.zeros(len(_FROWS), S, dtype=torch.float32,
+                                  device=device)
+        pin = device.type == "cuda"
+        self.ints_host = torch.zeros(self.ints.shape, dtype=torch.int64,
+                                     pin_memory=pin)
+        self.floats_host = torch.zeros(self.floats.shape,
+                                       dtype=torch.float32, pin_memory=pin)
+        rows = self.ints[:R * S].view(R, S)
+        for j, name in enumerate(_IROWS):
+            setattr(self, name, rows[j])
+        for j, name in enumerate(_SCALARS):
+            setattr(self, name, self.ints[R * S + j:R * S + j + 1])
+        for j, name in enumerate(_FROWS):
+            setattr(self, name, self.floats[j])
+        self.out_tok = torch.zeros(steps, S, dtype=torch.int32,
+                                   device=device)
+        k = max(lp_k, 1)
+        self.out_clp = torch.zeros(steps, S, dtype=torch.float32,
+                                   device=device)
+        self.out_tlp = torch.zeros(steps, S, k, dtype=torch.float32,
+                                   device=device)
+        self.out_tid = torch.zeros(steps, S, k, dtype=torch.int64,
+                                   device=device)
+        # stop-id matrices by width K (fused windows)
+        self.stops: Dict[int, torch.Tensor] = {}
+        # mark the end of the last copy out of the pinned blocks, and of
+        # a window's outputs back to the host
+        cuda = device.type == "cuda"
+        self._copied = torch.cuda.Event() if cuda else None
+        self._fetched = torch.cuda.Event() if cuda else None
+
+    def load(self, ints: dict, floats: dict) -> None:
+        """Write every row and scalar, then copy both blocks to the
+        device (asynchronously from pinned memory on CUDA, so the host
+        first waits for the previous copy out of them)."""
+        S, R = self.floats.shape[1], len(_IROWS)
+        if self._copied is not None:
+            self._copied.synchronize()
+        ih = self.ints_host.numpy()
+        for j, name in enumerate(_IROWS):
+            ih[j * S:(j + 1) * S] = ints[name]
+        for j, name in enumerate(_SCALARS):
+            ih[R * S + j] = ints[name]
+        fh = self.floats_host.numpy()
+        for j, name in enumerate(_FROWS):
+            fh[j] = floats[name]
+        self.ints.copy_(self.ints_host, non_blocking=True)
+        self.floats.copy_(self.floats_host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+    def fetch(self, n_steps: int, lp: bool, fused: bool) -> list:
+        """The window's outputs as host arrays, after one wait for the
+        device: the tokens [n_steps, S], with *lp* the logprob stats,
+        with *fused* ``fin`` and ``frs``."""
+        outs = [self.out_tok[:n_steps]]
+        if lp:
+            outs += [self.out_clp[:n_steps], self.out_tlp[:n_steps],
+                     self.out_tid[:n_steps]]
+        if fused:
+            outs += [self.fin, self.frs]
+        pin = self._fetched is not None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                for t in outs]
+        for h, t in zip(host, outs):
+            h.copy_(t, non_blocking=True)
+        if pin:
+            self._fetched.record()
+            self._fetched.synchronize()
+        return [h.numpy() for h in host]
+
+    def load_stops(self, mat: np.ndarray) -> None:
+        """Copy the stop-id matrix into the buffer of its width."""
+        buf = self.stops.get(mat.shape[1])
+        if buf is None:
+            buf = self.stops[mat.shape[1]] = torch.zeros(
+                mat.shape, dtype=torch.int64, device=self.ints.device)
+        buf.copy_(torch.from_numpy(mat))
+
+
+class _PrefillJob:
+    """One admission prefill, advanced one extend at a time: the prompt
+    cut into fixed-size chunks (the last one zero-padded; its padding
+    lands beyond the true length, which the final ``cache_lens`` fix
+    restores), or one extend of the whole prompt on an unchunked
+    engine."""
+
+    __slots__ = ("eng", "mini", "toks", "start", "n", "c", "total", "i",
+                 "last", "counted")
+
+    def __init__(self, eng: "ServingEngine", mini: Cache,
+                 toks_np: np.ndarray, start: int):
+        n = int(toks_np.shape[1])
+        self.eng = eng
+        self.mini = mini
+        self.start = start
+        self.n = n
+        self.last = None
+        self.i = 0
+        self.counted = False
+        c = eng.chunk
+        if c is None:
+            self.c = n
+            self.total = 1
+            self.toks = toks_np
+            return
+        padded = ((n + c - 1) // c) * c
+        if start + padded > eng.model.max_len:
+            raise ValueError(
+                f"padded prompt {start + padded} exceeds max_len "
+                f"{eng.model.max_len} (shrink chunk or prompt)")
+        self.toks = np.concatenate(
+            [toks_np, np.zeros((1, padded - n), np.int32)], axis=1)
+        self.c = c
+        self.total = padded // c
+
+    @property
+    def remaining(self) -> int:
+        return self.total - self.i
+
+    def close(self) -> None:
+        """Abandon the job (abort_admit)."""
+        self.i = self.total
+
+    def chunk_np(self) -> np.ndarray:
+        """Host tokens [1, c] of the next chunk."""
+        return self.toks[:, self.i * self.c:(self.i + 1) * self.c]
+
+    def pos_np(self) -> np.ndarray:
+        """Host positions [1, c] of the next chunk."""
+        return (np.arange(self.c, dtype=np.int32)
+                + self.start + self.i * self.c)[None, :]
+
+    def charge(self) -> None:
+        """Count the prefill tokens once, at the first extend."""
+        if not self.counted:
+            self.counted = True
+            self.eng._prefill_tokens += self.n
+
+    def absorb_logits(self, logits: torch.Tensor) -> None:
+        """Keep the last real prompt token's logits row ([V]) of the
+        chunk just run (*logits* [c, V])."""
+        off = self.n - 1 - self.i * self.c
+        if 0 <= off < self.c:
+            self.last = logits[off]
+        self.i += 1
+
+    def attach_mini(self) -> None:
+        """When the job is done, pin ``cache_lens`` back to the true
+        length (chunk padding inflated it)."""
+        if self.remaining == 0 and self.eng.chunk is not None:
+            _set_len(self.mini, 0, self.start + self.n)
+
+    def step(self) -> None:
+        """Run the next chunk: one B=1 extend on the mini cache."""
+        eng = self.eng
+        self.charge()
+        dev = eng.device
+        logits, _ = extend_step(
+            eng.model, self.mini, torch.from_numpy(self.chunk_np()).to(dev),
+            torch.from_numpy(self.pos_np()).to(dev))
+        self.absorb_logits(logits[0])
+        self.attach_mini()
+
+
+class AdmitState:
+    """One in-flight admission (begin_admit -> admit_step* ->
+    finish_admit): the slot reservation, the validated request knobs,
+    the B=1 mini cache being prefilled and, after the finish dispatch,
+    the first-token pick still on the device.  ``admit()`` drives one
+    of these end to end."""
+
+    __slots__ = (
+        "slot", "prompt_np", "t_p", "stops", "temperature", "top_k",
+        "top_p", "min_p", "presence_penalty", "frequency_penalty",
+        "repetition_penalty", "seed", "seed_stream", "ignore_eos",
+        "min_tokens", "lp_n", "logit_bias", "canon", "auto_src", "gen",
+        "result", "chunks_total", "chunks_done", "pick", "pick_stats",
+        "spliced", "inplace", "first_cached",
+    )
+
+    def __init__(self):
+        self.gen = None
+        self.result = None
+        self.auto_src = None
+        self.chunks_total = 0
+        self.chunks_done = 0
+        self.pick = None
+        self.pick_stats = None
+        self.spliced = False
+        # exact-repeat fast paths: inplace = the donor is the target slot
+        # (admission is one cache_lens fix); first_cached = the donor's
+        # greedy first token (no pick, no sync)
+        self.inplace = False
+        self.first_cached = None
+
+    @property
+    def ready(self) -> bool:
+        """All prefill chunks ran; finish_admit may run."""
+        return self.gen is None and self.result is not None
+
+
+class _ScanHandle:
+    """One dispatched-but-unharvested window: its static flags and a
+    snapshot of who was in it.  ``skip`` collects slots spliced or
+    released after the dispatch (they sat the window out)."""
+
+    __slots__ = ("n_steps", "sampled", "lp_k", "active", "skip", "fused")
+
+    def __init__(self, n_steps, sampled, lp_k, active, fused):
+        self.n_steps = n_steps
+        self.sampled = sampled
+        self.lp_k = lp_k
+        self.active = active
+        self.skip = set()
+        self.fused = fused
+
+
+class ServingEngine:
+    """Continuous-batching scheduler over one decode step.
+
+    >>> eng = ServingEngine(decoder_model, n_slots=8, eos_id=2)
+    >>> s = eng.admit([5, 17, 99])       # returns a slot id
+    >>> eng.step(); eng.step()           # decode all active slots
+    >>> eng.finished(s), eng.output(s)
+
+    The JAX package's arguments in its order, less ``params`` (the
+    model holds its weights), then the device: the model's, which must
+    be CUDA unless ``device="cpu"`` is passed.  ``rng`` is an integer
+    seed.  The fields that only shape unported features (``gamma``,
+    ``ngram_n``, ``jump_len``, ``kv_pages``, ``kv_page_size``) are
+    accepted at the reference's defaults.
+    """
+
+    def __init__(
+        self,
+        model: DecodeTransformerLM,
+        n_slots: int,
+        eos_id: Optional[int] = None,
+        chunk: Union[int, None, str] = "auto",
+        prefix_chunk: Union[int, None, str] = "auto",
+        max_new_tokens: Optional[int] = None,
+        mesh=None,
+        rng: Optional[int] = None,
+        auto_prefix: bool = True,
+        auto_prefix_min: int = 8,
+        logprobs_k: int = 0,
+        draft=None,
+        gamma: int = 4,
+        ngram_n: int = 3,
+        grammar=None,
+        jump_len: int = 8,
+        kv_paging: bool = False,
+        kv_pages: Optional[int] = None,
+        kv_page_size: int = 0,
+        kv_dtype: Optional[str] = None,
+        prefix_registry_max: int = 256,
+        fused_decode: bool = False,
+        device=None,
+    ):
+        # gamma, ngram_n, jump_len, kv_pages and kv_page_size shape the
+        # draft, grammar and paging features, which raise until ported
+        _unported(mesh=mesh, draft=draft, grammar=grammar,
+                  kv_paging=kv_paging, kv_dtype=kv_dtype)
+        device = resolve_device(device)
+        if device.type != model.device.type or (
+                device.index is not None and device != model.device):
+            raise ValueError(f"the model lives on {model.device}, not on "
+                             f"{device}")
+        device = model.device
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        if logprobs_k < 0:
+            raise ValueError("logprobs_k must be >= 0")
+        if logprobs_k > model.vocab:
+            raise ValueError(f"logprobs_k {logprobs_k} exceeds the vocab "
+                             f"{model.vocab}")
+        if chunk == "auto":
+            if prefix_chunk is None:
+                chunk = _resolve_chunk(model.max_len)
+            elif prefix_chunk == "auto":
+                chunk = (_resolve_chunk(model.max_len, cap=PREFIX_CHUNK)
+                         or _resolve_chunk(model.max_len))
+            elif isinstance(prefix_chunk, str):
+                raise ValueError(
+                    f"prefix_chunk must be an int, None, or 'auto', "
+                    f"got {prefix_chunk!r}")
+            else:
+                if prefix_chunk < 1:
+                    raise ValueError("prefix_chunk must be >= 1")
+                if model.max_len % prefix_chunk:
+                    raise ValueError(
+                        f"prefix_chunk {prefix_chunk} must divide "
+                        f"max_len {model.max_len} (a divisor is what "
+                        "guarantees chunk padding never overflows the "
+                        "cache)")
+                chunk = prefix_chunk
+        elif isinstance(chunk, str):
+            raise ValueError(f"chunk must be an int, None, or 'auto', "
+                             f"got {chunk!r}")
+        elif prefix_chunk != "auto":
+            raise ValueError(
+                "pass chunk OR prefix_chunk, not both: an explicit "
+                "chunk already pins the admission/APC grid")
+        if chunk is not None and chunk < 1:
+            raise ValueError("chunk must be >= 1 when set")
+        if prefix_registry_max < 1:
+            raise ValueError("prefix_registry_max must be >= 1")
+        if jump_len < 1:
+            raise ValueError("jump_len must be >= 1")
+        self.model = model
+        self.device = device
+        self.n_slots = n_slots
+        self.eos_id = eos_id
+        self.chunk = chunk
+        self.max_new_tokens = max_new_tokens
+        self.cache = init_cache(model, n_slots)
+        self.prefix_registry_max = prefix_registry_max
+        self._prefix_touch: Dict[int, int] = {}  # handle -> use seq
+        self._use_seq = 0
+        self.lens = [0] * n_slots          # host mirror of cache_lens
+        self.active = [False] * n_slots
+        # slots held by an in-flight admission: invisible to
+        # free_slots(), inactive for every decode path until spliced
+        self._reserved = [False] * n_slots
+        self._inflight_scan: Optional[_ScanHandle] = None
+        self.last_token = np.zeros(n_slots, np.int32)
+        self.outputs: List[List[int]] = [[] for _ in range(n_slots)]
+        self._finished: Dict[int, List[int]] = {}
+        self._finish_reason: Dict[int, str] = {}
+        self._stops: List[frozenset] = [frozenset()] * n_slots
+        self._ignore_eos = [False] * n_slots
+        # per-request seeds: a seeded slot draws from its own chain,
+        # indexed by a per-slot draw counter
+        self._seed_keys = np.zeros(n_slots, np.int64)
+        self._seed_on = np.zeros(n_slots, np.int64)
+        self._slot_draws = [0] * n_slots
+        # logprobs: top-logprobs_k stats for all slots when a request
+        # asks; requests take n <= k and the host trims
+        self.logprobs_k = logprobs_k
+        self._lp_want = [0] * n_slots
+        self._lp_records: List[list] = [[] for _ in range(n_slots)]
+        # registry: handle -> (tokens, B=1 cache, last logits row)
+        self._prefixes: Dict[int, tuple] = {}
+        self._next_prefix = 0
+        # automatic prefix caching on the chunk grid (off unchunked)
+        self.auto_prefix = bool(auto_prefix) and chunk is not None
+        self.auto_prefix_min = auto_prefix_min
+        # per-slot resident prompt: (tokens, canon, last logits row,
+        # greedy first token or None); canon is the prefix length whose
+        # rows lie on the chunk grid
+        self._slot_prompts: list = [None] * n_slots
+        self._prefill_tokens = 0
+        self._prefix_hits = 0
+        self._prefix_reused_tokens = 0
+        self._prefix_evictions = 0
+        self._key = prng_key(0 if rng is None else rng)
+        self._draws = 0
+        self._steps = 0
+        self._tokens = 0
+        self._completed = 0
+        self.temps = np.zeros(n_slots, np.float32)
+        self.topks = np.zeros(n_slots, np.int32)
+        self.topps = np.ones(n_slots, np.float32)
+        self.minps = np.zeros(n_slots, np.float32)
+        self.pres = np.zeros(n_slots, np.float32)
+        self.freqs = np.zeros(n_slots, np.float32)
+        self.reps = np.ones(n_slots, np.float32)
+        self.min_toks = np.zeros(n_slots, np.int32)
+        self.fused_decode = bool(fused_decode)
+        self._fused_windows = 0
+        self._fused_truncated = 0
+        V = model.vocab
+        f32 = dict(dtype=torch.float32, device=device)
+        # output histogram (presence/frequency) and prompt+output
+        # histogram (repetition), bumped per step while a penalised
+        # request is live, reset per slot at each penalised admit
+        self._counts = torch.zeros(n_slots, V, **f32)
+        self._seen = torch.zeros(n_slots, V, **f32)
+        self._zero_vocab_row = torch.zeros(1, V, **f32)
+        # logit_bias rows (zero unless the slot's admit set one; a stale
+        # row is zeroed at the slot's next unbiased admit)
+        self._bias = torch.zeros(n_slots, V, **f32)
+        self._bias_on = [False] * n_slots
+        # min_tokens: -1e6 over eos and the stop ids while the slot is
+        # below its floor
+        self._min_mask = torch.zeros(n_slots, V, **f32)
+        self._w = _Window(n_slots, model.max_len, logprobs_k, device)
+        # the captured decode steps by static variant, their count of
+        # replays and the ms all captures took; on the CPU the step runs
+        # op by op
+        self._use_graphs = device.type == "cuda"
+        self._graphs: Dict[tuple, "torch.cuda.CUDAGraph"] = {}
+        self._capture_stream = None
+        self.graph_replays = 0
+        self.capture_ms = 0.0
+
+    # -- admission ---------------------------------------------------------
+
+    @property
+    def scan_inflight(self) -> bool:
+        """A dispatched-but-unharvested window is open."""
+        return self._inflight_scan is not None
+
+    def free_slots(self) -> List[int]:
+        return [s for s in range(self.n_slots)
+                if not self.active[s] and not self._reserved[s]]
+
+    def _extend_prompt(self, mini: Cache, toks: np.ndarray, start: int):
+        """Push *toks* [1, n] into *mini* from depth *start*; returns
+        (mini, the last real token's logits row)."""
+        job = _PrefillJob(self, mini, toks, start)
+        while job.remaining:
+            job.step()
+        return job.mini, job.last
+
+    def _auto_match(self, pnp: np.ndarray, t_p: int):
+        """The best automatic prefix donor for the prompt: the registry
+        entry or resident slot prompt sharing the longest common prefix,
+        in whole chunks and capped at t_p - 1 (the last prompt token
+        recomputes, for its logits row).  An exact repeat of a registered
+        or resident prompt reuses its stored logits row too, with no
+        extend at all ("reg_full" / "slot_full", m = t_p).  Returns
+        (kind, ref, m) or None."""
+        if not self.auto_prefix:
+            return None
+        c = self.chunk
+        best = None
+        best_m = 0
+        for h, (ptoks, _pc, _pl) in self._prefixes.items():
+            lcp = _lcp(pnp, ptoks)
+            if lcp == t_p == len(ptoks):
+                return ("reg_full", h, t_p)
+            m = (min(lcp, t_p - 1) // c) * c
+            if m > best_m:
+                best_m, best = m, ("reg", h, m)
+        for s, rec in enumerate(self._slot_prompts):
+            if rec is None:
+                continue
+            stoks, canon, last = rec[0], rec[1], rec[2]
+            lcp = _lcp(pnp, stoks)
+            if (lcp == t_p == len(stoks) and canon == t_p
+                    and last is not None):
+                return ("slot_full", s, t_p)
+            m = (min(lcp, canon, t_p - 1) // c) * c
+            if m > best_m:
+                best_m, best = m, ("slot", s, m)
+        if best_m < max(1, self.auto_prefix_min):
+            return None
+        return best
+
+    def _touch_prefix(self, handle: int) -> None:
+        """LRU stamp: a registry entry was used."""
+        self._use_seq += 1
+        self._prefix_touch[handle] = self._use_seq
+
+    def register_prefix(self, tokens, adapter: Optional[int] = None) -> int:
+        """Prefill a shared prompt prefix once and reuse it:
+        ``admit(prompt, prefix=handle)`` skips recomputing its
+        positions.  Returns an opaque handle.  The registry holds at
+        most ``prefix_registry_max`` entries (each a full B=1 cache);
+        past that the least recently used is evicted
+        (``prefix_evictions``)."""
+        if adapter is not None:
+            _unported(adapter=True)
+        toks = np.asarray(tokens, np.int32).reshape(1, -1)
+        if int(toks.shape[1]) < 1:
+            raise ValueError("empty prefix")
+        while len(self._prefixes) >= self.prefix_registry_max:
+            lru = min(self._prefixes,
+                      key=lambda h: self._prefix_touch.get(h, 0))
+            self._prefixes.pop(lru, None)
+            self._prefix_touch.pop(lru, None)
+            self._prefix_evictions += 1
+        mini, last = self._extend_prompt(init_cache(self.model, 1), toks, 0)
+        handle = self._next_prefix
+        self._next_prefix += 1
+        self._prefixes[handle] = (toks[0].copy(), mini, last)
+        self._touch_prefix(handle)
+        return handle
+
+    def release_prefix(self, handle: int) -> None:
+        """Drop a registered prefix (its full B=1 cache with it)."""
+        self._prefixes.pop(handle, None)
+        self._prefix_touch.pop(handle, None)
+
+    def admit(self, prompt, prefix: Optional[int] = None,
+              temperature: float = 0.0,
+              top_k: Optional[int] = None,
+              top_p: float = 1.0,
+              min_p: float = 0.0,
+              presence_penalty: float = 0.0,
+              frequency_penalty: float = 0.0,
+              repetition_penalty: float = 1.0,
+              seed: Optional[int] = None,
+              seed_stream: int = 0,
+              adapter: Optional[int] = None,
+              stop: Optional[List[int]] = None,
+              ignore_eos: bool = False,
+              logprobs: Optional[int] = None,
+              prompt_logprobs: Optional[int] = None,
+              logit_bias: Optional[Dict[int, float]] = None,
+              min_tokens: int = 0,
+              grammar: Union[bool, int] = False,
+              session: Optional[str] = None) -> int:
+        """Prefill *prompt* into a free slot; returns the slot id.
+        Raises RuntimeError when the engine is full.  With ``prefix`` (a
+        :meth:`register_prefix` handle) the prompt must start with the
+        registered tokens and only the suffix is prefilled; without one,
+        automatic prefix caching prefills only the unmatched tail.  The
+        sampling knobs, ``stop`` ids, ``logprobs`` and the rest are
+        per-slot data.  Runs begin_admit -> admit_step* ->
+        finish_admit in one call."""
+        st = self.begin_admit(
+            prompt, prefix=prefix, temperature=temperature,
+            top_k=top_k, top_p=top_p, min_p=min_p,
+            presence_penalty=presence_penalty,
+            frequency_penalty=frequency_penalty,
+            repetition_penalty=repetition_penalty,
+            seed=seed, seed_stream=seed_stream, adapter=adapter,
+            stop=stop, ignore_eos=ignore_eos, logprobs=logprobs,
+            prompt_logprobs=prompt_logprobs, logit_bias=logit_bias,
+            min_tokens=min_tokens, grammar=grammar, session=session)
+        try:
+            while self.admit_step(st):
+                pass
+            return self.finish_admit(st)
+        except BaseException:
+            if not st.spliced:
+                self.abort_admit(st)
+            raise
+
+    def begin_admit(self, prompt, prefix: Optional[int] = None,
+                    temperature: float = 0.0,
+                    top_k: Optional[int] = None,
+                    top_p: float = 1.0,
+                    min_p: float = 0.0,
+                    presence_penalty: float = 0.0,
+                    frequency_penalty: float = 0.0,
+                    repetition_penalty: float = 1.0,
+                    seed: Optional[int] = None,
+                    seed_stream: int = 0,
+                    adapter: Optional[int] = None,
+                    stop: Optional[List[int]] = None,
+                    ignore_eos: bool = False,
+                    logprobs: Optional[int] = None,
+                    prompt_logprobs: Optional[int] = None,
+                    logit_bias: Optional[Dict[int, float]] = None,
+                    min_tokens: int = 0,
+                    grammar: Union[bool, int] = False,
+                    session: Optional[str] = None) -> AdmitState:
+        """Validate a request, reserve a free slot and set up its
+        chunked prefill without running it: advance the returned
+        :class:`AdmitState` with :meth:`admit_step` and land it with
+        :meth:`finish_admit` (or drop it with :meth:`abort_admit`).
+        Every validation error raises here, before any engine state is
+        touched."""
+        _unported(adapter=adapter is not None,
+                  grammar=grammar is not False and grammar is not None,
+                  session=session, prompt_logprobs=prompt_logprobs)
+        prompt_np = np.asarray(prompt, np.int32).reshape(1, -1)
+        t_p = int(prompt_np.shape[1])
+        if t_p < 1:
+            raise ValueError("empty prompt")
+        if int(prompt_np.min()) < 0 or int(prompt_np.max()) >= \
+                self.model.vocab:
+            raise ValueError(
+                f"prompt token outside [0, vocab={self.model.vocab})")
+        if temperature < 0:
+            raise ValueError("temperature must be >= 0")
+        validate_top_k(self.model, top_k)
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p {top_p} outside (0, 1]")
+        if not 0.0 <= min_p <= 1.0:
+            raise ValueError(f"min_p {min_p} outside [0, 1]")
+        for pname, pval in (("presence_penalty", presence_penalty),
+                            ("frequency_penalty", frequency_penalty)):
+            if not -2.0 <= pval <= 2.0:
+                raise ValueError(
+                    f"{pname} {pval} outside [-2, 2]")
+        if not repetition_penalty > 0:
+            raise ValueError(
+                f"repetition_penalty {repetition_penalty} must be > 0")
+        stops = frozenset(int(t) for t in (stop or ()))
+        for t in stops:
+            if not 0 <= t < self.model.vocab:
+                raise ValueError(
+                    f"stop token {t} outside [0, vocab="
+                    f"{self.model.vocab})")
+        lp_n = int(logprobs or 0)
+        if lp_n < 0:
+            raise ValueError("logprobs must be >= 0")
+        if lp_n > self.logprobs_k:
+            raise ValueError(
+                f"logprobs={lp_n} exceeds the engine's logprobs_k="
+                f"{self.logprobs_k} (set at construction: the "
+                "engine-wide k keeps the decode step's variants few)")
+        budget = self.max_new_tokens or 1
+        if t_p + budget > self.model.max_len:
+            raise ValueError(
+                f"prompt {t_p} + budget {budget} exceeds "
+                f"max_len {self.model.max_len}")
+        # t_p <= max_len - 1 keeps released slots' prompt rows valid
+        # donors: a parked slot's masked decode writes clamp to row
+        # max_len - 1, which this bound keeps out of the prompt rows
+        if min_tokens < 0:
+            raise ValueError("min_tokens must be >= 0")
+        if (min_tokens and self.max_new_tokens is not None
+                and min_tokens > self.max_new_tokens):
+            raise ValueError(
+                f"min_tokens {min_tokens} exceeds the engine budget "
+                f"{self.max_new_tokens}")
+        if logit_bias is not None:
+            if not isinstance(logit_bias, dict) or not logit_bias:
+                raise ValueError(
+                    "logit_bias must be a non-empty {token: bias} dict")
+            for bk, bv in logit_bias.items():
+                if isinstance(bk, bool) or not isinstance(
+                        bk, (int, np.integer)):
+                    raise ValueError(
+                        "logit_bias keys must be token ids")
+                if not 0 <= int(bk) < self.model.vocab:
+                    raise ValueError(
+                        f"logit_bias token {bk} outside "
+                        f"[0, vocab={self.model.vocab})")
+                if not np.isfinite(float(bv)):
+                    raise ValueError(
+                        "logit_bias values must be finite")
+                if not -100.0 <= float(bv) <= 100.0:
+                    # beyond that a bias could overpower the -1e6 mask
+                    # of the min_tokens floor
+                    raise ValueError(
+                        f"logit_bias value {float(bv)} outside "
+                        "[-100, 100]")
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slots")
+        slot = free[0]
+
+        auto_src = None
+        L = 0
+        if prefix is not None:
+            if prefix not in self._prefixes:
+                raise ValueError(f"unknown prefix handle {prefix}")
+            ptoks, pcache, plast = self._prefixes[prefix]
+            L = len(ptoks)
+            if t_p < L or not np.array_equal(prompt_np[0, :L], ptoks):
+                raise ValueError(
+                    "prompt does not start with the registered prefix")
+            start, n = L, t_p - L
+        else:
+            auto_src = self._auto_match(prompt_np[0], t_p)
+            start = auto_src[2] if auto_src is not None else 0
+            n = t_p - start
+        if self.chunk is not None and n > 0:
+            padded = ((n + self.chunk - 1) // self.chunk) * self.chunk
+            if start + padded > self.model.max_len:
+                raise ValueError(
+                    f"padded prompt {start + padded} exceeds max_len "
+                    f"{self.model.max_len} (shrink chunk or prompt)")
+        if (auto_src is not None and auto_src[0] == "slot_full"
+                and not self.active[auto_src[1]]
+                and not self._reserved[auto_src[1]]):
+            # prefix-affinity placement: an exact repeat goes back into
+            # its donor's free slot, where the copy is the identity
+            slot = auto_src[1]
+
+        st = AdmitState()
+        st.slot = slot
+        st.prompt_np = prompt_np
+        st.t_p = t_p
+        st.stops = stops
+        st.temperature = temperature
+        st.top_k = top_k
+        st.top_p = top_p
+        st.min_p = min_p
+        st.presence_penalty = presence_penalty
+        st.frequency_penalty = frequency_penalty
+        st.repetition_penalty = repetition_penalty
+        st.seed = seed
+        st.seed_stream = seed_stream
+        st.ignore_eos = ignore_eos
+        st.min_tokens = min_tokens
+        st.lp_n = lp_n
+        st.logit_bias = logit_bias
+        st.auto_src = auto_src
+        # an unaligned explicit prefix leaves the suffix rows off the
+        # chunk grid: only the prefix part is reusable later
+        if (self.chunk is not None and prefix is not None
+                and L % self.chunk):
+            st.canon = L
+        else:
+            st.canon = t_p
+        if n <= 0:
+            st.chunks_total = 0
+        elif self.chunk is None:
+            st.chunks_total = 1
+        else:
+            st.chunks_total = (n + self.chunk - 1) // self.chunk
+
+        if prefix is not None:
+            self._touch_prefix(prefix)
+            if n > 0:
+                # the extend writes in place: the registry entry must
+                # survive for the next admit
+                st.gen = _PrefillJob(self, _clone_cache(pcache),
+                                     prompt_np[:, L:], start=L)
+            else:
+                # exact-prefix prompt: the splice only reads the entry
+                st.result = (pcache, plast)
+        elif auto_src is not None:
+            kind, ref, m = auto_src
+            if kind in ("reg", "reg_full"):
+                self._touch_prefix(ref)
+            if kind == "reg_full":
+                _, pc_full, pl_full = self._prefixes[ref]
+                st.result = (pc_full, pl_full)
+            elif kind == "slot_full":
+                rec_full = self._slot_prompts[ref]
+                if ref == slot:
+                    st.inplace = True
+                    st.result = (None, rec_full[2])
+                else:
+                    src = _slot_to_mini(self.cache, ref)
+                    _set_len(src, 0, t_p)
+                    st.result = (src, rec_full[2])
+                st.first_cached = rec_full[3]
+            else:
+                if kind == "reg":
+                    src = _clone_cache(self._prefixes[ref][1])
+                else:
+                    src = _slot_to_mini(self.cache, ref)
+                # rows beyond m are stale donor data masked by the
+                # cache_lens reset; the suffix extend overwrites them
+                _set_len(src, 0, m)
+                st.gen = _PrefillJob(self, src, prompt_np[:, m:], start=m)
+        else:
+            st.gen = _PrefillJob(self, init_cache(self.model, 1),
+                                 prompt_np, start=0)
+        # the reservation is the last begin-side mutation
+        self._reserved[slot] = True
+        return st
+
+    def admit_step(self, st: AdmitState) -> bool:
+        """Run the next prefill chunk of an in-flight admission; True
+        while chunks remain."""
+        if st.gen is None:
+            return False
+        job = st.gen
+        job.step()
+        st.chunks_done += 1
+        st.result = (job.mini, job.last)
+        if job.remaining == 0:
+            st.gen = None
+            return False
+        return True
+
+    def abort_admit(self, st: AdmitState) -> None:
+        """Abandon an in-flight admission: the reserved slot returns to
+        the free pool and the mini cache is dropped."""
+        if st.spliced:
+            raise RuntimeError(
+                "admission already finished; release() the slot")
+        if st.gen is not None:
+            st.gen.close()
+            st.gen = None
+        st.result = None
+        self._reserved[st.slot] = False
+
+    def finish_admit(self, st: AdmitState) -> int:
+        """Land a fully prefilled admission: copy the mini cache into
+        the slot, arm the request's knobs and pick its first token.
+        Returns the slot id."""
+        self._finish_admit_dispatch(st)
+        return self._finish_admit_resolve(st)
+
+    def _finish_admit_dispatch(self, st: AdmitState) -> None:
+        """The device half of finish_admit: the splice, the knobs and
+        the first-token pick, all enqueued without a synchronisation
+        (the pick stays on the device in ``st.pick``)."""
+        if not st.ready:
+            raise RuntimeError("admission prefill not finished "
+                               "(admit_step until it returns False)")
+        slot = st.slot
+        mini, last = st.result
+        self._finished.pop(slot, None)
+        self._finish_reason.pop(slot, None)
+        if st.auto_src is not None:
+            self._prefix_hits += 1
+            self._prefix_reused_tokens += st.auto_src[2]
+        if st.inplace:
+            _set_len(self.cache, slot, st.t_p)
+        else:
+            _splice_slot(self.cache, mini, slot)
+        self._slot_prompts[slot] = (st.prompt_np[0], st.canon, last, None)
+        self.lens[slot] = st.t_p
+        self.active[slot] = True
+        self.temps[slot] = st.temperature
+        self.topks[slot] = st.top_k or 0
+        self.topps[slot] = st.top_p
+        self.minps[slot] = st.min_p
+        self.pres[slot] = st.presence_penalty
+        self.freqs[slot] = st.frequency_penalty
+        self.reps[slot] = st.repetition_penalty
+        self._stops[slot] = st.stops
+        self._ignore_eos[slot] = bool(st.ignore_eos)
+        V = self.model.vocab
+        if st.logit_bias:
+            bias_np = np.zeros(V, np.float32)
+            for bk, bv in st.logit_bias.items():
+                bias_np[int(bk)] = float(bv)
+            self._bias[slot].copy_(torch.from_numpy(bias_np))
+            self._bias_on[slot] = True
+            bias_row = self._bias[slot:slot + 1]
+        else:
+            if self._bias_on[slot]:
+                self._bias[slot].zero_()
+                self._bias_on[slot] = False
+            bias_row = None
+        self.min_toks[slot] = st.min_tokens
+        min_row = None
+        if st.min_tokens:
+            mask_np = np.zeros(V, np.float32)
+            if self.eos_id is not None:
+                mask_np[self.eos_id] = -1e6
+            for t in st.stops:
+                mask_np[t] = -1e6
+            self._min_mask[slot].copy_(torch.from_numpy(mask_np))
+            min_row = self._min_mask[slot:slot + 1]  # 0 emitted yet
+        self._seed_keys[slot] = (0 if st.seed is None
+                                 else seed_key(st.seed, st.seed_stream))
+        self._seed_on[slot] = 0 if st.seed is None else 1
+        self._slot_draws[slot] = 0
+        self._lp_want[slot] = st.lp_n
+        self._lp_records[slot] = []
+        # the repetition penalty of the first token scopes over the
+        # prompt (host bincount); its output histogram is empty
+        rep_on = st.repetition_penalty != 1.0
+        if rep_on:
+            seen_row = torch.from_numpy(np.bincount(
+                st.prompt_np[0], minlength=V).astype(np.float32)
+            )[None, :].to(self.device)
+        else:
+            seen_row = self._zero_vocab_row
+        if (st.first_cached is not None
+                and self._clean_greedy_admit(st)):
+            # clean-greedy exact repeat: the donor's first token is the
+            # argmax of this same logits row; no pick, no draw
+            st.pick = None
+        else:
+            st.first_cached = None
+            first_lg = last[None, :]
+            if bias_row is not None:
+                first_lg = first_lg + bias_row
+            if min_row is not None:
+                first_lg = first_lg + min_row
+            st.pick = self._first_pick(st, slot, first_lg, seen_row)
+            if st.presence_penalty or st.frequency_penalty:
+                self._counts[slot].zero_()
+                _bump_counts(self._counts[slot:slot + 1], st.pick)
+            if rep_on:
+                self._seen[slot].copy_(seen_row[0])
+                _bump_counts(self._seen[slot:slot + 1], st.pick)
+            if st.lp_n:
+                st.pick_stats = _top_logprobs(first_lg, st.pick,
+                                              self.logprobs_k)
+        st.spliced = True
+        self._reserved[slot] = False
+        # a window dispatched before this splice must not advance the
+        # new slot's host mirrors at harvest
+        if self._inflight_scan is not None:
+            self._inflight_scan.skip.add(slot)
+
+    def _first_pick(self, st: AdmitState, slot: int, first_lg, seen_row):
+        """The admission's first token, on the device: greedy argmax
+        (no draw) unless a knob is armed; then one engine draw (a seeded
+        request draws index 0 of its own chain)."""
+        knobs = (np.asarray([st.temperature], np.float32),
+                 np.asarray([st.top_k or 0], np.int64),
+                 np.asarray([st.top_p], np.float32),
+                 np.asarray([st.min_p], np.float32),
+                 np.asarray([st.presence_penalty], np.float32),
+                 np.asarray([st.frequency_penalty], np.float32),
+                 np.asarray([st.repetition_penalty], np.float32))
+        if not _knobs_live(*knobs):
+            return torch.argmax(first_lg, dim=-1)
+        if st.seed is None:
+            key = row_keys(self._key, self._draws, slot)
+        else:
+            key = row_keys(int(self._seed_keys[slot]), 0, 0)
+        self._draws += 1
+        # this slot's own chain moved with the draw
+        self._slot_draws[slot] = 1
+        t = [torch.from_numpy(k).to(self.device) for k in knobs]
+        keys = torch.tensor([key], dtype=torch.int64, device=self.device)
+        return _pick_tokens(first_lg, *t, self._zero_vocab_row, seen_row,
+                            keys)
+
+    def _finish_admit_resolve(self, st: AdmitState) -> int:
+        """The host half of finish_admit: read the first token (the
+        admission's one synchronisation) and finish the bookkeeping."""
+        slot = st.slot
+        if st.pick is None:
+            first = int(st.first_cached)
+        else:
+            first = int(st.pick.cpu()[0])
+        if st.lp_n:
+            clp, tlp, tid = (x.cpu().numpy() for x in st.pick_stats)
+            self._record_logprobs(slot, float(clp[0]), tlp[0], tid[0])
+        if self._clean_greedy_admit(st):
+            # a zero-sync donor for the next exact repeat
+            rec = self._slot_prompts[slot]
+            self._slot_prompts[slot] = rec[:3] + (first,)
+        self.last_token[slot] = first
+        self.outputs[slot] = [first]
+        self._tokens += 1
+        self._maybe_finish(slot, first)
+        return slot
+
+    @staticmethod
+    def _clean_greedy_admit(st: AdmitState) -> bool:
+        """Pure-greedy, unmasked admission: the first token is exactly
+        the argmax of the final prompt logits row, so it can ride the
+        resident-prompt record and be reused by the next exact repeat.
+        Any knob that bends the pick or needs its stats disqualifies."""
+        return (st.temperature == 0.0 and not (st.top_k or 0)
+                and st.top_p == 1.0 and st.min_p == 0.0
+                and st.presence_penalty == 0.0
+                and st.frequency_penalty == 0.0
+                and st.repetition_penalty == 1.0
+                and not st.logit_bias and not st.min_tokens
+                and not st.lp_n)
+
+    def _pen_live(self) -> bool:
+        """Any presence/frequency-penalised request live?"""
+        return bool(self.pres.any() or self.freqs.any())
+
+    def _bias_live(self) -> bool:
+        """Any active slot with a logit_bias row?"""
+        return any(self._bias_on[s] for s in range(self.n_slots)
+                   if self.active[s])
+
+    def _min_live(self) -> bool:
+        """Any active slot still below its min_tokens floor?"""
+        return any(
+            self.active[s]
+            and len(self.outputs[s]) < int(self.min_toks[s])
+            for s in range(self.n_slots))
+
+    def _rep_live(self) -> bool:
+        return bool((self.reps != 1.0).any())
+
+    def _record_logprobs(self, slot: int, chosen_lp: float,
+                         top_lp, top_id) -> None:
+        """Append one emitted token's stats, trimmed to the request's
+        n: (chosen logprob, [(token id, logprob) x n])."""
+        n = self._lp_want[slot]
+        self._lp_records[slot].append((
+            chosen_lp,
+            [(int(top_id[j]), float(top_lp[j])) for j in range(n)],
+        ))
+
+    def prompt_logprobs(self, slot: int):
+        """Prompt-scoring records; empty until prompt logprobs are
+        ported (``admit(prompt_logprobs=...)`` raises)."""
+        del slot
+        return []
+
+    def token_logprobs(self, slot: int):
+        """Per-token logprob records for *slot*, parallel to
+        :meth:`output`: ``(chosen_logprob, [(token_id, logprob), ...])``
+        with the request's ``logprobs`` n entries each; empty when the
+        request did not ask."""
+        return list(self._lp_records[slot])
+
+    # -- decoding ----------------------------------------------------------
+
+    @torch.no_grad()
+    def _decode_step(self, flags: tuple) -> None:
+        """One decode step of every slot over the window's buffers: the
+        extend, the pick (with the variant's knobs), the outputs at row
+        ``step`` and the advance of the state.  What a CUDA graph
+        captures and replays."""
+        sampled, lp_k, pen, rep, seeded, biased, minned, fused, K = flags
+        w = self._w
+        logits = self.model(w.tok[:, None], w.pos[:, None], self.cache,
+                            decode=True)
+        lg = logits[:, -1, :]
+        if biased:
+            lg = lg + self._bias
+        if minned:
+            # the floor's gate is per-step data, so a crossing inside a
+            # window lifts the mask where step-by-step decoding would
+            gate = ((w.emitted + w.step) < w.min_toks).to(lg.dtype)
+            lg = lg + self._min_mask * gate[:, None]
+        if sampled:
+            keys = row_keys(w.key, w.draws + w.step, w.slots)
+            if seeded:
+                own = row_keys(w.seed_keys, w.slot_draws + w.step, 0)
+                keys = torch.where(w.seed_on > 0, own, keys)
+            nxt = _pick_tokens(lg, w.temps, w.topks, w.topps, w.minps,
+                               w.pres, w.freqs, w.reps, self._counts,
+                               self._seen, keys)
+        else:
+            nxt = torch.argmax(lg, dim=-1)
+        w.out_tok.index_copy_(0, w.step, nxt.to(torch.int32)[None])
+        if lp_k:
+            # the stats see the bias (the distribution the pick used)
+            clp, tlp, tid = _top_logprobs(lg, nxt, lp_k)
+            w.out_clp.index_copy_(0, w.step, clp[None])
+            w.out_tlp.index_copy_(0, w.step, tlp[None])
+            w.out_tid.index_copy_(0, w.step, tid[None])
+        # the histograms take this step's token after its pick
+        if pen:
+            _bump_counts(self._counts, nxt)
+        if rep:
+            _bump_counts(self._seen, nxt)
+        if fused:
+            fin, frs = scan_boundary_update(
+                w.fin, w.frs, nxt, w.step, w.eos, w.stops[K], w.emitted,
+                w.budget)
+            w.fin.copy_(fin)
+            w.frs.copy_(frs)
+        w.tok.copy_(nxt)
+        w.pos.add_(1)
+        w.step.add_(1)
+
+    def _graph(self, flags: tuple) -> "torch.cuda.CUDAGraph":
+        """The captured step of *flags*, captured at its first use."""
+        graph = self._graphs.get(flags)
+        if graph is None:
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            state = [self._w.ints, self._counts, self._seen]
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            graph = capture_step(lambda: self._decode_step(flags),
+                                 state + cache_lens(self.cache),
+                                 self._capture_stream)
+            torch.cuda.synchronize(self.device)
+            self.capture_ms += (time.perf_counter() - t0) * 1e3
+            self._graphs[flags] = graph
+        return graph
+
+    def step(self) -> Dict[int, int]:
+        """One decode step for every active slot, each picking with its
+        own knobs: a window of one step (on CUDA one replay of the same
+        captured step that ``run_scan`` replays).  Returns {slot: token}
+        for the slots active at the step."""
+        if not any(self.active):
+            return {}
+        for s in range(self.n_slots):
+            if self.active[s] and self.lens[s] >= self.model.max_len:
+                self._finish(s)
+        if not any(self.active):
+            return {}
+        out = self.scan_harvest(self._dispatch(1, fused=False))
+        return {s: toks[0] for s, toks in out.items()}
+
+    def run(self, max_steps: int) -> None:
+        for _ in range(max_steps):
+            if not any(self.active):
+                return
+            self.step()
+
+    def run_scan(self, n_steps: int) -> Dict[int, List[int]]:
+        """*n_steps* decode steps as one window with no host round trip
+        in between: on CUDA ``n_steps`` replays of the captured step.
+        Token for token identical to ``n_steps`` x :meth:`step` when no
+        admissions interleave; eos/budget retirement applies after the
+        window (retired slots' extra tokens are computed and dropped).
+        Every active slot needs *n_steps* rows of cache headroom.
+        Returns {slot: [tokens]} for slots active at entry."""
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        if not any(self.active):
+            return {}
+        return self.scan_harvest(self.scan_dispatch(n_steps))
+
+    def scan_dispatch(self, n_steps: int) -> _ScanHandle:
+        """Enqueue *n_steps* decode steps and return without waiting
+        for the device; :meth:`scan_harvest` reads them.  In between the
+        host may run admission work (it lands after the window on the
+        same stream), but no other decode path."""
+        return self._dispatch(n_steps, self.fused_decode)
+
+    def _dispatch(self, n_steps: int, fused: bool) -> _ScanHandle:
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        if self._inflight_scan is not None:
+            raise RuntimeError(
+                "a dispatched window is already outstanding "
+                "(scan_harvest it first)")
+        if not any(self.active):
+            raise RuntimeError("no active slots to scan")
+        for s in range(self.n_slots):
+            if self.active[s] and \
+                    self.lens[s] + n_steps > self.model.max_len:
+                raise ValueError(
+                    f"slot {s} has {self.model.max_len - self.lens[s]} "
+                    f"cache rows left, need {n_steps}")
+        sampled = _knobs_live(self.temps, self.topks, self.topps,
+                              self.minps, self.pres, self.freqs,
+                              self.reps)
+        pen = self._pen_live()
+        rep = self._rep_live()
+        seeded = bool(self._seed_on.any())
+        # logprob stats ride the window only when someone listens
+        lp_k = self.logprobs_k if any(
+            self._lp_want[s] for s in range(self.n_slots)
+            if self.active[s]) else 0
+        K = 0
+        if fused:
+            stop_mat = self._stop_matrix()
+            K = stop_mat.shape[1]
+            self._w.load_stops(stop_mat)
+        flags = (sampled, lp_k, pen, rep, seeded, self._bias_live(),
+                 self._min_live(), fused, K)
+        self._load_window()
+        if self._use_graphs:
+            graph = self._graph(flags)
+            for _ in range(n_steps):
+                graph.replay()
+            self.graph_replays += n_steps
+        else:
+            for _ in range(n_steps):
+                self._decode_step(flags)
+        handle = _ScanHandle(n_steps, sampled, lp_k, list(self.active),
+                             fused)
+        self._inflight_scan = handle
+        return handle
+
+    def _stop_matrix(self) -> np.ndarray:
+        """The per-slot stop ids [S, K] (pad -1), K the widest set
+        rounded up to a multiple of ``_STOP_PAD``."""
+        widest = max(len(self._stops[s]) for s in range(self.n_slots))
+        K = max(_STOP_PAD, -(-widest // _STOP_PAD) * _STOP_PAD)
+        mat = np.full((self.n_slots, K), -1, np.int64)
+        for s in range(self.n_slots):
+            for j, t in enumerate(sorted(self._stops[s])):
+                mat[s, j] = t
+        return mat
+
+    def _load_window(self) -> None:
+        """Host state into the window's buffers: the step's inputs, the
+        knobs, the draw counters and the boundary state."""
+        S = self.n_slots
+        eos = -1 if self.eos_id is None else int(self.eos_id)
+        ints = {
+            "tok": self.last_token, "pos": self.lens,
+            "slot_draws": self._slot_draws,
+            "emitted": [len(self.outputs[s]) for s in range(S)],
+            "topks": self.topks, "min_toks": self.min_toks,
+            "seed_keys": self._seed_keys, "seed_on": self._seed_on,
+            "eos": [-1 if self._ignore_eos[s] else eos for s in range(S)],
+            "fin": -1, "frs": 0, "slots": np.arange(S),
+            "draws": self._draws, "step": 0, "key": self._key,
+            "budget": (self.max_new_tokens
+                       if self.max_new_tokens is not None
+                       else _NO_BUDGET),
+        }
+        floats = {"temps": self.temps, "topps": self.topps,
+                  "minps": self.minps, "pres": self.pres,
+                  "freqs": self.freqs, "reps": self.reps}
+        self._w.load(ints, floats)
+
+    def scan_abandon(self, handle: _ScanHandle) -> None:
+        """Drop a dispatched window without its host bookkeeping; the
+        caller releases every slot."""
+        if self._inflight_scan is handle:
+            self._inflight_scan = None
+
+    def scan_harvest(self, handle: _ScanHandle) -> Dict[int, List[int]]:
+        """Read a dispatched window's outputs (its one wait for the
+        device) and run the host bookkeeping for every slot that was in
+        it.  Slots spliced or released after the dispatch
+        (``handle.skip``) keep the lens and draw counters set since."""
+        self._inflight_scan = None
+        w = self._w
+        n_steps = handle.n_steps
+        sampled, lp_k = handle.sampled, handle.lp_k
+        skip = handle.skip
+        live = [handle.active[s] and self.active[s] and s not in skip
+                for s in range(self.n_slots)]
+        host = w.fetch(n_steps, bool(lp_k), handle.fused)
+        toks = host[0]  # [n_steps, S]
+        if lp_k:
+            clps, tlps, tids = host[1:4]
+        self._steps += n_steps
+        out: Dict[int, List[int]] = {
+            s: [] for s in range(self.n_slots) if live[s]
+        }
+        if handle.fused:
+            return self._harvest_fused(
+                handle, live, toks, clps if lp_k else None,
+                tlps if lp_k else None, tids if lp_k else None,
+                host[-2], host[-1], out)
+        if not sampled and not lp_k:
+            # greedy fast path: no draws and no logprobs, so each
+            # column is cut at its first eos, stop id or budget (eos >
+            # stop > length on one token, the earliest token first)
+            for s in range(self.n_slots):
+                if s not in skip:
+                    self.lens[s] += n_steps
+            eos = None if self.eos_id is None else int(self.eos_id)
+            for s in list(out):
+                col = toks[:, s].tolist()
+                fin = None
+                if eos is not None and not self._ignore_eos[s]:
+                    try:
+                        fin = (col.index(eos), "eos")
+                    except ValueError:
+                        pass
+                stops = self._stops[s]
+                if stops:
+                    for i, t in enumerate(
+                            col if fin is None else col[:fin[0]]):
+                        if t in stops:
+                            fin = (i, "stop")
+                            break
+                if self.max_new_tokens is not None:
+                    room = self.max_new_tokens - len(self.outputs[s])
+                    if room <= n_steps and (
+                            fin is None or room - 1 < fin[0]):
+                        fin = (room - 1, "length")
+                kept = col if fin is None else col[:fin[0] + 1]
+                self.outputs[s].extend(kept)
+                out[s] = kept
+                self._tokens += len(kept)
+                if kept:
+                    self.last_token[s] = kept[-1]
+                if fin is not None:
+                    self._finish(s, fin[1])
+            return out
+        # the draw accounting of step(): a draw is consumed while some
+        # armed slot is still live (retirement resets its knobs); the
+        # armed set is taken once and only shrinks, as slots finish
+        armed: set = set()
+        if sampled:
+            lv = _knobs_live_vec(self.temps, self.topks, self.topps,
+                                 self.minps, self.pres, self.freqs,
+                                 self.reps)
+            armed = {s for s in range(self.n_slots)
+                     if lv[s] and s not in skip}
+        draws_used = 0
+        for i in range(n_steps):
+            if sampled and armed:
+                draws_used += 1
+            if lp_k:
+                for s in range(self.n_slots):
+                    if (handle.active[s] and s not in skip
+                            and self.active[s] and self._lp_want[s]):
+                        self._record_logprobs(s, float(clps[i, s]),
+                                              tlps[i, s], tids[i, s])
+            for s in range(self.n_slots):
+                if s not in skip:
+                    self.lens[s] += 1
+                if s in skip or not (handle.active[s]
+                                     and self.active[s]):
+                    continue
+                tok = int(toks[i, s])
+                self.last_token[s] = tok
+                self.outputs[s].append(tok)
+                self._tokens += 1
+                out[s].append(tok)
+                self._maybe_finish(s, tok)
+                if not self.active[s]:
+                    armed.discard(s)
+        self._draws += draws_used
+        self._slot_draws = [
+            d if s in skip else d + draws_used
+            for s, d in enumerate(self._slot_draws)]
+        return out
+
+    def _harvest_fused(self, handle: _ScanHandle, live, toks,
+                       clps, tlps, tids, fin, frs,
+                       out: Dict[int, List[int]]) -> Dict[int, List[int]]:
+        """Columnar harvest of a fused window: the device found each
+        slot's first eos/stop/budget boundary (``fin``, ``frs``), so the
+        host slices kept prefixes.  Every effect (outputs, lens,
+        logprobs, draws, finish order) is what the unfused harvest
+        gives for the same window."""
+        n_steps, skip = handle.n_steps, handle.skip
+        sampled, lp_k = handle.sampled, handle.lp_k
+        self._fused_windows += 1
+        for s in range(self.n_slots):
+            if s not in skip:
+                self.lens[s] += n_steps
+        live_idx = [s for s in range(self.n_slots) if live[s]]
+        keep = {s: (int(fin[s]) + 1 if fin[s] >= 0 else n_steps)
+                for s in live_idx}
+        self._fused_truncated += sum(
+            n_steps - keep[s] for s in live_idx)
+        # one draw a step while an armed slot is live: the longest kept
+        # prefix over the armed set
+        draws_used = 0
+        if sampled:
+            lv = _knobs_live_vec(self.temps, self.topks, self.topps,
+                                 self.minps, self.pres, self.freqs,
+                                 self.reps)
+            draws_used = max(
+                (keep[s] for s in live_idx
+                 if lv[s] and s not in skip), default=0)
+        if lp_k:
+            for s in live_idx:
+                n = self._lp_want[s]
+                if not n:
+                    continue
+                k = keep[s]
+                cl = clps[:k, s].tolist()
+                tl = tlps[:k, s, :n].tolist()
+                ti = tids[:k, s, :n].tolist()
+                self._lp_records[s].extend(
+                    (cl[i], list(zip(ti[i], tl[i])))
+                    for i in range(k))
+        for s in live_idx:
+            kept = toks[:keep[s], s].tolist()
+            self.outputs[s].extend(kept)
+            out[s] = kept
+            self._tokens += len(kept)
+            if kept:
+                self.last_token[s] = kept[-1]
+        # the unfused harvest retires in slot order on its greedy path
+        # and in (finish step, slot) order otherwise
+        finishing = [s for s in live_idx if fin[s] >= 0]
+        if sampled or lp_k:
+            finishing.sort(key=lambda s: (int(fin[s]), s))
+        reasons = {1: "eos", 2: "stop", 3: "length"}
+        for s in finishing:
+            self._finish(s, reasons[int(frs[s])])
+        if sampled:
+            self._draws += draws_used
+            self._slot_draws = [
+                d if s in skip else d + draws_used
+                for s, d in enumerate(self._slot_draws)]
+        return out
+
+    # -- completion --------------------------------------------------------
+
+    def _maybe_finish(self, slot: int, token: int) -> None:
+        if (self.eos_id is not None and token == self.eos_id
+                and not self._ignore_eos[slot]):
+            self._finish(slot, "eos")
+        elif token in self._stops[slot]:
+            self._finish(slot, "stop")
+        elif (self.max_new_tokens is not None
+              and len(self.outputs[slot]) >= self.max_new_tokens):
+            self._finish(slot, "length")
+
+    def _finish(self, slot: int, reason: str = "length") -> None:
+        self._finished[slot] = self.outputs[slot]
+        self._finish_reason[slot] = reason
+        self.active[slot] = False
+        self._completed += 1
+        self._reset_slot_params(slot)
+
+    def finished(self, slot: int) -> bool:
+        return slot in self._finished
+
+    def finish_reason(self, slot: int) -> Optional[str]:
+        """Why the slot finished: "eos", "stop" or "length"; None while
+        the request is in flight."""
+        return self._finish_reason.get(slot)
+
+    def output(self, slot: int) -> List[int]:
+        """Generated tokens for *slot* (finished or in flight)."""
+        return list(self.outputs[slot])
+
+    def stats(self) -> Dict[str, int]:
+        """Engine counters, with the reference's keys; those of features
+        not ported yet stay 0."""
+        return {
+            "n_slots": self.n_slots,
+            "active_slots": sum(self.active),
+            "free_slots": self.n_slots - sum(self.active),
+            "reserved_slots": sum(self._reserved),
+            "finished_requests": self._completed,
+            "registered_prefixes": len(self._prefixes),
+            "tokens_emitted": self._tokens,
+            "decode_steps": self._steps,
+            "prefill_tokens": self._prefill_tokens,
+            "prefix_cache_hits": self._prefix_hits,
+            "prefix_reused_tokens": self._prefix_reused_tokens,
+            "spec_rounds": 0,
+            "spec_proposed": 0,
+            "spec_accepted": 0,
+            "jump_rounds": 0,
+            "jump_forced_tokens": 0,
+            "prefix_evictions": self._prefix_evictions,
+            "packed_prefill_extends": 0,
+            "packed_prefill_rows": 0,
+            "packed_prefill_requests": 0,
+            "packed_prefill_pad_tokens": 0,
+            "fused_windows": self._fused_windows,
+            "fused_truncated_tokens": self._fused_truncated,
+        }
+
+    def release(self, slot: int) -> None:
+        """Free a slot (abandons any in-flight generation).  Its prompt
+        record survives: the rows [0, canon) stay valid donors for
+        automatic prefix matches until the slot is admitted into again,
+        since a parked slot's masked decode writes clamp to row
+        max_len - 1, below which every prompt lies."""
+        if self._inflight_scan is not None:
+            self._inflight_scan.skip.add(slot)
+        self.active[slot] = False
+        self._finished.pop(slot, None)
+        self._finish_reason.pop(slot, None)
+        self.lens[slot] = 0
+        self._reset_slot_params(slot)
+
+    def _reset_slot_params(self, slot: int) -> None:
+        """Clear a freed slot's knobs: the greedy fast path looks at the
+        whole knob vectors."""
+        self.temps[slot] = 0.0
+        self.topks[slot] = 0
+        self.topps[slot] = 1.0
+        self.minps[slot] = 0.0
+        self.pres[slot] = 0.0
+        self.freqs[slot] = 0.0
+        self.reps[slot] = 1.0
+        self._stops[slot] = frozenset()
+        self._ignore_eos[slot] = False
+        self._seed_on[slot] = 0
+        self._lp_want[slot] = 0  # records stay readable after finish

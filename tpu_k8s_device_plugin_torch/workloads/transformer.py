@@ -104,6 +104,23 @@ def _unported(**features) -> None:
                         "engine slice (ROADMAP.md, queue 1, item 4)",
         "kv_quant": "int8 KV rows in the paged pool arrive with the "
                     "serving-engine slice (ROADMAP.md, queue 1, item 4)",
+        # the serving engine's arguments (workloads/serving.py)
+        "mesh": "tensor-parallel serving arrives with multi-device "
+                "(ROADMAP.md, queue 1, item 6)",
+        "draft": "speculative decoding arrives with its slice "
+                 "(ROADMAP.md, queue 1, item 1b)",
+        "adapter": "LoRA adapters arrive with the quantization and "
+                   "adapter slice (ROADMAP.md, queue 1, item 1b)",
+        "grammar": "grammar-constrained decoding arrives with the paged "
+                   "engine slice (ROADMAP.md, queue 1, item 4.2)",
+        "kv_paging": "the paged KV pool arrives with the paged engine "
+                     "slice (ROADMAP.md, queue 1, item 4.2)",
+        "kv_dtype": "int8 KV pages arrive with the paged engine slice "
+                    "(ROADMAP.md, queue 1, item 4.2)",
+        "session": "parked sessions arrive with the paged engine slice "
+                   "(ROADMAP.md, queue 1, item 4.2)",
+        "prompt_logprobs": "prompt logprobs arrive with the paged engine "
+                           "slice (ROADMAP.md, queue 1, item 4.2)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
