@@ -45,8 +45,21 @@ Phases, each fatal on failure:
    replayed on the first against 32 ``step`` calls run op by op on the
    second (identical ids, logprobs and finish reasons; 32 replays), the
    admission ms, a profile of one window, ``_decode_attention``'s share
-   of a replayed step and ``bench_serving --engine``'s tokens/s; and a
-   4-layer model at the same width with the flash prefill against the
+   of a replayed step and ``bench_serving --engine``'s tokens/s; then
+   the paged engine on the same model and requests
+   (``kv_paging=True``, pages of 32 rows): a full pool's window gives
+   the contiguous engine's ids, finish reasons and logprobs; a pool of
+   half the pages the requests hold at their end finishes all eight
+   with the full pool's ids through a policy that preempts the newest
+   slot and resumes it (preemptions counted, ms per preempt and
+   resume); an int8 pool runs the window (agreeing leading ids, the
+   first step's largest logit difference); a request under a regex
+   grammar over a synthetic 128,256-token vocabulary full-matches it
+   after a jump round that forces tokens, its neighbours keeping their
+   ids; the paged decode rate, window idle share and device ms a step
+   beside the contiguous engine's, the pool gather's ms and share of a
+   replayed step, and the host ms a window spends allocating pages; and
+   a 4-layer model at the same width with the flash prefill against the
    einsum prefill;
 5. the training path: AlexNet at full width (224 px, 1000 classes, s2d,
    bf16 compute, f32 parameters from a seed), batch 1024, one
@@ -99,6 +112,12 @@ BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 4, 1024, 32, 2048
 # that asks; the engine benchmark's prompts of 128 tokens
 ENGINE_SLOTS, ENGINE_STEPS, ENGINE_PROMPTS = 8, 32, (96, 1000)
 ENGINE_LOGPROBS, ENGINE_BENCH_PROMPT = 5, 128
+
+# the paged engine: pages of 32 rows (the admission chunk); the grammar
+# of its constrained request, whose keys and punctuation are forced
+# tokens over the synthetic vocabulary (see grammar_vocab)
+PAGE = 32
+GRAMMAR = r'\{"n":[0-9][0-9]?[0-9]?\}'
 
 # the training path: AlexNet, batch 1024 (224 px, s2d), and its three
 # conv->pool stages: (pool input = conv output, conv input, window)
@@ -652,7 +671,7 @@ def graph_vs_eager_decode(torch, inference, model, prompt, toks):
 
 
 def main_path(torch, counts, inference, llama, bench_serving, serving,
-              card):
+              grammar, card):
     """Phase 4: Llama-3-8B greedy generation through the port, then the
     serving engine."""
     t0 = time.perf_counter()
@@ -714,6 +733,9 @@ def main_path(torch, counts, inference, llama, bench_serving, serving,
     profile_split(torch, inference, model, prompt)
     engine = engine_path(torch, inference, serving, bench_serving, model,
                          card)
+    torch.cuda.empty_cache()
+    engine["paged"] = paged_path(torch, inference, serving, grammar, model,
+                                 engine, card)
     del model
     torch.cuda.empty_cache()
 
@@ -845,6 +867,9 @@ def engine_path(torch, inference, serving, bench_serving, model, card):
           f"{graph.output(5)[:6]}...); finish reasons "
           f"{[graph.finish_reason(s) for s in range(ENGINE_SLOTS)]}",
           flush=True)
+    # what the paged engine's first window is held to
+    window = [(graph.output(s), graph.finish_reason(s),
+               graph.token_logprobs(s)) for s in range(ENGINE_SLOTS)]
 
     steps = 8
     before = graph.graph_replays
@@ -884,7 +909,317 @@ def engine_path(torch, inference, serving, bench_serving, model, card):
           flush=True)
     return dict(stats, window_ms=window_ms, eager_ms=eager_ms,
                 admit_ms=sum(admit_ms) / len(admit_ms),
-                attention_share=attn_ms / step_ms)
+                attention_share=attn_ms / step_ms, window=window)
+
+
+def _admit_all(torch, eng, reqs):
+    """Admit every request of *reqs* in turn; mean ms an admission."""
+    ms = []
+    for prompt, kw in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.admit(prompt, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sum(ms) / len(ms)
+
+
+def next_logits(torch, eng):
+    """The logits of the engine's next decode step, all slots, from a
+    copy of its pool (the engine is not advanced)."""
+    cache = clone_cache(eng.cache)
+    tok = torch.as_tensor(eng.last_token, dtype=torch.int64,
+                          device="cuda")[:, None]
+    pos = torch.as_tensor(eng.lens, dtype=torch.int32, device="cuda")
+    logits = eng._pmodel(tok, pos[:, None], cache, decode=True,
+                         block_tables=eng._bt())[:, -1]
+    del cache
+    return logits
+
+
+def grammar_vocab(np, vocab: int, seed: int):
+    """A synthetic token vocabulary: ids below 128 are their ASCII byte
+    (0 is eos, no bytes), the rest two-letter strings drawn from
+    *seed*."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz"
+                            b"ABCDEFGHIJKLMNOPQRSTUVWXYZ", np.uint8)
+    pairs = np.random.default_rng(seed).choice(letters, (vocab - 128, 2))
+    return ([b""] + [bytes([i]) for i in range(1, 128)]
+            + [bytes(p) for p in pairs.tolist()])
+
+
+def window_rate(torch, serving, model, prompt, steps: int, **kw):
+    """An engine's decode rate at ENGINE_SLOTS requests of
+    ENGINE_BENCH_PROMPT tokens: windows of *steps* replays, best of 3
+    after one warm window; then a profile of one window (its idle share
+    and device ms a step), and the host ms a window spends in
+    ``_ensure_append_pages``."""
+    eng = serving.ServingEngine(model, n_slots=ENGINE_SLOTS, rng=0,
+                                device="cuda", **kw)
+    for row in prompt.tolist():
+        eng.admit(row)
+    host = [0.0]
+    ensure = eng._ensure_append_pages
+
+    def timed_ensure(n):
+        t0 = time.perf_counter()
+        ensure(n)
+        host[0] += (time.perf_counter() - t0) * 1e3
+
+    eng._ensure_append_pages = timed_ensure
+    eng.run_scan(steps)
+    best = None
+    host[0] = 0.0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.run_scan(steps)
+        dt = time.perf_counter() - t0
+        best = dt if best is None or dt < best else best
+    ensure_ms = host[0] / 3
+    profiled = 8
+    wall, busy = profile_region(
+        torch, f"{'paged' if kw else 'contiguous'} engine window "
+               f"x{profiled}", lambda: eng.run_scan(profiled))
+    return eng, dict(tokens_per_sec=ENGINE_SLOTS * steps / best,
+                     idle=max(0.0, 1 - busy / wall),
+                     step_ms=busy / profiled, ensure_ms=ensure_ms)
+
+
+def paged_path(torch, inference, serving, grammar, model, engine, card):
+    """Phase 4, the paged engine: ``ServingEngine(kv_paging=True)`` on
+    the engine phase's model and eight requests, page 32.  (1) a full
+    pool: ids, finish reasons and logprobs of one window of 32 replays
+    equal the contiguous engine's; (2) a pool of about half the pages
+    the requests hold at their end, with a policy that preempts the
+    newest active slot and resumes it when pages free: every request
+    finishes with the full pool's ids; (3) int8 pages run to the end;
+    (4) one greedy request under a regex grammar among the others,
+    over a synthetic 128,256-token vocabulary: its output full-matches
+    the grammar, the neighbours keep their ids, and a jump round
+    forces tokens; (5) the decode rate, idle share and device ms a
+    step of paged windows beside contiguous ones, the pool gather's
+    share of a replayed step, and the host ms a window spends
+    allocating pages.  Every check is fatal."""
+    import numpy as np
+
+    reqs = engine_requests(np, model.vocab)
+    want = engine["window"]
+    base = dict(n_slots=ENGINE_SLOTS, logprobs_k=ENGINE_LOGPROBS, rng=0,
+                kv_paging=True, kv_page_size=PAGE, device="cuda")
+
+    # (1) a full pool against the contiguous engine's window
+    full = serving.ServingEngine(model, **base)
+    admit_ms = _admit_all(torch, full, reqs)
+    first = next_logits(torch, full)
+    full.run_scan(ENGINE_STEPS)
+    flags = list(full._graphs)
+    if full.graph_replays != ENGINE_STEPS or not all(f[-1] for f in flags):
+        fail(f"paged window: {full.graph_replays} replays of {flags}")
+    for s in range(ENGINE_SLOTS):
+        got = (full.output(s), full.finish_reason(s),
+               full.token_logprobs(s))
+        if got != want[s]:
+            fail(f"paged slot {s} ({reqs[s][1]}): ids, finish reason or "
+                 f"logprobs differ from the contiguous engine's: "
+                 f"{got[0][:8]}... against {want[s][0][:8]}...")
+    st = full.stats()
+    held = st["kv_pages"] - st["kv_pages_free"]
+    full_ids = [full.output(s) for s in range(ENGINE_SLOTS)]
+    print(f"paged: full pool of {st['kv_pages']} pages of {PAGE} rows; "
+          f"admission {admit_ms:.1f} ms a request; one window of "
+          f"{ENGINE_STEPS} replays gives the contiguous engine's ids, "
+          f"finish reasons and logprobs in all {ENGINE_SLOTS} slots; "
+          f"{held} pages held at its end; {card}", flush=True)
+    del full
+    torch.cuda.empty_cache()
+
+    # (2) an oversubscribed pool with a preemption policy
+    pages = held // 2
+    eng = serving.ServingEngine(model, max_new_tokens=ENGINE_STEPS + 1,
+                                kv_pages=pages, **base)
+    order, parked, owner, done = [], [], {}, {}
+    ms = {"preempt": [], "resume": []}
+
+    def timed(kind, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ms[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def preempt_newest(exclude):
+        live = [s for s in order if eng.active[s] and s != exclude]
+        if not live:
+            return False
+        s = live[-1]
+        parked.append((owner.pop(s), timed("preempt", eng.preempt, s)))
+        order.remove(s)
+        return True
+
+    eng.set_preempt_cb(preempt_newest)
+    queue = list(range(ENGINE_SLOTS))
+    windows = 0
+    while len(done) < ENGINE_SLOTS:
+        while parked and eng.free_slots():
+            try:
+                s = timed("resume", eng.resume, parked[0][1])
+            except serving.PagePoolExhausted:
+                ms["resume"].pop()
+                break
+            owner[s] = parked.pop(0)[0]
+            order.append(s)
+        while queue and eng.free_slots() and not parked:
+            prompt, kw = reqs[queue[0]]
+            try:
+                s = eng.admit(prompt, **kw)
+            except serving.PagePoolExhausted:
+                break
+            owner[s] = queue.pop(0)
+            order.append(s)
+        if not any(eng.active):
+            fail("oversubscribed pool: nothing could run")
+        eng.run_scan(ENGINE_STEPS)
+        windows += 1
+        if windows > 4 * ENGINE_SLOTS:
+            fail(f"oversubscribed pool: {len(done)} of {ENGINE_SLOTS} "
+                 f"requests finished after {windows} windows")
+        for s in list(owner):
+            if eng.finished(s):
+                done[owner.pop(s)] = eng.output(s)
+                order.remove(s)
+                eng.release(s)
+    for i in range(ENGINE_SLOTS):
+        if done[i] != full_ids[i]:
+            fail(f"oversubscribed pool: request {i} gave {done[i][:8]}... "
+                 f"against the full pool's {full_ids[i][:8]}...")
+    n_pre, n_res = len(ms["preempt"]), len(ms["resume"])
+    if not n_pre or n_res != n_pre:
+        fail(f"oversubscribed pool: {n_pre} preemptions, {n_res} "
+             "resumptions")
+    eng._pool.check()
+    print(f"paged: pool of {pages} pages (half the {held} the full pool "
+          f"held), {windows} windows: all {ENGINE_SLOTS} requests finish "
+          f"with the full pool's ids after {n_pre} preemptions and "
+          f"{n_res} resumptions; preempt {sum(ms['preempt']) / n_pre:.1f} "
+          f"ms, resume {sum(ms['resume']) / n_res:.1f} ms (means); {card}",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (3) int8 pages
+    q8 = serving.ServingEngine(model, kv_dtype="int8", **base)
+    _admit_all(torch, q8, reqs)
+    diff = float((next_logits(torch, q8) - first).abs().max())
+    q8.run_scan(ENGINE_STEPS)
+    agree = []
+    for s in (0, 1, 2, 3):
+        got, ref = q8.output(s), full_ids[s]
+        n = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                 min(len(got), len(ref)))
+        agree.append(n)
+    if any(len(q8.output(s)) != len(full_ids[s])
+           for s in range(ENGINE_SLOTS)):
+        fail("int8 pool: a slot did not run to the end of the window")
+    print(f"paged: int8 pool runs the window; leading greedy ids that "
+          f"agree with the bf16 pool (slots 0-3, of "
+          f"{ENGINE_STEPS + 1}): {agree}; largest logit difference at the "
+          f"first step {diff:.4f} (max |logit| "
+          f"{float(first.abs().max()):.3f}); {card}", flush=True)
+    del q8, first
+    torch.cuda.empty_cache()
+
+    # (4) a grammar over a synthetic vocabulary
+    t0 = time.perf_counter()
+    dfa = grammar.token_dfa(grammar.regex_to_dfa(GRAMMAR),
+                            grammar_vocab(np, model.vocab, 0), eos_id=0)
+    build_s = time.perf_counter() - t0
+    g = serving.ServingEngine(model, grammar=dfa, **base)
+    prompt0 = reqs[0][0]
+    gs = g.admit(prompt0, grammar=True, stop=[0])
+    forced = g.forced_pending()
+    jumped = g.jump_round()
+    st = g.stats()
+    if not forced or jumped is None or st["jump_forced_tokens"] < 1:
+        fail(f"grammar: no forced token jumped ({st['jump_rounds']} "
+             f"rounds, {st['jump_forced_tokens']} forced)")
+    for prompt, kw in reqs[1:]:
+        g.admit(prompt, **kw)
+    g.run_scan(ENGINE_STEPS)
+    out = g.output(gs)
+    text = bytes(t for t in out if t).decode("latin-1")
+    if g.finish_reason(gs) != "stop" or not re.fullmatch(GRAMMAR, text):
+        fail(f"grammar: output {text!r} ({g.finish_reason(gs)}) does not "
+             f"full-match {GRAMMAR}")
+    for s in range(1, ENGINE_SLOTS):
+        if g.output(s) != full_ids[s]:
+            fail(f"grammar: neighbour slot {s} gave {g.output(s)[:8]}... "
+                 f"against {full_ids[s][:8]}...")
+    if not any(f[7] for f in g._graphs):
+        fail("grammar: no grammared step was captured")
+    print(f"paged: grammar {GRAMMAR} over {model.vocab} tokens (table "
+          f"built in {build_s:.2f} s, {dfa.table.shape[0]} states): "
+          f"{text!r}, a jump round forced {st['jump_forced_tokens']} "
+          f"tokens; the {ENGINE_SLOTS - 1} neighbours keep their ids; "
+          f"{card}", flush=True)
+    del g
+    torch.cuda.empty_cache()
+
+    # (5) rates and shares, paged beside contiguous
+    prompt = torch.randint(0, model.vocab, (ENGINE_SLOTS, ENGINE_BENCH_PROMPT),
+                           generator=torch.Generator().manual_seed(3))
+    rates = {}
+    for name, kw in (("contiguous", {}),
+                     ("paged", dict(kv_paging=True, kv_page_size=PAGE))):
+        eng, rates[name] = window_rate(torch, serving, model, prompt,
+                                       ENGINE_STEPS, **kw)
+        if name == "paged":
+            # the gather with this run's tables (short prompts: most
+            # entries are the scratch page, read from the L2 cache), and
+            # with every entry a distinct page, as in a full pool
+            pool = eng._pool
+            tables = {"run": eng._bt().clone(),
+                      "full": torch.randperm(pool.n_pages, device="cuda")[
+                          :ENGINE_SLOTS * pool.n_tables].view(
+                              ENGINE_SLOTS, pool.n_tables)}
+            gather_ms = {}
+            for key, bt in tables.items():
+                def gather(bt=bt):
+                    for layer in eng.cache.values():
+                        inference._gather_pool_view(layer["cached_k"], bt,
+                                                    model.dtype)
+                        inference._gather_pool_view(layer["cached_v"], bt,
+                                                    model.dtype)
+                gather_ms[key] = graph_ms(torch, gather)
+            layer = eng.cache["block_0"]
+            view = layer["cached_k"][tables["full"]]
+            # every view row read once from a page and written once, K
+            # and V, every layer
+            gather_bound = bytes_bound_ms(view, view, view, view) \
+                * model.n_layers
+            mapped = (int((tables["run"] != pool.scratch).sum()),
+                      tables["run"].numel())
+            del view
+        del eng
+        torch.cuda.empty_cache()
+    c, p = rates["contiguous"], rates["paged"]
+    share = gather_ms["run"] / p["step_ms"]
+    print(f"paged: decode {p['tokens_per_sec']:.1f} tokens/s at "
+          f"{ENGINE_SLOTS} slots against contiguous "
+          f"{c['tokens_per_sec']:.1f}; window idle share {p['idle']:.3f} "
+          f"against {c['idle']:.3f}; device {p['step_ms']:.3f} ms a step "
+          f"against {c['step_ms']:.3f}; _ensure_append_pages "
+          f"{p['ensure_ms']:.3f} host ms a window of {ENGINE_STEPS}; {card}",
+          flush=True)
+    print(f"paged: the pool gather (K and V, {model.n_layers} layers) "
+          f"{gather_ms['run']:.3f} ms with this run's tables ({mapped[0]} of "
+          f"{mapped[1]} entries mapped), share "
+          f"{share:.3f} of a replayed step; {gather_ms['full']:.3f} ms with "
+          f"every entry a distinct page (bound {gather_bound:.3f} ms by "
+          f"the bytes); {card}", flush=True)
+    return dict(rates=rates, gather_ms=gather_ms, gather_share=share,
+                gather_bound=gather_bound, preemptions=n_pre,
+                int8_agree=agree, int8_diff=diff)
 
 
 class Counts:
@@ -1301,8 +1636,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_k8s_device_plugin_torch import build
     from tpu_k8s_device_plugin_torch.workloads import (
-        alexnet, bench_main, bench_serving, inference, llama, serving,
-        transformer)
+        alexnet, bench_main, bench_serving, grammar, inference, llama,
+        serving, transformer)
     from tpu_k8s_device_plugin_torch.workloads import convpool as cp
     from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
     from tpu_k8s_device_plugin_torch.workloads import pool as mp
@@ -1336,7 +1671,7 @@ def main() -> int:
     pool = check_pool(torch, mp)
     conv_pool = check_conv_pool(torch, cp)
     launches, _, _ = main_path(torch, counts, inference, llama,
-                               bench_serving, serving, card)
+                               bench_serving, serving, grammar, card)
     torch.cuda.empty_cache()
     train, train_modes = training_path(torch, counts, alexnet, bench_main)
     torch.cuda.empty_cache()

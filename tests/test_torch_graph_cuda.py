@@ -3,7 +3,12 @@ replayed step against the same step run op by op, bit for bit, for
 ``_decode_loop`` and for the engine's ``run_scan`` in every static
 variant; the replay counts; captured addresses that stay valid across
 splices and prefix copies between windows; and a capture that fails
-raising rather than running eagerly.
+raising rather than running eagerly.  Then the paged engine: the paged,
+the int8 paged and the grammared steps as replays against their eager
+steps; admission, preemption, resumption and copy-on-write landing in
+the pool and the block tables between replays of one graph; a grammar
+registered within the table's capacity seen by the captured step, and
+a growth that recaptures it.
 
 These need a CUDA device; elsewhere they skip.  On the GPU machine:
 
@@ -15,6 +20,7 @@ import pytest
 import torch
 
 from tpu_k8s_device_plugin_torch.workloads import bench_serving as tbench
+from tpu_k8s_device_plugin_torch.workloads import grammar as tgrammar
 from tpu_k8s_device_plugin_torch.workloads import inference as tinf
 from tpu_k8s_device_plugin_torch.workloads import llama as tllama
 from tpu_k8s_device_plugin_torch.workloads.serving import ServingEngine
@@ -184,3 +190,154 @@ def test_failed_capture_raises_instead_of_running_eagerly(model):
     assert eng.graph_replays == 0 and not eng._graphs
     assert eng.lens == lens
     assert [eng.output(s) for s in range(4)] == outs
+
+
+# -- the paged engine --------------------------------------------------------
+
+EOS = 1
+PATTERN = "(ab|cd)+e"
+
+
+def _token_bytes(vocab):
+    return [bytes([i]) if 2 <= i < 128 else b"" for i in range(vocab)]
+
+
+def _dfa(model, pattern=PATTERN):
+    return tgrammar.token_dfa(tgrammar.regex_to_dfa(pattern),
+                              _token_bytes(model.vocab), eos_id=EOS)
+
+
+PAGED = {
+    "paged": (dict(), MIXES["sampled"] + MIXES["penalties"]),
+    "int8": (dict(kv_dtype="int8"), MIXES["seeded"] + MIXES["logprobs"]),
+    "grammar": (dict(), [dict(grammar=True), dict(),
+                         dict(temperature=1.0, seed=4, grammar=True)]),
+}
+
+
+def _paged_engine(model, variant, graphs, **kw):
+    extra, reqs = PAGED[variant]
+    eng = ServingEngine(model, n_slots=4, eos_id=EOS, logprobs_k=3, rng=17,
+                        chunk=16, kv_paging=True,
+                        grammar=_dfa(model) if variant == "grammar" else None,
+                        **extra, **kw)
+    eng._use_graphs = graphs
+    for i, req in enumerate(reqs):
+        eng.admit(_prompt(model.vocab, (5 + 9 * i,), 30 + i).tolist(),
+                  **req)
+    return eng
+
+
+def _valid_rows(eng):
+    """Every active slot's K/V rows below its depth, gathered from the
+    pool in storage form."""
+    from tpu_k8s_device_plugin_torch.workloads.serving import (
+        _paged_gather_raw,
+    )
+
+    out = {}
+    for s in range(eng.n_slots):
+        if not eng.active[s]:
+            continue
+        raw = _paged_gather_raw(eng.cache, eng._pool.tables[s])
+        for layer, kv in raw.items():
+            for name, t in kv.items():
+                t = torch.as_tensor(t)
+                out[(s, layer, name)] = t.reshape(
+                    (-1,) + tuple(t.shape[2:]))[:eng.lens[s]]
+    return out
+
+
+def _assert_same_rows(a, b):
+    assert a.keys() == b.keys()
+    for key, t in a.items():
+        assert torch.equal(t, b[key]), key
+
+
+@pytest.mark.parametrize("variant", sorted(PAGED))
+def test_paged_steps_graph_match_eager(model, variant):
+    graph, eager = (_paged_engine(model, variant, g) for g in (True, False))
+    for eng in (graph, eager):
+        eng.run_scan(5)
+        eng.step()
+        eng.run_scan(4)
+    assert _state(graph) == _state(eager)
+    assert graph.gstate.tolist() == eager.gstate.tolist()
+    assert graph.graph_replays == graph.stats()["decode_steps"] > 0
+    assert eager.graph_replays == 0 and not eager._graphs
+    # every captured variant is a paged one, grammared where it must be
+    assert all(flags[-1] for flags in graph._graphs)
+    if variant == "grammar":
+        assert any(flags[7] for flags in graph._graphs)
+    _assert_same_rows(_valid_rows(graph), _valid_rows(eager))
+
+
+def test_pool_changes_land_between_replays(model):
+    """Admission (a cold one, a shared prefix, an exact repeat that
+    copies on write), preemption and resumption between windows: the
+    graph captured before them replays after them, reading the pool and
+    the block tables the changes wrote in place, and the ids stay the
+    eager engine's."""
+    shared = _prompt(model.vocab, (40,), 50).tolist()
+    outs, rows = [], []
+    for graphs in (True, False):
+        eng = ServingEngine(model, n_slots=4, chunk=16, rng=3,
+                            kv_paging=True, auto_prefix_min=16)
+        eng._use_graphs = graphs
+        a = eng.admit(shared + [5, 6])
+        b = eng.admit(_prompt(model.vocab, (20,), 51).tolist(),
+                      temperature=0.9, seed=8)
+        eng.run_scan(4)
+        captured = dict(eng._graphs)
+        state = eng.preempt(b)
+        c = eng.admit(shared + [9, 9])                # shares 2 pages
+        d = eng.admit(shared + [5, 6])                # exact repeat
+        cow = eng._pool.cow_copies
+        eng.run_scan(3)
+        assert eng._pool.cow_copies > cow
+        b2 = eng.resume(state)
+        eng.run_scan(4)
+        if graphs:
+            assert all(eng._graphs[k] is g for k, g in captured.items())
+            assert eng.stats()["kv_preemptions"] == 1
+        outs.append([eng.output(s) for s in (a, b2, c, d)])
+        rows.append(_valid_rows(eng))
+        eng._pool.check()
+    assert outs[0] == outs[1]
+    _assert_same_rows(*rows)
+
+
+def test_grammar_registration_reaches_the_captured_step(model):
+    """A grammar registered within the table's capacity is a copy into
+    the table the captured step reads: the same graph decodes under it.
+    One past the capacity allocates a new table and recaptures."""
+    outs = []
+    for graphs in (True, False):
+        eng = ServingEngine(model, n_slots=3, eos_id=EOS, chunk=16,
+                            kv_paging=True, grammar=_dfa(model),
+                            max_new_tokens=20)
+        eng._use_graphs = graphs
+        eng.admit(_prompt(model.vocab, (9,), 60).tolist(), grammar=True)
+        eng.run_scan(2)
+        graphs_before = dict(eng._graphs)
+        captures = eng.graph_captures
+        digits = eng.register_grammar(_dfa(model, r"\d+"))
+        s1 = eng.admit(_prompt(model.vocab, (7,), 61).tolist(),
+                       grammar=digits)
+        eng.run_scan(3)
+        if graphs:
+            assert eng.graph_captures == captures
+            assert all(eng._graphs[k] is g
+                       for k, g in graphs_before.items())
+        table = eng._gtable
+        big = eng.register_grammar(_dfa(model, tgrammar.json_value_regex(1)))
+        assert eng._gtable is not table
+        s2 = eng.admit(_prompt(model.vocab, (6,), 62).tolist(), grammar=big)
+        eng.run_scan(3)
+        if graphs:
+            assert eng.graph_captures == captures + 1
+        outs.append([eng.output(s) for s in range(3)])
+        text = bytes(t for t in eng.output(s1) if t >= 2).decode("latin-1")
+        assert text.isdigit() or not text
+        del s2
+    assert outs[0] == outs[1]

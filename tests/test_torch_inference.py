@@ -172,20 +172,36 @@ def test_bf16_prefill_close(trained):
 
 
 def test_unported_features_raise():
+    """Quantized weights, experts and adapters raise naming their slice.
+    The paged pool is ported: a ``kv_page_size`` decoder builds, its
+    extend needs block tables and its prefill raises as the
+    reference's does; a contiguous decoder ignores block tables."""
     for kw in (dict(quantized=True), dict(quantized="int4"),
-               dict(n_experts=4), dict(n_adapters=2),
-               dict(kv_page_size=8)):
+               dict(n_experts=4), dict(n_adapters=2)):
         with pytest.raises(NotImplementedError, match="slice"):
             tinf.DecodeTransformerLM(**GELU, device="cpu", **kw)
-    tdec = tinf.make_decoder(**GELU, max_len=16, dtype=torch.float32,
-                             device="cpu")
-    cache = tinf.init_cache(tdec, 1)
+    paged = tinf.DecodeTransformerLM(**GELU, device="cpu", kv_page_size=8)
+    pool = tinf.init_pool_cache(paged, 1, 4, 8)
     tok = torch.zeros(1, 1, dtype=torch.long)
     pos = torch.zeros(1, 1, dtype=torch.int32)
-    for kw in (dict(adapter_ids=torch.zeros(1, dtype=torch.int32)),
-               dict(block_tables=torch.zeros(1, 2, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tinf.extend_step(tdec, cache, tok, pos, **kw)
+    with pytest.raises(ValueError, match="block_tables"):
+        tinf.extend_step(paged, pool, tok, pos)
+    with pytest.raises(NotImplementedError, match="EXTEND path only"):
+        paged(tok, pos, pool)
+    tdec = tinf.make_decoder(**GELU, max_len=16, dtype=torch.float32,
+                             device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for p in tdec.parameters():
+        p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    cache = tinf.init_cache(tdec, 1)
+    with pytest.raises(NotImplementedError, match="slice"):
+        tinf.extend_step(tdec, cache, tok, pos,
+                         adapter_ids=torch.zeros(1, dtype=torch.int32))
+    want, _ = tinf.extend_step(tdec, tinf.init_cache(tdec, 1), tok, pos)
+    got, _ = tinf.extend_step(
+        tdec, cache, tok, pos,
+        block_tables=torch.zeros(1, 2, dtype=torch.int32))
+    assert torch.equal(got, want)
 
 
 def test_converter_rejects_quantized_tree():

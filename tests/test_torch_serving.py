@@ -25,6 +25,7 @@ from tpu_k8s_device_plugin.workloads.inference import make_decoder
 from tpu_k8s_device_plugin.workloads.serving import ServingEngine as JEngine
 from tpu_k8s_device_plugin_torch.convert import params_from_jax
 from tpu_k8s_device_plugin_torch.workloads import bench_serving as tbench
+from tpu_k8s_device_plugin_torch.workloads import grammar as tgrammar
 from tpu_k8s_device_plugin_torch.workloads import inference as tinf
 from tpu_k8s_device_plugin_torch.workloads import llama as tllama
 from tpu_k8s_device_plugin_torch.workloads import serving as tserve
@@ -586,8 +587,21 @@ def test_engine_level_errors_match_reference(gelu):
     (dict(kv_dtype="int8"), "item 4.2"),
 ])
 def test_unported_engine_arguments_raise(gelu, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port(gelu[2], n_slots=1, **kw)
+    """Arguments of features not ported yet raise naming their ROADMAP
+    item; those of item 4.2 (grammars, the paged pool, int8 pages) are
+    ported now and build an engine that decodes."""
+    if item != "item 4.2":
+        with pytest.raises(NotImplementedError, match=item):
+            _port(gelu[2], n_slots=1, **kw)
+        return
+    if "grammar" in kw:
+        kw = dict(grammar=tgrammar.token_dfa(
+            tgrammar.regex_to_dfa("(ab|cd)+e"),
+            [bytes([i]) if i else b"" for i in range(CFG["vocab"])], 0))
+    eng = _port(gelu[2], n_slots=1, **dict(kw, kv_paging=True))
+    s = eng.admit([1, 2, 3], grammar="grammar" in kw)
+    eng.run(3)
+    assert len(eng.output(s)) == 4
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -598,7 +612,19 @@ def test_unported_engine_arguments_raise(gelu, kw, item):
     (dict(prompt_logprobs=2), "item 4.2"),
 ])
 def test_unported_request_arguments_raise(gelu, kw, item):
+    """admit's adapter raises naming item 1b and leaves the slot free;
+    the request arguments of item 4.2 are ported now and admit."""
     eng = _port(gelu[2], n_slots=1, logprobs_k=2)
+    if item == "item 4.2":
+        if "grammar" in kw:
+            eng.register_grammar(tgrammar.token_dfa(
+                tgrammar.regex_to_dfa("(ab|cd)+e"),
+                [bytes([i]) if i else b"" for i in range(CFG["vocab"])], 0))
+        s = eng.admit([1, 2, 3], **kw)
+        assert eng.output(s) and eng.free_slots() == []
+        if "prompt_logprobs" in kw:
+            assert len(eng.prompt_logprobs(s)) == 3
+        return
     with pytest.raises(NotImplementedError, match=item):
         eng.admit([1, 2, 3], **kw)
     assert eng.free_slots() == [0]

@@ -1,6 +1,6 @@
 """Autoregressive inference with a KV cache: the serving-side model.
 
-The dense, full-precision, contiguous-cache subset of the JAX package's
+The dense, full-precision subset of the JAX package's
 ``workloads/inference.py``, in PyTorch:
 
 * ``DecodeTransformerLM`` / ``CachedBlock`` carry the same parameters
@@ -14,6 +14,12 @@ The dense, full-precision, contiguous-cache subset of the JAX package's
 * the cache is the dict ``init_cache`` builds, with the JAX package's
   keys and shapes.  JAX donates the cache buffers to each step; here
   every step updates them in place, and returns the same dict.
+* paged extend (a model cloned with ``kv_page_size``): the cache is the
+  page pool ``init_pool_cache`` builds, addressed through per-slot
+  block tables; the extend scatters its K/V into the pool, gathers the
+  pool back into the contiguous ``[B, max_len]`` view and runs the same
+  attention.  With ``kv_quant`` the pool holds int8 rows and f32
+  per-row scales.
 
 The decode loop takes the first token from the prefill logits, then
 runs ``n_steps - 1`` extends.  On CUDA the step (extend and pick) is
@@ -29,6 +35,7 @@ the model refuses to build.
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Dict, Optional, Tuple
 
@@ -67,7 +74,14 @@ class CachedBlock(Block):
     to T.  Extend (``decode=True``) writes at each slot's own length,
     with the start clamped to ``[0, max_len - T]`` as
     ``lax.dynamic_update_slice`` clamps it, and query t of slot b sees
-    cache positions below ``lens[b] + t + 1``."""
+    cache positions below ``lens[b] + t + 1``.
+
+    Paged extend (*block_tables* given): ``cached_k`` / ``cached_v`` are
+    pools ``[P + 1, page, Hkv, Dh]`` (int8, with ``k_scale`` /
+    ``v_scale`` ``[P + 1, page, Hkv]``, when quantized) and row r of
+    slot b lives at page ``block_tables[b, r // page]``, offset
+    ``r % page``.  The start is clamped as above, so a parked slot's
+    writes stay in its own tail pages or the scratch page."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  max_len: int, dtype: torch.dtype = COMPUTE_DTYPE,
@@ -78,10 +92,13 @@ class CachedBlock(Block):
                          rope_theta=rope_theta, device=device,
                          param_dtype=dtype)
         self.max_len = max_len
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 layer_cache: Dict[str, torch.Tensor],
-                decode: bool = False) -> torch.Tensor:
+                decode: bool = False,
+                block_tables: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         B, T, _ = x.shape
         q, k, v = self.attention_inputs(x, positions)
         cached_k = layer_cache["cached_k"]
@@ -105,12 +122,83 @@ class CachedBlock(Block):
         else:
             start = torch.clamp(lens, min=0, max=self.max_len - T)
             idx = start.long()[:, None] + torch.arange(T, device=x.device)
-            rows = torch.arange(B, device=x.device)[:, None]
-            cached_k[rows, idx] = k
-            cached_v[rows, idx] = v
-            att = _decode_attention(q, cached_k, cached_v, lens)
+            if block_tables is None:
+                rows = torch.arange(B, device=x.device)[:, None]
+                cached_k[rows, idx] = k
+                cached_v[rows, idx] = v
+                att = _decode_attention(q, cached_k, cached_v, lens)
+            else:
+                att = self._paged_extend(q, k, v, idx, layer_cache,
+                                         block_tables)
             lens += T
         return self.finish(x, att)
+
+    def _paged_extend(self, q, k, v, idx, layer_cache, block_tables):
+        """Scatter this call's K/V rows *idx* [B, T] into the pool pages
+        the block tables name, in place, then attend against the
+        gathered contiguous view."""
+        cached_k = layer_cache["cached_k"]
+        cached_v = layer_cache["cached_v"]
+        lens = layer_cache["cache_lens"]
+        ps = cached_k.shape[1]
+        tables = block_tables.long()
+        phys = tables.gather(1, idx // ps)
+        off = idx % ps
+        if "k_scale" in layer_cache:
+            k_scale, v_scale = layer_cache["k_scale"], layer_cache["v_scale"]
+            kq, ks = quantize_kv_rows(k)
+            vq, vs = quantize_kv_rows(v)
+            cached_k[phys, off] = kq
+            cached_v[phys, off] = vq
+            k_scale[phys, off] = ks
+            v_scale[phys, off] = vs
+            view_k = _gather_pool_view(cached_k, tables, self.dtype, k_scale)
+            view_v = _gather_pool_view(cached_v, tables, self.dtype, v_scale)
+        else:
+            cached_k[phys, off] = k.to(cached_k.dtype)
+            cached_v[phys, off] = v.to(cached_v.dtype)
+            view_k = _gather_pool_view(cached_k, tables, self.dtype)
+            view_v = _gather_pool_view(cached_v, tables, self.dtype)
+        return _decode_attention(q, view_k, view_v, lens)
+
+
+# int8 KV rows: one symmetric f32 scale per (token row, KV head) over the
+# head dim
+_KV_QMAX = 127.0
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., Hkv, Dh] K/V rows -> (int8 values, f32 per-row scales
+    [..., Hkv]).  Symmetric: q = round(x / s * 127), s = max|x| over Dh
+    (0-rows get scale 1 so they round-trip to exact zeros)."""
+    xf = x.to(torch.float32)
+    s = xf.abs().amax(dim=-1)
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(xf / s[..., None] * _KV_QMAX), -127, 127)
+    return q.to(torch.int8), s
+
+
+def dequantize_kv_rows(q: torch.Tensor, s: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_rows` (values, not bits)."""
+    return (q.to(torch.float32) * (s / _KV_QMAX)[..., None]).to(dtype)
+
+
+def _gather_pool_view(pool: torch.Tensor, block_tables: torch.Tensor,
+                      dtype: torch.dtype,
+                      scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pool pages -> the contiguous logical view ``[B, max_len, Hkv, Dh]``
+    the banded attention masks: one gather by block table, reshaped.
+    With *scale* the pool is int8 and rows dequantize on the way out.
+    Rows of unmapped (scratch) entries hold whatever finite values were
+    written there; all of them sit at logical positions >= the slot's
+    lens, where the -inf mask gives them a weight of exactly 0."""
+    B = block_tables.shape[0]
+    tables = block_tables.long()
+    v = pool[tables]                 # [B, n_pages, page, Hkv, Dh]
+    if scale is not None:
+        v = dequantize_kv_rows(v, scale[tables], dtype)
+    return v.reshape(B, -1, v.shape[-2], v.shape[-1])
 
 
 def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -140,7 +228,10 @@ class DecodeTransformerLM(nn.Module):
     """Serving twin of the JAX ``TransformerLM``: embedding, cached
     blocks named ``block_i``, final RMSNorm, ``lm_head``; logits in f32.
     The engine assumes the natural token order (positions 0..T-1 at
-    prefill)."""
+    prefill).  ``kv_page_size > 0`` makes the extend paged (the cache is
+    a page pool and the call passes ``block_tables``); ``kv_quant`` says
+    the pool stores int8 rows.  :meth:`clone` gives such a twin over the
+    same weights."""
 
     def __init__(self, vocab: int, d_model: int = 256, n_heads: int = 4,
                  n_layers: int = 2, d_ff: int = 1024, max_len: int = 512,
@@ -157,12 +248,12 @@ class DecodeTransformerLM(nn.Module):
         # lora_scale the adapters: they take effect with n_experts and
         # n_adapters, which raise until ported
         _unported(quantized=quantized, n_experts=n_experts,
-                  n_adapters=n_adapters, kv_page_size=kv_page_size,
-                  kv_quant=kv_quant)
+                  n_adapters=n_adapters)
         device = resolve_device(device)
         self.vocab, self.d_model, self.n_heads = vocab, d_model, n_heads
         self.n_layers, self.max_len, self.dtype = n_layers, max_len, dtype
         self.n_kv_heads = n_kv_heads or n_heads
+        self.kv_page_size, self.kv_quant = int(kv_page_size), bool(kv_quant)
         self.embed = Embed(vocab, d_model, dtype, device)
         for i in range(n_layers):
             self.add_module(f"block_{i}", CachedBlock(
@@ -177,16 +268,41 @@ class DecodeTransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.weight.device
 
+    def clone(self, **fields) -> "DecodeTransformerLM":
+        """A twin of this model over the same weights with *fields*
+        (``kv_page_size``, ``kv_quant``) replaced: the counterpart of
+        flax's ``Module.clone``."""
+        for name in fields:
+            if name not in ("kv_page_size", "kv_quant"):
+                raise TypeError(f"clone cannot change {name!r}")
+        twin = copy.copy(self)
+        twin.kv_page_size = int(fields.get("kv_page_size",
+                                           self.kv_page_size))
+        twin.kv_quant = bool(fields.get("kv_quant", self.kv_quant))
+        return twin
+
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 cache: Cache, decode: bool = False,
                 adapter_ids: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        _unported(adapter_ids=adapter_ids, block_tables=block_tables)
+        _unported(adapter_ids=adapter_ids)
+        if self.kv_page_size:
+            if not decode:
+                raise NotImplementedError(
+                    "paged KV serves the EXTEND path only: prefill runs "
+                    "on contiguous B=1 mini caches (the engine splices "
+                    "them into pool pages)")
+            if block_tables is None:
+                raise ValueError(
+                    "paged extend needs block_tables ([B, n_pages] int32 "
+                    "— the engine passes its pool's tables)")
+        else:
+            block_tables = None
         x = self.embed(tokens)
         for i in range(self.n_layers):
             x = getattr(self, f"block_{i}")(
-                x, positions, cache[f"block_{i}"], decode)
+                x, positions, cache[f"block_{i}"], decode, block_tables)
         x = self.final_norm(x)
         return self.lm_head(x).to(torch.float32)
 
@@ -243,6 +359,35 @@ def init_cache(model: DecodeTransformerLM, batch: int) -> Cache:
     }
 
 
+def init_pool_cache(model: DecodeTransformerLM, batch: int, n_pages: int,
+                    page_size: int, kv_quant: bool = False) -> Cache:
+    """Fresh all-zero paged cache: per layer a physical pool
+    ``[n_pages + 1, page_size, Hkv, Dh]`` (the last page is the scratch
+    page clamped garbage writes land in) plus ``cache_lens [batch]``.
+    With *kv_quant* the pools are int8 and f32 per-row scale pools
+    ``k_scale`` / ``v_scale`` ``[n_pages + 1, page_size, Hkv]`` ride
+    alongside.  Block tables live with the allocator
+    (``kv_pool.PagePool``), not in the cache."""
+    head_dim = model.d_model // model.n_heads
+    kv = (n_pages + 1, page_size, model.n_kv_heads, head_dim)
+    dev = model.device
+    pool_dtype = torch.int8 if kv_quant else model.dtype
+    out = {}
+    for i in range(model.n_layers):
+        buf = {
+            "cached_k": torch.zeros(kv, dtype=pool_dtype, device=dev),
+            "cached_v": torch.zeros(kv, dtype=pool_dtype, device=dev),
+            "cache_lens": torch.zeros(batch, dtype=torch.int32, device=dev),
+        }
+        if kv_quant:
+            buf["k_scale"] = torch.zeros(kv[:3], dtype=torch.float32,
+                                         device=dev)
+            buf["v_scale"] = torch.zeros(kv[:3], dtype=torch.float32,
+                                         device=dev)
+        out[f"block_{i}"] = buf
+    return out
+
+
 @torch.no_grad()
 def extend_step(model: DecodeTransformerLM, cache: Cache,
                 tokens: torch.Tensor, positions: torch.Tensor,
@@ -251,7 +396,8 @@ def extend_step(model: DecodeTransformerLM, cache: Cache,
                 ) -> Tuple[torch.Tensor, Cache]:
     """One banded extend (any T >= 1): returns ``(logits, cache)``.
     The cache is updated in place and returned, so the JAX idiom
-    ``logits, cache = extend_step(...)`` reads the same."""
+    ``logits, cache = extend_step(...)`` reads the same.  A paged model
+    takes its pool's *block_tables* [B, n_pages]."""
     logits = model(tokens, positions, cache, decode=True,
                    adapter_ids=adapter_ids, block_tables=block_tables)
     return logits, cache

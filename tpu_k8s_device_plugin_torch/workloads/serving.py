@@ -1,13 +1,16 @@
 """Slot-based continuous batching on the decoder's KV cache.
 
-The contiguous-cache core of the JAX package's ``workloads/serving.py``
-in PyTorch: a fixed ``n_slots``-wide decode batch whose per-slot depths
-live in each layer's ``cache_lens [S]``, so request churn changes data,
-never shapes.
+The JAX package's ``workloads/serving.py`` in PyTorch: a fixed
+``n_slots``-wide decode batch whose per-slot depths live in each
+layer's ``cache_lens [S]``, so request churn changes data, never
+shapes.
 
-* **slots**: the engine owns a ``[S, T_max, Hkv, Dh]`` cache per layer.
-  A request holds one slot from admit to completion; free slots keep
-  decoding garbage that nothing reads (masking, not branching).
+* **slots**: the engine owns a ``[S, T_max, Hkv, Dh]`` cache per layer,
+  or with ``kv_paging`` a page pool ``[P + 1, page, Hkv, Dh]`` per layer
+  addressed through per-slot block tables (``kv_pool.PagePool`` makes
+  every allocation decision on the host).  A request holds one slot
+  from admit to completion; free slots keep decoding garbage that
+  nothing reads (masking, not branching).
 * **admit**: the prompt prefills a B=1 cache in fixed-size chunks
   through the banded extend, then the filled rows are copied into the
   slot and its ``cache_lens`` entry set to the prompt length.
@@ -24,6 +27,15 @@ never shapes.
   same step runs op by op.
 * **harvest**: one synchronisation a window; the host walks the
   window's tokens for eos, stop ids and budgets, as the reference does.
+* **paged pool**: prefixes are shared by page reference and copied on
+  write; a pool under pressure reclaims parked donor pages, then asks a
+  preemption callback; a preempted slot's pages go to the host and come
+  back on ``resume``; retired conversations park their pages as
+  sessions.  The block tables, like the grammar table, are static
+  buffers of the captured step, written in place between windows.
+* **grammars**: token-level DFAs (``grammar.TokenDfa``) in one combined
+  table; a constrained slot's DFA state is one more row of the step's
+  buffers, and ``jump_round`` commits DFA-forced chains in one extend.
 
 Sampling draws from the port's counter-based hash
 (``inference.gumbel_rows``): the engine stream keys a row by (engine
@@ -32,8 +44,8 @@ stream, its own draw index), so a window and the same steps one by one
 draw the same numbers, and a seeded request ignores its neighbours.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): tensor-parallel meshes, speculative drafts, grammars, the paged
-KV pool, LoRA adapters, sessions and prompt logprobs.
+item): tensor-parallel meshes, speculative decoding, LoRA adapters and
+packed prefill.
 """
 
 from __future__ import annotations
@@ -49,15 +61,19 @@ from .inference import (
     DecodeTransformerLM,
     cache_lens,
     capture_step,
+    dequantize_kv_rows,
     extend_step,
-    init_cache,
     gumbel_rows,
+    init_cache,
+    init_pool_cache,
     prng_key,
+    quantize_kv_rows,
     row_keys,
     scan_boundary_update,
     seed_key,
     validate_top_k,
 )
+from .kv_pool import PagePool, PagePoolExhausted
 from .transformer import _unported, resolve_device
 
 # Upper bound for the auto-selected prefill chunk; the resolved chunk is
@@ -80,7 +96,7 @@ _NO_BUDGET = 1 << 30
 
 # rows of the window's int64 block (see _Window), then its four scalars
 _IROWS = ("tok", "pos", "slot_draws", "emitted", "topks", "min_toks",
-          "seed_keys", "seed_on", "eos", "fin", "frs", "slots")
+          "seed_keys", "seed_on", "eos", "fin", "frs", "slots", "gstate")
 _SCALARS = ("draws", "step", "key", "budget")
 # rows of its f32 block
 _FROWS = ("temps", "topps", "minps", "pres", "freqs", "reps")
@@ -124,6 +140,142 @@ def _slot_to_mini(cache: Cache, slot: int) -> Cache:
 def _clone_cache(cache: Cache) -> Cache:
     return {layer: {key: t.clone() for key, t in buf.items()}
             for layer, buf in cache.items()}
+
+
+# -- paged-pool device helpers (kv_pool.PagePool makes the decisions;
+# these move the bytes).  Every one writes the pool in place: a captured
+# decode step reads the pool by address, so a helper that rebound a
+# layer's tensors would leave the graph decoding from a stale pool.
+
+
+def _device(cache: Cache) -> torch.device:
+    return next(iter(cache.values()))["cached_k"].device
+
+
+def _owned(cache: Cache, targets, scratch: int):
+    """(logical indices, physical pages) of the *targets* entries that
+    are not the scratch page, as long tensors on the cache's device."""
+    targets = np.asarray(targets, np.int64)
+    idx = np.flatnonzero(targets != scratch)
+    dev = _device(cache)
+    return (torch.from_numpy(idx).to(dev),
+            torch.from_numpy(targets[idx]).to(dev))
+
+
+def _table_row(cache: Cache, table_row) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(table_row, np.int64),
+                           device=_device(cache))
+
+
+def _paged_splice(cache: Cache, mini: Cache, targets, scratch: int,
+                  slot: int, new_len: int) -> None:
+    """Scatter a contiguous B=1 *mini* cache into pool pages: logical
+    page i of the mini lands in physical page ``targets[i]``; entries
+    the slot does not own (shared prefix pages, the unmapped tail) are
+    the scratch page and are skipped, so a shared page is never
+    written.  Quantized pools quantize on the way in.  Also sets
+    ``cache_lens[slot]``."""
+    idx, pages = _owned(cache, targets, scratch)
+    for layer, buf in cache.items():
+        pool_k = buf["cached_k"]
+        m = mini[layer]
+        shape = (len(targets),) + tuple(pool_k.shape[1:])
+        mk = m["cached_k"][0].reshape(shape).index_select(0, idx)
+        mv = m["cached_v"][0].reshape(shape).index_select(0, idx)
+        if "k_scale" in buf:
+            kq, ks = quantize_kv_rows(mk)
+            vq, vs = quantize_kv_rows(mv)
+            pool_k.index_copy_(0, pages, kq)
+            buf["cached_v"].index_copy_(0, pages, vq)
+            buf["k_scale"].index_copy_(0, pages, ks)
+            buf["v_scale"].index_copy_(0, pages, vs)
+        else:
+            pool_k.index_copy_(0, pages, mk.to(pool_k.dtype))
+            buf["cached_v"].index_copy_(0, pages, mv.to(pool_k.dtype))
+        buf["cache_lens"][slot] = new_len
+
+
+def _paged_gather_mini(cache: Cache, table_row, dtype) -> Cache:
+    """One slot's pool pages gathered into a new contiguous B=1 mini
+    cache (the paged counterpart of ``_slot_to_mini``: what seeds a
+    suffix extend).  The pool is only read.  Quantized pools dequantize
+    on the way out.  ``cache_lens`` is a zero the caller sets."""
+    row = _table_row(cache, table_row)
+    out = {}
+    for layer, buf in cache.items():
+        k, v = buf["cached_k"][row], buf["cached_v"][row]
+        if "k_scale" in buf:
+            k = dequantize_kv_rows(k, buf["k_scale"][row], dtype)
+            v = dequantize_kv_rows(v, buf["v_scale"][row], dtype)
+        n_kv, hd = k.shape[-2], k.shape[-1]
+        out[layer] = {
+            "cached_k": k.reshape(1, -1, n_kv, hd),
+            "cached_v": v.reshape(1, -1, n_kv, hd),
+            "cache_lens": torch.zeros(1, dtype=torch.int32, device=k.device),
+        }
+    return out
+
+
+def _paged_gather_raw(cache: Cache, table_row) -> Dict[str, dict]:
+    """One slot's pool pages in storage form (``[n_tables, page, ...]``,
+    int8 and scales when quantized), copied to the host: the snapshot a
+    preemption keeps.  numpy arrays, except bf16 pools, which stay
+    torch tensors (numpy has no bfloat16)."""
+    row = _table_row(cache, table_row)
+    out = {}
+    for layer, buf in cache.items():
+        keys = (("k", "cached_k"), ("v", "cached_v"))
+        if "k_scale" in buf:
+            keys += (("ks", "k_scale"), ("vs", "v_scale"))
+        out[layer] = {name: _to_host(buf[key][row]) for name, key in keys}
+    return out
+
+
+def _to_host(t: torch.Tensor):
+    t = t.to("cpu")
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _paged_restore_raw(cache: Cache, raw, targets, scratch: int,
+                       slot: int, new_len: int) -> None:
+    """Scatter a preemption snapshot back into freshly allocated pages
+    (*targets*, the scratch page beyond the restored length, which is
+    skipped): the inverse of ``_paged_gather_raw``, storage-exact."""
+    keys = (("k", "cached_k"), ("v", "cached_v"), ("ks", "k_scale"),
+            ("vs", "v_scale"))
+    idx, pages = _owned(cache, targets, scratch)
+    for layer, buf in cache.items():
+        for name, key in keys:
+            if key not in buf:
+                continue
+            src = torch.as_tensor(raw[layer][name]).to(pages.device)
+            if src.dtype != buf[key].dtype:
+                raise ValueError(
+                    f"checkpoint {layer}/{name} is {src.dtype}, the pool "
+                    f"is {buf[key].dtype}")
+            buf[key].index_copy_(0, pages, src.index_select(0, idx))
+        buf["cache_lens"][slot] = new_len
+
+
+def _copy_page(cache: Cache, src: int, dst: int) -> None:
+    """Physical page copy in every layer (K, V and scales): the
+    copy-on-write data movement behind ``PagePool.cow``."""
+    for buf in cache.values():
+        for key, t in buf.items():
+            if key != "cache_lens":
+                t[dst].copy_(t[src])
+
+
+def _rollback_active(cache: Cache, lens, active) -> None:
+    """Set ``cache_lens`` to the [S] vector *lens* where *active*, in
+    place, keeping the device value elsewhere (the rollback a jump round
+    ends with).  Inactive slots keep their own device lens: lowering a
+    released slot's would park later clamped writes on top of its
+    prompt rows, the donor rows ``release`` promises stay valid."""
+    new = torch.as_tensor(np.asarray(lens, np.int32), device=_device(cache))
+    act = torch.as_tensor(np.asarray(active, bool), device=_device(cache))
+    for buf in cache.values():
+        buf["cache_lens"].copy_(torch.where(act, new, buf["cache_lens"]))
 
 
 def _lcp(a: np.ndarray, b: np.ndarray) -> int:
@@ -325,18 +477,22 @@ class _PrefillJob:
     cut into fixed-size chunks (the last one zero-padded; its padding
     lands beyond the true length, which the final ``cache_lens`` fix
     restores), or one extend of the whole prompt on an unchunked
-    engine."""
+    engine.  With *plp_k*, each chunk's prompt-logprob stats (row j
+    scores the next prompt token) are appended to *plp_out*."""
 
     __slots__ = ("eng", "mini", "toks", "start", "n", "c", "total", "i",
-                 "last", "counted")
+                 "last", "counted", "plp_k", "plp_out")
 
     def __init__(self, eng: "ServingEngine", mini: Cache,
-                 toks_np: np.ndarray, start: int):
+                 toks_np: np.ndarray, start: int, plp_k: int = 0,
+                 plp_out: Optional[list] = None):
         n = int(toks_np.shape[1])
         self.eng = eng
         self.mini = mini
         self.start = start
         self.n = n
+        self.plp_k = plp_k
+        self.plp_out = plp_out
         self.last = None
         self.i = 0
         self.counted = False
@@ -381,7 +537,20 @@ class _PrefillJob:
 
     def absorb_logits(self, logits: torch.Tensor) -> None:
         """Keep the last real prompt token's logits row ([V]) of the
-        chunk just run (*logits* [c, V])."""
+        chunk just run (*logits* [c, V]), and its prompt-logprob stats
+        when asked."""
+        if self.plp_k:
+            # row j of chunk i scores padded token i*c + j + 1; rows past
+            # the prompt score zeros, which the assembly never reads
+            i, c = self.i, self.c
+            tgt = np.zeros(c, np.int64)
+            avail = self.toks.shape[1] - (i * c + 1)
+            if avail > 0:
+                m = min(c, avail)
+                tgt[:m] = self.toks[0, i * c + 1:i * c + 1 + m]
+            self.plp_out.append(_top_logprobs(
+                logits, torch.from_numpy(tgt).to(logits.device),
+                self.plp_k))
         off = self.n - 1 - self.i * self.c
         if 0 <= off < self.c:
             self.last = logits[off]
@@ -416,9 +585,10 @@ class AdmitState:
         "slot", "prompt_np", "t_p", "stops", "temperature", "top_k",
         "top_p", "min_p", "presence_penalty", "frequency_penalty",
         "repetition_penalty", "seed", "seed_stream", "ignore_eos",
-        "min_tokens", "lp_n", "logit_bias", "canon", "auto_src", "gen",
-        "result", "chunks_total", "chunks_done", "pick", "pick_stats",
-        "spliced", "inplace", "first_cached",
+        "min_tokens", "lp_n", "plp_n", "logit_bias", "gstart", "canon",
+        "auto_src", "gen", "result", "plp_dev", "chunks_total",
+        "chunks_done", "pick", "pick_stats", "spliced", "inplace",
+        "first_cached", "share_pages", "prefill_end",
     )
 
     def __init__(self):
@@ -435,6 +605,13 @@ class AdmitState:
         # greedy first token (no pick, no sync)
         self.inplace = False
         self.first_cached = None
+        self.plp_dev = []
+        # paged: pages this admission maps by reference (the prefix
+        # share), their refcounts taken at begin and given back by abort
+        # or taken over by the finish-time mapping; and the end of the
+        # rows the prefill fills, up to which the slot owns pages
+        self.share_pages = []
+        self.prefill_end = 0
 
     @property
     def ready(self) -> bool:
@@ -444,15 +621,18 @@ class AdmitState:
 
 class _ScanHandle:
     """One dispatched-but-unharvested window: its static flags and a
-    snapshot of who was in it.  ``skip`` collects slots spliced or
-    released after the dispatch (they sat the window out)."""
+    snapshot of who was in it.  ``skip`` collects slots spliced,
+    released, preempted or parked after the dispatch (they sat the
+    window out)."""
 
-    __slots__ = ("n_steps", "sampled", "lp_k", "active", "skip", "fused")
+    __slots__ = ("n_steps", "sampled", "lp_k", "grammared", "active",
+                 "skip", "fused")
 
-    def __init__(self, n_steps, sampled, lp_k, active, fused):
+    def __init__(self, n_steps, sampled, lp_k, grammared, active, fused):
         self.n_steps = n_steps
         self.sampled = sampled
         self.lp_k = lp_k
+        self.grammared = grammared
         self.active = active
         self.skip = set()
         self.fused = fused
@@ -469,9 +649,8 @@ class ServingEngine:
     The JAX package's arguments in its order, less ``params`` (the
     model holds its weights), then the device: the model's, which must
     be CUDA unless ``device="cpu"`` is passed.  ``rng`` is an integer
-    seed.  The fields that only shape unported features (``gamma``,
-    ``ngram_n``, ``jump_len``, ``kv_pages``, ``kv_page_size``) are
-    accepted at the reference's defaults.
+    seed.  ``gamma`` and ``ngram_n`` shape speculative decoding, which
+    is not ported; they are accepted at the reference's defaults.
     """
 
     def __init__(
@@ -500,10 +679,8 @@ class ServingEngine:
         fused_decode: bool = False,
         device=None,
     ):
-        # gamma, ngram_n, jump_len, kv_pages and kv_page_size shape the
-        # draft, grammar and paging features, which raise until ported
-        _unported(mesh=mesh, draft=draft, grammar=grammar,
-                  kv_paging=kv_paging, kv_dtype=kv_dtype)
+        # gamma and ngram_n shape the draft, which raises until ported
+        _unported(mesh=mesh, draft=draft)
         device = resolve_device(device)
         if device.type != model.device.type or (
                 device.index is not None and device != model.device):
@@ -556,7 +733,58 @@ class ServingEngine:
         self.eos_id = eos_id
         self.chunk = chunk
         self.max_new_tokens = max_new_tokens
-        self.cache = init_cache(model, n_slots)
+        # -- paged KV pool (opt-in; the contiguous cache stays the
+        # default).  Storage becomes a [P + 1, page, Hkv, Dh] pool per
+        # layer and a host allocator with per-slot block tables; decode
+        # gathers the pool back into the contiguous view inside the same
+        # captured step, so tokens equal the contiguous engine's; int8
+        # pool storage (kv_dtype) is the one lossy option
+        self._paged = bool(kv_paging)
+        self._pool: Optional[PagePool] = None
+        self._pmodel = None
+        self._btables = None
+        self._kv_quant = False
+        self._preempt_cb = None
+        self._kv_preemptions = 0
+        self._park_seq = [0] * n_slots
+        self._park_counter = 0
+        if kv_paging:
+            if chunk is None:
+                raise ValueError(
+                    "kv_paging needs a chunked engine (pass chunk or "
+                    "prefix_chunk; paged splices land whole pages on "
+                    "the admission grid)")
+            ps = int(kv_page_size) or chunk
+            if ps < 1:
+                raise ValueError("kv_page_size must be >= 1")
+            if model.max_len % ps:
+                raise ValueError(
+                    f"kv_page_size {ps} must divide max_len "
+                    f"{model.max_len}")
+            if chunk % ps:
+                raise ValueError(
+                    f"kv_page_size {ps} must divide the admission "
+                    f"chunk {chunk}: APC matches floor to whole "
+                    "chunks, and whole-page sharing needs the chunk "
+                    "grid to lie on the page grid")
+            if kv_dtype not in (None, "int8"):
+                raise ValueError(
+                    f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+            self._kv_quant = kv_dtype == "int8"
+            n_tables = model.max_len // ps
+            pages = (int(kv_pages) if kv_pages is not None
+                     else n_slots * n_tables)
+            self._pool = PagePool(pages, ps, n_slots, model.max_len)
+            self._pmodel = model.clone(kv_page_size=ps,
+                                       kv_quant=self._kv_quant)
+            self.cache = init_pool_cache(model, n_slots, pages, ps,
+                                         self._kv_quant)
+            # the block tables: a static buffer of the captured step,
+            # refreshed in place from the allocator when a window loads
+            self._btables = torch.full((n_slots, n_tables), pages,
+                                       dtype=torch.int64, device=device)
+        else:
+            self.cache = init_cache(model, n_slots)
         self.prefix_registry_max = prefix_registry_max
         self._prefix_touch: Dict[int, int] = {}  # handle -> use seq
         self._use_seq = 0
@@ -573,7 +801,10 @@ class ServingEngine:
         self._stops: List[frozenset] = [frozenset()] * n_slots
         self._ignore_eos = [False] * n_slots
         # per-request seeds: a seeded slot draws from its own chain,
-        # indexed by a per-slot draw counter
+        # indexed by a per-slot draw counter; the seed and stream are
+        # kept for checkpoints, the chain's key for the step
+        self._seeds = [0] * n_slots
+        self._seed_streams = [0] * n_slots
         self._seed_keys = np.zeros(n_slots, np.int64)
         self._seed_on = np.zeros(n_slots, np.int64)
         self._slot_draws = [0] * n_slots
@@ -582,15 +813,19 @@ class ServingEngine:
         self.logprobs_k = logprobs_k
         self._lp_want = [0] * n_slots
         self._lp_records: List[list] = [[] for _ in range(n_slots)]
+        # prompt_logprobs records, filled at admission from the prefill
+        # chunks' own logits
+        self._prompt_lp: List[list] = [[] for _ in range(n_slots)]
         # registry: handle -> (tokens, B=1 cache, last logits row)
         self._prefixes: Dict[int, tuple] = {}
         self._next_prefix = 0
         # automatic prefix caching on the chunk grid (off unchunked)
         self.auto_prefix = bool(auto_prefix) and chunk is not None
         self.auto_prefix_min = auto_prefix_min
-        # per-slot resident prompt: (tokens, canon, last logits row,
-        # greedy first token or None); canon is the prefix length whose
-        # rows lie on the chunk grid
+        # per-slot resident prompt, the reference's record: (tokens,
+        # adapter id (-1), canon, last logits row, greedy first token or
+        # None[, session id]); canon is the prefix length whose rows lie
+        # on the chunk grid (or, for a parked session, were written)
         self._slot_prompts: list = [None] * n_slots
         self._prefill_tokens = 0
         self._prefix_hits = 0
@@ -635,7 +870,507 @@ class ServingEngine:
         self._graphs: Dict[tuple, "torch.cuda.CUDAGraph"] = {}
         self._capture_stream = None
         self.graph_replays = 0
+        self.graph_captures = 0
         self.capture_ms = 0.0
+        # grammar-constrained decoding: a registry of token-level DFAs
+        # in ONE combined [N, V] table with per-grammar state offsets;
+        # the mask is derived in-step from the table's reject entries.
+        # The device table is read by address by the grammared step:
+        # registrations within capacity copy into it, a growth (or the
+        # int16 -> int32 widening) allocates a new one and drops the
+        # graphs that read the old
+        self.jump_len = jump_len
+        self._goffsets: List[int] = []
+        self._growbounds: List[tuple] = []
+        self._gstates_used = 0
+        self._gtable_np: Optional[np.ndarray] = None
+        self._gtable: Optional[torch.Tensor] = None
+        self.gstate = np.full(n_slots, -1, np.int32)
+        self._jump_rounds = 0
+        self._jump_forced = 0
+        if grammar is not None:
+            self.register_grammar(grammar)
+
+    # -- grammars ------------------------------------------------------------
+
+    def register_grammar(self, grammar) -> int:
+        """Register a token-level DFA (``grammar.TokenDfa``); returns a
+        grammar id for ``admit(grammar=gid)``.  All registered grammars
+        share ONE combined ``[N, V]`` table (each grammar's states offset
+        into it), packed to int16 while every state id fits.  Capacity
+        doubles when a registration outgrows it: the device table is
+        then a new tensor, and every captured step that reads the old
+        one is dropped (recaptured at its next use, counted in
+        ``graph_captures``); a registration within capacity is a copy
+        into the same table."""
+        if grammar.table.shape[1] != self.model.vocab:
+            raise ValueError(
+                f"grammar vocab {grammar.table.shape[1]} != model "
+                f"vocab {self.model.vocab}")
+        n_new = int(grammar.table.shape[0])
+        off = self._gstates_used
+        need = off + n_new
+        cap = 0 if self._gtable_np is None else self._gtable_np.shape[0]
+        grown = need > cap
+        if grown:
+            new_cap = max(64, 1 << (need - 1).bit_length())
+            # padding rows are unreachable: every start state and
+            # transition stays inside a registered grammar's rows
+            dt = np.int16 if new_cap <= 32767 else np.int32
+            table = np.full((new_cap, self.model.vocab), -1, dt)
+            if self._gtable_np is not None:
+                table[:off] = self._gtable_np[:off]
+            self._gtable_np = table
+        # local state ids shift by this grammar's offset; rejects stay -1
+        local = np.asarray(grammar.table, np.int32)
+        self._gtable_np[off:need] = np.where(
+            local >= 0, local + np.int32(off),
+            np.int32(-1)).astype(self._gtable_np.dtype)
+        self._gstates_used = need
+        self._goffsets.append(off + int(grammar.start))
+        self._growbounds.append((off, need))
+        if grown:
+            self._gtable = torch.from_numpy(self._gtable_np).to(self.device)
+            for flags in [f for f in self._graphs if f[7]]:
+                del self._graphs[flags]
+        else:
+            self._gtable[off:need].copy_(
+                torch.from_numpy(self._gtable_np[off:need]))
+        return len(self._goffsets) - 1
+
+    @property
+    def n_grammars(self) -> int:
+        """How many grammars are registered (admit gids are
+        ``range(n_grammars)``)."""
+        return len(self._goffsets)
+
+    def grammar_rel(self, gstate: int) -> int:
+        """A combined-table state id -> the grammar-local row index (-1
+        stays -1): the engine-portable form a migrated checkpoint
+        carries."""
+        if gstate < 0:
+            return -1
+        for off, end in self._growbounds:
+            if off <= gstate < end:
+                return gstate - off
+        raise ValueError(
+            f"gstate {gstate} is in no registered grammar's rows")
+
+    def grammar_abs(self, gid: int, rel: int) -> int:
+        """Inverse of :meth:`grammar_rel` against THIS engine's table:
+        grammar *gid*'s local state *rel* -> combined-table id."""
+        if rel < 0:
+            return -1
+        off, end = self._growbounds[gid]
+        if off + rel >= end:
+            raise ValueError(
+                f"local state {rel} outside grammar {gid}'s "
+                f"{end - off} rows")
+        return off + rel
+
+    # -- paged-pool plumbing -----------------------------------------------
+
+    @property
+    def kv_paging(self) -> bool:
+        return self._paged
+
+    def _bt(self) -> torch.Tensor:
+        """The block tables' device buffer, refreshed in place from the
+        allocator when its mappings changed (the captured steps read it
+        by address)."""
+        pool = self._pool
+        assert pool is not None
+        if pool.dirty:
+            self._btables.copy_(torch.from_numpy(pool.tables))
+            pool.dirty = False
+        return self._btables
+
+    def set_preempt_cb(self, cb) -> None:
+        """Install a preemption policy: ``cb(exclude_slot) -> bool``
+        must free pool pages (typically by preempting a slot through
+        :meth:`preempt`) and return whether it made progress.  The
+        engine calls it only after reclaiming parked donor pages failed
+        to satisfy an allocation."""
+        self._preempt_cb = cb
+
+    def _alloc_page(self) -> int:
+        assert self._pool is not None
+        while True:
+            try:
+                return self._pool.alloc()
+            except PagePoolExhausted:
+                if self._reclaim_parked():
+                    continue
+                if (self._preempt_cb is not None
+                        and self._preempt_cb(-1)):
+                    continue
+                raise
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """*n* pages for a resume, reclaiming parked donor pages (but
+        never preempting: the resuming request is itself the yielding
+        party); all or none."""
+        pool = self._pool
+        assert pool is not None
+        got: List[int] = []
+        try:
+            for _ in range(n):
+                while True:
+                    try:
+                        got.append(pool.alloc())
+                        break
+                    except PagePoolExhausted:
+                        if not self._reclaim_parked():
+                            raise
+        except PagePoolExhausted:
+            for p in got:
+                pool.give_back(p)
+            raise
+        return got
+
+    def _reclaim_parked(self) -> bool:
+        """Evict the least-recently-parked donor record whose pages only
+        the record pins."""
+        assert self._pool is not None
+        best = None
+        for s in range(self.n_slots):
+            if (self.active[s] or self._reserved[s]
+                    or self._slot_prompts[s] is None
+                    or not self._pool.mapped(s)):
+                continue
+            if best is None or self._park_seq[s] < self._park_seq[best]:
+                best = s
+        if best is None:
+            return False
+        self._drop_donor(best)
+        return True
+
+    def _drop_donor(self, slot: int) -> None:
+        assert self._pool is not None
+        self._pool.clear_slot(slot)
+        self._slot_prompts[slot] = None
+        self._prefix_evictions += 1
+
+    def _make_writable(self, slot: int, idx: int) -> None:
+        """Guarantee (slot, idx) maps a page this slot may append into:
+        map a fresh page, or copy a shared one on write."""
+        pool = self._pool
+        assert pool is not None
+        e = pool.entry(slot, idx)
+        if e == pool.scratch:
+            pool.map(slot, idx, self._alloc_page())
+        elif not pool.writable(slot, idx):
+            new = self._alloc_page()
+            _copy_page(self.cache, e, new)
+            pool.cow(slot, idx, new)
+
+    def _ensure_append_pages(self, n_new: int) -> None:
+        """Page budget before a decode dispatch: every active slot gets
+        writable pages covering its next *n_new* appends (fresh pages
+        past the prefill, copy-on-write where a shared page is about to
+        be written), so the block tables stay fixed for the window.
+        Allocation failure escalates: reclaim, then the preemption
+        callback, then ``PagePoolExhausted``."""
+        if not self._paged:
+            return
+        assert self._pool is not None
+        for s in range(self.n_slots):
+            if not self.active[s]:
+                continue
+            start = self.lens[s]
+            if start >= self.model.max_len:
+                continue
+            end = min(start + n_new, self.model.max_len)
+            for idx in self._pool.pages_for(start, end):
+                if not self.active[s]:
+                    break  # the preemption policy evicted this slot
+                self._make_writable(s, idx)
+
+    def _table_targets(self, slot: int, lo: int, hi: int) -> np.ndarray:
+        """[n_tables] physical pages of *slot*'s entries [lo, hi), the
+        scratch page elsewhere."""
+        pool = self._pool
+        targets = np.full(pool.n_tables, pool.scratch, np.int64)
+        targets[lo:hi] = pool.tables[slot, lo:hi]
+        return targets
+
+    def _restore_pages(self, raw, tokens: int, slot: int,
+                       new_len: int) -> None:
+        """Map fresh pages for the first *tokens* rows of *slot* and
+        scatter the storage snapshot *raw* into them."""
+        pool = self._pool
+        got = self._alloc_pages(pool.pages_needed(tokens))
+        for idx, p in enumerate(got):
+            pool.map(slot, idx, p)
+        _paged_restore_raw(self.cache, raw,
+                           self._table_targets(slot, 0, len(got)),
+                           pool.scratch, slot, new_len)
+
+    def _free_slot_for_restore(self) -> int:
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slots")
+        slot = free[0]
+        if self._slot_prompts[slot] is not None:
+            self._drop_donor(slot)
+        self._pool.clear_slot(slot)
+        return slot
+
+    def preempt(self, slot: int) -> Dict[str, object]:
+        """Preemption by page eviction: checkpoint an ACTIVE slot's KV
+        pages to the host (storage-exact: int8 pools keep their raw
+        bytes and scales), free the pages, and return the state
+        :meth:`resume` re-admits from, with the reference's keys.  Host
+        bookkeeping (outputs, knobs, draw chains, grammar state) rides
+        the state; penalty histograms are rebuilt from token counts at
+        resume.  Greedy, seeded and grammar streams continue
+        bit-identically after the resume."""
+        if not self._paged:
+            raise RuntimeError("preemption needs kv_paging=True")
+        assert self._pool is not None
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        raw = _paged_gather_raw(self.cache, self._pool.tables[slot])
+        rec = self._slot_prompts[slot]
+        if rec is not None and isinstance(rec[3], torch.Tensor):
+            rec = rec[:3] + (rec[3].to("cpu").numpy(),) + rec[4:]
+        state: Dict[str, object] = {
+            "kv": raw,
+            "lens": int(self.lens[slot]),
+            "outputs": list(self.outputs[slot]),
+            "last_token": int(self.last_token[slot]),
+            "record": rec,
+            "stops": self._stops[slot],
+            "ignore_eos": self._ignore_eos[slot],
+            "temperature": float(self.temps[slot]),
+            "top_k": int(self.topks[slot]),
+            "top_p": float(self.topps[slot]),
+            "min_p": float(self.minps[slot]),
+            "presence_penalty": float(self.pres[slot]),
+            "frequency_penalty": float(self.freqs[slot]),
+            "repetition_penalty": float(self.reps[slot]),
+            "adapter": -1,
+            "seed": int(self._seeds[slot]),
+            "seed_stream": int(self._seed_streams[slot]),
+            "seed_on": int(self._seed_on[slot]),
+            "slot_draws": int(self._slot_draws[slot]),
+            "lp_want": int(self._lp_want[slot]),
+            "lp_records": list(self._lp_records[slot]),
+            "prompt_lp": list(self._prompt_lp[slot]),
+            "min_toks": int(self.min_toks[slot]),
+            "gstate": int(self.gstate[slot]),
+            "bias": (self._bias[slot].to("cpu").numpy()
+                     if self._bias_on[slot] else None),
+        }
+        self.active[slot] = False
+        self._pool.clear_slot(slot)
+        self._slot_prompts[slot] = None
+        self.lens[slot] = 0
+        self._reset_slot_params(slot)
+        self._kv_preemptions += 1
+        if self._inflight_scan is not None:
+            # a window dispatched before the preemption must not advance
+            # host mirrors the resume will overwrite
+            self._inflight_scan.skip.add(slot)
+        return state
+
+    def resume(self, state: Dict[str, object]) -> int:
+        """Re-admit a :meth:`preempt` checkpoint (this engine's or the
+        JAX package's, through the ``migrate`` codec) into a free slot:
+        allocate pages, scatter the snapshot back, restore every host
+        mirror.  Raises RuntimeError (no free slot) or PagePoolExhausted
+        (still under pressure); the caller re-queues and retries."""
+        if not self._paged:
+            raise RuntimeError("preemption needs kv_paging=True")
+        _unported(adapter=int(state["adapter"]) != -1)
+        slot = self._free_slot_for_restore()
+        lens = int(state["lens"])
+        self._restore_pages(state["kv"], lens, slot, lens)
+        V = self.model.vocab
+        rec = state["record"]
+        if rec is not None:
+            rec = tuple(rec)
+            last = rec[3]
+            if last is not None:
+                last = torch.as_tensor(np.asarray(last, np.float32)).to(
+                    self.device)
+            rec = (np.asarray(rec[0], np.int32), int(rec[1]), int(rec[2]),
+                   last) + rec[4:]
+        self.lens[slot] = lens
+        self.outputs[slot] = [int(t) for t in state["outputs"]]
+        self.last_token[slot] = int(state["last_token"])
+        self._slot_prompts[slot] = rec
+        self._stops[slot] = frozenset(int(t) for t in state["stops"])
+        self._ignore_eos[slot] = bool(state["ignore_eos"])
+        self.temps[slot] = state["temperature"]
+        self.topks[slot] = state["top_k"]
+        self.topps[slot] = state["top_p"]
+        self.minps[slot] = state["min_p"]
+        self.pres[slot] = state["presence_penalty"]
+        self.freqs[slot] = state["frequency_penalty"]
+        self.reps[slot] = state["repetition_penalty"]
+        self._seeds[slot] = int(state["seed"])
+        self._seed_streams[slot] = int(state["seed_stream"])
+        self._seed_on[slot] = int(state["seed_on"])
+        self._seed_keys[slot] = (seed_key(self._seeds[slot],
+                                          self._seed_streams[slot])
+                                 if self._seed_on[slot] else 0)
+        self._slot_draws[slot] = int(state["slot_draws"])
+        self._lp_want[slot] = int(state["lp_want"])
+        self._lp_records[slot] = list(state["lp_records"])
+        self._prompt_lp[slot] = list(state["prompt_lp"])
+        self.min_toks[slot] = int(state["min_toks"])
+        self.gstate[slot] = int(state["gstate"])
+        self._finished.pop(slot, None)
+        self._finish_reason.pop(slot, None)
+        # penalty histograms rebuild exactly: every device increment was
+        # +1.0 on f32 counts, so host bincounts reproduce them
+        if state["presence_penalty"] or state["frequency_penalty"]:
+            cnt = np.bincount(np.asarray(state["outputs"], np.int64),
+                              minlength=V).astype(np.float32)
+            self._counts[slot].copy_(torch.from_numpy(cnt))
+        if state["repetition_penalty"] != 1.0:
+            hist = [int(t) for t in state["outputs"]]
+            if rec is not None:
+                hist = np.asarray(rec[0], np.int64).tolist() + hist
+            seen = np.bincount(np.asarray(hist, np.int64),
+                               minlength=V).astype(np.float32)
+            self._seen[slot].copy_(torch.from_numpy(seen))
+        if state["bias"] is not None:
+            self._bias[slot].copy_(torch.as_tensor(
+                np.asarray(state["bias"], np.float32)))
+            self._bias_on[slot] = True
+        elif self._bias_on[slot]:
+            self._bias[slot].zero_()
+            self._bias_on[slot] = False
+        if state["min_toks"]:
+            mask_np = np.zeros(V, np.float32)
+            if self.eos_id is not None:
+                mask_np[self.eos_id] = -1e6
+            for t in state["stops"]:
+                mask_np[int(t)] = -1e6
+            self._min_mask[slot].copy_(torch.from_numpy(mask_np))
+        self.active[slot] = True
+        if self._inflight_scan is not None:
+            self._inflight_scan.skip.add(slot)
+        return slot
+
+    # -- session tiering (the device tier of a conversation's KV) ----------
+
+    def park_session(self, slot: int, session_id: str, kept: int) -> int:
+        """Park a retired request's slot as the device tier of its
+        conversation: pages stay mapped, the resident-prompt record is
+        rewritten to cover the whole conversation (prompt + the *kept*
+        output tokens), and the slot turns RESERVED: free_slots() skips
+        it and :meth:`_reclaim_parked` cannot take its pages.  Rows are
+        reusable up to ``canon`` = rows actually written (a token's K/V
+        is written when it is fed, one step after it is sampled).
+        Returns canon."""
+        if not self._paged:
+            raise RuntimeError("session parking needs kv_paging=True")
+        rec = self._slot_prompts[slot]
+        if rec is None:
+            raise ValueError(f"slot {slot} has no resident record")
+        if not session_id:
+            raise ValueError("empty session_id")
+        prompt_np = np.asarray(rec[0], np.int32)
+        outs = np.asarray(self.outputs[slot][:kept], np.int32)
+        tokens = (np.concatenate([prompt_np, outs])
+                  if outs.size else prompt_np)
+        canon = max(min(int(self.lens[slot]), int(tokens.shape[0])), 0)
+        self.active[slot] = False
+        self._finished.pop(slot, None)
+        self._finish_reason.pop(slot, None)
+        self.lens[slot] = 0
+        self._slot_prompts[slot] = (tokens, int(rec[1]), canon, None, None,
+                                    session_id)
+        self._reserved[slot] = True
+        self._reset_slot_params(slot)
+        if self._inflight_scan is not None:
+            self._inflight_scan.skip.add(slot)
+        return canon
+
+    def _parked_record(self, slot: int):
+        rec = self._slot_prompts[slot]
+        if not self._reserved[slot] or rec is None or len(rec) < 6:
+            raise ValueError(f"slot {slot} holds no parked session")
+        return rec
+
+    def demote_session(self, slot: int) -> Dict[str, object]:
+        """Checkpoint a session-parked slot to the host and free its
+        pages and slot (the device -> host tier transition).
+        Storage-exact like :meth:`preempt`; the state is what
+        :meth:`resume_session`, or the ``migrate`` codec, re-parks
+        from."""
+        if not self._paged:
+            raise RuntimeError("session tiering needs kv_paging=True")
+        rec = self._parked_record(slot)
+        state: Dict[str, object] = {
+            "v": 1,
+            "kind": "session",
+            "session_id": rec[5],
+            "tokens": np.asarray(rec[0], np.int32),
+            "canon": int(rec[2]),
+            "adapter": int(rec[1]),
+            "kv": _paged_gather_raw(self.cache, self._pool.tables[slot]),
+        }
+        self._pool.clear_slot(slot)
+        self._slot_prompts[slot] = None
+        self._reserved[slot] = False
+        self.lens[slot] = 0
+        if self._inflight_scan is not None:
+            self._inflight_scan.skip.add(slot)
+        return state
+
+    def resume_session(self, state: Dict[str, object]) -> int:
+        """Re-park a :meth:`demote_session` checkpoint into a free slot:
+        pages re-allocate (reclaiming anonymous parked donors under
+        pressure, never preempting), the raw KV scatters back, and the
+        slot comes back RESERVED and inactive, the state
+        :meth:`park_session` leaves.  Raises RuntimeError (no free
+        slot), PagePoolExhausted, or ValueError (malformed state)."""
+        if not self._paged:
+            raise RuntimeError("session tiering needs kv_paging=True")
+        sid = state.get("session_id")
+        if not isinstance(sid, str) or not sid:
+            raise ValueError("session state carries no session_id")
+        if state.get("kind") != "session":
+            raise ValueError(
+                f"not a session checkpoint: kind={state.get('kind')!r}")
+        tokens = np.asarray(state["tokens"], np.int32).reshape(-1)
+        canon = int(state["canon"])
+        if not 0 <= canon <= min(int(tokens.shape[0]), self.model.max_len):
+            raise ValueError(f"bad session canon {canon}")
+        _unported(adapter=int(state["adapter"]) != -1)
+        slot = self._free_slot_for_restore()
+        self._restore_pages(state["kv"], canon, slot, canon)
+        self.lens[slot] = 0
+        self._slot_prompts[slot] = (tokens, int(state["adapter"]), canon,
+                                    None, None, sid)
+        self._reserved[slot] = True
+        self._finished.pop(slot, None)
+        self._finish_reason.pop(slot, None)
+        self._reset_slot_params(slot)
+        if self._inflight_scan is not None:
+            self._inflight_scan.skip.add(slot)
+        return slot
+
+    def discard_session(self, slot: int) -> None:
+        """Drop a parked session outright: pages freed, record gone,
+        slot unreserved."""
+        self._parked_record(slot)
+        self._pool.clear_slot(slot)
+        self._slot_prompts[slot] = None
+        self._reserved[slot] = False
+        self.lens[slot] = 0
+
+    def session_slots(self) -> Dict[str, int]:
+        """Map of session_id -> slot for every device-parked session."""
+        out: Dict[str, int] = {}
+        for s, rec in enumerate(self._slot_prompts):
+            if rec is not None and len(rec) > 5 and self._reserved[s]:
+                out[rec[5]] = s
+        return out
 
     # -- admission ---------------------------------------------------------
 
@@ -656,13 +1391,17 @@ class ServingEngine:
             job.step()
         return job.mini, job.last
 
-    def _auto_match(self, pnp: np.ndarray, t_p: int):
+    def _auto_match(self, pnp: np.ndarray, t_p: int,
+                    session: Optional[str] = None):
         """The best automatic prefix donor for the prompt: the registry
         entry or resident slot prompt sharing the longest common prefix,
         in whole chunks and capped at t_p - 1 (the last prompt token
         recomputes, for its logits row).  An exact repeat of a registered
         or resident prompt reuses its stored logits row too, with no
-        extend at all ("reg_full" / "slot_full", m = t_p).  Returns
+        extend at all ("reg_full" / "slot_full", m = t_p).  Session
+        records (see :meth:`park_session`) are private to their
+        conversation: other traffic never matches them, and the owning
+        session's request matches its own record first.  Returns
         (kind, ref, m) or None."""
         if not self.auto_prefix:
             return None
@@ -679,10 +1418,19 @@ class ServingEngine:
         for s, rec in enumerate(self._slot_prompts):
             if rec is None:
                 continue
-            stoks, canon, last = rec[0], rec[1], rec[2]
+            rec_sess = rec[5] if len(rec) > 5 else None
+            if rec_sess is not None and rec_sess != session:
+                continue  # another conversation's decode rows
+            stoks, canon = rec[0], rec[2]
             lcp = _lcp(pnp, stoks)
+            if rec_sess is not None:
+                # the conversation's own parked rows win outright
+                m = (min(lcp, canon, t_p - 1) // c) * c
+                if m >= max(1, self.auto_prefix_min):
+                    return ("slot", s, m)
+                continue
             if (lcp == t_p == len(stoks) and canon == t_p
-                    and last is not None):
+                    and rec[3] is not None):
                 return ("slot_full", s, t_p)
             m = (min(lcp, canon, t_p - 1) // c) * c
             if m > best_m:
@@ -725,6 +1473,49 @@ class ServingEngine:
         """Drop a registered prefix (its full B=1 cache with it)."""
         self._prefixes.pop(handle, None)
         self._prefix_touch.pop(handle, None)
+
+    def _slot_src(self, ref: int) -> Cache:
+        """Donor slot rows as a new B=1 mini cache: a contiguous copy,
+        or in paged mode a pool gather by the donor's block table."""
+        if self._paged:
+            return _paged_gather_mini(self.cache, self._pool.tables[ref],
+                                      self.model.dtype)
+        return _slot_to_mini(self.cache, ref)
+
+    def _paged_land(self, st: AdmitState, mini: Optional[Cache]) -> None:
+        """Finish-side block-table build of a paged admission: clear the
+        slot's stale mappings, install the begin-time prefix shares,
+        allocate owned pages for the prefilled suffix, and splice the
+        mini into THOSE pages only (a shared page is never written
+        while shared).  A pure-share landing (an exact repeat) skips the
+        splice: one cache_lens fix."""
+        pool = self._pool
+        slot = st.slot
+        ps = pool.page_size
+        # the references taken at begin keep the shared pages alive even
+        # when the donor is this slot: clear drops the old mappings,
+        # map_shared re-installs them
+        pool.clear_slot(slot)
+        pool.map_shared(slot, st.share_pages)
+        shared_n = len(st.share_pages)
+        st.share_pages = []  # now held by the table
+        end_page = (st.prefill_end + ps - 1) // ps
+        try:
+            for idx in range(shared_n, end_page):
+                pool.map(slot, idx, self._alloc_page())
+        except PagePoolExhausted:
+            # roll the landing back; the reservation stands and the
+            # caller aborts or retries.  The previous occupant's donor
+            # record lost its pages with the clear, so it goes too
+            pool.clear_slot(slot)
+            self._slot_prompts[slot] = None
+            raise
+        if mini is None:
+            _set_len(self.cache, slot, st.t_p)
+        else:
+            _paged_splice(self.cache, mini,
+                          self._table_targets(slot, shared_n, end_page),
+                          pool.scratch, slot, st.t_p)
 
     def admit(self, prompt, prefix: Optional[int] = None,
               temperature: float = 0.0,
@@ -797,9 +1588,7 @@ class ServingEngine:
         :meth:`finish_admit` (or drop it with :meth:`abort_admit`).
         Every validation error raises here, before any engine state is
         touched."""
-        _unported(adapter=adapter is not None,
-                  grammar=grammar is not False and grammar is not None,
-                  session=session, prompt_logprobs=prompt_logprobs)
+        _unported(adapter=adapter is not None)
         prompt_np = np.asarray(prompt, np.int32).reshape(1, -1)
         t_p = int(prompt_np.shape[1])
         if t_p < 1:
@@ -830,13 +1619,20 @@ class ServingEngine:
                     f"stop token {t} outside [0, vocab="
                     f"{self.model.vocab})")
         lp_n = int(logprobs or 0)
-        if lp_n < 0:
-            raise ValueError("logprobs must be >= 0")
-        if lp_n > self.logprobs_k:
+        plp_n = int(prompt_logprobs or 0)
+        for nm, v in (("logprobs", lp_n), ("prompt_logprobs", plp_n)):
+            if v < 0:
+                raise ValueError(f"{nm} must be >= 0")
+            if v > self.logprobs_k:
+                raise ValueError(
+                    f"{nm}={v} exceeds the engine's logprobs_k="
+                    f"{self.logprobs_k} (set at construction: the "
+                    "engine-wide k keeps the decode step's variants "
+                    "few)")
+        if plp_n and prefix is not None:
             raise ValueError(
-                f"logprobs={lp_n} exceeds the engine's logprobs_k="
-                f"{self.logprobs_k} (set at construction: the "
-                "engine-wide k keeps the decode step's variants few)")
+                "prompt_logprobs needs the full prompt prefilled — "
+                "incompatible with a prefix handle")
         budget = self.max_new_tokens or 1
         if t_p + budget > self.model.max_len:
             raise ValueError(
@@ -845,6 +1641,22 @@ class ServingEngine:
         # t_p <= max_len - 1 keeps released slots' prompt rows valid
         # donors: a parked slot's masked decode writes clamp to row
         # max_len - 1, which this bound keeps out of the prompt rows
+        # grammar opt-in: True = grammar 0 (the constructor's), an int
+        # selects a register_grammar() id; gstart -1 = unconstrained
+        if grammar is False or grammar is None:
+            gstart = -1
+        else:
+            if not self._goffsets:
+                raise ValueError(
+                    "engine has no grammar registered "
+                    "(ServingEngine(..., grammar=TokenDfa) or "
+                    "register_grammar())")
+            gid = 0 if grammar is True else int(grammar)
+            if not 0 <= gid < len(self._goffsets):
+                raise ValueError(
+                    f"unknown grammar id {gid} (registered: "
+                    f"{len(self._goffsets)})")
+            gstart = self._goffsets[gid]
         if min_tokens < 0:
             raise ValueError("min_tokens must be >= 0")
         if (min_tokens and self.max_new_tokens is not None
@@ -891,7 +1703,11 @@ class ServingEngine:
                     "prompt does not start with the registered prefix")
             start, n = L, t_p - L
         else:
-            auto_src = self._auto_match(prompt_np[0], t_p)
+            # prompt_logprobs needs every position's logits, so it
+            # forces a full (cold) prefill: no automatic prefix reuse
+            auto_src = (None if plp_n
+                        else self._auto_match(prompt_np[0], t_p,
+                                              session or None))
             start = auto_src[2] if auto_src is not None else 0
             n = t_p - start
         if self.chunk is not None and n > 0:
@@ -924,7 +1740,9 @@ class ServingEngine:
         st.ignore_eos = ignore_eos
         st.min_tokens = min_tokens
         st.lp_n = lp_n
+        st.plp_n = plp_n
         st.logit_bias = logit_bias
+        st.gstart = gstart
         st.auto_src = auto_src
         # an unaligned explicit prefix leaves the suffix rows off the
         # chunk grid: only the prefix part is reusable later
@@ -939,6 +1757,32 @@ class ServingEngine:
             st.chunks_total = 1
         else:
             st.chunks_total = (n + self.chunk - 1) // self.chunk
+
+        if self._paged:
+            # page-budget gate: rows [shared, prefill_end) need owned
+            # pages at finish.  Reclaim parked donor pages until the
+            # budget fits, or raise HERE, with nothing mutated yet
+            pool = self._pool
+            ps, c = pool.page_size, self.chunk
+            st.prefill_end = (start + ((n + c - 1) // c) * c
+                              if n > 0 else t_p)
+            if auto_src is not None and auto_src[0] == "slot_full":
+                shared_est = (t_p + ps - 1) // ps  # in place or shared
+            elif auto_src is not None and auto_src[0] == "slot":
+                shared_est = auto_src[2] // ps
+            else:
+                shared_est = 0
+            need = (st.prefill_end + ps - 1) // ps - shared_est
+            if need > pool.n_pages:
+                raise ValueError(
+                    f"prompt needs {need} KV pages, pool holds "
+                    f"{pool.n_pages}")
+            while pool.free_pages() < need and self._reclaim_parked():
+                pass
+            if pool.free_pages() < need:
+                raise PagePoolExhausted(
+                    f"admission needs {need} KV pages, "
+                    f"{pool.free_pages()} free")
 
         if prefix is not None:
             self._touch_prefix(prefix)
@@ -961,24 +1805,39 @@ class ServingEngine:
                 rec_full = self._slot_prompts[ref]
                 if ref == slot:
                     st.inplace = True
-                    st.result = (None, rec_full[2])
+                    st.result = (None, rec_full[3])
+                elif self._paged:
+                    # a paged exact repeat into another slot maps the
+                    # donor's pages by reference: the first append past
+                    # the shared rows pays one page copy instead
+                    st.share_pages = self._pool.share(
+                        ref, (t_p + self._pool.page_size - 1)
+                        // self._pool.page_size)
+                    st.result = (None, rec_full[3])
                 else:
-                    src = _slot_to_mini(self.cache, ref)
+                    src = self._slot_src(ref)
                     _set_len(src, 0, t_p)
-                    st.result = (src, rec_full[2])
-                st.first_cached = rec_full[3]
+                    st.result = (src, rec_full[3])
+                st.first_cached = rec_full[4]
             else:
                 if kind == "reg":
                     src = _clone_cache(self._prefixes[ref][1])
                 else:
-                    src = _slot_to_mini(self.cache, ref)
+                    src = self._slot_src(ref)
+                    if self._paged:
+                        # the matched prefix pages map by reference;
+                        # only the suffix lands in owned pages
+                        st.share_pages = self._pool.share(
+                            ref, m // self._pool.page_size)
                 # rows beyond m are stale donor data masked by the
                 # cache_lens reset; the suffix extend overwrites them
                 _set_len(src, 0, m)
                 st.gen = _PrefillJob(self, src, prompt_np[:, m:], start=m)
         else:
             st.gen = _PrefillJob(self, init_cache(self.model, 1),
-                                 prompt_np, start=0)
+                                 prompt_np, start=0,
+                                 plp_k=self.logprobs_k if plp_n else 0,
+                                 plp_out=st.plp_dev)
         # the reservation is the last begin-side mutation
         self._reserved[slot] = True
         return st
@@ -1007,6 +1866,10 @@ class ServingEngine:
             st.gen.close()
             st.gen = None
         st.result = None
+        if st.share_pages:
+            # give back the begin-time prefix-share references
+            self._pool.unshare(st.share_pages)
+            st.share_pages = []
         self._reserved[st.slot] = False
 
     def finish_admit(self, st: AdmitState) -> int:
@@ -1027,14 +1890,21 @@ class ServingEngine:
         mini, last = st.result
         self._finished.pop(slot, None)
         self._finish_reason.pop(slot, None)
+        self._prompt_lp[slot] = []
         if st.auto_src is not None:
             self._prefix_hits += 1
             self._prefix_reused_tokens += st.auto_src[2]
         if st.inplace:
             _set_len(self.cache, slot, st.t_p)
+        elif self._paged:
+            self._paged_land(st, mini)
         else:
             _splice_slot(self.cache, mini, slot)
-        self._slot_prompts[slot] = (st.prompt_np[0], st.canon, last, None)
+        # the final-position logits row rides the record: an exact
+        # repeat of this prompt admits with no extend; resolve fills in
+        # the greedy first token when this admission qualifies
+        self._slot_prompts[slot] = (st.prompt_np[0], -1, st.canon, last,
+                                    None)
         self.lens[slot] = st.t_p
         self.active[slot] = True
         self.temps[slot] = st.temperature
@@ -1069,6 +1939,9 @@ class ServingEngine:
                 mask_np[t] = -1e6
             self._min_mask[slot].copy_(torch.from_numpy(mask_np))
             min_row = self._min_mask[slot:slot + 1]  # 0 emitted yet
+        self.gstate[slot] = st.gstart
+        self._seeds[slot] = 0 if st.seed is None else int(st.seed)
+        self._seed_streams[slot] = int(st.seed_stream)
         self._seed_keys[slot] = (0 if st.seed is None
                                  else seed_key(st.seed, st.seed_stream))
         self._seed_on[slot] = 0 if st.seed is None else 1
@@ -1096,6 +1969,11 @@ class ServingEngine:
                 first_lg = first_lg + bias_row
             if min_row is not None:
                 first_lg = first_lg + min_row
+            if st.gstart >= 0:
+                # the mask derived from the host table's row
+                first_lg = first_lg + torch.from_numpy(
+                    (self._gtable_np[st.gstart] < 0).astype(np.float32)
+                    * np.float32(-1e9))[None, :].to(self.device)
             st.pick = self._first_pick(st, slot, first_lg, seen_row)
             if st.presence_penalty or st.frequency_penalty:
                 self._counts[slot].zero_()
@@ -1142,6 +2020,20 @@ class ServingEngine:
         """The host half of finish_admit: read the first token (the
         admission's one synchronisation) and finish the bookkeeping."""
         slot = st.slot
+        if st.plp_n:
+            # entry 0 has no conditional; entry j scores prompt[j] from
+            # chunk (j - 1) // c, row (j - 1) % c
+            c = self.chunk or st.t_p
+            hosts = [tuple(x.cpu().numpy() for x in stats)
+                     for stats in st.plp_dev]
+            recs: list = [None]
+            for j in range(1, st.t_p):
+                clp, tlp, tid = hosts[(j - 1) // c]
+                r = (j - 1) % c
+                recs.append((float(clp[r]),
+                             [(int(tid[r][q]), float(tlp[r][q]))
+                              for q in range(st.plp_n)]))
+            self._prompt_lp[slot] = recs
         if st.pick is None:
             first = int(st.first_cached)
         else:
@@ -1149,10 +2041,12 @@ class ServingEngine:
         if st.lp_n:
             clp, tlp, tid = (x.cpu().numpy() for x in st.pick_stats)
             self._record_logprobs(slot, float(clp[0]), tlp[0], tid[0])
+        if st.gstart >= 0:
+            self.gstate[slot] = int(self._gtable_np[st.gstart, first])
         if self._clean_greedy_admit(st):
             # a zero-sync donor for the next exact repeat
             rec = self._slot_prompts[slot]
-            self._slot_prompts[slot] = rec[:3] + (first,)
+            self._slot_prompts[slot] = rec[:4] + (first,)
         self.last_token[slot] = first
         self.outputs[slot] = [first]
         self._tokens += 1
@@ -1171,7 +2065,7 @@ class ServingEngine:
                 and st.frequency_penalty == 0.0
                 and st.repetition_penalty == 1.0
                 and not st.logit_bias and not st.min_tokens
-                and not st.lp_n)
+                and st.gstart < 0 and not st.lp_n)
 
     def _pen_live(self) -> bool:
         """Any presence/frequency-penalised request live?"""
@@ -1192,6 +2086,12 @@ class ServingEngine:
     def _rep_live(self) -> bool:
         return bool((self.reps != 1.0).any())
 
+    def _grammar_live(self) -> bool:
+        """Any active slot under a grammar?"""
+        return bool(self._goffsets) and any(
+            self.active[s] and self.gstate[s] >= 0
+            for s in range(self.n_slots))
+
     def _record_logprobs(self, slot: int, chosen_lp: float,
                          top_lp, top_id) -> None:
         """Append one emitted token's stats, trimmed to the request's
@@ -1203,10 +2103,11 @@ class ServingEngine:
         ))
 
     def prompt_logprobs(self, slot: int):
-        """Prompt-scoring records; empty until prompt logprobs are
-        ported (``admit(prompt_logprobs=...)`` raises)."""
-        del slot
-        return []
+        """Prompt-scoring records from admission: entry 0 is None (no
+        conditional), entry j is ``(logprob of prompt[j] given
+        prompt[:j], [(token id, logprob) x n])``.  Empty unless the
+        request asked."""
+        return list(self._prompt_lp[slot])
 
     def token_logprobs(self, slot: int):
         """Per-token logprob records for *slot*, parallel to
@@ -1223,10 +2124,10 @@ class ServingEngine:
         extend, the pick (with the variant's knobs), the outputs at row
         ``step`` and the advance of the state.  What a CUDA graph
         captures and replays."""
-        sampled, lp_k, pen, rep, seeded, biased, minned, fused, K = flags
+        (sampled, lp_k, pen, rep, seeded, biased, minned, grammared,
+         fused, K, paged) = flags
         w = self._w
-        logits = self.model(w.tok[:, None], w.pos[:, None], self.cache,
-                            decode=True)
+        logits = self._extend(w.tok[:, None], w.pos[:, None], paged)
         lg = logits[:, -1, :]
         if biased:
             lg = lg + self._bias
@@ -1235,6 +2136,12 @@ class ServingEngine:
             # window lifts the mask where step-by-step decoding would
             gate = ((w.emitted + w.step) < w.min_toks).to(lg.dtype)
             lg = lg + self._min_mask * gate[:, None]
+        if grammared:
+            # ONE [S, V] row gather serves both the allowed-token mask
+            # (reject entries are -1) and the state advance below
+            grow = self._gtable[w.gstate.clamp(min=0)]
+            gon = (w.gstate >= 0).to(lg.dtype)[:, None]
+            lg = lg + torch.where(grow < 0, -1e9, 0.0) * gon
         if sampled:
             keys = row_keys(w.key, w.draws + w.step, w.slots)
             if seeded:
@@ -1257,6 +2164,9 @@ class ServingEngine:
             _bump_counts(self._counts, nxt)
         if rep:
             _bump_counts(self._seen, nxt)
+        if grammared:
+            stepped = grow.gather(1, nxt.long()[:, None])[:, 0].long()
+            w.gstate.copy_(torch.where(w.gstate >= 0, stepped, w.gstate))
         if fused:
             fin, frs = scan_boundary_update(
                 w.fin, w.frs, nxt, w.step, w.eos, w.stops[K], w.emitted,
@@ -1266,6 +2176,16 @@ class ServingEngine:
         w.tok.copy_(nxt)
         w.pos.add_(1)
         w.step.add_(1)
+
+    def _extend(self, tokens: torch.Tensor, positions: torch.Tensor,
+                paged: bool) -> torch.Tensor:
+        """One extend on the engine cache (the admission minis always
+        run contiguous): the paged engine's twin model reads the pool
+        through the block-table buffer."""
+        if paged:
+            return self._pmodel(tokens, positions, self.cache, decode=True,
+                                block_tables=self._btables)
+        return self.model(tokens, positions, self.cache, decode=True)
 
     def _graph(self, flags: tuple) -> "torch.cuda.CUDAGraph":
         """The captured step of *flags*, captured at its first use."""
@@ -1281,6 +2201,7 @@ class ServingEngine:
                                  self._capture_stream)
             torch.cuda.synchronize(self.device)
             self.capture_ms += (time.perf_counter() - t0) * 1e3
+            self.graph_captures += 1
             self._graphs[flags] = graph
         return graph
 
@@ -1296,6 +2217,9 @@ class ServingEngine:
                 self._finish(s)
         if not any(self.active):
             return {}
+        self._ensure_append_pages(1)
+        if not any(self.active):
+            return {}  # the page-pressure policy preempted the rest
         out = self.scan_harvest(self._dispatch(1, fused=False))
         return {s: toks[0] for s, toks in out.items()}
 
@@ -1304,6 +2228,175 @@ class ServingEngine:
             if not any(self.active):
                 return
             self.step()
+
+    # -- structural jump-ahead (grammar-forced chains) ---------------------
+
+    def _forced_chain(self, state: int, cap: int) -> List[int]:
+        """Walk the DFA from *state* while exactly ONE token is legal;
+        returns the forced tokens.  Stops at eos (an eos-only state
+        retires through the normal pick) and at *cap*."""
+        chain: List[int] = []
+        for _ in range(cap):
+            row = self._gtable_np[state]
+            allowed = np.flatnonzero(row >= 0)
+            if allowed.size != 1:
+                break
+            t = int(allowed[0])
+            if t == self.eos_id:
+                break
+            chain.append(t)
+            state = int(row[t])
+        return chain
+
+    def jump_ready(self) -> bool:
+        """Would :meth:`jump_round` run right now?  True iff a grammar
+        slot is active and no active slot armed sampling knobs or
+        logprobs (forced commits skip picks, so they consume no draws
+        and record no logprobs)."""
+        if not self._grammar_live():
+            return False
+        if _knobs_live(self.temps, self.topks, self.topps, self.minps,
+                       self.pres, self.freqs, self.reps):
+            return False
+        if self.logprobs_k and any(
+                self._lp_want[s] for s in range(self.n_slots)
+                if self.active[s]):
+            return False
+        return True
+
+    def forced_pending(self) -> bool:
+        """Any active constrained slot whose NEXT token is forced (a
+        single non-eos legal continuation)?  The cheap trigger for
+        :meth:`jump_round`."""
+        if not self.jump_ready():
+            return False
+        for s in range(self.n_slots):
+            if self.active[s] and self.gstate[s] >= 0:
+                row = self._gtable_np[self.gstate[s]]
+                allowed = np.flatnonzero(row >= 0)
+                if allowed.size == 1 and int(allowed[0]) != self.eos_id:
+                    return True
+        return False
+
+    @torch.no_grad()
+    def jump_round(self) -> Optional[Dict[int, List[int]]]:
+        """Structural jump-ahead for grammar-constrained decoding: the
+        tokens the DFA FORCES (exactly one legal continuation) are
+        committed in ONE ``[S, jump_len + 1]`` extend, run eagerly like
+        an admission, plus a masked-argmax bonus token from each slot's
+        post-chain position: 1..jump_len+1 tokens a slot for one host
+        round trip, the ids of :meth:`step` decoding (a forced token IS
+        the greedy pick: every alternative sits at -1e9).  Greedy only
+        (see :meth:`jump_ready`).  Returns None when the fixed band
+        cannot run safely (a slot lacks jump_len + 1 rows of headroom,
+        or a parked donor's prompt rows would sit inside the clamped
+        write band); the caller then steps.  Unconstrained active slots
+        ride the same extend and commit their position-0 pick, exactly
+        a step's commit."""
+        if not self.jump_ready():
+            raise ValueError(
+                "jump_round needs grammar-live all-greedy traffic "
+                "(jump_ready() is the predicate)")
+        if self._inflight_scan is not None:
+            raise RuntimeError(
+                "a dispatched window is outstanding (scan_harvest it "
+                "first)")
+        if not any(self.active):
+            return {}
+        for s in range(self.n_slots):
+            if self.active[s] and self.lens[s] >= self.model.max_len:
+                self._finish(s)
+        if not any(self.active):
+            return {}
+        S, T = self.n_slots, self.jump_len + 1
+        headroom = min(self.model.max_len - self.lens[s]
+                       for s in range(S) if self.active[s])
+        if headroom < T:
+            return None  # endgame: the clamped band would hit live rows
+        for s in range(S):
+            # parked donors: the masked extend's clamped writes land on
+            # rows [max_len - T, max_len - 1], and every parked prompt's
+            # canon rows must sit below them
+            if (self.auto_prefix and not self.active[s]
+                    and self._slot_prompts[s] is not None
+                    and self._slot_prompts[s][2] > self.model.max_len - T):
+                return None
+        chains: Dict[int, List[int]] = {}
+        post = np.full(S, -1, np.int64)
+        for s in range(S):
+            if not self.active[s]:
+                continue
+            chains[s] = []
+            if self.gstate[s] >= 0:
+                chains[s] = self._forced_chain(int(self.gstate[s]),
+                                               self.jump_len)
+                st = int(self.gstate[s])
+                for t in chains[s]:
+                    st = int(self._gtable_np[st, t])
+                post[s] = st
+        self._ensure_append_pages(T)
+        if not any(self.active):
+            return {}
+        toks = np.zeros((S, T), np.int64)
+        toks[:, 0] = self.last_token
+        for s, c in chains.items():
+            toks[s, 1:1 + len(c)] = c
+        k = np.asarray([len(chains.get(s, ())) for s in range(S)], np.int64)
+        dev = self.device
+        positions = (torch.as_tensor(np.asarray(self.lens, np.int32),
+                                     device=dev)[:, None]
+                     + torch.arange(T, dtype=torch.int32, device=dev))
+        if self._paged:
+            self._bt()
+        logits = self._extend(torch.from_numpy(toks).to(dev), positions,
+                              self._paged)
+        # the bonus pick from each slot's post-chain position
+        kd = torch.from_numpy(k).to(dev)
+        lg = logits[torch.arange(S, device=dev), kd]
+        if self._bias_live():
+            lg = lg + self._bias
+        if self._min_live():
+            emitted = np.asarray([len(self.outputs[s]) for s in range(S)])
+            gate = ((emitted + k) < self.min_toks).astype(np.float32)
+            lg = lg + self._min_mask * torch.from_numpy(gate).to(dev)[:, None]
+        gon = torch.from_numpy((post >= 0).astype(np.float32)).to(dev)
+        grow = self._gtable[torch.from_numpy(np.maximum(post, 0)).to(dev)]
+        lg = lg + torch.where(grow < 0, -1e9, 0.0) * gon[:, None]
+        bonus = torch.argmax(lg, dim=-1).cpu().numpy()
+        self._steps += 1
+        self._jump_rounds += 1
+
+        out: Dict[int, List[int]] = {}
+        new_lens = np.zeros(S, np.int32)
+        dispatched = np.asarray(self.active, bool)
+        for s in range(S):
+            if not dispatched[s]:
+                self.lens[s] += T  # host mirror only
+                continue
+            committed = chains[s] + [int(bonus[s])]
+            toks_out = []
+            n_c = len(committed)
+            for j, tok in enumerate(committed):
+                self.last_token[s] = tok
+                self.outputs[s].append(tok)
+                self._tokens += 1
+                toks_out.append(tok)
+                if self.gstate[s] >= 0:
+                    self.gstate[s] = int(self._gtable_np[self.gstate[s],
+                                                         tok])
+                self._maybe_finish(s, tok)
+                if not self.active[s]:
+                    n_c = j + 1  # later tokens discarded
+                    break
+            self.lens[s] += n_c
+            # forced-token accounting from the committed prefix
+            self._jump_forced += min(n_c, len(chains[s]))
+            new_lens[s] = self.lens[s]
+            if self.active[s] and self.lens[s] >= self.model.max_len:
+                self._finish(s)
+            out[s] = toks_out
+        _rollback_active(self.cache, new_lens, dispatched)
+        return out
 
     def run_scan(self, n_steps: int) -> Dict[int, List[int]]:
         """*n_steps* decode steps as one window with no host round trip
@@ -1341,6 +2434,12 @@ class ServingEngine:
                 raise ValueError(
                     f"slot {s} has {self.model.max_len - self.lens[s]} "
                     f"cache rows left, need {n_steps}")
+        # the block tables stay fixed for the window: its pages are
+        # allocated (or copied on write) on the host before it runs
+        self._ensure_append_pages(n_steps)
+        if not any(self.active):
+            raise RuntimeError(
+                "page-pressure policy preempted every active slot")
         sampled = _knobs_live(self.temps, self.topks, self.topps,
                               self.minps, self.pres, self.freqs,
                               self.reps)
@@ -1356,8 +2455,9 @@ class ServingEngine:
             stop_mat = self._stop_matrix()
             K = stop_mat.shape[1]
             self._w.load_stops(stop_mat)
+        grammared = self._grammar_live()
         flags = (sampled, lp_k, pen, rep, seeded, self._bias_live(),
-                 self._min_live(), fused, K)
+                 self._min_live(), grammared, fused, K, self._paged)
         self._load_window()
         if self._use_graphs:
             graph = self._graph(flags)
@@ -1367,8 +2467,8 @@ class ServingEngine:
         else:
             for _ in range(n_steps):
                 self._decode_step(flags)
-        handle = _ScanHandle(n_steps, sampled, lp_k, list(self.active),
-                             fused)
+        handle = _ScanHandle(n_steps, sampled, lp_k, grammared,
+                             list(self.active), fused)
         self._inflight_scan = handle
         return handle
 
@@ -1400,11 +2500,14 @@ class ServingEngine:
             "budget": (self.max_new_tokens
                        if self.max_new_tokens is not None
                        else _NO_BUDGET),
+            "gstate": self.gstate,
         }
         floats = {"temps": self.temps, "topps": self.topps,
                   "minps": self.minps, "pres": self.pres,
                   "freqs": self.freqs, "reps": self.reps}
         self._w.load(ints, floats)
+        if self._paged:
+            self._bt()
 
     def scan_abandon(self, handle: _ScanHandle) -> None:
         """Drop a dispatched window without its host bookkeeping; the
@@ -1437,10 +2540,10 @@ class ServingEngine:
                 handle, live, toks, clps if lp_k else None,
                 tlps if lp_k else None, tids if lp_k else None,
                 host[-2], host[-1], out)
-        if not sampled and not lp_k:
-            # greedy fast path: no draws and no logprobs, so each
-            # column is cut at its first eos, stop id or budget (eos >
-            # stop > length on one token, the earliest token first)
+        if not sampled and not lp_k and not handle.grammared:
+            # greedy fast path: no draws, no logprobs and no DFA walk, so
+            # each column is cut at its first eos, stop id or budget
+            # (eos > stop > length on one token, the earliest first)
             for s in range(self.n_slots):
                 if s not in skip:
                     self.lens[s] += n_steps
@@ -1501,6 +2604,11 @@ class ServingEngine:
                                      and self.active[s]):
                     continue
                 tok = int(toks[i, s])
+                if handle.grammared and self.gstate[s] >= 0:
+                    # the host mirror of the step's transitions, walked
+                    # over the same emitted tokens
+                    self.gstate[s] = int(self._gtable_np[self.gstate[s],
+                                                         tok])
                 self.last_token[s] = tok
                 self.outputs[s].append(tok)
                 self._tokens += 1
@@ -1543,6 +2651,17 @@ class ServingEngine:
             draws_used = max(
                 (keep[s] for s in live_idx
                  if lv[s] and s not in skip), default=0)
+        if handle.grammared:
+            # batched DFA walk over the columns still emitting; a state
+            # can go negative mid-walk, which drops the column as the
+            # per-token ``gstate >= 0`` guard does
+            gs = self.gstate
+            for i in range(n_steps):
+                cols = np.asarray([s for s in live_idx
+                                   if keep[s] > i and gs[s] >= 0], np.int64)
+                if cols.size == 0:
+                    break
+                gs[cols] = self._gtable_np[gs[cols], toks[i, cols]]
         if lp_k:
             for s in live_idx:
                 n = self._lp_want[s]
@@ -1565,7 +2684,7 @@ class ServingEngine:
         # the unfused harvest retires in slot order on its greedy path
         # and in (finish step, slot) order otherwise
         finishing = [s for s in live_idx if fin[s] >= 0]
-        if sampled or lp_k:
+        if sampled or lp_k or handle.grammared:
             finishing.sort(key=lambda s: (int(fin[s]), s))
         reasons = {1: "eos", 2: "stop", 3: "length"}
         for s in finishing:
@@ -1609,9 +2728,10 @@ class ServingEngine:
         return list(self.outputs[slot])
 
     def stats(self) -> Dict[str, int]:
-        """Engine counters, with the reference's keys; those of features
-        not ported yet stay 0."""
-        return {
+        """Engine counters, with the reference's keys (the pool's, the
+        preemptions and the parked sessions too on a paged engine);
+        those of features not ported yet stay 0."""
+        out = {
             "n_slots": self.n_slots,
             "active_slots": sum(self.active),
             "free_slots": self.n_slots - sum(self.active),
@@ -1626,8 +2746,8 @@ class ServingEngine:
             "spec_rounds": 0,
             "spec_proposed": 0,
             "spec_accepted": 0,
-            "jump_rounds": 0,
-            "jump_forced_tokens": 0,
+            "jump_rounds": self._jump_rounds,
+            "jump_forced_tokens": self._jump_forced,
             "prefix_evictions": self._prefix_evictions,
             "packed_prefill_extends": 0,
             "packed_prefill_rows": 0,
@@ -1636,6 +2756,11 @@ class ServingEngine:
             "fused_windows": self._fused_windows,
             "fused_truncated_tokens": self._fused_truncated,
         }
+        if self._paged:
+            out.update(self._pool.stats())
+            out["kv_preemptions"] = self._kv_preemptions
+            out["kv_sessions_parked"] = len(self.session_slots())
+        return out
 
     def release(self, slot: int) -> None:
         """Free a slot (abandons any in-flight generation).  Its prompt
@@ -1665,3 +2790,21 @@ class ServingEngine:
         self._ignore_eos[slot] = False
         self._seed_on[slot] = 0
         self._lp_want[slot] = 0  # records stay readable after finish
+        # parked-donor LRU stamp: under pool pressure the oldest parked
+        # record's pages are reclaimed first
+        self._park_counter += 1
+        self._park_seq[slot] = self._park_counter
+
+    # -- not ported yet ------------------------------------------------------
+
+    def spec_round(self):
+        """Speculative decoding is not ported (ROADMAP item 1b)."""
+        _unported(spec_round=True)
+
+    def admit_step_packed(self, states, rounds: int = 1) -> None:
+        """Packed prefill is not ported (ROADMAP item 4.3)."""
+        _unported(admit_step_packed=True)
+
+    def warm_packed(self, sizes) -> None:
+        """Packed prefill is not ported (ROADMAP item 4.3)."""
+        _unported(warm_packed=True)

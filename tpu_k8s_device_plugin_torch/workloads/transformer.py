@@ -98,12 +98,6 @@ def _unported(**features) -> None:
                       "adapter slice (ROADMAP.md, queue 1, item 1)",
         "adapter_ids": "LoRA adapters arrive with the quantization and "
                        "adapter slice (ROADMAP.md, queue 1, item 1)",
-        "kv_page_size": "the paged KV pool arrives with the serving-"
-                        "engine slice (ROADMAP.md, queue 1, item 4)",
-        "block_tables": "the paged KV pool arrives with the serving-"
-                        "engine slice (ROADMAP.md, queue 1, item 4)",
-        "kv_quant": "int8 KV rows in the paged pool arrive with the "
-                    "serving-engine slice (ROADMAP.md, queue 1, item 4)",
         # the serving engine's arguments (workloads/serving.py)
         "mesh": "tensor-parallel serving arrives with multi-device "
                 "(ROADMAP.md, queue 1, item 6)",
@@ -111,16 +105,12 @@ def _unported(**features) -> None:
                  "(ROADMAP.md, queue 1, item 1b)",
         "adapter": "LoRA adapters arrive with the quantization and "
                    "adapter slice (ROADMAP.md, queue 1, item 1b)",
-        "grammar": "grammar-constrained decoding arrives with the paged "
-                   "engine slice (ROADMAP.md, queue 1, item 4.2)",
-        "kv_paging": "the paged KV pool arrives with the paged engine "
-                     "slice (ROADMAP.md, queue 1, item 4.2)",
-        "kv_dtype": "int8 KV pages arrive with the paged engine slice "
-                    "(ROADMAP.md, queue 1, item 4.2)",
-        "session": "parked sessions arrive with the paged engine slice "
-                   "(ROADMAP.md, queue 1, item 4.2)",
-        "prompt_logprobs": "prompt logprobs arrive with the paged engine "
-                           "slice (ROADMAP.md, queue 1, item 4.2)",
+        "spec_round": "speculative decoding arrives with its slice "
+                      "(ROADMAP.md, queue 1, item 1b)",
+        "admit_step_packed": "packed prefill arrives with the scheduler "
+                             "slice (ROADMAP.md, queue 1, item 4.3)",
+        "warm_packed": "packed prefill arrives with the scheduler slice "
+                       "(ROADMAP.md, queue 1, item 4.3)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
