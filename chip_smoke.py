@@ -58,8 +58,23 @@ Phases, each fatal on failure:
    after a jump round that forces tokens, its neighbours keeping their
    ids; the paged decode rate, window idle share and device ms a step
    beside the contiguous engine's, the pool gather's ms and share of a
-   replayed step, and the host ms a window spends allocating pages; and
-   a 4-layer model at the same width with the flash prefill against the
+   replayed step, and the host ms a window spends allocating pages;
+   then the iteration scheduler on the same model: the captured chunk
+   extend of admission (projections over 4 rows, attention over the K
+   real ones; one graph a K) against its run op by op at K = 1 to 4,
+   bit for bit, its ms beside its bound, and extends of their own shape
+   at B = 1..4 (their ms, and their rows' logits against the same rows
+   at B = 1); sixteen requests
+   (the engine phase's eight at iteration 0, eight more at iterations
+   2-9, two of them APC hits, one seeded sampled, at most 32 new tokens
+   each) through ``IterationScheduler`` (windows of 8, 4 prefill
+   dispatches a window, packs of 4) in four arms, serial, interleave,
+   interleave + packed, interleave + packed + overlap, and a paged
+   engine in the last: every arm gives the serial arm's ids and finish
+   reasons, and prints its wall seconds, tokens/s, admit-to- and
+   arrival-to-first-token p50 and p99, a running request's longest
+   stall, duty cycle, overlap windows and packed extends; and a
+   4-layer model at the same width with the flash prefill against the
    einsum prefill;
 5. the training path: AlexNet at full width (224 px, 1000 classes, s2d,
    bf16 compute, f32 parameters from a seed), batch 1024, one
@@ -118,6 +133,16 @@ ENGINE_LOGPROBS, ENGINE_BENCH_PROMPT = 5, 128
 # tokens over the synthetic vocabulary (see grammar_vocab)
 PAGE = 32
 GRAMMAR = r'\{"n":[0-9][0-9]?[0-9]?\}'
+
+# the scheduler phase: windows of 8 steps, 4 prefill dispatches an open
+# window, packs of up to 4 admissions, at most 32 new tokens a request;
+# the engine phase's eight requests at iteration 0, eight more at
+# iterations 2-9; the arms (interleave, packed prefill, overlap)
+SCHED_WINDOW, SCHED_BUDGET, SCHED_PACK, SCHED_NEW = 8, 4, 4, 32
+SCHED_ARMS = (("serial", False, False, False),
+              ("interleave", True, False, False),
+              ("interleave+packed", True, True, False),
+              ("interleave+packed+overlap", True, True, True))
 
 # the training path: AlexNet, batch 1024 (224 px, s2d), and its three
 # conv->pool stages: (pool input = conv output, conv input, window)
@@ -671,9 +696,9 @@ def graph_vs_eager_decode(torch, inference, model, prompt, toks):
 
 
 def main_path(torch, counts, inference, llama, bench_serving, serving,
-              grammar, card):
+              grammar, obs, scheduler, card):
     """Phase 4: Llama-3-8B greedy generation through the port, then the
-    serving engine."""
+    serving engine, the paged engine and the iteration scheduler."""
     t0 = time.perf_counter()
     cfg, model = bench_serving.build_model_and_params(
         "llama3-8b", MAX_LEN, device="cuda", seed=0)
@@ -736,6 +761,13 @@ def main_path(torch, counts, inference, llama, bench_serving, serving,
     torch.cuda.empty_cache()
     engine["paged"] = paged_path(torch, inference, serving, grammar, model,
                                  engine, card)
+    torch.cuda.empty_cache()
+    counts.zero()
+    engine["scheduler"] = scheduler_path(torch, obs, inference, serving,
+                                         scheduler, model, card)
+    got = counts.read()
+    print(f"scheduler: kernel launches over the phase {got} (its extends "
+          f"attend through the einsum, as the JAX engine's do)", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -809,26 +841,26 @@ def engine_path(torch, inference, serving, bench_serving, model, card):
     import numpy as np
 
     reqs = engine_requests(np, model.vocab)
-    engines, admit_ms = [], []
+    engines, admit_ms = [], {}
     for graphs in (True, False):
         eng = serving.ServingEngine(model, n_slots=ENGINE_SLOTS,
                                     logprobs_k=ENGINE_LOGPROBS, rng=0,
                                     device="cuda")
         eng._use_graphs = graphs
-        for prompt, kw in reqs:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.admit(prompt, **kw)
-            torch.cuda.synchronize()
-            admit_ms.append((time.perf_counter() - t0) * 1e3)
+        # the captured admission extend is captured here, not in the
+        # timed admissions
+        eng.warm_packed([1])
+        admit_ms[graphs] = _admit_all(torch, eng, reqs)
         engines.append(eng)
     graph, eager = engines
     lengths = [len(p) for p, _ in reqs]
     print(f"engine: {ENGINE_SLOTS} slots, max_len {MAX_LEN}, chunk "
           f"{graph.chunk}; prompts {lengths}; admission "
-          f"{sum(admit_ms) / len(admit_ms):.1f} ms a request "
-          f"(mean of {len(admit_ms)}, chunked prefill included); {card}",
-          flush=True)
+          f"{admit_ms[True]:.1f} ms a request through the captured chunk "
+          f"extend ({graph.extend_replays} replays, captured in "
+          f"{graph.extend_capture_ms:.1f} ms), {admit_ms[False]:.1f} ms "
+          f"run op by op (means of {len(reqs)}, chunked prefill "
+          f"included); {card}", flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     graph.run_scan(ENGINE_STEPS)
@@ -908,7 +940,7 @@ def engine_path(torch, inference, serving, bench_serving, model, card):
           f"prompts of {ENGINE_BENCH_PROMPT}, best of 3); {card}",
           flush=True)
     return dict(stats, window_ms=window_ms, eager_ms=eager_ms,
-                admit_ms=sum(admit_ms) / len(admit_ms),
+                admit_ms=admit_ms[True], admit_eager_ms=admit_ms[False],
                 attention_share=attn_ms / step_ms, window=window)
 
 
@@ -1220,6 +1252,310 @@ def paged_path(torch, inference, serving, grammar, model, engine, card):
     return dict(rates=rates, gather_ms=gather_ms, gather_share=share,
                 gather_bound=gather_bound, preemptions=n_pre,
                 int8_agree=agree, int8_diff=diff)
+
+
+def scheduler_trace(np, vocab: int, engine_reqs):
+    """The scheduler phase's sixteen requests as (arrival iteration,
+    prompt, knobs): the engine phase's eight at iteration 0, then eight
+    at iterations 2-9, prompts of ENGINE_PROMPTS tokens from a seeded
+    generator: one repeats the first 256 tokens of the engine phase's
+    first prompt and one the first 160 of its third (chunk-aligned
+    prefixes: APC hits), one is sampled with its own seed, the rest
+    greedy."""
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(ENGINE_PROMPTS[0], ENGINE_PROMPTS[1] + 1, size=8)
+    trace = [(0, p, kw) for p, kw in engine_reqs]
+    for j, n in enumerate(lengths):
+        prompt = rng.integers(0, vocab, size=int(n)).tolist()
+        kw = {}
+        if j == 1:
+            prompt = engine_reqs[0][0][:256] + prompt
+        elif j == 4:
+            prompt = engine_reqs[2][0][:160] + prompt
+        elif j == 5:
+            kw = dict(temperature=0.8, top_p=0.95, seed=303)
+        trace.append((2 + j, prompt[:ENGINE_PROMPTS[1]], kw))
+    return trace
+
+
+def _metric(obs, body: str, name: str) -> float:
+    return sum(v for n, _, v in obs.parse_exposition(body) if n == name)
+
+
+def run_scheduled(torch, np, obs, scheduler, eng, trace, interleave,
+                  packed, overlap):
+    """Drive *trace* through an ``IterationScheduler`` over *eng*, the
+    arrivals keyed to iteration indices; the owner's bookkeeping between
+    iterations is its ``stream`` phase.  Arrival-to-first-token runs from
+    the iteration a request arrives at to its first token (queueing for a
+    slot included); admit-to-first-token from its ``Ticket``'s begin.  A
+    running request's stall is the host time between two iterations that
+    bring it decoded tokens.  Returns {request: (ids, finish reason)} and
+    the arm's figures."""
+    reg = obs.Registry()
+    intake, keys, live, out, tickets = [], {}, {}, {}, []
+    arrived, first_at, last, stall = {}, {}, {}, {}
+
+    def pull():
+        if not intake:
+            return None
+        i, prompt, kw = intake.pop(0)
+        t = sched.begin(prompt, **kw)
+        keys[t] = i
+        tickets.append(t)
+        return t
+
+    sched = scheduler.IterationScheduler(
+        eng, window=SCHED_WINDOW, interleave=interleave,
+        prefill_budget=SCHED_BUDGET, pull=pull, sync_dwell_s=0.0,
+        packed_prefill=packed, max_pack=SCHED_PACK, overlap=overlap,
+        registry=reg)
+    captures = eng.capture_ms + eng.extend_capture_ms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(100000):
+        now = time.perf_counter()
+        for i, (at, p, kw) in enumerate(trace):
+            if at == it:
+                intake.append((i, p, kw))
+                arrived[i] = now
+        res = sched.iterate()
+        t1 = time.perf_counter()
+        for s, toks in res.decoded.items():
+            if s in live and toks:
+                i = live[s]
+                if i in last:
+                    stall[i] = max(stall.get(i, 0.0), t1 - last[i])
+                last[i] = t1
+        for t in res.admitted:
+            live[t.slot] = keys.pop(t)
+            first_at[live[t.slot]] = t.t_done
+        for s in list(live):
+            if eng.finished(s):
+                out[live.pop(s)] = (eng.output(s), eng.finish_reason(s))
+        sched.note_phase("stream", time.perf_counter() - t1)
+        if len(out) == len(trace) and not sched.busy():
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(out) != len(trace):
+        fail(f"scheduler: {len(out)} of {len(trace)} requests finished")
+    captured_s = (eng.capture_ms + eng.extend_capture_ms - captures) / 1e3
+    body = reg.render()
+    first = np.asarray([(t.t_done - t.t_begin) * 1e3 for t in tickets])
+    ttft = np.asarray([(first_at[i] - arrived[i]) * 1e3 for i in first_at])
+    stalls = np.asarray(list(stall.values())) * 1e3
+    st = eng.stats()
+    tokens = sum(len(ids) for ids, _ in out.values())
+    figures = dict(
+        wall_s=wall, capture_s=captured_s, tokens=tokens,
+        tokens_per_sec=tokens / (wall - captured_s),
+        first_p50_ms=float(np.percentile(first, 50)),
+        first_p99_ms=float(np.percentile(first, 99)),
+        ttft_p50_ms=float(np.percentile(ttft, 50)),
+        ttft_p99_ms=float(np.percentile(ttft, 99)),
+        stall_p50_ms=float(np.percentile(stalls, 50)),
+        stall_max_ms=float(stalls.max()),
+        duty=_metric(obs, body, "tpu_serve_device_duty_cycle"),
+        overlap_windows=int(_metric(obs, body,
+                                    "tpu_serve_overlap_windows_total")),
+        iterations=it + 1,
+        **{k: st[k] for k in ("packed_prefill_extends", "packed_prefill_rows",
+                              "packed_prefill_pad_tokens",
+                              "prefix_cache_hits", "prefill_tokens")})
+    return out, figures
+
+
+def _fresh(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def extend_bound_ms(model, rows: int):
+    """Least time for one chunk extend of *rows* rows of 32 tokens: the
+    weights read once and the f32 logits written once at the HBM rate,
+    or 2 FLOPs per weight per token at the bf16 peak."""
+    params = sum(p.numel() for p in model.parameters())
+    logits = rows * 32 * model.vocab * 4
+    t_bytes = (params * 2 + logits) / PEAK_BYTES
+    t_ops = 2 * (params - model.vocab * model.d_model) * rows * 32 / PEAK_BF16
+    return max(t_bytes, t_ops) * 1e3
+
+
+def admission_extends(torch, inference, serving, model, reqs, card):
+    """The captured chunk extend against its eager run at K = 1..4
+    admissions on one set of minis (bit for bit), its ms beside the
+    bound, what copying the minis in and out costs, and the per-K shapes
+    it replaces: a B=K extend's last-row logits against the same rows
+    run at B=1, and each shape's ms."""
+    prompts = [p for p, _ in reqs[:SCHED_PACK]]
+    kw = dict(n_slots=ENGINE_SLOTS, auto_prefix=False, device=model.device)
+    graph = serving.ServingEngine(model, **kw)
+    eager = serving.ServingEngine(model, **kw)
+    eager._use_graphs = False
+    graph.warm_packed(range(1, SCHED_PACK + 1))
+    for k in range(1, SCHED_PACK + 1):
+        got = []
+        for eng in (graph, eager):
+            sts = [eng.begin_admit(p) for p in prompts[:k]]
+            if k == 1:
+                eng.admit_step(sts[0])
+            else:
+                eng.admit_step_packed(sts)
+            got.append([st.result[0] for st in sts]
+                       + [eng._batch.logits[k][:k].clone()])
+            for st in sts:
+                eng.abort_admit(st)
+        (*gm, gl), (*em, el) = got
+        same = torch.equal(gl, el) and all(
+            torch.equal(a[n][key], b[n][key]) for a, b in zip(gm, em)
+            for n in a for key in a[n])
+        if not same:
+            fail(f"captured chunk extend at K={k} differs from its eager "
+                 "run")
+        del got, gm, em, gl, el
+    batch = graph._batch
+    width = batch.inputs.shape[1]
+    captured = {}
+    for k in range(1, SCHED_PACK + 1):
+        captured[k] = dict(ms=time_ms(torch, batch.graphs[k].replay, 10),
+                           bound=extend_bound_ms(model, k))
+    # what a run of chunks pays to use the static cache: K minis copied
+    # in and back out (each byte read and written once each way)
+    sts = [graph.begin_admit(p) for p in prompts]
+    minis = [st.gen.mini for st in sts]
+    for k in (1, SCHED_PACK):
+        def copies(k=k):
+            serving._pack_minis(minis[:k], batch.cache)
+            serving._unpack_minis(batch.cache, minis[:k])
+        leaves = [t for m in minis[:k] for layer in m.values()
+                  for t in layer.values()]
+        captured[k].update(copy_ms=time_ms(torch, copies, 10),
+                           copy_bound=4 * bytes_bound_ms(*leaves))
+    for st in sts:
+        graph.abort_admit(st)
+    del minis, sts
+    print(f"admission extend: the captured chunk extend ({width} rows of "
+          f"32 tokens, K of them attending) equals its eager run bit for "
+          f"bit at K = 1..{SCHED_PACK}; ms a replay at K = 1..{SCHED_PACK}: "
+          + ", ".join(f"{c['ms']:.3f} (bound {c['bound']:.3f})"
+                      for c in captured.values())
+          + f"; {SCHED_PACK} captures in {graph.extend_capture_ms:.1f} ms; "
+          f"copying the minis into the static cache and back, once a run "
+          f"of chunks: {captured[1]['copy_ms']:.3f} ms at K = 1 (bound "
+          f"{captured[1]['copy_bound']:.3f}), "
+          f"{captured[SCHED_PACK]['copy_ms']:.3f} ms at K = {SCHED_PACK} "
+          f"(bound {captured[SCHED_PACK]['copy_bound']:.3f}); {card}",
+          flush=True)
+    del graph, eager
+    _fresh(torch)
+
+    # the per-K shapes: each K its own extend, as one graph a pack size
+    # would be; rows of a B=K extend against the same rows at B=1
+    tok = torch.as_tensor([p[:32] for p in prompts], device=model.device,
+                          dtype=torch.int32)
+    pos = torch.arange(32, dtype=torch.int32, device=model.device).expand(
+        SCHED_PACK, 32).contiguous()
+    with torch.no_grad():
+        alone = [model(tok[i:i + 1], pos[i:i + 1],
+                       inference.init_cache(model, 1), decode=True)[0, -1]
+                 for i in range(SCHED_PACK)]
+    shapes = {}
+    for k in range(1, SCHED_PACK + 1):
+        cache = inference.init_cache(model, k)
+        with torch.no_grad():
+            rows = model(tok[:k], pos[:k], inference.init_cache(model, k),
+                         decode=True)[:, -1]
+
+        def extend(k=k, cache=cache):
+            with torch.no_grad():
+                model(tok[:k], pos[:k], cache, decode=True)
+
+        diff = max(float((rows[i] - alone[i]).abs().max())
+                   for i in range(k))
+        agree = sum(int(rows[i].argmax() == alone[i].argmax())
+                    for i in range(k))
+        shapes[k] = dict(ms=graph_ms(torch, extend), diff=diff,
+                         bound=extend_bound_ms(model, k))
+        print(f"admission extend: a B={k} extend of its own shape "
+              f"{shapes[k]['ms']:.3f} ms (bound {shapes[k]['bound']:.3f} "
+              f"ms); its last-row logits against the same rows at B=1: "
+              f"largest difference {diff:.4f}, {agree} of {k} argmax ids "
+              f"agree; {card}", flush=True)
+        del cache, rows
+    del alone
+    _fresh(torch)
+    return dict(captured=captured, width=width, shapes=shapes)
+
+
+def scheduler_path(torch, obs, inference, serving, scheduler, model, card):
+    """Phase 4, the iteration scheduler on the engine phase's model: the
+    captured admission extend (``admission_extends``); then sixteen
+    requests (``scheduler_trace``) through ``IterationScheduler`` over a
+    fresh ``ServingEngine(n_slots=8)`` in each of SCHED_ARMS, and over a
+    paged engine (pages of 32) in the last arm.  Every arm gives the
+    serial arm's ids and finish reasons; each arm's figures
+    (``run_scheduled``) are printed.  Every check is fatal."""
+    import numpy as np
+
+    reqs = engine_requests(np, model.vocab)
+    extends = admission_extends(torch, inference, serving, model, reqs,
+                                card)
+    trace = scheduler_trace(np, model.vocab, reqs)
+    kw = dict(n_slots=ENGINE_SLOTS, logprobs_k=ENGINE_LOGPROBS, rng=0,
+              max_new_tokens=SCHED_NEW, device=model.device)
+    arms, base = {}, None
+    for name, interleave, packed, overlap in SCHED_ARMS + (
+            ("paged interleave+packed+overlap", True, True, True),):
+        extra = (dict(kv_paging=True, kv_page_size=PAGE)
+                 if name.startswith("paged") else {})
+        eng = serving.ServingEngine(model, **kw, **extra)
+        eng.warm_packed([SCHED_PACK])
+        out, fig = run_scheduled(torch, np, obs, scheduler, eng, trace,
+                                 interleave, packed, overlap)
+        arms[name] = fig
+        print(f"scheduler {name}: {len(trace)} requests in "
+              f"{fig['wall_s']:.3f} s ({fig['capture_s']:.3f} s of it "
+              f"decode-step captures), {fig['tokens']} tokens: "
+              f"{fig['tokens_per_sec']:.1f} tokens/s net of captures; "
+              f"admit-to-first-token p50 {fig['first_p50_ms']:.1f} ms, p99 "
+              f"{fig['first_p99_ms']:.1f} ms; arrival-to-first-token p50 "
+              f"{fig['ttft_p50_ms']:.1f} ms, p99 {fig['ttft_p99_ms']:.1f} ms; "
+              f"a running request's longest "
+              f"stall p50 {fig['stall_p50_ms']:.1f} ms, max "
+              f"{fig['stall_max_ms']:.1f} ms; duty cycle {fig['duty']:.3f}; "
+              f"{fig['overlap_windows']} overlap windows; packed extends "
+              f"{fig['packed_prefill_extends']}, rows "
+              f"{fig['packed_prefill_rows']}, pad tokens "
+              f"{fig['packed_prefill_pad_tokens']}; APC hits "
+              f"{fig['prefix_cache_hits']}, prefill tokens "
+              f"{fig['prefill_tokens']}; {fig['iterations']} iterations; "
+              f"{card}", flush=True)
+        if base is None:
+            base = out
+        else:
+            for i in range(len(trace)):
+                if out[i] != base[i]:
+                    fail(f"scheduler {name}: request {i} gave "
+                         f"{out[i][0][:8]}... ({out[i][1]}) against the "
+                         f"serial arm's {base[i][0][:8]}... "
+                         f"({base[i][1]})")
+        if packed and not fig["packed_prefill_extends"]:
+            fail(f"scheduler {name}: no packed extend ran")
+        if overlap and not fig["overlap_windows"]:
+            fail(f"scheduler {name}: no window was dispatched ahead")
+        for ids, reason in out.values():
+            if not ids or not all(0 <= t < model.vocab for t in ids) or \
+                    (reason == "length" and len(ids) != SCHED_NEW):
+                fail(f"scheduler {name}: bad stream {ids[:8]}... "
+                     f"({reason})")
+        del eng
+        _fresh(torch)
+    print(f"scheduler: all {len(SCHED_ARMS) + 1} arms give the serial arm's "
+          f"ids and finish reasons for all {len(trace)} requests", flush=True)
+    return dict(arms=arms, extends=extends)
 
 
 class Counts:
@@ -1634,10 +1970,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tpu_k8s_device_plugin_torch import build
+    from tpu_k8s_device_plugin_torch import build, obs
     from tpu_k8s_device_plugin_torch.workloads import (
         alexnet, bench_main, bench_serving, grammar, inference, llama,
-        serving, transformer)
+        scheduler, serving, transformer)
     from tpu_k8s_device_plugin_torch.workloads import convpool as cp
     from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
     from tpu_k8s_device_plugin_torch.workloads import pool as mp
@@ -1671,7 +2007,8 @@ def main() -> int:
     pool = check_pool(torch, mp)
     conv_pool = check_conv_pool(torch, cp)
     launches, _, _ = main_path(torch, counts, inference, llama,
-                               bench_serving, serving, grammar, card)
+                               bench_serving, serving, grammar, obs,
+                               scheduler, card)
     torch.cuda.empty_cache()
     train, train_modes = training_path(torch, counts, alexnet, bench_main)
     torch.cuda.empty_cache()

@@ -8,7 +8,12 @@ the int8 paged and the grammared steps as replays against their eager
 steps; admission, preemption, resumption and copy-on-write landing in
 the pool and the block tables between replays of one graph; a grammar
 registered within the table's capacity seen by the captured step, and
-a growth that recaptures it.
+a growth that recaptures it.  Then admission: the captured chunk
+extend against its eager run at 1 to 4 admissions, packed rows against
+serial chunks, no synchronisation in any admission step before the
+first token's read while a window is open, and the iteration
+scheduler's streams with interleave, packing and overlap against its
+serial arm.
 
 These need a CUDA device; elsewhere they skip.  On the GPU machine:
 
@@ -239,7 +244,8 @@ def _valid_rows(eng):
     for s in range(eng.n_slots):
         if not eng.active[s]:
             continue
-        raw = _paged_gather_raw(eng.cache, eng._pool.tables[s])
+        raw = _paged_gather_raw(eng.cache, eng._pool.tables[s],
+                                eng._stage.put)
         for layer, kv in raw.items():
             for name, t in kv.items():
                 t = torch.as_tensor(t)
@@ -341,3 +347,167 @@ def test_grammar_registration_reaches_the_captured_step(model):
         assert text.isdigit() or not text
         del s2
     assert outs[0] == outs[1]
+
+
+# -- admission: the captured chunk extend, packed prefill, the scheduler -----
+
+
+def _begun(model, graphs, prompts, **kw):
+    eng = ServingEngine(model, n_slots=4, chunk=8, auto_prefix=False,
+                        max_new_tokens=8, logprobs_k=3, rng=5, **kw)
+    eng._use_graphs = graphs
+    return eng, [eng.begin_admit(p) for p in prompts]
+
+
+def _pack_prompts(model, k):
+    return [_prompt(model.vocab, (9 + 6 * i,), 40 + i).tolist()
+            for i in range(k)]
+
+
+def _landed(eng, states):
+    """Each admission's mini (every row and length) and last logits row,
+    after advancing all of them to the end: packed while two or more
+    remain, then serially."""
+    while any(st.gen is not None for st in states):
+        group = [st for st in states if st.gen is not None]
+        if len(group) >= 2:
+            eng.admit_step_packed(group)
+        else:
+            eng.admit_step(group[0])
+    return [(st.result[0], st.result[1]) for st in states]
+
+
+def _assert_same_landing(a, b):
+    for (ma, la), (mb, lb) in zip(a, b):
+        assert torch.equal(la, lb)
+        for name, layer in ma.items():
+            for key, t in layer.items():
+                assert torch.equal(mb[name][key], t), (name, key)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_captured_extend_matches_eager(model, k):
+    """K admissions through the captured chunk extend against the same
+    admissions run op by op: bit for bit, one replay a round."""
+    prompts = _pack_prompts(model, k)
+    graph, sg = _begun(model, True, prompts)
+    eager, se = _begun(model, False, prompts)
+    _assert_same_landing(_landed(graph, sg), _landed(eager, se))
+    rounds = max(st.chunks_total for st in sg)
+    assert graph.extend_replays == rounds and eager.extend_replays == 0
+    assert graph._batch.graphs and not eager._batch.graphs
+
+
+def test_packed_rows_match_serial_chunks(model):
+    """Four admissions advanced as packs against the same four run one
+    chunk at a time: every extend has the engine's one shape, so the
+    packed rows land bit for bit."""
+    prompts = _pack_prompts(model, 4)
+    packed, sp = _begun(model, True, prompts)
+    serial, ss = _begun(model, True, prompts)
+    got = _landed(packed, sp)
+    for st in ss:
+        while serial.admit_step(st):
+            pass
+    _assert_same_landing(got, [(st.result[0], st.result[1]) for st in ss])
+    assert packed.stats()["packed_prefill_extends"] > 0
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_admission_never_waits_for_an_open_window(model, paged):
+    """With a decode window dispatched and not harvested, begin_admit
+    (cold and from a resident prefix), admit_step, admit_step_packed and
+    _finish_admit_dispatch (knobs, bias, min_tokens, penalties, a seeded
+    pick, a grammar) run under set_sync_debug_mode("error"): none of them
+    synchronises with the card.  _finish_admit_resolve is the one that
+    does."""
+    eng = ServingEngine(model, n_slots=6, chunk=16, eos_id=EOS,
+                        auto_prefix_min=16, max_new_tokens=40, logprobs_k=3,
+                        kv_paging=paged, grammar=_dfa(model), rng=2)
+    eng.warm_packed([1, 2, 3, 4])
+    donor = _prompt(model.vocab, (40,), 50).tolist()
+    eng.admit(donor)
+    eng.admit(_prompt(model.vocab, (20,), 51).tolist(), temperature=1.0,
+              seed=3)
+    eng.run_scan(2)
+    handle = eng.scan_dispatch(8)
+    reqs = [
+        (donor[:32] + [3, 4, 5], dict(logit_bias={7: 2.0}, logprobs=2)),
+        (_prompt(model.vocab, (30,), 52).tolist(),
+         dict(temperature=0.9, seed=11, presence_penalty=0.3,
+              repetition_penalty=1.2, min_tokens=3, stop=[9])),
+        (_prompt(model.vocab, (25,), 53).tolist(), dict(grammar=True)),
+        (_prompt(model.vocab, (18,), 54).tolist(), dict()),
+    ]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states = [eng.begin_admit(p, **kw) for p, kw in reqs]
+        eng.admit_step(states[0])
+        group = [st for st in states if st.gen is not None]
+        eng.admit_step_packed(group)
+        while any(st.gen is not None for st in states):
+            eng.admit_step(next(st for st in states if st.gen is not None))
+        for st in states:
+            eng._finish_admit_dispatch(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eng.stats()["prefix_cache_hits"] == 1
+    for st in states:
+        eng._finish_admit_resolve(st)
+    eng.scan_harvest(handle)
+    eng.run_scan(4)
+    assert all(len(eng.output(st.slot)) >= 1 for st in states)
+
+
+def _sched_trace(model, interleave, packed, overlap, paged=False):
+    from tpu_k8s_device_plugin_torch.workloads.scheduler import (
+        IterationScheduler,
+    )
+
+    shared = _prompt(model.vocab, (48,), 60).tolist()
+    trace = [(0, dict(prompt=shared)),
+             (0, dict(prompt=_prompt(model.vocab, (33,), 61).tolist(),
+                      temperature=0.8, seed=21)),
+             (0, dict(prompt=_prompt(model.vocab, (20,), 62).tolist())),
+             (1, dict(prompt=shared[:32] + [4, 4, 4])),
+             (2, dict(prompt=_prompt(model.vocab, (41,), 63).tolist(),
+                      temperature=1.0, top_k=20, seed=22)),
+             (3, dict(prompt=shared))]
+    eng = ServingEngine(model, n_slots=3, chunk=16, auto_prefix_min=16,
+                        max_new_tokens=12, rng=4, kv_paging=paged)
+    intake, keys, live, out = [], {}, {}, {}
+
+    def pull():
+        if not intake:
+            return None
+        i, kw = intake.pop(0)
+        t = sched.begin(**kw)
+        keys[t] = i
+        return t
+
+    sched = IterationScheduler(eng, window=4, interleave=interleave,
+                               prefill_budget=2, pull=pull,
+                               packed_prefill=packed, overlap=overlap,
+                               sync_dwell_s=0.0)
+    for it in range(200):
+        intake += [(i, kw) for i, (at, kw) in enumerate(trace) if at == it]
+        for t in sched.iterate().admitted:
+            live[t.slot] = keys.pop(t)
+        for s in list(live):
+            if eng.finished(s):
+                out[live.pop(s)] = (eng.output(s), eng.finish_reason(s))
+        if len(out) == len(trace) and not sched.busy():
+            break
+    assert len(out) == len(trace)
+    return out
+
+
+def test_scheduler_streams_match_serial_on_the_card(model):
+    """One trace (greedy, seeded sampled, an APC hit, an exact repeat)
+    through the scheduler with interleave, packed prefill and overlap
+    on, contiguous and paged, against the serial arm: identical ids and
+    finish reasons."""
+    base = _sched_trace(model, False, False, False)
+    assert _sched_trace(model, True, False, True) == base
+    assert _sched_trace(model, True, True, True) == base
+    assert _sched_trace(model, True, True, True, paged=True) == base

@@ -366,12 +366,11 @@ def test_large_finite_scratch_rows_do_not_move_ids(setup, kv_dtype):
 @pytest.mark.parametrize("call,item", [
     (lambda eng: eng.spec_round(), "item 1b"),
     (lambda eng: eng.admit([1, 2, 3], adapter=0), "item 1b"),
-    (lambda eng: eng.admit_step_packed([]), "item 4.3"),
-    (lambda eng: eng.warm_packed([2, 4]), "item 4.3"),
-], ids=["spec_round", "adapter", "admit_step_packed", "warm_packed"])
+], ids=["spec_round", "adapter"])
 def test_lora_spec_and_scheduler_paths_raise(setup, call, item):
-    """What tests/test_kv_paging.py runs with LoRA, speculative decoding
-    or the scheduler waits for ROADMAP items 1b and 4.3."""
+    """What tests/test_kv_paging.py runs with LoRA or speculative
+    decoding waits for ROADMAP item 1b (its packed-prefill and scheduler
+    cases run on the port in tests/test_torch_scheduler.py)."""
     eng = _port(setup)
     with pytest.raises(NotImplementedError, match=item):
         call(eng)

@@ -1,6 +1,6 @@
 """PyTorch workloads of the port: the Llama-family decoder, its
-continuous-batching serving engine and LM trainer with their
-flash-attention kernels (forward and backward), and AlexNet training
+continuous-batching serving engine and iteration scheduler, and its
+LM trainer, with their flash-attention kernels (forward and backward), and AlexNet training
 with its max-pool and fused conv+pool kernels.  Module names
 mirror the JAX package's ``workloads/``; the kernel functions live in ``workloads.flash_attention``,
 ``workloads.pool`` and ``workloads.convpool`` (not re-exported here, so
@@ -13,6 +13,7 @@ import importlib
 
 _EXPORTS = {
     "llama": None,
+    "scheduler": None,
     "AlexNet": "alexnet",
     "create_train_state": "alexnet",
     "loss_fn": "alexnet",
@@ -25,6 +26,7 @@ _EXPORTS = {
     "make_decoder": "inference",
     "sample_generate": "inference",
     "AdmitState": "serving",
+    "IterationScheduler": "scheduler",
     "ServingEngine": "serving",
     "TransformerLM": "transformer",
     "lm_loss": "transformer",

@@ -81,7 +81,13 @@ class CachedBlock(Block):
     ``v_scale`` ``[P + 1, page, Hkv]``, when quantized) and row r of
     slot b lives at page ``block_tables[b, r // page]``, offset
     ``r % page``.  The start is clamped as above, so a parked slot's
-    writes stay in its own tail pages or the scratch page."""
+    writes stay in its own tail pages or the scratch page.
+
+    With *attend_rows* (contiguous extend only) the first *attend_rows*
+    rows attend one at a time, each at the shape of a one-row batch, and
+    the rest attend to nothing (zeros): the admission extend's form, in
+    which a row's arithmetic does not depend on how many rows are real
+    (see ``serving._ChunkBatch``)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  max_len: int, dtype: torch.dtype = COMPUTE_DTYPE,
@@ -97,7 +103,8 @@ class CachedBlock(Block):
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 layer_cache: Dict[str, torch.Tensor],
                 decode: bool = False,
-                block_tables: Optional[torch.Tensor] = None
+                block_tables: Optional[torch.Tensor] = None,
+                attend_rows: Optional[int] = None
                 ) -> torch.Tensor:
         B, T, _ = x.shape
         q, k, v = self.attention_inputs(x, positions)
@@ -126,7 +133,11 @@ class CachedBlock(Block):
                 rows = torch.arange(B, device=x.device)[:, None]
                 cached_k[rows, idx] = k
                 cached_v[rows, idx] = v
-                att = _decode_attention(q, cached_k, cached_v, lens)
+                if attend_rows is None:
+                    att = _decode_attention(q, cached_k, cached_v, lens)
+                else:
+                    att = _rowwise_attention(q, cached_k, cached_v, lens,
+                                             attend_rows)
             else:
                 att = self._paged_extend(q, k, v, idx, layer_cache,
                                          block_tables)
@@ -224,6 +235,18 @@ def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, Tq, H, Dh).to(q.dtype)
 
 
+def _rowwise_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, lens: torch.Tensor,
+                       n_rows: int) -> torch.Tensor:
+    """:func:`_decode_attention` for the first *n_rows* rows, one row at a
+    time at the shape of a one-row batch; zeros for the other rows."""
+    outs = [_decode_attention(q[i:i + 1], k_cache[i:i + 1], v_cache[i:i + 1],
+                              lens[i:i + 1]) for i in range(n_rows)]
+    if n_rows < q.shape[0]:
+        outs.append(q.new_zeros((q.shape[0] - n_rows,) + q.shape[1:]))
+    return torch.cat(outs)
+
+
 class DecodeTransformerLM(nn.Module):
     """Serving twin of the JAX ``TransformerLM``: embedding, cached
     blocks named ``block_i``, final RMSNorm, ``lm_head``; logits in f32.
@@ -253,6 +276,7 @@ class DecodeTransformerLM(nn.Module):
         self.vocab, self.d_model, self.n_heads = vocab, d_model, n_heads
         self.n_layers, self.max_len, self.dtype = n_layers, max_len, dtype
         self.n_kv_heads = n_kv_heads or n_heads
+        self.n_experts = n_experts  # 0: an expert FFN raises above
         self.kv_page_size, self.kv_quant = int(kv_page_size), bool(kv_quant)
         self.embed = Embed(vocab, d_model, dtype, device)
         for i in range(n_layers):
@@ -284,7 +308,8 @@ class DecodeTransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 cache: Cache, decode: bool = False,
                 adapter_ids: Optional[torch.Tensor] = None,
-                block_tables: Optional[torch.Tensor] = None
+                block_tables: Optional[torch.Tensor] = None,
+                attend_rows: Optional[int] = None
                 ) -> torch.Tensor:
         _unported(adapter_ids=adapter_ids)
         if self.kv_page_size:
@@ -302,7 +327,8 @@ class DecodeTransformerLM(nn.Module):
         x = self.embed(tokens)
         for i in range(self.n_layers):
             x = getattr(self, f"block_{i}")(
-                x, positions, cache[f"block_{i}"], decode, block_tables)
+                x, positions, cache[f"block_{i}"], decode, block_tables,
+                attend_rows)
         x = self.final_norm(x)
         return self.lm_head(x).to(torch.float32)
 

@@ -15,7 +15,17 @@ shapes.
   through the banded extend, then the filled rows are copied into the
   slot and its ``cache_lens`` entry set to the prompt length.
   Automatic prefix caching reuses rows of resident or registered
-  prompts on the chunk grid.
+  prompts on the chunk grid.  ``admit_step_packed`` runs the next
+  chunks of K admissions as rows of one extend (the ragged packed
+  prefill the iteration scheduler drives).  Every chunked admission
+  extend, serial or packed, runs its projections over ``pack_width``
+  rows and its attention row by row, so a row's arithmetic never
+  depends on how many rows are real (see ``_ChunkBatch``); on CUDA the
+  extend at each K is captured once as a CUDA graph.  Every
+  host-to-device copy of admission goes through pinned staging without
+  waiting for the stream, so admission work enqueued behind an open
+  decode window never waits for it: the first token's read
+  (``_finish_admit_resolve``) is its one synchronisation.
 * **decode**: one step for all S slots at their own depths, the
   request's sampling knobs as per-slot data.  On CUDA the step is
   captured once per static variant as a CUDA graph (the counterpart of
@@ -44,8 +54,7 @@ stream, its own draw index), so a window and the same steps one by one
 draw the same numbers, and a seeded request ignores its neighbours.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): tensor-parallel meshes, speculative decoding, LoRA adapters and
-packed prefill.
+item): tensor-parallel meshes, speculative decoding and LoRA adapters.
 """
 
 from __future__ import annotations
@@ -62,7 +71,6 @@ from .inference import (
     cache_lens,
     capture_step,
     dequantize_kv_rows,
-    extend_step,
     gumbel_rows,
     init_cache,
     init_pool_cache,
@@ -89,6 +97,10 @@ PREFIX_CHUNK = 32
 # Width step of the fused window's per-slot stop-id matrix [S, K]: K is
 # part of the captured step's key, so it grows in multiples of 4.
 _STOP_PAD = 4
+
+# Rows of every chunked admission extend (the most admissions one packed
+# extend advances): the iteration scheduler's DEFAULT_MAX_PACK.
+PACK_WIDTH = 4
 
 # Budget for the fused boundary check when the engine has no
 # max_new_tokens: beyond any emitted count reachable within max_len.
@@ -127,7 +139,7 @@ def _splice_slot(cache: Cache, mini: Cache, slot: int) -> None:
 
 def _set_len(cache: Cache, slot: int, value: int) -> None:
     for buf in cache.values():
-        buf["cache_lens"][slot] = value
+        buf["cache_lens"][slot].fill_(value)
 
 
 def _slot_to_mini(cache: Cache, slot: int) -> Cache:
@@ -142,6 +154,82 @@ def _clone_cache(cache: Cache) -> Cache:
             for layer, buf in cache.items()}
 
 
+def _row_pairs(cache: Cache, minis: List[Cache]) -> list:
+    """(row i of every *cache* tensor, the same tensor of mini i) pairs,
+    grouped by dtype: one ``_foreach_copy_`` a group moves them all in a
+    few launches, where a copy a tensor made the host launch 3 x layers
+    x K copies, which took longer than the bytes (about 11x their bound
+    at Llama-3-8B on an H100)."""
+    groups: dict = {}
+    for layer, buf in cache.items():
+        for key, t in buf.items():
+            dst, src = groups.setdefault(t.dtype, ([], []))
+            for i, m in enumerate(minis):
+                dst.append(t[i])
+                src.append(m[layer][key][0])
+    return list(groups.values())
+
+
+def _pack_minis(minis: List[Cache], out: Cache) -> None:
+    """Stack K B=1 admission caches into rows [0, K) of *out*, in place
+    (the ragged packed prefill's batch)."""
+    for rows, mini_rows in _row_pairs(out, minis):
+        torch._foreach_copy_(rows, mini_rows)
+
+
+def _unpack_minis(cache: Cache, minis: List[Cache]) -> None:
+    """Copy rows [0, K) of *cache* back into the K minis, in place (the
+    inverse of :func:`_pack_minis`)."""
+    for rows, mini_rows in _row_pairs(cache, minis):
+        torch._foreach_copy_(mini_rows, rows)
+
+
+class _Staging:
+    """Pinned host staging for the engine's small host-to-device copies
+    (admission's tokens, positions, knob, bias, mask and count rows; the
+    block tables and stop ids of a window).  A copy from pageable memory
+    waits for the stream, and so for an open decode window; a copy from
+    pinned memory does not.  Each pinned block is held until an event
+    recorded after its copy says the copy is done, so nothing rewrites
+    it while the copy waits behind the window.  On the CPU an array is
+    taken as it is."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self._held: list = []
+
+    def _pinned(self, arr) -> torch.Tensor:
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        self._held = [(t, e) for t, e in self._held if not e.query()]
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        pinned.copy_(src)
+        return pinned
+
+    def _hold(self, pinned: torch.Tensor) -> None:
+        event = torch.cuda.Event()
+        event.record()
+        self._held.append((pinned, event))
+
+    def put(self, arr) -> torch.Tensor:
+        """*arr* (a numpy array) as a new tensor on the device."""
+        if not self.cuda:
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        pinned = self._pinned(arr)
+        out = pinned.to(self.device, non_blocking=True)
+        self._hold(pinned)
+        return out
+
+    def copy_into(self, dst: torch.Tensor, arr) -> None:
+        """Copy *arr* into the device tensor *dst*, in place."""
+        if not self.cuda:
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            return
+        pinned = self._pinned(arr)
+        dst.copy_(pinned, non_blocking=True)
+        self._hold(pinned)
+
+
 # -- paged-pool device helpers (kv_pool.PagePool makes the decisions;
 # these move the bytes).  Every one writes the pool in place: a captured
 # decode step reads the pool by address, so a helper that rebound a
@@ -152,30 +240,24 @@ def _device(cache: Cache) -> torch.device:
     return next(iter(cache.values()))["cached_k"].device
 
 
-def _owned(cache: Cache, targets, scratch: int):
+def _owned(put, targets, scratch: int):
     """(logical indices, physical pages) of the *targets* entries that
-    are not the scratch page, as long tensors on the cache's device."""
+    are not the scratch page, as long tensors on the device (*put* is
+    the engine's ``_Staging.put``)."""
     targets = np.asarray(targets, np.int64)
     idx = np.flatnonzero(targets != scratch)
-    dev = _device(cache)
-    return (torch.from_numpy(idx).to(dev),
-            torch.from_numpy(targets[idx]).to(dev))
-
-
-def _table_row(cache: Cache, table_row) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(table_row, np.int64),
-                           device=_device(cache))
+    return put(idx), put(targets[idx])
 
 
 def _paged_splice(cache: Cache, mini: Cache, targets, scratch: int,
-                  slot: int, new_len: int) -> None:
+                  slot: int, new_len: int, put) -> None:
     """Scatter a contiguous B=1 *mini* cache into pool pages: logical
     page i of the mini lands in physical page ``targets[i]``; entries
     the slot does not own (shared prefix pages, the unmapped tail) are
     the scratch page and are skipped, so a shared page is never
     written.  Quantized pools quantize on the way in.  Also sets
     ``cache_lens[slot]``."""
-    idx, pages = _owned(cache, targets, scratch)
+    idx, pages = _owned(put, targets, scratch)
     for layer, buf in cache.items():
         pool_k = buf["cached_k"]
         m = mini[layer]
@@ -192,15 +274,15 @@ def _paged_splice(cache: Cache, mini: Cache, targets, scratch: int,
         else:
             pool_k.index_copy_(0, pages, mk.to(pool_k.dtype))
             buf["cached_v"].index_copy_(0, pages, mv.to(pool_k.dtype))
-        buf["cache_lens"][slot] = new_len
+        buf["cache_lens"][slot].fill_(new_len)
 
 
-def _paged_gather_mini(cache: Cache, table_row, dtype) -> Cache:
+def _paged_gather_mini(cache: Cache, table_row, dtype, put) -> Cache:
     """One slot's pool pages gathered into a new contiguous B=1 mini
     cache (the paged counterpart of ``_slot_to_mini``: what seeds a
     suffix extend).  The pool is only read.  Quantized pools dequantize
     on the way out.  ``cache_lens`` is a zero the caller sets."""
-    row = _table_row(cache, table_row)
+    row = put(np.asarray(table_row, np.int64))
     out = {}
     for layer, buf in cache.items():
         k, v = buf["cached_k"][row], buf["cached_v"][row]
@@ -216,12 +298,12 @@ def _paged_gather_mini(cache: Cache, table_row, dtype) -> Cache:
     return out
 
 
-def _paged_gather_raw(cache: Cache, table_row) -> Dict[str, dict]:
+def _paged_gather_raw(cache: Cache, table_row, put) -> Dict[str, dict]:
     """One slot's pool pages in storage form (``[n_tables, page, ...]``,
     int8 and scales when quantized), copied to the host: the snapshot a
     preemption keeps.  numpy arrays, except bf16 pools, which stay
     torch tensors (numpy has no bfloat16)."""
-    row = _table_row(cache, table_row)
+    row = put(np.asarray(table_row, np.int64))
     out = {}
     for layer, buf in cache.items():
         keys = (("k", "cached_k"), ("v", "cached_v"))
@@ -237,13 +319,13 @@ def _to_host(t: torch.Tensor):
 
 
 def _paged_restore_raw(cache: Cache, raw, targets, scratch: int,
-                       slot: int, new_len: int) -> None:
+                       slot: int, new_len: int, put) -> None:
     """Scatter a preemption snapshot back into freshly allocated pages
     (*targets*, the scratch page beyond the restored length, which is
     skipped): the inverse of ``_paged_gather_raw``, storage-exact."""
     keys = (("k", "cached_k"), ("v", "cached_v"), ("ks", "k_scale"),
             ("vs", "v_scale"))
-    idx, pages = _owned(cache, targets, scratch)
+    idx, pages = _owned(put, targets, scratch)
     for layer, buf in cache.items():
         for name, key in keys:
             if key not in buf:
@@ -254,7 +336,7 @@ def _paged_restore_raw(cache: Cache, raw, targets, scratch: int,
                     f"checkpoint {layer}/{name} is {src.dtype}, the pool "
                     f"is {buf[key].dtype}")
             buf[key].index_copy_(0, pages, src.index_select(0, idx))
-        buf["cache_lens"][slot] = new_len
+        buf["cache_lens"][slot].fill_(new_len)
 
 
 def _copy_page(cache: Cache, src: int, dst: int) -> None:
@@ -463,13 +545,14 @@ class _Window:
             self._fetched.synchronize()
         return [h.numpy() for h in host]
 
-    def load_stops(self, mat: np.ndarray) -> None:
-        """Copy the stop-id matrix into the buffer of its width."""
+    def load_stops(self, mat: torch.Tensor) -> None:
+        """Copy the stop-id matrix (on the device) into the buffer of its
+        width."""
         buf = self.stops.get(mat.shape[1])
         if buf is None:
             buf = self.stops[mat.shape[1]] = torch.zeros(
                 mat.shape, dtype=torch.int64, device=self.ints.device)
-        buf.copy_(torch.from_numpy(mat))
+        buf.copy_(mat)
 
 
 class _PrefillJob:
@@ -478,10 +561,17 @@ class _PrefillJob:
     lands beyond the true length, which the final ``cache_lens`` fix
     restores), or one extend of the whole prompt on an unchunked
     engine.  With *plp_k*, each chunk's prompt-logprob stats (row j
-    scores the next prompt token) are appended to *plp_out*."""
+    scores the next prompt token) are appended to *plp_out*.  The serial
+    and the packed paths build a chunk's operands and absorb its logits
+    through the same methods; only the extend is batched.
+
+    ``packable`` gates the packed path: a fixed chunk grid (an unchunked
+    job is one extend of its own length), no prompt-logprob capture, and
+    no expert FFN (expert capacity couples the rows of a batch)."""
 
     __slots__ = ("eng", "mini", "toks", "start", "n", "c", "total", "i",
-                 "last", "counted", "plp_k", "plp_out")
+                 "last", "counted", "plp_k", "plp_out", "packable",
+                 "packed_used")
 
     def __init__(self, eng: "ServingEngine", mini: Cache,
                  toks_np: np.ndarray, start: int, plp_k: int = 0,
@@ -496,11 +586,13 @@ class _PrefillJob:
         self.last = None
         self.i = 0
         self.counted = False
+        self.packed_used = False
         c = eng.chunk
         if c is None:
             self.c = n
             self.total = 1
             self.toks = toks_np
+            self.packable = False
             return
         padded = ((n + c - 1) // c) * c
         if start + padded > eng.model.max_len:
@@ -511,6 +603,7 @@ class _PrefillJob:
             [toks_np, np.zeros((1, padded - n), np.int32)], axis=1)
         self.c = c
         self.total = padded // c
+        self.packable = plp_k == 0 and eng.model.n_experts == 0
 
     @property
     def remaining(self) -> int:
@@ -529,6 +622,12 @@ class _PrefillJob:
         return (np.arange(self.c, dtype=np.int32)
                 + self.start + self.i * self.c)[None, :]
 
+    def pad_rows(self) -> int:
+        """Zero-pad rows in the next chunk (the tail chunk's grid
+        padding: the packed path's waste accounting)."""
+        lo, hi = self.i * self.c, (self.i + 1) * self.c
+        return max(0, hi - max(self.n, lo))
+
     def charge(self) -> None:
         """Count the prefill tokens once, at the first extend."""
         if not self.counted:
@@ -538,7 +637,8 @@ class _PrefillJob:
     def absorb_logits(self, logits: torch.Tensor) -> None:
         """Keep the last real prompt token's logits row ([V]) of the
         chunk just run (*logits* [c, V]), and its prompt-logprob stats
-        when asked."""
+        when asked.  The row is a copy: a captured extend writes the
+        next chunk's logits over the same buffer."""
         if self.plp_k:
             # row j of chunk i scores padded token i*c + j + 1; rows past
             # the prompt score zeros, which the assembly never reads
@@ -549,11 +649,10 @@ class _PrefillJob:
                 m = min(c, avail)
                 tgt[:m] = self.toks[0, i * c + 1:i * c + 1 + m]
             self.plp_out.append(_top_logprobs(
-                logits, torch.from_numpy(tgt).to(logits.device),
-                self.plp_k))
+                logits, self.eng._stage.put(tgt), self.plp_k))
         off = self.n - 1 - self.i * self.c
         if 0 <= off < self.c:
-            self.last = logits[off]
+            self.last = logits[off].clone()
         self.i += 1
 
     def attach_mini(self) -> None:
@@ -562,16 +661,44 @@ class _PrefillJob:
         if self.remaining == 0 and self.eng.chunk is not None:
             _set_len(self.mini, 0, self.start + self.n)
 
-    def step(self) -> None:
-        """Run the next chunk: one B=1 extend on the mini cache."""
-        eng = self.eng
-        self.charge()
-        dev = eng.device
-        logits, _ = extend_step(
-            eng.model, self.mini, torch.from_numpy(self.chunk_np()).to(dev),
-            torch.from_numpy(self.pos_np()).to(dev))
-        self.absorb_logits(logits[0])
-        self.attach_mini()
+
+class _ChunkBatch:
+    """The chunk extend of admission over static buffers: a cache of
+    ``pack_width`` rows W, the tokens and positions [W, chunk] (one int32
+    block, so a round's inputs are one copy) and, for each count K of
+    real rows, the logits [W, chunk, V].  Every chunked admission
+    extend, serial (K = 1) or packed, runs its projections and FFN over
+    all W rows and its attention row by row over the first K (the other
+    rows attend to nothing), so a row's arithmetic never depends on K:
+    GEMM libraries choose their blocking, and with it the order of each
+    dot product's sums, by the shape (the CPU's f32 extends of B=1 and
+    B=3 at a chunk of 4 differ in the last bits; on the H100, bf16 ones
+    of B=1 and B=4 at a chunk of 32), while attention costs a row of
+    work for each row that attends.  A run copies its K minis into rows
+    [0, K), extends once a chunk and copies them back out; rows K..W-1
+    compute on whatever they hold, and nothing reads them.  On CUDA the
+    extend at each K is captured once as a CUDA graph and replayed;
+    with the engine's ``_use_graphs`` off (the CPU, and the card's
+    check) it runs op by op on the same buffers."""
+
+    def __init__(self, model: DecodeTransformerLM, width: int, chunk: int):
+        self.model = model
+        self.cache = init_cache(model, width)
+        self.inputs = torch.zeros(2, width, chunk, dtype=torch.int32,
+                                  device=model.device)
+        self.logits: Dict[int, torch.Tensor] = {}
+        self.graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
+
+    @torch.no_grad()
+    def run(self, k: int) -> torch.Tensor:
+        """The extend with *k* real rows, op by op; its logits."""
+        self.logits[k] = self.model(self.inputs[0], self.inputs[1],
+                                    self.cache, decode=True, attend_rows=k)
+        return self.logits[k]
+
+    def capture(self, k: int, stream) -> None:
+        self.graphs[k] = capture_step(lambda: self.run(k),
+                                      cache_lens(self.cache), stream)
 
 
 class AdmitState:
@@ -733,6 +860,9 @@ class ServingEngine:
         self.eos_id = eos_id
         self.chunk = chunk
         self.max_new_tokens = max_new_tokens
+        # the rows of every chunked admission extend (see _ChunkBatch)
+        self.pack_width = PACK_WIDTH
+        self._stage = _Staging(device)
         # -- paged KV pool (opt-in; the contiguous cache stays the
         # default).  Storage becomes a [P + 1, page, Hkv, Dh] pool per
         # layer and a host allocator with per-slot block tables; decode
@@ -872,6 +1002,16 @@ class ServingEngine:
         self.graph_replays = 0
         self.graph_captures = 0
         self.capture_ms = 0.0
+        # the admission extend's static buffers (a chunked engine's, made
+        # at the first chunk), its replays on CUDA and its captures' ms
+        self._batch: Optional[_ChunkBatch] = None
+        self.extend_replays = 0
+        self.extend_capture_ms = 0.0
+        # packed-prefill accounting (stats' packed_prefill_* keys)
+        self._packed_extends = 0
+        self._packed_rows = 0
+        self._packed_requests = 0
+        self._packed_pad_tokens = 0
         # grammar-constrained decoding: a registry of token-level DFAs
         # in ONE combined [N, V] table with per-grammar state offsets;
         # the mask is derived in-step from the table's reject entries.
@@ -981,7 +1121,7 @@ class ServingEngine:
         pool = self._pool
         assert pool is not None
         if pool.dirty:
-            self._btables.copy_(torch.from_numpy(pool.tables))
+            self._btables.copy_(self._stage.put(pool.tables))
             pool.dirty = False
         return self._btables
 
@@ -1104,7 +1244,7 @@ class ServingEngine:
             pool.map(slot, idx, p)
         _paged_restore_raw(self.cache, raw,
                            self._table_targets(slot, 0, len(got)),
-                           pool.scratch, slot, new_len)
+                           pool.scratch, slot, new_len, self._stage.put)
 
     def _free_slot_for_restore(self) -> int:
         free = self.free_slots()
@@ -1130,7 +1270,8 @@ class ServingEngine:
         assert self._pool is not None
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not active")
-        raw = _paged_gather_raw(self.cache, self._pool.tables[slot])
+        raw = _paged_gather_raw(self.cache, self._pool.tables[slot],
+                                self._stage.put)
         rec = self._slot_prompts[slot]
         if rec is not None and isinstance(rec[3], torch.Tensor):
             rec = rec[:3] + (rec[3].to("cpu").numpy(),) + rec[4:]
@@ -1312,7 +1453,8 @@ class ServingEngine:
             "tokens": np.asarray(rec[0], np.int32),
             "canon": int(rec[2]),
             "adapter": int(rec[1]),
-            "kv": _paged_gather_raw(self.cache, self._pool.tables[slot]),
+            "kv": _paged_gather_raw(self.cache, self._pool.tables[slot],
+                                    self._stage.put),
         }
         self._pool.clear_slot(slot)
         self._slot_prompts[slot] = None
@@ -1387,8 +1529,7 @@ class ServingEngine:
         """Push *toks* [1, n] into *mini* from depth *start*; returns
         (mini, the last real token's logits row)."""
         job = _PrefillJob(self, mini, toks, start)
-        while job.remaining:
-            job.step()
+        self._advance_jobs([job], job.remaining)
         return job.mini, job.last
 
     def _auto_match(self, pnp: np.ndarray, t_p: int,
@@ -1479,7 +1620,7 @@ class ServingEngine:
         or in paged mode a pool gather by the donor's block table."""
         if self._paged:
             return _paged_gather_mini(self.cache, self._pool.tables[ref],
-                                      self.model.dtype)
+                                      self.model.dtype, self._stage.put)
         return _slot_to_mini(self.cache, ref)
 
     def _paged_land(self, st: AdmitState, mini: Optional[Cache]) -> None:
@@ -1515,7 +1656,7 @@ class ServingEngine:
         else:
             _paged_splice(self.cache, mini,
                           self._table_targets(slot, shared_n, end_page),
-                          pool.scratch, slot, st.t_p)
+                          pool.scratch, slot, st.t_p, self._stage.put)
 
     def admit(self, prompt, prefix: Optional[int] = None,
               temperature: float = 0.0,
@@ -1555,8 +1696,10 @@ class ServingEngine:
             prompt_logprobs=prompt_logprobs, logit_bias=logit_bias,
             min_tokens=min_tokens, grammar=grammar, session=session)
         try:
-            while self.admit_step(st):
-                pass
+            if st.gen is not None:
+                # one run of every chunk: on CUDA one copy of the mini
+                # into the captured extend's cache and back
+                self._advance([st], st.gen.remaining)
             return self.finish_admit(st)
         except BaseException:
             if not st.spliced:
@@ -1844,17 +1987,149 @@ class ServingEngine:
 
     def admit_step(self, st: AdmitState) -> bool:
         """Run the next prefill chunk of an in-flight admission; True
-        while chunks remain."""
+        while chunks remain.  Enqueues the extend and returns without
+        waiting for the device, which is what lets the iteration
+        scheduler slide prefill chunks between decode windows."""
         if st.gen is None:
             return False
-        job = st.gen
-        job.step()
-        st.chunks_done += 1
-        st.result = (job.mini, job.last)
-        if job.remaining == 0:
-            st.gen = None
-            return False
-        return True
+        self._advance([st], 1)
+        return st.gen is not None
+
+    def admit_step_packed(self, states: List[AdmitState],
+                          rounds: int = 1) -> None:
+        """Advance EACH of *states* by *rounds* prefill chunks through
+        batched extends: the ragged packed prefill.  The K B=1 admission
+        caches stack once into the first K rows of the admission batch
+        (``_ChunkBatch``), every round runs one extend with all K chunks
+        at their own depths (per-row positions and ``cache_lens``, the
+        decode cache's per-slot machinery), and the rows split back once
+        at the end.  Each packed row's
+        operands and bookkeeping come from the same :class:`_PrefillJob`
+        methods the serial path uses, and the extend computes its rows
+        independently, so a packed admission lands as the serial chunks
+        would.  Callers guarantee every state is mid-prefill and
+        packable, ``len(states) >= 2`` and *rounds* <= every state's
+        remaining chunks.  On CUDA the extend at each K is captured once
+        (see :meth:`warm_packed`)."""
+        jobs = []
+        for st in states:
+            job = st.gen
+            if job is None or not job.packable or not job.remaining:
+                raise ValueError(
+                    "admit_step_packed needs in-flight packable "
+                    "admissions")
+            jobs.append(job)
+        k = len(jobs)
+        if k < 2:
+            raise ValueError("a pack needs >= 2 admissions")
+        if k > self.pack_width:
+            raise ValueError(
+                f"a pack of {k} exceeds the engine's pack_width "
+                f"{self.pack_width}")
+        if rounds < 1 or any(j.remaining < rounds for j in jobs):
+            raise ValueError(
+                "rounds must be >= 1 and <= every job's remaining "
+                "chunks")
+        for job in jobs:
+            if not job.packed_used:
+                job.packed_used = True
+                self._packed_requests += 1
+        self._advance(states, rounds, packed=True)
+
+    def warm_packed(self, sizes) -> None:
+        """Capture the admission extend at each pack size in *sizes* (1 is
+        the serial chunk) before traffic needs it, so the first packed
+        convoy does not pay the capture; a size used before it is
+        captured is captured at that use.  A size beyond ``pack_width``
+        raises.  No engine state is touched.  Eager engines (the CPU, or
+        ``_use_graphs`` off) and unchunked ones have nothing to
+        capture."""
+        sizes = sorted(set(int(k) for k in sizes))
+        for k in sizes:
+            if k > self.pack_width:
+                raise ValueError(
+                    f"pack size {k} exceeds the engine's pack_width "
+                    f"{self.pack_width}")
+        if self.chunk is not None and self._use_graphs:
+            for k in sizes:
+                if k >= 1:
+                    self._chunk_batch(k)
+
+    def _chunk_batch(self, k: int) -> _ChunkBatch:
+        """The admission extend's static buffers, made at first use; on
+        CUDA with graphs on, the extend with *k* real rows is captured at
+        its first use (a failed capture raises)."""
+        b = self._batch
+        if b is None:
+            b = _ChunkBatch(self.model, self.pack_width, self.chunk)
+            self._batch = b
+        if self._use_graphs and k not in b.graphs:
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            b.capture(k, self._capture_stream)
+            torch.cuda.synchronize(self.device)
+            self.extend_capture_ms += (time.perf_counter() - t0) * 1e3
+        return b
+
+    def _advance(self, states: List[AdmitState], rounds: int,
+                 packed: bool = False) -> None:
+        """Run *rounds* chunks of each of *states* (see
+        :meth:`_advance_jobs`) and carry the results into the states."""
+        jobs = [st.gen for st in states]
+        self._advance_jobs(jobs, rounds, packed)
+        for st, job in zip(states, jobs):
+            st.chunks_done += rounds
+            st.result = (job.mini, job.last)
+            if job.remaining == 0:
+                st.gen = None
+
+    @torch.no_grad()
+    def _advance_jobs(self, jobs: List[_PrefillJob], rounds: int,
+                      packed: bool = False) -> None:
+        """*rounds* chunks of each of *jobs*, one extend a round with the
+        jobs' chunks as the first rows of one batch (``_ChunkBatch``):
+        the minis are copied into its cache once, each round copies the
+        tokens and positions in and extends (a replay on CUDA), and the
+        minis are copied back out once.  An unchunked engine's job is
+        one extend of its own length on its mini.  Nothing here waits
+        for the device.  *packed* counts the packed-prefill stats."""
+        k = len(jobs)
+        for job in jobs:
+            job.charge()
+        if self.chunk is None:
+            (job,) = jobs
+            logits = self.model(self._stage.put(job.chunk_np()),
+                                self._stage.put(job.pos_np()), job.mini,
+                                decode=True)
+            job.absorb_logits(logits[0])
+            job.attach_mini()
+            return
+        b = self._chunk_batch(k)
+        minis = [job.mini for job in jobs]
+        _pack_minis(minis, b.cache)
+        inputs = np.zeros(tuple(b.inputs.shape), np.int32)
+        for _ in range(rounds):
+            for i, job in enumerate(jobs):
+                inputs[0, i] = job.chunk_np()[0]
+                inputs[1, i] = job.pos_np()[0]
+            if packed:
+                self._packed_pad_tokens += sum(j.pad_rows() for j in jobs)
+                self._packed_extends += 1
+                self._packed_rows += k
+            self._stage.copy_into(b.inputs, inputs)
+            if self._use_graphs:
+                b.graphs[k].replay()
+                self.extend_replays += 1
+                logits = b.logits[k]
+            else:
+                logits = b.run(k)
+            for i, job in enumerate(jobs):
+                job.absorb_logits(logits[i])
+        _unpack_minis(b.cache, minis)
+        for job in jobs:
+            job.attach_mini()
 
     def abort_admit(self, st: AdmitState) -> None:
         """Abandon an in-flight admission: the reserved slot returns to
@@ -1921,7 +2196,7 @@ class ServingEngine:
             bias_np = np.zeros(V, np.float32)
             for bk, bv in st.logit_bias.items():
                 bias_np[int(bk)] = float(bv)
-            self._bias[slot].copy_(torch.from_numpy(bias_np))
+            self._stage.copy_into(self._bias[slot], bias_np)
             self._bias_on[slot] = True
             bias_row = self._bias[slot:slot + 1]
         else:
@@ -1937,7 +2212,7 @@ class ServingEngine:
                 mask_np[self.eos_id] = -1e6
             for t in st.stops:
                 mask_np[t] = -1e6
-            self._min_mask[slot].copy_(torch.from_numpy(mask_np))
+            self._stage.copy_into(self._min_mask[slot], mask_np)
             min_row = self._min_mask[slot:slot + 1]  # 0 emitted yet
         self.gstate[slot] = st.gstart
         self._seeds[slot] = 0 if st.seed is None else int(st.seed)
@@ -1952,9 +2227,8 @@ class ServingEngine:
         # prompt (host bincount); its output histogram is empty
         rep_on = st.repetition_penalty != 1.0
         if rep_on:
-            seen_row = torch.from_numpy(np.bincount(
-                st.prompt_np[0], minlength=V).astype(np.float32)
-            )[None, :].to(self.device)
+            seen_row = self._stage.put(np.bincount(
+                st.prompt_np[0], minlength=V).astype(np.float32))[None, :]
         else:
             seen_row = self._zero_vocab_row
         if (st.first_cached is not None
@@ -1971,9 +2245,9 @@ class ServingEngine:
                 first_lg = first_lg + min_row
             if st.gstart >= 0:
                 # the mask derived from the host table's row
-                first_lg = first_lg + torch.from_numpy(
+                first_lg = first_lg + self._stage.put(
                     (self._gtable_np[st.gstart] < 0).astype(np.float32)
-                    * np.float32(-1e9))[None, :].to(self.device)
+                    * np.float32(-1e9))[None, :]
             st.pick = self._first_pick(st, slot, first_lg, seen_row)
             if st.presence_penalty or st.frequency_penalty:
                 self._counts[slot].zero_()
@@ -2011,8 +2285,8 @@ class ServingEngine:
         self._draws += 1
         # this slot's own chain moved with the draw
         self._slot_draws[slot] = 1
-        t = [torch.from_numpy(k).to(self.device) for k in knobs]
-        keys = torch.tensor([key], dtype=torch.int64, device=self.device)
+        t = [self._stage.put(k) for k in knobs]
+        keys = self._stage.put(np.asarray([key], np.int64))
         return _pick_tokens(first_lg, *t, self._zero_vocab_row, seen_row,
                             keys)
 
@@ -2454,7 +2728,7 @@ class ServingEngine:
         if fused:
             stop_mat = self._stop_matrix()
             K = stop_mat.shape[1]
-            self._w.load_stops(stop_mat)
+            self._w.load_stops(self._stage.put(stop_mat))
         grammared = self._grammar_live()
         flags = (sampled, lp_k, pen, rep, seeded, self._bias_live(),
                  self._min_live(), grammared, fused, K, self._paged)
@@ -2749,10 +3023,10 @@ class ServingEngine:
             "jump_rounds": self._jump_rounds,
             "jump_forced_tokens": self._jump_forced,
             "prefix_evictions": self._prefix_evictions,
-            "packed_prefill_extends": 0,
-            "packed_prefill_rows": 0,
-            "packed_prefill_requests": 0,
-            "packed_prefill_pad_tokens": 0,
+            "packed_prefill_extends": self._packed_extends,
+            "packed_prefill_rows": self._packed_rows,
+            "packed_prefill_requests": self._packed_requests,
+            "packed_prefill_pad_tokens": self._packed_pad_tokens,
             "fused_windows": self._fused_windows,
             "fused_truncated_tokens": self._fused_truncated,
         }
@@ -2795,16 +3069,15 @@ class ServingEngine:
         self._park_counter += 1
         self._park_seq[slot] = self._park_counter
 
-    # -- not ported yet ------------------------------------------------------
+    # -- speculative decoding (not ported yet) -------------------------------
+
+    def spec_ready(self) -> bool:
+        """Would :meth:`spec_round` run right now?  Never while no draft
+        is loaded, and a draft does not load yet (``draft`` raises at
+        construction, naming ROADMAP item 1b): the schedulers' predicate
+        for choosing spec rounds over windows."""
+        return False
 
     def spec_round(self):
         """Speculative decoding is not ported (ROADMAP item 1b)."""
         _unported(spec_round=True)
-
-    def admit_step_packed(self, states, rounds: int = 1) -> None:
-        """Packed prefill is not ported (ROADMAP item 4.3)."""
-        _unported(admit_step_packed=True)
-
-    def warm_packed(self, sizes) -> None:
-        """Packed prefill is not ported (ROADMAP item 4.3)."""
-        _unported(warm_packed=True)

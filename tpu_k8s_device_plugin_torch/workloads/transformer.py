@@ -107,10 +107,6 @@ def _unported(**features) -> None:
                    "adapter slice (ROADMAP.md, queue 1, item 1b)",
         "spec_round": "speculative decoding arrives with its slice "
                       "(ROADMAP.md, queue 1, item 1b)",
-        "admit_step_packed": "packed prefill arrives with the scheduler "
-                             "slice (ROADMAP.md, queue 1, item 4.3)",
-        "warm_packed": "packed prefill arrives with the scheduler slice "
-                       "(ROADMAP.md, queue 1, item 4.3)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
