@@ -73,9 +73,26 @@ Phases, each fatal on failure:
    engine in the last: every arm gives the serial arm's ids and finish
    reasons, and prints its wall seconds, tokens/s, admit-to- and
    arrival-to-first-token p50 and p99, a running request's longest
-   stall, duty cycle, overlap windows and packed extends; and a
-   4-layer model at the same width with the flash prefill against the
-   einsum prefill;
+   stall, duty cycle, overlap windows and packed extends; then the HTTP
+   front door on the same model: ``EngineServer`` (windows of 8, at most
+   32 new tokens, interleave, packed prefill and overlap on) over a paged
+   ``ServingEngine(n_slots=8)``, warmed; the scheduler phase's sixteen
+   requests to ``/generate`` from 8 concurrent streaming clients of the
+   port's ``loadclient``, each giving the scheduler phase's ids and
+   finish reason; one ``/v1/completions`` request, unary and SSE, with a
+   byte tokenizer, whose text agrees with the ids; ``/metrics`` with the
+   scheduler's and the server's families, ``/statz`` with the
+   reference's keys, each request's trace in ``/debug/traces``;
+   ``/debug/profile?seconds=1`` under a decoding request, whose chrome
+   trace must hold CUDA kernel events; the longest greedy request
+   answered ``prefill_only`` and resumed through ``/migrate`` on a
+   second server (``replica_role="decode"``, its own engine) with the
+   scheduler phase's ids; ``bench_serving``'s ``--http`` load test (8
+   clients, 32 requests, prompts of 128); it prints HTTP tokens/s, its
+   ratio to the scheduler phase's overlap arm, client time to first
+   token p50 and p99, server admit-to-first-token p50 and p99, the 429s
+   and the phase's wall time; and a 4-layer model at the same width with
+   the flash prefill against the einsum prefill;
 5. the training path: AlexNet at full width (224 px, 1000 classes, s2d,
    bf16 compute, f32 parameters from a seed), batch 1024, one
    ``train_step`` under each ``pool`` with the launch counts zeroed just
@@ -143,6 +160,11 @@ SCHED_ARMS = (("serial", False, False, False),
               ("interleave", True, False, False),
               ("interleave+packed", True, True, False),
               ("interleave+packed+overlap", True, True, True))
+
+# the HTTP phase: 8 concurrent streaming clients; bench_serving's --http
+# load test at 32 requests of prompts of 128 tokens (8 distinct prompts,
+# one a slot, as its --batch 8 gives)
+HTTP_CLIENTS, HTTP_BENCH_REQUESTS, HTTP_BENCH_PROMPT = 8, 32, 128
 
 # the training path: AlexNet, batch 1024 (224 px, s2d), and its three
 # conv->pool stages: (pool input = conv output, conv input, window)
@@ -768,6 +790,12 @@ def main_path(torch, counts, inference, llama, bench_serving, serving,
     got = counts.read()
     print(f"scheduler: kernel launches over the phase {got} (its extends "
           f"attend through the einsum, as the JAX engine's do)", flush=True)
+    torch.cuda.empty_cache()
+    counts.zero()
+    engine["http"] = http_path(torch, obs, serving, model,
+                               engine["scheduler"], card)
+    got = counts.read()
+    print(f"http: kernel launches over the phase {got}", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -1490,6 +1518,297 @@ def admission_extends(torch, inference, serving, model, reqs, card):
     return dict(captured=captured, width=width, shapes=shapes)
 
 
+class ByteTok:
+    """One byte a token: ids 0-255 of the model's vocabulary; a larger
+    id decodes as its low byte.  Lossless on the prompts it encodes,
+    so the text surfaces can be held against the ids."""
+
+    def encode(self, s):
+        return list(s.encode("latin-1"))
+
+    def decode(self, ids, **kw):
+        return bytes(int(t) % 256 for t in ids).decode("latin-1")
+
+
+# the reference's /statz keys
+STATZ_KEYS = {"scheduler_alive", "queue_depth", "in_flight", "capacity",
+              "kv_pages", "kv_pages_free", "requests_served", "role",
+              "migrations", "shed", "kv_tiers", "goodput", "alerts"}
+# /metrics families the phase needs: the scheduler's and the server's
+HTTP_FAMILIES = ("tpu_serve_window_phase_seconds_count",
+                 "tpu_serve_admit_to_first_step_seconds_count",
+                 "tpu_serve_device_duty_cycle",
+                 "tpu_serve_ttft_seconds_count",
+                 "tpu_serve_request_seconds_count",
+                 "tpu_serve_admit_seconds_count",
+                 "tpu_slo_requests_total",
+                 "tpu_serving_requests_served_total")
+
+
+def _http(port, method, path, body=None, headers=None, timeout=600):
+    """(status, headers, body bytes) of one request to the local server."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = body if isinstance(body, (bytes, type(None))) else \
+            json.dumps(body)
+        conn.request(method, path, data,
+                     headers or {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.headers), resp.read()
+    finally:
+        conn.close()
+
+
+def serve_trace(loadclient, port, trace, clients: int):
+    """The scheduler phase's requests to ``/generate`` as token ids, in
+    index order, from *clients* concurrent streaming clients of the
+    port's ``loadclient``.  Returns {request: (ids, finish reason)},
+    {request: StreamOutcome} and the wall seconds."""
+    import threading
+
+    lock = threading.Lock()
+    order = iter(range(len(trace)))
+    out, res = {}, {}
+
+    def client():
+        while True:
+            with lock:
+                i = next(order, None)
+            if i is None:
+                return
+            _, prompt, kw = trace[i]
+            lines = []
+            r = loadclient.stream_request(
+                "127.0.0.1", port,
+                {"tokens": prompt, "max_new_tokens": SCHED_NEW, **kw},
+                on_line=lines.append)
+            done = json.loads(lines[-1]) if lines else {}
+            with lock:
+                res[i] = r
+                out[i] = (done.get("tokens"), done.get("finish_reason"))
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, res, time.perf_counter() - t0
+
+
+def _kernel_events(path: str):
+    """The CUDA kernel events of a chrome trace, and its event count by
+    category."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace.get("traceEvents", trace) if isinstance(trace, dict) \
+        else trace
+    cats = {}
+    for e in events:
+        if isinstance(e, dict):
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    return cats.get("kernel", 0), cats
+
+
+def http_path(torch, obs, serving, model, sched, card):
+    """Phase 4, the HTTP front door on the engine phase's model: an
+    ``EngineServer`` (windows of 8, at most 32 new tokens, interleave,
+    packed prefill and overlap on: the server's defaults) over a paged
+    ``ServingEngine(n_slots=8)``, warmed, then: the scheduler phase's
+    sixteen requests from 8 concurrent streaming clients, each giving
+    the scheduler phase's ids and finish reason; one ``/v1/completions``
+    request, unary and SSE, whose text agrees with the ids of the same
+    prompt on ``/generate``; ``/metrics``, ``/statz`` and
+    ``/debug/traces``; ``/debug/profile?seconds=1`` with a request
+    decoding, whose trace must hold CUDA kernel events; a request
+    answered ``prefill_only`` and resumed through ``/migrate`` on a
+    second server (``replica_role="decode"``, its own engine) with the
+    ids of the scheduler phase; then ``bench_serving``'s ``--http`` load
+    test (8 clients, 32 requests, prompts of 128).  Every check is
+    fatal."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpu_k8s_device_plugin_torch.workloads import (
+        bench_serving, loadclient, migrate)
+    from tpu_k8s_device_plugin_torch.workloads import server as srv_mod
+
+    t_phase = time.perf_counter()
+    trace, streams = sched["trace"], sched["streams"]
+    overlap_arm = sched["arms"]["interleave+packed+overlap"]
+    kw = dict(n_slots=ENGINE_SLOTS, logprobs_k=ENGINE_LOGPROBS, rng=0,
+              kv_paging=True, kv_page_size=PAGE, device=model.device)
+    prof_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    eng = serving.ServingEngine(model, **kw)
+    srv = srv_mod.EngineServer(eng, window=SCHED_WINDOW,
+                               max_new_tokens=SCHED_NEW, tokenizer=ByteTok(),
+                               profile_dir=prof_dir)
+    t0 = time.perf_counter()
+    srv.warm_scheduler()
+    warm_s = time.perf_counter() - t0
+    srv.start(host="127.0.0.1", port=0)
+    decode = None
+    try:
+        # (2) the sixteen requests over the wire
+        captures = eng.capture_ms + eng.extend_capture_ms
+        out, res, wall = serve_trace(loadclient, srv.port, trace,
+                                     HTTP_CLIENTS)
+        captured_s = (eng.capture_ms + eng.extend_capture_ms
+                      - captures) / 1e3
+        for i in range(len(trace)):
+            if res[i].outcome != "ok" or out[i] != streams[i]:
+                fail(f"http: request {i} gave {out[i][0]} "
+                     f"({out[i][1]}, {res[i].outcome}: {res[i].error}) "
+                     f"against the scheduler phase's {streams[i][0]} "
+                     f"({streams[i][1]})")
+        tokens = sum(len(ids) for ids, _ in out.values())
+        tps = tokens / (wall - captured_s)
+        ttft = np.asarray([r.ttft_s * 1e3 for r in res.values()])
+        admit = []
+        for r in res.values():
+            _, _, body = _http(srv.port, "GET",
+                               f"/debug/traces?trace_id={r.trace_id}")
+            events = json.loads(body)["events"]
+            names = {e["name"] for e in events}
+            if not {"tpu_serve_admit", "tpu_serve_request"} <= names:
+                fail(f"http: trace {r.trace_id} holds only {sorted(names)}")
+            admit += [e["attrs"]["duration_s"] * 1e3 for e in events
+                      if e["name"] == "tpu_serve_admit"]
+        admit = np.asarray(admit)
+        # (3) the OpenAI surface against the ids
+        text = "The front door of the port, "
+        _, _, body = _http(srv.port, "POST", "/generate", {
+            "prompt": text, "max_new_tokens": 16, "stream": False})
+        native = json.loads(body)
+        _, _, body = _http(srv.port, "POST", "/v1/completions", {
+            "prompt": text, "max_tokens": 16, "temperature": 0})
+        unary = json.loads(body)
+        _, _, body = _http(srv.port, "POST", "/v1/completions", {
+            "prompt": text, "max_tokens": 16, "temperature": 0,
+            "stream": True})
+        sse = "".join(
+            json.loads(line[6:])["choices"][0]["text"]
+            for line in body.decode("latin-1").splitlines()
+            if line.startswith("data: ") and line != "data: [DONE]")
+        want = ByteTok().decode(native["tokens"])
+        got = (native["text"], unary["choices"][0]["text"], sse)
+        if len(native["tokens"]) != 16 or any(t != want for t in got) or \
+                unary["usage"]["completion_tokens"] != 16:
+            fail(f"http: text surfaces {got!r} disagree with the ids "
+                 f"{native['tokens']} ({want!r})")
+        # (4) the scrape surfaces
+        _, _, body = _http(srv.port, "GET", "/metrics")
+        names = {n for n, _, _ in obs.parse_exposition(body.decode())}
+        missing = [n for n in HTTP_FAMILIES if n not in names]
+        _, _, body = _http(srv.port, "GET", "/statz")
+        statz = json.loads(body)
+        if missing or set(statz) != STATZ_KEYS:
+            fail(f"http: /metrics lacks {missing} or /statz keys "
+                 f"{sorted(statz)} are not the reference's")
+        # (5) /debug/profile with a request decoding under it
+        import threading
+
+        busy = threading.Thread(target=_http, args=(
+            srv.port, "POST", "/generate",
+            {"tokens": trace[0][1], "max_new_tokens": SCHED_NEW,
+             "stream": False}))
+        busy.start()
+        time.sleep(0.2)
+        status, _, body = _http(srv.port, "GET", "/debug/profile?seconds=1")
+        busy.join()
+        prof = json.loads(body)
+        kernels, cats = (_kernel_events(prof["trace"]) if status == 200
+                         else (0, {}))
+        if not kernels:
+            fail(f"http: /debug/profile answered {status} {body[:200]!r} "
+                 f"with no kernel event (events by category {cats})")
+        # (6) prefill on this server, decode on a second one
+        i = max((j for j, (_, _, k) in enumerate(trace) if not k),
+                key=lambda j: len(trace[j][1]))
+        eng_b = serving.ServingEngine(model, **kw)
+        decode = srv_mod.EngineServer(eng_b, window=SCHED_WINDOW,
+                                      max_new_tokens=SCHED_NEW,
+                                      replica_role="decode")
+        decode.warm_scheduler()
+        decode.start(host="127.0.0.1", port=0)
+        t0 = time.perf_counter()
+        status, hdrs, payload = _http(srv.port, "POST", "/generate", {
+            "tokens": trace[i][1], "max_new_tokens": SCHED_NEW,
+            "prefill_only": True, "stream": False})
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if status != 200 or hdrs.get("Content-Type") != \
+                migrate.MIGRATE_CONTENT_TYPE:
+            fail(f"http: prefill_only answered {status} {payload[:200]!r}")
+        t0 = time.perf_counter()
+        status, _, body = _http(
+            decode.port, "POST", "/migrate", payload,
+            {"Content-Type": migrate.MIGRATE_CONTENT_TYPE})
+        migrate_ms = (time.perf_counter() - t0) * 1e3
+        done = json.loads(body)
+        mig = (srv.statz()["migrations"], decode.statz()["migrations"])
+        if status != 200 or (done.get("tokens"), done.get(
+                "finish_reason")) != streams[i] or \
+                mig != ({"out": 1, "in": 0}, {"out": 0, "in": 1}):
+            fail(f"http: /migrate of request {i} answered {status} "
+                 f"{done} against {streams[i]}; migrations {mig}")
+        shed = srv.statz()["shed"]
+    finally:
+        if decode is not None:
+            decode.stop()
+        srv.stop()
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    del eng
+    _fresh(torch)
+    # (7) the load test of bench_serving --http
+    prompt = bench_serving._random_prompts(
+        model.vocab, ENGINE_SLOTS, HTTP_BENCH_PROMPT, 1, model.device)
+    bench = bench_serving._http_throughput(
+        model, prompt, SCHED_NEW, HTTP_CLIENTS, HTTP_BENCH_REQUESTS,
+        slots=ENGINE_SLOTS)
+    if bench["requests_completed"] != HTTP_BENCH_REQUESTS or \
+            bench["requests_errored"]:
+        fail(f"http: bench_serving --http completed "
+             f"{bench['requests_completed']} of {HTTP_BENCH_REQUESTS}")
+    wall_phase = time.perf_counter() - t_phase
+    figures = dict(
+        tokens_per_sec=tps, ratio=tps / overlap_arm["tokens_per_sec"],
+        ttft_p50_ms=float(np.percentile(ttft, 50)),
+        ttft_p99_ms=float(np.percentile(ttft, 99)),
+        admit_p50_ms=float(np.percentile(admit, 50)),
+        admit_p99_ms=float(np.percentile(admit, 99)),
+        shed=shed, wall_s=wall_phase, bench=bench)
+    print(f"http: {len(trace)} requests from {HTTP_CLIENTS} streaming "
+          f"clients in {wall:.3f} s ({captured_s:.3f} s of it captures), "
+          f"{tokens} tokens: {tps:.1f} tokens/s net of captures, "
+          f"{figures['ratio']:.3f} of the scheduler phase's overlap arm "
+          f"({overlap_arm['tokens_per_sec']:.1f}); client time to first "
+          f"token p50 {figures['ttft_p50_ms']:.1f} ms, p99 "
+          f"{figures['ttft_p99_ms']:.1f} ms; server admit-to-first-token "
+          f"p50 {figures['admit_p50_ms']:.1f} ms, p99 "
+          f"{figures['admit_p99_ms']:.1f} ms; 429s {shed}; warm-up "
+          f"{warm_s:.2f} s; every request gave the scheduler phase's ids "
+          f"and finish reason; {card}", flush=True)
+    print(f"http: /v1/completions unary and SSE text agree with the ids; "
+          f"/debug/profile held {kernels} CUDA kernel events; request {i} "
+          f"prefilled on the mixed server in {prefill_ms:.1f} ms and "
+          f"resumed through /migrate on the decode server in "
+          f"{migrate_ms:.1f} ms with the scheduler phase's ids", flush=True)
+    print(f"http: bench_serving --http ({HTTP_CLIENTS} clients, "
+          f"{HTTP_BENCH_REQUESTS} requests, prompt {HTTP_BENCH_PROMPT}, "
+          f"{SCHED_NEW} tokens): {bench['tokens_per_sec_http']:.1f} tokens/s "
+          f"over HTTP against {bench['tokens_per_sec_engine']:.1f} in the "
+          f"engine (ratio {bench['http_over_engine_ratio']:.3f}), time to "
+          f"first token p50 {bench['ttft_ms_p50']:.1f} ms, p99 "
+          f"{bench['ttft_ms_p99']:.1f} ms, {bench['req_per_sec']:.2f} req/s; "
+          f"{card}", flush=True)
+    print(f"http: phase wall {wall_phase:.1f} s; {card}", flush=True)
+    return figures
+
+
 def scheduler_path(torch, obs, inference, serving, scheduler, model, card):
     """Phase 4, the iteration scheduler on the engine phase's model: the
     captured admission extend (``admission_extends``); then sixteen
@@ -1555,7 +1874,7 @@ def scheduler_path(torch, obs, inference, serving, scheduler, model, card):
         _fresh(torch)
     print(f"scheduler: all {len(SCHED_ARMS) + 1} arms give the serial arm's "
           f"ids and finish reasons for all {len(trace)} requests", flush=True)
-    return dict(arms=arms, extends=extends)
+    return dict(arms=arms, extends=extends, trace=trace, streams=base)
 
 
 class Counts:

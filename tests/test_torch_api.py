@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from tpu_k8s_device_plugin.workloads import bench_serving as jbench
+from tpu_k8s_device_plugin.workloads import server as jserver
 from tpu_k8s_device_plugin.workloads import inference as jinf
 from tpu_k8s_device_plugin.workloads import llama as jllama
 from tpu_k8s_device_plugin.workloads.transformer import TransformerLM
@@ -25,6 +26,7 @@ from tpu_k8s_device_plugin_torch.convert import params_from_jax
 from tpu_k8s_device_plugin_torch.workloads import bench_serving as tbench
 from tpu_k8s_device_plugin_torch.workloads import inference as tinf
 from tpu_k8s_device_plugin_torch.workloads import llama as tllama
+from tpu_k8s_device_plugin_torch.workloads import server as tserver
 
 GELU = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64)
 
@@ -41,7 +43,8 @@ def _params(fn):
 # reference's)
 SIGNATURES = {
     "llama.decoder": (tllama.decoder, jllama.decoder, ["device"]),
-    "bench_serving.run": (tbench.run, jbench.run, None),
+    "bench_serving.run": (tbench.run, jbench.run, ["seed", "device"]),
+    "EngineServer": (tserver.EngineServer, jserver.EngineServer, []),
     "make_decoder": (tinf.make_decoder, jinf.make_decoder,
                      ["kv_quant", "device"]),
     "DecodeTransformerLM": (tinf.DecodeTransformerLM,
@@ -55,13 +58,60 @@ def test_leading_parameters_match_reference(name):
     them to the same parameters in the port."""
     port, ref, added = SIGNATURES[name]
     ours, theirs = _params(port), _params(ref)
-    if added is None:
-        # the reference's run takes modes the port has not ported; the
-        # port keeps its leading names up to the last mode it takes
-        n = ours.index("http_clients") + 1
-        assert ours[:n] == theirs[:n]
-    else:
-        assert ours == theirs + added
+    assert ours == theirs + added
+
+
+def test_engine_server_defaults_match_reference():
+    ours = inspect.signature(tserver.EngineServer).parameters
+    theirs = inspect.signature(jserver.EngineServer).parameters
+    assert {n: p.default for n, p in ours.items()} == \
+        {n: p.default for n, p in theirs.items()}
+
+
+def _option_strings(main_fn, monkeypatch):
+    """Every option string of *main_fn*'s argparse parser, read off the
+    parser it builds (parse_args is stopped before anything runs)."""
+    import argparse
+
+    seen = {}
+
+    def grab(self, *a, **k):
+        seen["opts"] = sorted(s for act in self._actions
+                              for s in act.option_strings)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(SystemExit):
+        main_fn([])
+    return seen["opts"]
+
+
+def test_server_cli_options_match_reference(monkeypatch):
+    """``server.main`` takes the reference's options, plus ``--device``."""
+    ours = _option_strings(tserver.main, monkeypatch)
+    theirs = _option_strings(jserver.main, monkeypatch)
+    assert ours == sorted(theirs + ["--device"])
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--tp", "2"], "item 6"), (["--checkpoint", "/nonexistent"], "item 7"),
+    (["--quantized"], "item 1b"), (["--int4"], "item 1b"),
+    (["--draft-config", "tiny-draft"], "item 1b"),
+    (["--spec-ngram", "3"], "item 1b")])
+def test_server_cli_unported_options_raise(flags, item):
+    """Each option of a feature the port does not have raises naming its
+    ROADMAP item before a model is built."""
+    with pytest.raises(NotImplementedError, match=item):
+        tserver.main(["--config", "tiny", "--device", "cpu", *flags])
+
+
+def test_server_cli_refuses_cpu_fallback(monkeypatch):
+    """Without ``--device``, the CLI wants CUDA and raises without it
+    rather than serving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserver.main(["--config", "tiny", "--port", "0"])
+    assert tserver.enable_compile_cache("/nonexistent") is False
 
 
 @pytest.mark.parametrize("field", ["moe_k", "moe_capacity_factor",

@@ -20,6 +20,8 @@ These need a CUDA device; elsewhere they skip.  On the GPU machine:
     python -m pytest tests/test_torch_graph_cuda.py -m cuda -q
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -511,3 +513,179 @@ def test_scheduler_streams_match_serial_on_the_card(model):
     assert _sched_trace(model, True, False, True) == base
     assert _sched_trace(model, True, True, True) == base
     assert _sched_trace(model, True, True, True, paged=True) == base
+
+
+# -- the HTTP front door on the card ---------------------------------------
+
+def _post_server(port, body):
+    import http.client
+    import json
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/generate", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        events = [json.loads(line) for line in resp if line.strip()]
+        return resp.status, events
+    finally:
+        conn.close()
+
+
+def _eager_ids(model, prompt, n, **kw):
+    """*prompt*'s first *n* ids, admitted alone into an engine whose
+    steps run op by op."""
+    eng = ServingEngine(model, n_slots=2, logprobs_k=2, rng=0)
+    eng._use_graphs = False
+    slot = eng.admit(prompt, **kw)
+    while len(eng.output(slot)) < n and not eng.finished(slot):
+        eng.run_scan(4)
+    return eng.output(slot)[:n]
+
+
+def _served(model, **kw):
+    from tpu_k8s_device_plugin_torch.workloads.server import EngineServer
+
+    eng = ServingEngine(model, n_slots=2, logprobs_k=2, rng=0)
+    srv = EngineServer(eng, window=4, max_new_tokens=12, **kw)
+    srv.warm_scheduler()
+    srv.start(host="127.0.0.1", port=0)
+    return eng, srv
+
+
+def test_served_window_replays_the_captured_step(model):
+    """A request served over HTTP decodes by replays of the captured
+    step and gives the ids of the same request run op by op."""
+    prompt = _prompt(model.vocab, (37,), 70).tolist()
+    eng, srv = _served(model)
+    try:
+        replays = eng.graph_replays
+        status, events = _post_server(srv.port, {"tokens": prompt,
+                                                 "stream": False})
+        assert status == 200
+        assert eng.graph_replays - replays >= 11
+        assert events[0]["tokens"] == _eager_ids(model, prompt, 12)
+    finally:
+        srv.stop()
+
+
+def test_first_variant_captures_while_another_stream_decodes(model):
+    """The first logprobs and the first penalized request arrive while
+    another stream decodes: their step variants are captured on the
+    scheduler thread mid-traffic, without a capture error, and every
+    stream gives its op-by-op ids."""
+    import threading
+
+    long = _prompt(model.vocab, (41,), 71).tolist()
+    asks = [(_prompt(model.vocab, (23,), 72).tolist(), dict(logprobs=2)),
+            (_prompt(model.vocab, (29,), 73).tolist(),
+             dict(presence_penalty=0.5, repetition_penalty=1.2))]
+    eng, srv = _served(model)
+    try:
+        captures = eng.graph_captures
+        first = threading.Event()
+        out = {}
+
+        def long_stream():
+            out["long"] = _post_server(srv.port, {
+                "tokens": long, "max_new_tokens": 12})
+            first.set()
+
+        t = threading.Thread(target=long_stream)
+        t.start()
+        deadline = time.monotonic() + 120
+        while not srv._running and time.monotonic() < deadline:
+            time.sleep(0.005)
+        for prompt, kw in asks:
+            status, events = _post_server(
+                srv.port, {"tokens": prompt, "stream": False, **kw})
+            assert status == 200, events
+            assert events[0]["tokens"] == _eager_ids(model, prompt, 12,
+                                                     **kw)
+        t.join(timeout=300)
+        status, events = out["long"]
+        assert status == 200 and "error" not in events[-1]
+        assert events[-1]["tokens"] == _eager_ids(model, long, 12)
+        assert eng.graph_captures > captures
+        assert srv._m_sched_crashes.value == 0
+    finally:
+        srv.stop()
+
+
+def test_served_windows_never_synchronise(model):
+    """With ``set_sync_debug_mode("error")`` on while a running stream's
+    windows are served, no synchronising call is made: the stream ends
+    without an error and the scheduler never crashed."""
+    import threading
+
+    prompt = _prompt(model.vocab, (33,), 74).tolist()
+    eng, srv = _served(model)
+    try:
+        frames = []
+        done = {}
+
+        def stream():
+            import http.client
+            import json
+
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                              timeout=300)
+            conn.request("POST", "/generate", json.dumps(
+                {"tokens": prompt, "max_new_tokens": 12}),
+                {"Content-Type": "application/json"})
+            for line in conn.getresponse():
+                if line.strip():
+                    frames.append(json.loads(line))
+            conn.close()
+            done["ok"] = True
+
+        t = threading.Thread(target=stream)
+        t.start()
+        deadline = time.monotonic() + 120
+        while not frames and time.monotonic() < deadline:
+            time.sleep(0.001)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t.join(timeout=300)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert done.get("ok") and "done" in frames[-1], frames[-1]
+        assert frames[-1]["tokens"] == _eager_ids(model, prompt, 12)
+        assert srv._m_sched_crashes.value == 0
+    finally:
+        srv.stop()
+
+
+def test_debug_profile_records_kernels(model, tmp_path):
+    """/debug/profile under a decoding request writes a chrome trace
+    holding CUDA kernel events from the scheduler thread."""
+    import json
+    import threading
+
+    from tpu_k8s_device_plugin_torch.workloads.server import EngineServer
+
+    eng = ServingEngine(model, n_slots=2, rng=0)
+    srv = EngineServer(eng, window=4, max_new_tokens=100,
+                       profile_dir=str(tmp_path))
+    srv.warm_scheduler()
+    srv.start(host="127.0.0.1", port=0)
+    try:
+        busy = threading.Thread(target=_post_server, args=(
+            srv.port, {"tokens": _prompt(model.vocab, (31,), 75).tolist(),
+                       "stream": False}))
+        busy.start()
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                          timeout=300)
+        conn.request("GET", "/debug/profile?seconds=0.5")
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        conn.close()
+        busy.join(timeout=300)
+        assert resp.status == 200
+        with open(out["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("cat") == "kernel" for e in events)
+    finally:
+        srv.stop()

@@ -90,3 +90,37 @@ def test_serving_engine_refuses_cpu_fallback(monkeypatch):
     eng = serving.ServingEngine(model, n_slots=1, device="cpu")
     assert eng.cache["block_0"]["cached_k"].device.type == "cpu"
     assert not eng._use_graphs
+
+
+def test_http_tier_imports_nothing_of_jax():
+    """In a fresh interpreter, the HTTP tier of the port (the server,
+    the session tier, the load client, ``obs`` and ``resilience``)
+    loads neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import tpu_k8s_device_plugin_torch.workloads.server\n"
+            "import tpu_k8s_device_plugin_torch.workloads.kv_tier\n"
+            "import tpu_k8s_device_plugin_torch.workloads.loadclient\n"
+            "import tpu_k8s_device_plugin_torch.workloads.qos\n"
+            "import tpu_k8s_device_plugin_torch.obs\n"
+            "import tpu_k8s_device_plugin_torch.resilience\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax',\n"
+            "        'tpu_k8s_device_plugin')]\n"
+            "print(' '.join(sorted(bad)) or 'clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, check=True, cwd=ROOT
+                         ).stdout.strip()
+    assert out == "clean"
+
+
+def test_http_tier_files_exist():
+    for rel in ("workloads/server.py", "workloads/kv_tier.py",
+                "workloads/qos.py", "workloads/loadclient.py",
+                "resilience/policy.py", "obs/trace.py", "obs/span.py",
+                "obs/recorder.py", "obs/stitch.py", "obs/slo.py",
+                "obs/tsdb.py", "obs/alerts.py", "obs/profiler.py",
+                "obs/incident.py"):
+        assert (ROOT / "tpu_k8s_device_plugin_torch" / rel).is_file(), rel

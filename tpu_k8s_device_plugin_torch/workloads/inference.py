@@ -36,6 +36,8 @@ the model refuses to build.
 from __future__ import annotations
 
 import copy
+import gc
+import threading
 import time
 from typing import Dict, Optional, Tuple
 
@@ -572,6 +574,12 @@ def scan_boundary_update(fin, frs, nxt, i, eos_vec, stop_mat, emitted0,
 # capture stream, which a capture may not do
 _WARMUP = 2
 
+# held across every capture: a CUDA call from another thread while a
+# graph is being captured fails the capture, so code on other threads
+# that must make one (the server's /debug/profile starting or stopping
+# the profiler) takes this lock around it
+CAPTURE_LOCK = threading.Lock()
+
 
 def capture_step(step, state, stream: "torch.cuda.Stream"):
     """Capture one call of *step*, which reads and writes only buffers
@@ -590,8 +598,19 @@ def capture_step(step, state, stream: "torch.cuda.Stream"):
     for t, s in zip(state, saved):
         t.copy_(s)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        step()
+    with CAPTURE_LOCK:
+        # a dead reference cycle freed inside the capture (an engine or
+        # a server dropped earlier, still holding graphs and buffers)
+        # would make CUDA calls there and invalidate it: the collector,
+        # process-wide, is held off until the capture ends
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                step()
+        finally:
+            if collecting:
+                gc.enable()
     return graph
 
 

@@ -723,6 +723,12 @@ class IterationScheduler:
         else:
             self._pull_tickets()
         if not any(eng.active):
+            # no slot is live, so no admission still waiting for its
+            # first step will take one here (the owner preempted or
+            # released it at on_admit, as a prefill-only export does):
+            # keeping them would leave busy() true and the owner's loop
+            # spinning where it should idle
+            self._await_first.clear()
             self._gauges()
             return IterationResult(admitted, {}, 0)
         # chaos hooks (inert attribute checks when no --fault-spec):

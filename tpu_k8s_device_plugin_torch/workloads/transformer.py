@@ -90,7 +90,18 @@ def _unported(**features) -> None:
     yet, naming where ROADMAP.md puts it."""
     later = {
         "quantized": "int8/int4 weights arrive with the quantization "
-                     "slice (ROADMAP.md, queue 1, item 1)",
+                     "slice (ROADMAP.md, queue 1, item 1b)",
+        # the serving CLI's options (workloads/server.py)
+        "int4": "int4 weights arrive with the quantization slice "
+                "(ROADMAP.md, queue 1, item 1b)",
+        "draft_config": "speculative decoding arrives with its slice "
+                        "(ROADMAP.md, queue 1, item 1b)",
+        "spec_ngram": "speculative decoding arrives with its slice "
+                      "(ROADMAP.md, queue 1, item 1b)",
+        "tp": "tensor-parallel serving arrives with multi-device "
+              "(ROADMAP.md, queue 1, item 6)",
+        "checkpoint": "restoring weights arrives with checkpointing "
+                      "(ROADMAP.md, queue 1, item 7)",
         "n_experts": "MoE FFNs (moe.py) were left out of the LM-training "
                      "slice; they follow the kernel redesigns (ROADMAP.md, "
                      "queue 1, item 3)",
