@@ -112,7 +112,28 @@ Phases, each fatal on failure:
    K6 four times each); the loss finite and lower after 5 steps on the
    same batch; tokens/s and MFU over 5 steps after 2 warmup, the peak
    memory, and a profile of one step by kernel;
-7. print the ``kernels`` JSON line, then the result line.
+7. the fleet tier, after the LM training path has released its model:
+   replicas of the port's server CLI on the card (Llama-3-8B at full
+   width and depth, bf16, random weights from seed 0, 8 slots,
+   ``max_len`` 2048, windows of 8), spawned by the port's own helpers
+   behind the port's router, each writing its output to a file under a
+   temporary directory whose tails are printed when the phase fails;
+   the free device memory printed before the first spawn;
+   ``bench_serving.run_router`` with two replicas and the kill (tokens/s
+   with one and with two, ``scaling_x``, shares, affinity hit rate, no
+   non-429 error after the kill), the scheduler phase's sixteen
+   requests through the router before the kill giving its ids and
+   finish reasons; ``run_disagg``'s homogeneous and prefill+decode arms
+   (decode TTFT and TPOT p99 and their ratios, the migrations), the
+   scheduler phase's longest greedy prompt migrated across processes
+   giving its ids; a seeded ``trafficgen`` trace of 32 requests replayed
+   open loop through ``replay.run_fleet`` (two replicas), its report
+   parsing with its schema and no request failing outside a 429;
+   one ``fleet.run_episode`` (floor 1, ceiling 2, a cut ramp) whose
+   ``--assert-fleet`` checks pass; ``run_cold_start`` (cold and warm
+   boot times, printed, not gated); the replicas' capture times and the
+   phase's wall time;
+8. print the ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2281,6 +2302,354 @@ def lm_training_path(torch, counts, fa, llama, transformer, bench_serving):
     return got
 
 
+# the fleet phase: replicas of the port's server CLI on the card at the HTTP
+# phase's settings (Llama-3-8B at full width and depth, bf16, random weights
+# from seed 0, 8 slots, max_len 2048, windows of 8) behind the port's router
+FLEET_CONFIG = "llama3-8b"
+FLEET_ARGS = ("--window", str(SCHED_WINDOW))
+# run_router: 8 clients, 16 requests over 4 distinct 128-token prompts;
+# run_disagg: 4 clients, 8 requests (512-token unary prefills and
+# 32-token streams); the replay: a trafficgen trace of 32 requests
+ROUTER_CLIENTS, ROUTER_REQUESTS, ROUTER_PROMPT = 8, 16, 128
+DISAGG_CLIENTS, DISAGG_REQUESTS = 4, 8
+REPLAY_REQUESTS = 32
+# the fleet episode: the reference's ramp cut from 16 calm, 72 peak and
+# 20 tail requests to 4, 12 and 40 (a peak that still fills the floor
+# replica's 8 slots and queues, a demand scale-up; a tail of light
+# requests to 25.7 s), and its two chaos hooks, each of which waits for two
+# routable replicas, placed so that they never wait together: the degraded
+# reshape at the peak's first request (it fires when the scaled-out
+# replica is ready, about 17 s in) and the SIGKILL at 23 s of trace time
+# (it waits through the rolling drain that the reshape starts, and lands
+# on two fresh replicas after the trace is served: no stream to tear);
+# scale-in after 60 s of calm (the reference's 2 s would drain a ready
+# replica while others boot); the settle bound (the loop leaves as soon
+# as the fleet is back at its floor)
+EPISODE_RAMP = dict(calm_requests=4, peak_requests=12, tail_requests=40,
+                    calm_rate=2.0, peak_rate=10.0)
+EPISODE_KILL_AT_MS, EPISODE_DOWN_STABLE_S = 23000.0, 60.0
+EPISODE_SETTLE_S = 240.0
+
+
+def _replica_logs(log_dir: str):
+    """{log file name: its text}, for the replicas spawned so far."""
+    out = {}
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            out[name] = f.read()
+    return out
+
+
+def _migrate_seconds(obs, port):
+    """(sum, count) of the router's ``tpu_router_migrate_seconds``."""
+    _, _, body = _http(port, "GET", "/metrics")
+    body = body.decode()
+    return (_metric(obs, body, "tpu_router_migrate_seconds_sum"),
+            _metric(obs, body, "tpu_router_migrate_seconds_count"))
+
+
+def fleet_router(bench_serving, loadclient, sched, card):
+    """``run_router`` with two replicas and the kill; before the kill,
+    the scheduler phase's sixteen requests through the router's
+    ``/generate``, each giving the scheduler phase's ids and finish
+    reason."""
+    trace, streams = sched["trace"], sched["streams"]
+    served = {}
+
+    def before_kill(port):
+        out, res, wall = serve_trace(loadclient, port, trace, HTTP_CLIENTS)
+        for i in range(len(trace)):
+            if res[i].outcome != "ok" or out[i] != streams[i]:
+                fail(f"fleet router: request {i} gave {out[i][0]} "
+                     f"({out[i][1]}, {res[i].outcome}: {res[i].error}) "
+                     f"against the scheduler phase's {streams[i][0]} "
+                     f"({streams[i][1]})")
+        served.update(wall=wall, tokens=sum(
+            len(ids) for ids, _ in out.values()))
+
+    st = bench_serving.run_router(
+        FLEET_CONFIG, False, 2, clients=ROUTER_CLIENTS,
+        n_requests=ROUTER_REQUESTS, slots=ENGINE_SLOTS, steps=SCHED_NEW,
+        prompt_len=ROUTER_PROMPT, max_len=MAX_LEN, kill=True, seed=0,
+        extra_args=FLEET_ARGS, before_kill=before_kill)
+    if not served:
+        fail("fleet router: the scheduler phase's requests never ran")
+    if st["kill_errors"] or st["kill_ok"] + st["kill_429"] != \
+            st["kill_requests"]:
+        fail(f"fleet router: {st['kill_errors']:.0f} non-429 errors of "
+             f"{st['kill_requests']:.0f} requests after the kill")
+    shares = ", ".join(f"{k[6:]} {v:.3f}" for k, v in st.items()
+                       if k.startswith("share_"))
+    print(f"fleet router: 1 replica {st['tokens_per_sec_router_1']:.1f} "
+          f"tokens/s, 2 replicas {st['tokens_per_sec_router_n']:.1f} "
+          f"tokens/s ({ROUTER_CLIENTS} clients, {ROUTER_REQUESTS} requests "
+          f"of {ROUTER_PROMPT}-token prompts, {SCHED_NEW} tokens); "
+          f"scaling_x {st['scaling_x']:.3f} (both replicas share this one "
+          f"card); shares {shares}; affinity hit rate "
+          f"{st['affinity_hit_rate']:.3f}; /fleet/statz capacity "
+          f"{st['fleet_capacity']:.0f}; after the kill "
+          f"{st['kill_requests']:.0f} requests, kill_errors "
+          f"{st['kill_errors']:.0f}, 429s {st['kill_429']:.0f}, failovers "
+          f"{st['failovers_total']:.0f}, recovered in "
+          f"{st['kill_recovery_s']:.3f} s; replica boot (spawn to ready) "
+          f"{st['replica_boot_s_1']:.1f} s alone, "
+          f"{st['replica_boot_s_n']:.1f} s beside a serving one; {card}",
+          flush=True)
+    print(f"fleet router: the scheduler phase's {len(trace)} requests "
+          f"through the router in {served['wall']:.3f} s "
+          f"({served['tokens']} tokens) gave its ids and finish reasons",
+          flush=True)
+
+
+def fleet_disagg(bench_serving, obs, cfg, sched, card):
+    """``run_disagg``'s homogeneous and prefill+decode arms; in the
+    second, the scheduler phase's longest greedy prompt through the
+    pair, migrated across processes, gives the scheduler phase's ids."""
+    trace, streams = sched["trace"], sched["streams"]
+    i = max((j for j, (_, _, k) in enumerate(trace) if not k),
+            key=lambda j: len(trace[j][1]))
+    moved = {}
+
+    def on_arm(arm, port):
+        if arm != "disagg":
+            return
+        before = _migrate_seconds(obs, port)
+        t0 = time.perf_counter()
+        status, hdrs, body = _http(port, "POST", "/generate", {
+            "tokens": trace[i][1], "max_new_tokens": SCHED_NEW,
+            "stream": False})
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        after = _migrate_seconds(obs, port)
+        done = json.loads(body) if status == 200 else {}
+        if status != 200 or (done.get("tokens"), done.get(
+                "finish_reason")) != streams[i] or \
+                after[1] != before[1] + 1 or \
+                hdrs.get("X-Replica") != "replica-1":
+            fail(f"fleet disagg: request {i} answered {status} by "
+                 f"{hdrs.get('X-Replica')} with {done.get('tokens')} against "
+                 f"{streams[i]}; migrations {before[1]:.0f} -> "
+                 f"{after[1]:.0f}")
+        moved.update(wall_ms=wall_ms,
+                     ship_ms=(after[0] - before[0]) * 1e3)
+
+    st = bench_serving.run_disagg(
+        FLEET_CONFIG, False, clients=DISAGG_CLIENTS,
+        n_requests=DISAGG_REQUESTS, slots=ENGINE_SLOTS, steps=SCHED_NEW,
+        prompt_len=ROUTER_PROMPT, max_len=MAX_LEN, seed=0,
+        extra_args=FLEET_ARGS, on_arm=on_arm)
+    if not moved:
+        fail("fleet disagg: the longest prompt never went through the pair")
+    kv_mb = (len(trace[i][1]) * cfg.n_layers * 2 * cfg.n_kv_heads
+             * cfg.head_dim * 2) / 1e6
+    print(f"fleet disagg: decode TTFT p99 homogeneous "
+          f"{st['decode_ttft_p99_ms_homog']:.1f} ms, prefill+decode "
+          f"{st['decode_ttft_p99_ms_disagg']:.1f} ms (ratio "
+          f"{st['ttft_p99_ratio']:.3f}); decode TPOT p99 "
+          f"{st['decode_tpot_p99_ms_homog']:.2f} / "
+          f"{st['decode_tpot_p99_ms_disagg']:.2f} ms (ratio "
+          f"{st['tpot_p99_ratio']:.3f}); long unary p99 "
+          f"{st['long_unary_p99_ms_homog']:.1f} / "
+          f"{st['long_unary_p99_ms_disagg']:.1f} ms; migrations "
+          f"{st['migrations_ok']:.0f} (mean ship "
+          f"{st.get('migrate_mean_ms', float('nan')):.1f} ms); both arms' "
+          f"prefill and decode share this one card's SMs; pair boot "
+          f"{st['replicas_boot_s_homog']:.1f} / "
+          f"{st['replicas_boot_s_disagg']:.1f} s; {card}", flush=True)
+    print(f"fleet disagg: the longest greedy prompt (request {i}, "
+          f"{len(trace[i][1])} tokens, {kv_mb:.1f} MB of bf16 KV) prefilled "
+          f"on the prefill replica and migrated to the decode replica gave "
+          f"the scheduler phase's ids: {moved['wall_ms']:.1f} ms end to end, "
+          f"{moved['ship_ms']:.1f} ms from the payload read to /migrate's "
+          f"answer", flush=True)
+
+
+def fleet_replay(obs, replay, trafficgen, vocab: int, card):
+    """A seeded trafficgen trace replayed open loop through
+    ``replay.run_fleet`` (an in-process router, two replicas); the report
+    parses with its schema and no request fails outside a 429."""
+    import argparse
+
+    tcfg = trafficgen.TraceConfig(
+        n_requests=REPLAY_REQUESTS, base_rate_rps=4.0, burst_rate_rps=12.0,
+        p_enter_burst=0.2, p_exit_burst=0.3, prefix_chunk=32,
+        n_prefixes=4, max_prefix_chunks=4, prompt_median=128.0,
+        prompt_max=512, output_median=16.0, output_max=SCHED_NEW,
+        vocab=vocab, unary_frac=0.25, slow_reader_frac=0.0,
+        abandon_frac=0.0)
+    header, requests = trafficgen.loads_trace(trafficgen.dumps_trace(
+        tcfg, 0, trafficgen.generate(tcfg, 0)))
+    policies = obs.default_slo_policies()
+    metrics = replay.ReplayMetrics(obs.Registry(), policies)
+    args = argparse.Namespace(
+        replicas=2, config=FLEET_CONFIG, device=None, slots=ENGINE_SLOTS,
+        max_len=MAX_LEN, max_new_tokens=SCHED_NEW, prefix_chunk=32,
+        seed=0, session_tier=False, kill_replica_at_ms=None, slo=None,
+        time_scale=1.0, late_ms=100.0, timeout_s=300.0, top_missed=3,
+        tenant_quota=None, server_extra_args=FLEET_ARGS)
+    t0 = time.perf_counter()
+    report = json.loads(json.dumps(replay.run_fleet(
+        args, requests, policies, metrics, header)))
+    wall = time.perf_counter() - t0
+    failed = {k: v for k, v in report.get("outcomes", {}).items()
+              if k not in ("ok", "shed") and v}
+    if report.get("schema") != replay.REPORT_SCHEMA or failed or \
+            sum(report["outcomes"].values()) != len(requests):
+        bad = [(r["rid"], r["status"], r["error"])
+               for r in report.get("requests", [])
+               if r["outcome"] not in ("ok", "shed")]
+        fail(f"fleet replay: report schema {report.get('schema')}, "
+             f"outcomes {report.get('outcomes')}; failed {bad[:4]}")
+    goodput = (report.get("fleet_statz") or {}).get("fleet", {}).get(
+        "goodput", {})
+    rows = []
+    for name, c in sorted(report["classes"].items()):
+        ttft = c["ttft_ms"]
+        rows.append(
+            f"{name}: attainment {c['attainment']} ({c['met']} of "
+            f"{c['eligible']}), goodput "
+            f"{goodput.get(name, {}).get('goodput_rps', float('nan')):.3f} "
+            f"req/s, " + (f"TTFT p50 {ttft['p50']} ms, p99 {ttft['p99']} ms"
+                          if ttft["p50"] is not None else "unary (no TTFT)"))
+    print(f"fleet replay: {len(requests)} trafficgen requests (seed 0) open "
+          f"loop through a router and 2 replicas in {wall:.1f} s (boots "
+          f"included), outcomes {report['outcomes']}, late dispatches "
+          f"{report['open_loop']['late_dispatches']}; "
+          + "; ".join(rows) + f"; {card}", flush=True)
+
+
+def fleet_episode(fleet, work: str, card):
+    """One ``fleet.run_episode`` (floor 1, ceiling 2) on the cut ramp,
+    with ``--assert-fleet``'s structural checks (not the goodput
+    floors): scaled out past the floor on demand, scaled back to it,
+    the killed replica replaced, the degraded slice drained and
+    re-registered, zero malformed frames."""
+    import argparse
+    import contextlib
+    import io
+
+    _, ramp = fleet.build_ramp_trace(0, **EPISODE_RAMP, prefix_chunk=16)
+    degrade_at_ms = ramp[EPISODE_RAMP["calm_requests"]].t_ms
+    if not degrade_at_ms < EPISODE_KILL_AT_MS < ramp[-1].t_ms:
+        fail(f"fleet episode: the kill at {EPISODE_KILL_AT_MS} ms is not "
+             f"inside the ramp ({degrade_at_ms}-{ramp[-1].t_ms} ms)")
+    args = argparse.Namespace(
+        mode="episode", seed=0, max_replicas=2, **EPISODE_RAMP,
+        high_watermark=1.0, low_watermark=0.25, up_stable_s=0.5,
+        down_stable_s=EPISODE_DOWN_STABLE_S, cooldown_s=2.0,
+        drain_timeout_s=30.0, kill_at_ms=EPISODE_KILL_AT_MS,
+        degrade_at_ms=degrade_at_ms, no_kill=False,
+        no_degrade=False, capacity_spec="", workdir=work, time_scale=1.0,
+        late_ms=100.0, timeout_s=300.0, settle_s=EPISODE_SETTLE_S,
+        top_missed=3, report=None, metrics_out=None, assert_goodput=None,
+        assert_fleet=True, fault_spec=None, incident_dir=None,
+        config=FLEET_CONFIG, slots=ENGINE_SLOTS, max_len=MAX_LEN,
+        max_new_tokens=128, prefix_chunk=16, slo=None,
+        compile_cache_dir="", device=None, server_extra_args=FLEET_ARGS)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report, rc = fleet.run_episode(args)
+    wall = time.perf_counter() - t0
+    gate = [line for line in buf.getvalue().splitlines()
+            if line.startswith("fleet gate ok")]
+    f, c = report["fleet"], report["chaos"]
+    attain = {n: v["attainment"] for n, v in report["classes"].items()}
+    n = sum(EPISODE_RAMP[k] for k in ("calm_requests", "peak_requests",
+                                      "tail_requests"))
+    print(f"fleet episode: {n} requests in {wall:.1f} s: max replicas "
+          f"{f['max_replicas_observed']}, spawned {f['replicas_spawned']}, "
+          f"stopped {f['replicas_stopped']}, scale-ups "
+          f"{f['scale_up_events']:.0f} ({f['demand_scale_up_events']} on "
+          f"demand), scale-downs {f['scale_down_events']:.0f}, final "
+          f"{f['final_replicas']}; killed {c['killed_replica']}, replaced "
+          f"{f['replaced_after_kill']}; degraded drained "
+          f"{f['degraded_drained']}, respawned on generation 2 "
+          f"{f['respawned_on_new_generation']}; frame errors "
+          f"{c['frame_errors']}, error responses {c['error_responses']}; "
+          f"outcomes {report['outcomes']}; attainment {attain} (a "
+          f"measurement on one shared card, not gated); "
+          f"{f['reconcile_cycles']} reconcile cycles; {card}", flush=True)
+    for line in gate:
+        print(f"  {line}", flush=True)
+    if rc:
+        for e in f["journal"]:
+            print(f"  journal: {e['name']} {e['attrs']}", flush=True)
+        fail("fleet episode: --assert-fleet failed (see the FLEET GATE FAIL "
+             "lines above)")
+
+
+def fleet_cold_start(bench_serving, card):
+    """``run_cold_start`` once: two boots of one replica, each timed to
+    its first completion; printed, not gated (the port keeps no compile
+    cache, so both boots do the same work)."""
+    st = bench_serving.run_cold_start(
+        FLEET_CONFIG, False, slots=ENGINE_SLOTS, steps=SCHED_NEW,
+        prompt_len=ROUTER_PROMPT, max_len=MAX_LEN, extra_args=FLEET_ARGS)
+    print(f"fleet cold start: cold ready {st['cold_ready_s']:.2f} s, first "
+          f"completion {st['cold_first_completion_s']:.2f} s; warm ready "
+          f"{st['warm_ready_s']:.2f} s, first completion "
+          f"{st['warm_first_completion_s']:.2f} s; warm_speedup_x "
+          f"{st['warm_speedup_x']:.3f} (warm_faster "
+          f"{st['warm_faster']:.0f}; no compile cache: both boots import, "
+          f"build the weights and capture their graphs); {card}",
+          flush=True)
+
+
+def fleet_path(torch, cfg, sched, card):
+    """Phase 7, the fleet tier on the card: replicas of the port's server
+    CLI (``FLEET_CONFIG`` at full width and depth, seed 0, 8 slots,
+    ``max_len`` 2048, windows of 8), spawned by the port's own helpers
+    behind the port's router: ``run_router`` with two replicas and the
+    kill (the scheduler phase's requests through the router before the
+    kill), ``run_disagg`` (the longest greedy prompt migrated across
+    processes), a trafficgen trace through ``replay.run_fleet``, one
+    ``fleet.run_episode`` under ``--assert-fleet``, and
+    ``run_cold_start``.  Each replica's output goes to a file under a
+    temporary directory; when the phase fails, their tails are printed.
+    Every check is fatal."""
+    import shutil
+    import tempfile
+
+    from tpu_k8s_device_plugin_torch import obs
+    from tpu_k8s_device_plugin_torch.workloads import (
+        bench_serving, fleet, loadclient, replay, trafficgen)
+
+    t_phase = time.perf_counter()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_replicas_")
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    os.environ[loadclient.REPLICA_LOG_DIR_ENV] = log_dir
+    free, total = torch.cuda.mem_get_info()
+    print(f"fleet: device memory free {free / 2**30:.1f} of "
+          f"{total / 2**30:.1f} GiB before the first replica (this "
+          f"process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB)",
+          flush=True)
+    try:
+        fleet_router(bench_serving, loadclient, sched, card)
+        fleet_disagg(bench_serving, obs, cfg, sched, card)
+        fleet_replay(obs, replay, trafficgen, cfg.vocab, card)
+        fleet_episode(fleet, work, card)
+        fleet_cold_start(bench_serving, card)
+    except BaseException:
+        for name, text in _replica_logs(log_dir).items():
+            tail = "\n    ".join(text.splitlines()[-15:])
+            print(f"fleet: replica log {name}:\n    {tail}", flush=True)
+        raise
+    finally:
+        del os.environ[loadclient.REPLICA_LOG_DIR_ENV]
+        logs = _replica_logs(log_dir)
+        shutil.rmtree(log_dir, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    warm = []
+    for name, text in logs.items():
+        m = re.search(r"warmup ([0-9.]+)s", text)
+        warm.append(f"{name.rsplit('-', 1)[0]} "
+                    f"{m.group(1) + ' s' if m else 'none (not ready)'}")
+    print(f"fleet: {len(logs)} replicas spawned; warm_scheduler's captures "
+          f"by replica: {', '.join(warm)}", flush=True)
+    print(f"fleet: phase wall {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2325,14 +2694,16 @@ def main() -> int:
     flash_train = check_flash_training(torch, fa)
     pool = check_pool(torch, mp)
     conv_pool = check_conv_pool(torch, cp)
-    launches, _, _ = main_path(torch, counts, inference, llama,
-                               bench_serving, serving, grammar, obs,
-                               scheduler, card)
+    launches, _, engine = main_path(torch, counts, inference, llama,
+                                    bench_serving, serving, grammar, obs,
+                                    scheduler, card)
     torch.cuda.empty_cache()
     train, train_modes = training_path(torch, counts, alexnet, bench_main)
     torch.cuda.empty_cache()
     lm = lm_training_path(torch, counts, fa, llama, transformer,
                           bench_serving)
+    torch.cuda.empty_cache()
+    fleet_path(torch, llama.LLAMA3_8B, engine["scheduler"], card)
 
     csrc = "tpu_k8s_device_plugin_torch/csrc/"
     ref = "tpu_k8s_device_plugin/workloads/"

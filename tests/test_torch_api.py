@@ -142,8 +142,8 @@ def test_reference_fields_build_with_their_features_off(build):
 @pytest.mark.parametrize("kw,item", [
     (dict(n_experts=4, moe_k=1), "item 3"),
     (dict(n_experts=4, moe_capacity_factor=2.0), "item 3"),
-    (dict(n_adapters=2, lora_rank=4), "item 1"),
-    (dict(n_adapters=2, lora_scale=0.5), "item 1"),
+    (dict(n_adapters=2, lora_rank=4), "item 1b"),
+    (dict(n_adapters=2, lora_scale=0.5), "item 1b"),
     (dict(kv_quant=True), "item 4"),
 ])
 @pytest.mark.parametrize("build", ["make_decoder", "DecodeTransformerLM"])

@@ -249,8 +249,7 @@ def test_bench_serving_cli(capsys):
                         "--max-len", "32"]) == 0
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["device"] == "cpu" and stats["tokens_per_sec"] > 0
-    for flag in (["--spec", "2"], ["--quantized"], ["--router", "2"],
-                 ["--disagg"], ["--cold-start"]):
+    for flag in (["--spec", "2"], ["--quantized"]):
         with pytest.raises(SystemExit):
             tbench.main(["--config", "tiny", "--device", "cpu", *flag])
         assert "not yet ported" in capsys.readouterr().err

@@ -1,8 +1,11 @@
 """The port stands alone: no module of ``tpu_k8s_device_plugin_torch``,
-and not ``chip_smoke.py``, imports JAX, flax, optax or the JAX package;
-and its entry points refuse to fall back to the CPU by themselves."""
+and not ``chip_smoke.py``, imports JAX, flax, optax or the JAX package,
+nor names a module of the JAX package in a string (a ``-m`` spawn line,
+an ``import_module`` argument); and its entry points refuse to fall
+back to the CPU by themselves."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -32,6 +35,19 @@ def _imports(path: Path):
             yield str(node.args[0].value)
 
 
+# a dotted name in the JAX package: "tpu_k8s_device_plugin." not
+# followed by "_torch" (the port's own package)
+REFERENCE_MODULE = re.compile(r"\btpu_k8s_device_plugin\.(?!_torch)")
+
+
+def _reference_strings(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and REFERENCE_MODULE.search(node.value):
+            yield node.lineno, node.value
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names
@@ -46,6 +62,26 @@ def test_no_reference_imports(path):
     bad = [name for name in _imports(path)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_reference_module_in_strings(path):
+    bad = list(_reference_strings(path))
+    assert not bad, f"{path.name} names reference modules: {bad}"
+
+
+def test_reference_module_strings_are_caught(tmp_path):
+    """The string rule sees what the import rule cannot: a spawn line
+    naming the reference's server, in any string constant."""
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        'CMD = ["python", "-m", "tpu_k8s_device_plugin.workloads.server"]\n'
+        'OK = "tpu_k8s_device_plugin_torch.workloads.server"\n'
+        'def f():\n'
+        '    """Spawns tpu_k8s_device_plugin.workloads.router."""\n')
+    assert [line for line, _ in _reference_strings(probe)] == [1, 4]
+    assert list(_imports(probe)) == []
 
 
 def test_make_decoder_refuses_cpu_fallback(monkeypatch):
@@ -93,9 +129,11 @@ def test_serving_engine_refuses_cpu_fallback(monkeypatch):
 
 
 def test_http_tier_imports_nothing_of_jax():
-    """In a fresh interpreter, the HTTP tier of the port (the server,
-    the session tier, the load client, ``obs`` and ``resilience``)
-    loads neither JAX nor the JAX package."""
+    """In a fresh interpreter, the HTTP and fleet tiers of the port (the
+    server, the session tier, the load client, ``obs``, ``resilience``,
+    the router, replay, the fleet reconciler, the trace generator and
+    the slice-membership reader) load neither JAX nor the JAX
+    package."""
     import subprocess
     import sys
 
@@ -106,6 +144,11 @@ def test_http_tier_imports_nothing_of_jax():
             "import tpu_k8s_device_plugin_torch.workloads.qos\n"
             "import tpu_k8s_device_plugin_torch.obs\n"
             "import tpu_k8s_device_plugin_torch.resilience\n"
+            "import tpu_k8s_device_plugin_torch.workloads.router\n"
+            "import tpu_k8s_device_plugin_torch.workloads.replay\n"
+            "import tpu_k8s_device_plugin_torch.workloads.fleet\n"
+            "import tpu_k8s_device_plugin_torch.workloads.trafficgen\n"
+            "import tpu_k8s_device_plugin_torch.slice\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax',\n"
             "        'tpu_k8s_device_plugin')]\n"
@@ -122,5 +165,7 @@ def test_http_tier_files_exist():
                 "resilience/policy.py", "obs/trace.py", "obs/span.py",
                 "obs/recorder.py", "obs/stitch.py", "obs/slo.py",
                 "obs/tsdb.py", "obs/alerts.py", "obs/profiler.py",
-                "obs/incident.py"):
+                "obs/incident.py", "workloads/trafficgen.py",
+                "workloads/router.py", "workloads/replay.py",
+                "workloads/fleet.py", "slice/state.py"):
         assert (ROOT / "tpu_k8s_device_plugin_torch" / rel).is_file(), rel

@@ -6,6 +6,10 @@ mirror the JAX package's ``workloads/``; the kernel functions live in ``workload
 ``workloads.pool`` and ``workloads.convpool`` (not re-exported here, so
 those names stay the modules).
 
+The serving tier's modules (``server``, and the fleet tier above it:
+``trafficgen``, ``router``, ``replay``, ``fleet``) are imported by name,
+as the JAX package's are: it exports none of their names here.
+
 The names below load their module at first use, so importing one
 workload (``workloads.alexnet``) does not import the others."""
 

@@ -19,10 +19,12 @@ prints one ``key: value`` line per figure, as the JAX benchmark does.
 ``--prefill-heavy`` (long distinct prompts, packing and overlap off
 against on) and ``--decode-heavy`` (seeded-sampled long outputs, the
 fused decode loop off against on) are its in-process A/Bs, and
-``--no-interleave`` its serial arm.  The speculative and quantized
-modes, and the ``--router``, ``--disagg`` and ``--cold-start`` modes
-that spawn replicas, are not yet ported: they exit naming their
-ROADMAP item.
+``--no-interleave`` its serial arm.  ``--router N`` (with
+``--router-kill`` and ``--assert-scaling``), ``--disagg`` (with
+``--assert-disagg``) and ``--cold-start`` spawn replicas of the port's
+server CLI, on ``--device`` (default CUDA), behind the port's router or
+alone.  The speculative and quantized modes are not yet ported: they
+exit naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -541,6 +543,532 @@ def _http_throughput(model, prompt, steps, clients, n_requests, slots,
     return out
 
 
+def _free_port() -> int:
+    # the reference's name; the implementation lives with the shared
+    # load client
+    from .loadclient import free_port
+
+    return free_port()
+
+
+def _wait_http_ok(port, path, timeout_s, predicate=None, procs=()):
+    """Poll GET path until 200 (and *predicate*(json) when given); as
+    soon as one of *procs* (the replicas waited for) has exited, raise
+    with its exit code instead of waiting out the deadline."""
+    from .loadclient import wait_http_ok
+
+    return wait_http_ok(port, path, timeout_s, predicate, procs=procs)
+
+
+def _spawn_replica(config, quantized, idx, port, router_port, slots,
+                   steps, prompt_len, max_len, role=None,
+                   kv_paging=False, device=None, extra_args=()):
+    """One serving replica subprocess through the REAL CLI (the same
+    path a pod runs), self-registering with the router.  *role* +
+    *kv_paging* spawn a disaggregated-class replica (prefill/decode
+    roles require the paged pool — migration is preempt/resume).  The
+    port's server, on *device* (none: CUDA); *extra_args* go last on
+    its command line."""
+    from .loadclient import server_cmd, spawn_replica
+
+    _unported(quantized=quantized)
+    cmd = server_cmd(
+        device,
+        "--config", config,
+        "--n-slots", str(slots),
+        "--max-len", str(max_len),
+        "--max-new-tokens", str(steps),
+        "--window", "16",
+        "--host", "127.0.0.1", "--port", str(port),
+        "--register-with", f"http://127.0.0.1:{router_port}",
+        "--replica-id", f"replica-{idx}",
+        "--register-interval", "0.5",
+    )
+    if kv_paging or role not in (None, "mixed"):
+        cmd.append("--kv-paging")
+    if role is not None:
+        cmd += ["--replica-role", role]
+    cmd += list(extra_args)
+    return spawn_replica(cmd, f"replica-{idx}", env=_spawn_env())
+
+
+def _spawn_env():
+    """The replicas' environment: this one, with the repository root
+    first on PYTHONPATH so ``-m`` finds the port from any directory."""
+    import os
+
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _stop_procs(procs) -> None:
+    import subprocess
+
+    for proc in procs:
+        proc.kill()
+    for proc in procs:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+def _router_load(router_port, prompts, steps, clients, n_requests,
+                 lock):
+    """Drive *n_requests* streaming requests (round-robin over
+    *prompts* — repeats are the affinity workload) through the router
+    with *clients* concurrent clients.  Returns (wall, done_tokens,
+    statuses, errors)."""
+    import threading
+
+    from . import loadclient
+
+    done_tokens, statuses, errors = [], [], []
+    seq = iter(range(n_requests))
+
+    def client_loop():
+        while True:
+            with lock:
+                i = next(seq, None)
+            if i is None:
+                return
+            res = loadclient.stream_request(
+                "127.0.0.1", router_port,
+                {"tokens": prompts[i % len(prompts)],
+                 "max_new_tokens": steps},
+                timeout_s=600)
+            with lock:
+                if res.outcome == loadclient.OUTCOME_OK:
+                    done_tokens.append(res.done_tokens)
+                elif res.error is not None:
+                    # in-band error frames, sheds, and transport
+                    # failures all land here — the phases gate on it
+                    errors.append(res.error)
+                statuses.append(res.status)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client_loop)
+               for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return time.perf_counter() - t0, done_tokens, statuses, errors
+
+
+def run_router(config, quantized, n_replicas, clients, n_requests,
+               slots, steps, prompt_len, max_len, kill=False,
+               seed=0, device=None, extra_args=(), before_kill=None):
+    """Multi-replica mode: N replica subprocesses (the real
+    ``workloads.server`` CLI, self-registering) behind an in-process
+    ``workloads.router`` tier.  Phase 1 measures aggregate tokens/sec
+    through the router with ONE replica, phase 2 with all N — the
+    ratio is the scaling number the router-smoke CI job gates.  Also
+    reports per-replica request share and the affinity hit rate from
+    the router's own /metrics, and (with *kill*) SIGKILLs a replica
+    and proves the survivors absorb the follow-on traffic with zero
+    non-429 errors.
+
+    The port's additions: *device* and *extra_args* go to every
+    replica's command line; *before_kill*, when given, is called with
+    the router's port after the timed phases, while every replica
+    still serves; ``replica_boot_s_1`` / ``replica_boot_s_n`` time the
+    spawn to the first replica's ``/healthz`` and to the whole fleet
+    routable.  Replicas that share one card share its SMs, so there
+    ``scaling_x`` measures that sharing, not scaling."""
+    import http.client
+    import json as _json
+    import random
+    import threading
+
+    from .. import obs
+    from .router import RouterServer, affinity_key
+
+    _unported(quantized=quantized)
+    if n_requests < 2 * n_replicas:
+        raise ValueError(
+            f"--requests {n_requests} too small for --router "
+            f"{n_replicas} (need >= {2 * n_replicas})")
+
+    cfg = CONFIGS[config]
+    rng = random.Random(seed)
+    # a handful of DISTINCT prompts, each repeated many times: the
+    # affinity workload (repeat traffic must pin to the replica whose
+    # KV pool is already warm).  The set is BALANCED over the ring —
+    # every replica id gets the same number of affine prompts (the
+    # ring depends only on the ids, so a throwaway router computes the
+    # mapping before any replica exists) — so the scaling measurement
+    # reflects the router, not one seed's hash luck
+    n_prompts = max(2, 2 * n_replicas)
+    probe = RouterServer()
+    for i in range(n_replicas):
+        probe.register({"address": f"127.0.0.1:{9000 + i}",
+                        "replica_id": f"replica-{i}"})
+    want = {f"replica-{i}": n_prompts // n_replicas
+            for i in range(n_replicas)}
+    prompts = []
+    while sum(want.values()):
+        cand = [rng.randrange(1, cfg.vocab)
+                for _ in range(prompt_len)]
+        target = probe.affinity_target(
+            affinity_key({"tokens": cand}, probe.prefix_chunk))
+        if want.get(target, 0):
+            want[target] -= 1
+            prompts.append(cand)
+    lock = threading.Lock()
+    rt = RouterServer(statz_interval_s=0.25, replica_ttl_s=5.0,
+                      breaker_reset_s=1.0, seed=seed)
+    rt.start(host="127.0.0.1", port=0)
+    procs = []
+    out = {"router": True, "replicas": float(n_replicas)}
+
+    def scrape_router():
+        conn = http.client.HTTPConnection("127.0.0.1", rt.port,
+                                          timeout=10)
+        conn.request("GET", "/metrics")
+        body = conn.getresponse().read().decode()
+        conn.close()
+        return obs.parse_exposition(body)
+
+    def spawn(idx, port):
+        procs.append(_spawn_replica(
+            config, quantized, idx, port, rt.port, slots, steps,
+            prompt_len, max_len, device=device, extra_args=extra_args))
+
+    try:
+        # -- phase 1: one replica through the router ------------------
+        port0 = _free_port()
+        t_spawn = time.perf_counter()
+        spawn(0, port0)
+        _wait_http_ok(port0, "/healthz", 600, procs=procs)
+        out["replica_boot_s_1"] = time.perf_counter() - t_spawn
+        _wait_http_ok(
+            rt.port, "/replicas", 30,
+            lambda b: sum(r["healthy"] for r in b["replicas"]) >= 1,
+            procs=procs)
+        # warm every prompt through the router (compile + APC donor)
+        _router_load(rt.port, prompts, steps, min(clients, 4),
+                     len(prompts), lock)
+        wall, toks, statuses, errors = _router_load(
+            rt.port, prompts, steps, clients, n_requests, lock)
+        if errors:
+            raise RuntimeError(
+                f"single-replica phase errored: {errors[0]}")
+        tps_1 = sum(toks) / wall
+        out["tokens_per_sec_router_1"] = tps_1
+        out["requests_completed_1"] = float(len(toks))
+        if n_replicas > 1:
+            # -- phase 2: the full fleet ------------------------------
+            t_spawn = time.perf_counter()
+            for idx in range(1, n_replicas):
+                spawn(idx, _free_port())
+            _wait_http_ok(
+                rt.port, "/replicas", 600,
+                lambda b: sum(r["healthy"] for r in b["replicas"])
+                >= n_replicas, procs=procs)
+            out["replica_boot_s_n"] = time.perf_counter() - t_spawn
+            # re-warm: prompts re-mapped onto the grown ring, and each
+            # replica's first window sizes still need compiling
+            _router_load(rt.port, prompts, steps, min(clients, 4),
+                         2 * len(prompts), lock)
+            base = scrape_router()
+            base_req = {
+                lab.get("replica"): v for n, lab, v in base
+                if n == "tpu_router_requests_total"
+                and lab.get("outcome") == "ok"}
+            base_aff = sum(
+                v for n, lab, v in base
+                if n == "tpu_router_affinity_hits_total")
+            wall, toks, statuses, errors = _router_load(
+                rt.port, prompts, steps, clients, n_requests, lock)
+            if errors:
+                raise RuntimeError(
+                    f"router phase errored: {errors[0]}")
+            tps_n = sum(toks) / wall
+            out["tokens_per_sec_router_n"] = tps_n
+            out["requests_completed_n"] = float(len(toks))
+            out["scaling_x"] = tps_n / tps_1
+            out["scaling_efficiency"] = tps_n / tps_1 / n_replicas
+            samples = scrape_router()
+            served = {
+                lab.get("replica"): v - base_req.get(
+                    lab.get("replica"), 0.0)
+                for n, lab, v in samples
+                if n == "tpu_router_requests_total"
+                and lab.get("outcome") == "ok"}
+            total_ok = sum(served.values()) or 1.0
+            for rid in sorted(served):
+                out[f"share_{rid}"] = served[rid] / total_ok
+            aff = sum(v for n, lab, v in samples
+                      if n == "tpu_router_affinity_hits_total")
+            out["affinity_hit_rate"] = (aff - base_aff) / total_ok
+            # the fleet snapshot must aggregate EVERY replica: the
+            # router-smoke CI job gates on this (a replica missing
+            # from /fleet/statz is invisible to the autoscaler)
+            conn = http.client.HTTPConnection(
+                "127.0.0.1", rt.port, timeout=10)
+            conn.request("GET", "/fleet/statz")
+            fleet = _json.loads(conn.getresponse().read())
+            conn.close()
+            out["fleet_statz_replicas"] = float(fleet["replicas"])
+            out["fleet_statz_healthy"] = float(fleet["healthy"])
+            out["fleet_capacity"] = float(
+                fleet["fleet"]["capacity"])
+            goodput = fleet["fleet"].get("goodput", {})
+            out["fleet_goodput_rps"] = float(sum(
+                row.get("goodput_rps", 0.0)
+                for row in goodput.values()))
+            if fleet["replicas"] != n_replicas or \
+                    len(fleet["per_replica"]) != n_replicas:
+                raise RuntimeError(
+                    f"/fleet/statz aggregates "
+                    f"{fleet['replicas']} replica(s), expected "
+                    f"{n_replicas}")
+            if fleet["fleet"]["capacity"] != n_replicas * slots:
+                raise RuntimeError(
+                    "/fleet/statz capacity "
+                    f"{fleet['fleet']['capacity']} != "
+                    f"{n_replicas} x {slots} slots")
+        if before_kill is not None:
+            before_kill(rt.port)
+        if kill:
+            # -- kill phase: SIGKILL one replica, survivors absorb ----
+            victim = procs[-1]
+            victim.kill()
+            victim.wait(timeout=30)
+            t0 = time.perf_counter()
+            _w, ktoks, kstatuses, kerrors = _router_load(
+                rt.port, prompts, steps, min(clients, 4),
+                4 * max(1, n_replicas - 1), lock)
+            out["kill_requests"] = float(len(kstatuses))
+            out["kill_ok"] = float(
+                sum(s == 200 for s in kstatuses))
+            out["kill_429"] = float(
+                sum(s == 429 for s in kstatuses))
+            out["kill_errors"] = float(
+                sum(s not in (200, 429) for s in kstatuses)
+                + len(kerrors))
+            out["kill_recovery_s"] = time.perf_counter() - t0
+            samples = scrape_router()
+            out["failovers_total"] = sum(
+                v for n, lab, v in samples
+                if n == "tpu_router_failovers_total")
+    finally:
+        rt.stop()
+        _stop_procs(procs)
+    out["config"] = config
+    out["quantized"] = quantized
+    return out
+
+
+def _disagg_load(router_port, long_prompts, short_prompts, steps,
+                 clients, n_requests, lock):
+    """Mixed-phase load through the router: even request ids are
+    long-prefill UNARY completions (the interference source), odd ids
+    short-prompt STREAMING decodes (the interference victim).
+    Returns (wall, unary_lat_s, ttft_s, tpot_s, statuses, errors) —
+    TTFT is request-start to the first streamed line, TPOT the
+    per-token gap over the rest of the stream."""
+    import threading
+
+    from . import loadclient
+
+    unary_lat, ttfts, tpots = [], [], []
+    statuses, errors = [], []
+    seq = iter(range(n_requests))
+
+    def client_loop():
+        while True:
+            with lock:
+                i = next(seq, None)
+            if i is None:
+                return
+            if i % 2 == 0:
+                res = loadclient.unary_request(
+                    "127.0.0.1", router_port,
+                    {"tokens": long_prompts[
+                        (i // 2) % len(long_prompts)],
+                     "max_new_tokens": max(4, steps // 4),
+                     "stream": False},
+                    timeout_s=600)
+                with lock:
+                    if res.outcome == loadclient.OUTCOME_TRANSPORT:
+                        errors.append(res.error)
+                        continue
+                    statuses.append(res.status)
+                    if res.outcome == loadclient.OUTCOME_OK:
+                        unary_lat.append(res.total_s)
+                    elif res.error is not None and res.status == 200:
+                        errors.append(res.error)
+            else:
+                res = loadclient.stream_request(
+                    "127.0.0.1", router_port,
+                    {"tokens": short_prompts[
+                        (i // 2) % len(short_prompts)],
+                     "max_new_tokens": steps,
+                     "ignore_eos": True},
+                    timeout_s=600)
+                with lock:
+                    if res.outcome == loadclient.OUTCOME_TRANSPORT:
+                        errors.append(res.error)
+                        continue
+                    statuses.append(res.status)
+                    if res.outcome != loadclient.OUTCOME_OK \
+                            and res.error is not None:
+                        errors.append(res.error)
+                    elif res.ttft_s is not None:
+                        ttfts.append(res.ttft_s)
+                        if res.tpot_s is not None:
+                            tpots.append(res.tpot_s)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client_loop)
+               for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return (time.perf_counter() - t0, unary_lat, ttfts, tpots,
+            statuses, errors)
+
+
+def run_disagg(config, quantized, clients, n_requests, slots, steps,
+               prompt_len, max_len, seed=0, device=None,
+               extra_args=(), on_arm=None):
+    """Disaggregated prefill/decode A/B (the ROADMAP router-v2 gate):
+    the SAME mixed traffic — long-prefill unary completions
+    interleaved with short-prompt streaming decodes — once against 2
+    homogeneous mixed replicas and once against a prefill+decode pair
+    with phase-aware routing + KV migration.  Reports decode TTFT p99
+    and decode TPOT p99 per arm: on the homogeneous arm long prefills
+    contend with decode windows on whichever replica the ring picks;
+    on the disagg arm decode streams run on a replica that never
+    prefills a long prompt.
+
+    The port's additions: *device* and *extra_args* go to every
+    replica's command line; *on_arm*, when given, is called with the
+    arm's name and its router's port after the arm's timed load, while
+    both replicas still serve; ``replicas_boot_s_<arm>`` times the
+    spawn to both replicas routable.  Two replicas on one card share
+    its SMs, so there the arms do not separate prefill from decode as
+    separate chips would."""
+    import http.client
+    import random
+    import threading
+
+    from .. import obs
+    from .router import RouterServer
+
+    _unported(quantized=quantized)
+    cfg = CONFIGS[config]
+    long_len = min(max_len - steps - 8, max(64, prompt_len * 4))
+    if long_len < 32:
+        raise ValueError(
+            f"--max-len {max_len} leaves no room for a long-prefill "
+            "phase (need >= 32 prompt tokens + the decode budget)")
+    short_len = max(4, prompt_len // 4)
+    rng = random.Random(seed)
+    # DISTINCT long prompts: every one pays a full prefill (no APC
+    # dedupe) — that cost is exactly what the phase split relocates
+    long_prompts = [
+        [rng.randrange(1, cfg.vocab) for _ in range(long_len)]
+        for _ in range(max(2, (n_requests + 1) // 2))]
+    short_prompts = [
+        [rng.randrange(1, cfg.vocab) for _ in range(short_len)]
+        for _ in range(4)]
+    lock = threading.Lock()
+    out = {"disagg": True, "long_prompt_len": float(long_len),
+           "short_prompt_len": float(short_len),
+           "config": config, "quantized": quantized}
+
+    def run_arm(arm):
+        rt = RouterServer(statz_interval_s=0.25, replica_ttl_s=5.0,
+                          breaker_reset_s=1.0, seed=seed,
+                          prefill_threshold=long_len)
+        rt.start(host="127.0.0.1", port=0)
+        roles = (("prefill", "decode") if arm == "disagg"
+                 else ("mixed", "mixed"))
+        procs = []
+        t_spawn = time.perf_counter()
+        try:
+            for i, role in enumerate(roles):
+                procs.append(_spawn_replica(
+                    config, quantized, i, _free_port(), rt.port,
+                    slots, steps, prompt_len, max_len, role=role,
+                    kv_paging=True, device=device,
+                    extra_args=extra_args))
+            _wait_http_ok(
+                rt.port, "/replicas", 600,
+                lambda b: sum(r["healthy"]
+                              for r in b["replicas"]) >= 2,
+                procs=procs)
+            boot_s = time.perf_counter() - t_spawn
+            # warm both request classes (window compiles, packed
+            # shapes, the migration path itself)
+            _disagg_load(rt.port, long_prompts[:2], short_prompts,
+                         steps, min(clients, 4), 8, lock)
+            wall, unary, ttfts, tpots, statuses, errors = \
+                _disagg_load(rt.port, long_prompts, short_prompts,
+                             steps, clients, n_requests, lock)
+            if errors:
+                raise RuntimeError(f"{arm} arm errored: {errors[0]}")
+            if not ttfts or not tpots or not unary:
+                raise RuntimeError(
+                    f"{arm} arm produced no complete samples "
+                    f"(statuses: {statuses[:8]})")
+            res = {
+                f"requests_ok_{arm}": float(
+                    sum(s == 200 for s in statuses)),
+                f"wall_s_{arm}": wall,
+                f"long_unary_p99_ms_{arm}":
+                    _percentile(unary, 0.99) * 1000.0,
+                f"decode_ttft_p99_ms_{arm}":
+                    _percentile(ttfts, 0.99) * 1000.0,
+                f"decode_tpot_p99_ms_{arm}":
+                    _percentile(tpots, 0.99) * 1000.0,
+                f"replicas_boot_s_{arm}": boot_s,
+            }
+            if arm == "disagg":
+                conn = http.client.HTTPConnection(
+                    "127.0.0.1", rt.port, timeout=10)
+                conn.request("GET", "/metrics")
+                samples = obs.parse_exposition(
+                    conn.getresponse().read().decode())
+                conn.close()
+                res["migrations_ok"] = sum(
+                    v for n, lab, v in samples
+                    if n == "tpu_router_migrations_total"
+                    and lab.get("outcome") == "ok")
+                ships = [v for n, lab, v in samples
+                         if n == "tpu_router_migrate_seconds_sum"]
+                counts = [v for n, lab, v in samples
+                          if n == "tpu_router_migrate_seconds_count"]
+                if counts and counts[0]:
+                    res["migrate_mean_ms"] = (
+                        ships[0] / counts[0] * 1000.0)
+            if on_arm is not None:
+                on_arm(arm, rt.port)
+            return res
+        finally:
+            rt.stop()
+            _stop_procs(procs)
+
+    out.update(run_arm("homog"))
+    out.update(run_arm("disagg"))
+    if out.get("migrations_ok", 0) < 1:
+        raise RuntimeError(
+            "disagg arm routed no migration — the phase split never "
+            "engaged (check roles/threshold)")
+    out["ttft_p99_ratio"] = (out["decode_ttft_p99_ms_disagg"]
+                             / out["decode_ttft_p99_ms_homog"])
+    out["tpot_p99_ratio"] = (out["decode_tpot_p99_ms_disagg"]
+                             / out["decode_tpot_p99_ms_homog"])
+    return out
+
+
 def _check_budget(prompt_len: int, steps: int, max_len: int) -> None:
     budget = steps * (_ENGINE_WARMUP + _ENGINE_ROUNDS)
     if prompt_len + budget > max_len:
@@ -642,8 +1170,92 @@ def run_decode_heavy(config, quantized, clients, n_requests, slots,
     return out
 
 
-# the JAX benchmark's modes that spawn replicas behind its router
-_REPLICA_MODES = "ROADMAP.md, queue 1, item 5.2"
+def _spawn_server(config, quantized, port, slots, steps, max_len,
+                  extra, device=None):
+    """One serving subprocess through the REAL CLI (the path a pod
+    runs), no router — the cold-start phase's replica.  The port's
+    server, on *device* (none: CUDA)."""
+    from .loadclient import server_cmd, spawn_replica
+
+    _unported(quantized=quantized)
+    cmd = server_cmd(
+        device,
+        "--config", config,
+        "--n-slots", str(slots),
+        "--max-len", str(max_len),
+        "--max-new-tokens", str(steps),
+        "--window", "16",
+        "--host", "127.0.0.1", "--port", str(port),
+        *extra)
+    return spawn_replica(cmd, "cold-start", env=_spawn_env())
+
+
+def run_cold_start(config, quantized, slots, steps, prompt_len,
+                   max_len, cache_dir=None, device=None, extra_args=()):
+    """Replica cold-start economics: boot the real server CLI twice
+    against ONE ``--compile-cache-dir`` — the first boot compiles and
+    fills the cache (cold), the second loads executables from it
+    (warm) — timing spawn → first successful completion each time.
+    The warm boot MUST be measurably faster (asserted by the CLI exit
+    code): that delta is what makes router-driven autoscaling real,
+    because a scale-up replica that pays the per-shape warmup storm
+    is not capacity for minutes.
+
+    The port keeps no compile cache (``server.enable_compile_cache``
+    returns False: each process captures its CUDA graphs itself), so
+    both boots do the same work — import, weights on the device,
+    ``warm_scheduler``'s captures — and the gate decides on their
+    noise, as the reference's does on a jax without the cache knobs.
+    *device* and *extra_args* go to both command lines."""
+    import http.client
+    import json as _json
+    import shutil
+    import tempfile
+
+    _unported(quantized=quantized)
+    cache = cache_dir or tempfile.mkdtemp(prefix="tpu-compile-cache-")
+    own_cache = cache_dir is None
+    prompt = list(range(1, prompt_len + 1))
+    out = {"cold_start": True, "config": config,
+           "quantized": quantized, "compile_cache_dir": cache}
+    try:
+        for phase in ("cold", "warm"):
+            port = _free_port()
+            t0 = time.perf_counter()
+            proc = _spawn_server(
+                config, quantized, port, slots, steps, max_len,
+                ["--compile-cache-dir", cache, *extra_args],
+                device=device)
+            try:
+                _wait_http_ok(port, "/healthz", 900, procs=(proc,))
+                out[f"{phase}_ready_s"] = time.perf_counter() - t0
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=600)
+                conn.request(
+                    "POST", "/generate",
+                    _json.dumps({"tokens": prompt,
+                                 "max_new_tokens": steps,
+                                 "stream": False}),
+                    {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = resp.read()
+                conn.close()
+                if resp.status != 200:
+                    raise RuntimeError(
+                        f"{phase} start first request answered "
+                        f"{resp.status}: {body[:120]!r}")
+                out[f"{phase}_first_completion_s"] = (
+                    time.perf_counter() - t0)
+            finally:
+                _stop_procs((proc,))
+        out["warm_speedup_x"] = (out["cold_first_completion_s"]
+                                 / out["warm_first_completion_s"])
+        out["warm_faster"] = float(out["warm_first_completion_s"]
+                                   < out["cold_first_completion_s"])
+    finally:
+        if own_cache:
+            shutil.rmtree(cache, ignore_errors=True)
+    return out
 
 
 def run(config: str, quantized, batch: int, steps: int, prompt_len: int,
@@ -778,37 +1390,92 @@ def main(argv=None) -> int:
     p.add_argument("--quantized", action="store_true",
                    help="not yet ported")
     p.add_argument("--spec", type=int, default=0, help="not yet ported")
-    p.add_argument("--router", type=int, default=0, metavar="N",
-                   help="not yet ported")
-    p.add_argument("--disagg", action="store_true", help="not yet ported")
     p.add_argument("--cold-start", action="store_true",
-                   help="not yet ported")
+                   help="replica cold-start phase: boot the real "
+                        "server CLI twice against one "
+                        "--compile-cache-dir and time spawn -> first "
+                        "completion; exits nonzero unless the warm "
+                        "boot is faster (the port keeps no compile "
+                        "cache, so both boots do the same work)")
+    p.add_argument("--compile-cache-dir", default=None, metavar="DIR",
+                   help="with --cold-start: reuse DIR as the "
+                        "compile-cache directory instead of a "
+                        "throwaway tempdir")
+    p.add_argument("--router", type=int, default=0, metavar="N",
+                   help="with --http: multi-replica mode — spawn N "
+                        "serving-replica subprocesses (the real CLI, "
+                        "self-registering) behind the in-process "
+                        "router tier; reports aggregate tokens/sec, "
+                        "per-replica share, affinity hit rate, and "
+                        "scaling vs 1 replica through the same hop")
+    p.add_argument("--disagg", action="store_true",
+                   help="disaggregated prefill/decode A/B: mixed "
+                        "long-prefill-unary + short-streaming-decode "
+                        "traffic against 2 homogeneous replicas vs a "
+                        "prefill+decode pair with phase routing + KV "
+                        "migration; reports decode TTFT/TPOT p99 per "
+                        "arm (clients from --http, counts from "
+                        "--requests)")
+    p.add_argument("--assert-disagg", action="store_true",
+                   help="with --disagg: exit nonzero unless the "
+                        "disagg arm beats the homogeneous arm on "
+                        "decode TTFT p99 or decode TPOT p99")
+    p.add_argument("--assert-scaling", type=float, default=0.0,
+                   metavar="FLOOR",
+                   help="with --router: exit nonzero unless the "
+                        "N-replica aggregate is >= FLOOR x the "
+                        "1-replica aggregate")
+    p.add_argument("--router-kill", action="store_true",
+                   help="with --router: SIGKILL one replica after the "
+                        "timed phases and prove the survivors absorb "
+                        "the follow-on traffic (zero non-429 errors, "
+                        "failovers counted)")
     args = p.parse_args(argv)
-    for flag, on in (("--router", args.router), ("--disagg", args.disagg),
-                     ("--cold-start", args.cold_start)):
-        if on:
-            p.error(f"{flag} is not yet ported ({_REPLICA_MODES})")
     modes = [f for f, on in (("--engine", args.engine),
                              ("--spec", args.spec),
-                             ("--http", args.http)) if on]
+                             ("--http", args.http),
+                             ("--cold-start", args.cold_start)) if on]
     if len(modes) > 1:
         p.error(f"{' and '.join(modes)} are mutually exclusive")
     if (args.requests or args.cancel_every or args.burst
             or args.assert_ratio or args.no_interleave
-            or args.kv_paging or args.tenants or args.prefill_heavy
-            or args.assert_goodput or args.metrics_out
-            or args.decode_heavy or args.fused_decode) and not args.http:
+            or args.kv_paging or args.tenants or args.router
+            or args.prefill_heavy or args.assert_goodput
+            or args.metrics_out or args.disagg or args.decode_heavy
+            or args.fused_decode) and not args.http:
         p.error("--requests/--cancel-every/--burst/--assert-ratio/"
-                "--no-interleave/--kv-paging/--tenants/--prefill-heavy/"
-                "--decode-heavy/--fused-decode/--assert-goodput/"
-                "--metrics-out only apply with --http")
+                "--no-interleave/--kv-paging/--tenants/--router/"
+                "--prefill-heavy/--decode-heavy/--fused-decode/"
+                "--assert-goodput/--metrics-out/"
+                "--disagg only apply with --http")
     if args.assert_fused_speedup and not args.decode_heavy:
         p.error("--assert-fused-speedup needs --decode-heavy")
     if args.decode_heavy and args.prefill_heavy:
         p.error("--decode-heavy and --prefill-heavy are mutually "
                 "exclusive")
-    if args.tenants < 0:
-        p.error("--tenants must be >= 0")
+    if args.compile_cache_dir and not args.cold_start:
+        p.error("--compile-cache-dir only applies with --cold-start")
+    if args.cold_start:
+        try:
+            stats = run_cold_start(
+                args.config, args.quantized, slots=args.batch or 4,
+                steps=args.steps, prompt_len=args.prompt_len,
+                max_len=args.max_len,
+                cache_dir=args.compile_cache_dir, device=args.device)
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            p.error(str(e))
+        for k, v in stats.items():
+            print(f"{k}: {v}", flush=True)
+        if not stats.get("warm_faster"):
+            print("FAIL: warm start "
+                  f"({stats['warm_first_completion_s']:.1f}s) not "
+                  "faster than cold start "
+                  f"({stats['cold_first_completion_s']:.1f}s)",
+                  flush=True)
+            return 1
+        print(f"OK: warm start {stats['warm_speedup_x']:.2f}x faster "
+              "than cold", flush=True)
+        return 0
     heavy = {"prefill": run_prefill_heavy, "decode": run_decode_heavy}
     for kind, fn in heavy.items():
         if not getattr(args, f"{kind}_heavy"):
@@ -830,6 +1497,78 @@ def main(argv=None) -> int:
         if args.assert_ratio:
             rc |= _report_ratio(stats, "http_over_engine_ratio_on",
                                 args.assert_ratio)
+        return rc
+    if args.tenants < 0:
+        p.error("--tenants must be >= 0")
+    if args.router < 0:
+        p.error("--router must be >= 0")
+    if (args.assert_scaling or args.router_kill) and not args.router:
+        p.error("--assert-scaling/--router-kill need --router")
+    if args.router and (args.cancel_every or args.burst
+                        or args.assert_ratio or args.kv_paging
+                        or args.tenants or args.no_interleave):
+        p.error("--router is its own mode: the single-replica phase "
+                "flags do not apply")
+    if args.assert_disagg and not args.disagg:
+        p.error("--assert-disagg needs --disagg")
+    if args.disagg and (args.router or args.cancel_every
+                        or args.burst or args.assert_ratio
+                        or args.kv_paging or args.tenants
+                        or args.no_interleave):
+        p.error("--disagg is its own mode: the single-replica and "
+                "--router phase flags do not apply")
+    if args.disagg:
+        try:
+            stats = run_disagg(
+                args.config, args.quantized, clients=args.http,
+                n_requests=args.requests or 8 * args.http,
+                slots=args.batch, steps=args.steps,
+                prompt_len=args.prompt_len, max_len=args.max_len,
+                seed=args.seed, device=args.device)
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            p.error(str(e))
+        for k, v in stats.items():
+            print(f"{k}: {v}", flush=True)
+        if args.assert_disagg:
+            ttft_r = stats["ttft_p99_ratio"]
+            tpot_r = stats["tpot_p99_ratio"]
+            if min(ttft_r, tpot_r) >= 1.0:
+                print(f"FAIL: disagg beat the homogeneous arm on "
+                      f"neither decode TTFT p99 (x{ttft_r:.3f}) nor "
+                      f"decode TPOT p99 (x{tpot_r:.3f})", flush=True)
+                return 1
+            print(f"OK: disagg decode TTFT p99 x{ttft_r:.3f} / "
+                  f"TPOT p99 x{tpot_r:.3f} vs homogeneous "
+                  "(< 1.0 = better)", flush=True)
+        return 0
+    if args.router:
+        try:
+            stats = run_router(
+                args.config, args.quantized, args.router,
+                clients=args.http,
+                n_requests=args.requests or 8 * args.http,
+                slots=args.batch, steps=args.steps,
+                prompt_len=args.prompt_len, max_len=args.max_len,
+                kill=args.router_kill, seed=args.seed,
+                device=args.device)
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            p.error(str(e))
+        for k, v in stats.items():
+            print(f"{k}: {v}", flush=True)
+        rc = 0
+        if args.assert_scaling:
+            scaling = stats.get("scaling_x", 0.0)
+            if scaling < args.assert_scaling:
+                print(f"FAIL: scaling_x {scaling:.3f} below the "
+                      f"{args.assert_scaling:.2f} floor", flush=True)
+                rc = 1
+            else:
+                print(f"OK: scaling_x {scaling:.3f} >= "
+                      f"{args.assert_scaling:.2f}", flush=True)
+        if args.router_kill and stats.get("kill_errors", 0):
+            print(f"FAIL: {stats['kill_errors']:.0f} non-429 errors "
+                  "after the replica kill", flush=True)
+            rc = 1
         return rc
     try:
         stats = run(args.config, args.quantized, args.batch, args.steps,

@@ -39,9 +39,13 @@ from __future__ import annotations
 
 import http.client
 import json
+import os
+import subprocess
+import sys
+import tempfile
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from .. import obs
 
@@ -315,6 +319,44 @@ def unary_request(host: str, port: int, body: Dict[str, object], *,
         trace_id=tr.trace_id)
 
 
+# the port's replica CLI, which every spawn helper of the fleet tier
+# starts (router benchmark, replay, fleet reconciler, cold start)
+SERVER_MODULE = "tpu_k8s_device_plugin_torch.workloads.server"
+# where spawned replicas write their stdout and stderr (unset: nowhere)
+REPLICA_LOG_DIR_ENV = "TPU_DP_REPLICA_LOG_DIR"
+
+
+def server_cmd(device: Optional[str], *args: str) -> List[str]:
+    """The command line of one replica process: the port's server CLI
+    with *args*, and ``--device`` when *device* is given (none: the
+    replica serves on CUDA and raises without it)."""
+    cmd = [sys.executable, "-m", SERVER_MODULE, *args]
+    if device:
+        cmd += ["--device", str(device)]
+    return cmd
+
+
+def spawn_replica(cmd: Sequence[str], name: str,
+                  env: Optional[Dict[str, str]] = None
+                  ) -> "subprocess.Popen[bytes]":
+    """Start one replica process.  Its stdout and stderr go to a fresh
+    ``<name>-*.log`` under ``$TPU_DP_REPLICA_LOG_DIR`` when that is
+    set, else to DEVNULL as the reference's helpers send them: a
+    replica that dies at boot then leaves its traceback where the
+    caller can read it."""
+    log_dir = os.environ.get(REPLICA_LOG_DIR_ENV)
+    if not log_dir:
+        return subprocess.Popen(list(cmd), env=env,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+    os.makedirs(log_dir, exist_ok=True)
+    fd, _ = tempfile.mkstemp(prefix=f"{name}-", suffix=".log",
+                             dir=log_dir)
+    with os.fdopen(fd, "wb") as out:
+        return subprocess.Popen(list(cmd), env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+
+
 def free_port(host: str = "127.0.0.1") -> int:
     """An OS-assigned free TCP port (the bench/replay spawn helper)."""
     import socket
@@ -329,14 +371,24 @@ def free_port(host: str = "127.0.0.1") -> int:
 def wait_http_ok(port: int, path: str, timeout_s: float,
                  predicate: Optional[
                      Callable[[Dict[str, object]], bool]] = None,
-                 host: str = "127.0.0.1") -> bool:
+                 host: str = "127.0.0.1",
+                 procs: Sequence[Any] = ()) -> bool:
     """Poll ``GET path`` until 200 (and *predicate*(parsed JSON body)
     when given).  Raises RuntimeError with the last status on
     timeout — a replica that never came up must fail the run, not
-    hang it."""
+    hang it.  *procs* (the port's addition) are the spawned processes
+    the wait is for: as soon as one of them has exited, the wait
+    raises with its exit code instead of polling a dead replica to the
+    deadline."""
     deadline = time.monotonic() + timeout_s
     last: Optional[Tuple[int, bytes]] = None
     while time.monotonic() < deadline:
+        for proc in procs:
+            rc = proc.poll()
+            if rc is not None:
+                raise RuntimeError(
+                    f"replica pid {proc.pid} exited with code {rc} "
+                    f"before {path} on :{port} was ready")
         try:
             conn = http.client.HTTPConnection(host, port, timeout=5)
             conn.request("GET", path)

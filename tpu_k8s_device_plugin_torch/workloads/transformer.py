@@ -103,12 +103,12 @@ def _unported(**features) -> None:
         "checkpoint": "restoring weights arrives with checkpointing "
                       "(ROADMAP.md, queue 1, item 7)",
         "n_experts": "MoE FFNs (moe.py) were left out of the LM-training "
-                     "slice; they follow the kernel redesigns (ROADMAP.md, "
+                     "slice; they come after the fleet tier (ROADMAP.md, "
                      "queue 1, item 3)",
         "n_adapters": "LoRA adapters arrive with the quantization and "
-                      "adapter slice (ROADMAP.md, queue 1, item 1)",
+                      "adapter slice (ROADMAP.md, queue 1, item 1b)",
         "adapter_ids": "LoRA adapters arrive with the quantization and "
-                       "adapter slice (ROADMAP.md, queue 1, item 1)",
+                       "adapter slice (ROADMAP.md, queue 1, item 1b)",
         # the serving engine's arguments (workloads/serving.py)
         "mesh": "tensor-parallel serving arrives with multi-device "
                 "(ROADMAP.md, queue 1, item 6)",
