@@ -112,7 +112,37 @@ Phases, each fatal on failure:
    K6 four times each); the loss finite and lower after 5 steps on the
    same batch; tokens/s and MFU over 5 steps after 2 warmup, the peak
    memory, and a profile of one step by kernel;
-7. the fleet tier, after the LM training path has released its model:
+7. the rest of the model, with no other model resident: Llama-3-8B with
+   int8 and with int4 projections (``random_quantized_params``, seed 0;
+   the int4 unpack on the card against the CPU's for every byte):
+   ``greedy_generate`` at the main path's shapes with K4 once a layer,
+   the captured decode against the op-by-op loop, prefill ms, decode
+   tokens/s and the bytes a step must read beside the bf16 figures, and
+   ``bench_serving --engine``'s tokens/s; speculative decoding, the
+   Llama-3-8B target with Llama-3.2-1B as its draft (gamma 4):
+   ``speculative_generate`` on the main path's first prompt with that
+   draft and with the target as its own, against ``greedy_generate``,
+   the scheduler phase's sixteen requests through ``IterationScheduler``
+   over a draft engine and an n-gram engine against that phase's ids,
+   and ``bench_serving --spec``'s figures; in bf16 a divergence passes
+   only at a near tie of the plain path (its two logits within 4 bf16
+   ulps: a verify of gamma + 1 rows rounds otherwise than a step), then
+   both models in f32, where ``speculative_generate``'s ids must equal
+   ``greedy_generate``'s and the target as its own draft must accept
+   every proposal; LoRA (4 adapters of rank 8, B stacks from a seed):
+   the engine phase's requests with no adapter give its ids, finish
+   reasons and logprobs, and with the adapters and the base mixed over 8
+   slots one captured window gives each request its run alone in the
+   same engine shape; MoE at Mixtral-8x7B's widths (GELU experts, up and
+   down): 2-layer training (one 8192-token sequence, capacity 2560:
+   K4 with its lse, K5 and K6 twice each in one ``lm_train_step``, the
+   loss falling over 5 steps, tokens/s, MFU against
+   ``moe_flops_per_step``, peak memory and the f32 combine's share of
+   the step) and 4-layer bf16 serving (``greedy_generate`` at batch 4 in
+   the gather branch with K4 once a layer and its captured decode
+   against the op-by-op loop; an 8-slot engine in the dense branch whose
+   captured window gives the op-by-op steps' ids);
+8. the fleet tier, after the LM training path has released its model:
    replicas of the port's server CLI on the card (Llama-3-8B at full
    width and depth, bf16, random weights from seed 0, 8 slots,
    ``max_len`` 2048, windows of 8), spawned by the port's own helpers
@@ -133,7 +163,7 @@ Phases, each fatal on failure:
    ``--assert-fleet`` checks pass; ``run_cold_start`` (cold and warm
    boot times, printed, not gated); the replicas' capture times and the
    phase's wall time;
-8. print the ``kernels`` JSON line, then the result line.
+9. print the ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2650,6 +2680,565 @@ def fleet_path(torch, cfg, sched, card):
           flush=True)
 
 
+# the rest of the model (int8/int4 weights, speculative decoding, LoRA
+# adapters, expert FFNs): the quantized Llama-3-8B at the main path's
+# shapes; gamma 4 with Llama-3.2-1B as the draft; 4 adapters of rank 8
+# whose B stacks are normal with sd 0.05 from a seed; Mixtral-8x7B's
+# widths (mistralai/Mixtral-8x7B-v0.1: d_model 4096, 32 / 8 heads, d_ff
+# 14336, 8 experts, top-2, vocab 32000, rope theta 1e6) with the
+# reference's GELU expert FFN (up and down: two of Mixtral's three
+# expert matrices), cut to 2 layers for training (f32 parameters and
+# Adam take 16 bytes a parameter) and 4 for serving, capacity factor
+# 1.25; a divergence between two paths of other shapes passes only at a
+# near tie: the plain path's logits of the two tokens within
+# NEAR_TIE_ULPS bf16 ulps of the larger
+QUANT_KINDS = (("int8", True), ("int4", "int4"))
+SPEC_GAMMA, SPEC_DRAFT = 4, "llama3-1b"
+LORA_ADAPTERS, LORA_RANK, LORA_B_SD = 4, 8, 0.05
+LORA_SLOT_ADAPTERS = (0, 1, 2, 3, None, 0, 1, 2)
+MIXTRAL = dict(vocab=32000, d_model=4096, n_heads=32, n_kv_heads=8,
+               d_ff=14336, n_experts=8, moe_k=2, moe_capacity_factor=1.25,
+               ffn="gelu", rope_theta=1e6)
+MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS, MOE_WARMUP, MOE_STEPS = 2, 4, 1, 3
+MOE_ENGINE_STEPS = 16
+NEAR_TIE_ULPS = 4
+
+
+def weight_bytes(model) -> int:
+    """Bytes of every parameter but the embedding (a decode step reads
+    B of its rows): what one decode step must read of the weights."""
+    return sum(p.numel() * p.element_size()
+               for n, p in model.named_parameters() if n != "embed.weight")
+
+
+def kv_bytes(cfg, batch: int, depth: int) -> int:
+    """Bytes of a bf16 KV cache of *depth* rows a sequence."""
+    return 2 * cfg.n_layers * batch * depth * cfg.n_kv_heads * \
+        cfg.head_dim * 2
+
+
+def first_divergence(torch, inference, model, prompt, want, got, what):
+    """Equal ids, or a first divergence at a near tie of the plain path:
+    the logits of the two tokens after ``prompt + want[:p]`` (the flash
+    prefill) within NEAR_TIE_ULPS bf16 ulps of the larger.  Prints and
+    returns the divergence index (None when equal); anything else
+    fails."""
+    if list(got) == list(want):
+        return None
+    n = min(len(got), len(want))
+    p = next((i for i in range(n) if got[i] != want[i]), n)
+    if p == n:
+        fail(f"{what}: {len(got)} ids against {len(want)}")
+    ids = torch.tensor([list(prompt) + list(want[:p])], device="cuda")
+    pos = torch.arange(ids.shape[1], dtype=torch.int32,
+                       device="cuda")[None, :]
+    row = inference._prefill(model, ids, pos)[0][0, -1]
+    a, b = float(row[want[p]]), float(row[got[p]])
+    top = max(abs(a), abs(b), 1e-30)
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    gap = abs(a - b)
+    print(f"{what}: ids equal up to token {p}, then {want[p]} against "
+          f"{got[p]}: the plain path's logits {a:.5f} and {b:.5f}, gap "
+          f"{gap:.5f} = {gap / ulp:.2f} bf16 ulps (near-tie bar "
+          f"{NEAR_TIE_ULPS})", flush=True)
+    if gap > NEAR_TIE_ULPS * ulp:
+        fail(f"{what}: diverged at token {p} where the plain path's "
+             f"choice is no near tie")
+    return p
+
+
+def quant_path(torch, counts, inference, bench_serving, bf16, card):
+    """Phase 7a: Llama-3-8B with int8 and with int4 projections, all 32
+    layers, weights from ``random_quantized_params`` (seed 0) through
+    ``build_model_and_params``: ``greedy_generate`` at the main path's
+    shapes (K4 once a layer in the prefill; the captured decode gives
+    the op-by-op loop's ids), prefill ms, decode tokens/s and the bytes a
+    step must read beside the bf16 figures, and ``bench_serving
+    --engine``'s tokens/s at 8 prompts of 128."""
+    out = {}
+    cfg = bench_serving.CONFIGS["llama3-8b"]
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    prompt = prompt.to("cuda")
+    depth = PROMPT + NEW_TOKENS // 2
+    kv = kv_bytes(cfg, BATCH, depth)
+    bf16_bytes = (cfg.n_params() - cfg.vocab * cfg.d_model) * 2 + kv
+    # the int4 unpack shifts int8 on the card as on the CPU: every byte
+    every = torch.arange(-128, 128, dtype=torch.int8).reshape(16, 16)
+    if not torch.equal(inference.unpack_int4(every.cuda()).cpu(),
+                       inference.unpack_int4(every)):
+        fail("unpack_int4 on the card differs from the CPU's")
+    for kind, flag in QUANT_KINDS:
+        t0 = time.perf_counter()
+        _, model = bench_serving.build_model_and_params(
+            "llama3-8b", MAX_LEN, device="cuda", seed=0, quantized=flag)
+        torch.cuda.synchronize()
+        wbytes = weight_bytes(model)
+        print(f"llama3-8b {kind}: weights built in "
+              f"{time.perf_counter() - t0:.1f} s, {wbytes / 1e9:.3f} GB of "
+              f"projections and scales, "
+              f"{model.embed.weight.numel() * 2 / 1e9:.3f} GB of bf16 "
+              f"embedding; device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+        counts.zero()
+        toks, logits = inference.greedy_generate(model, prompt, NEW_TOKENS)
+        torch.cuda.synchronize()
+        got = counts.read()
+        print(f"{kind} greedy_generate: launches {got}", flush=True)
+        if got != {n: (cfg.n_layers if n == "flash_attn_fwd" else 0)
+                   for n in got}:
+            fail(f"{kind} prefill launches {got}, expected K4 "
+                 f"{cfg.n_layers} times")
+        if not torch.isfinite(logits).all() or \
+                not torch.equal(toks[:, 0].long(), logits[:, -1].argmax(-1)):
+            fail(f"{kind}: non-finite logits or a first token that is not "
+                 "their argmax")
+        del logits
+        graph_vs_eager_decode(torch, inference, model, prompt, toks)
+        stats = inference.decode_throughput(model, prompt, NEW_TOKENS,
+                                            rounds=3)
+        step_ms = 1e3 * BATCH / stats["tokens_per_sec"]
+        need = wbytes + kv
+        print(f"llama3-8b {kind}: prefill {stats['prefill_ms']:.3f} ms "
+              f"(bf16 {bf16['prefill_ms']:.3f}); decode "
+              f"{stats['tokens_per_sec']:.1f} tokens/s at batch {BATCH} "
+              f"(bf16 {bf16['tokens_per_sec']:.1f}), {step_ms:.3f} ms a "
+              f"step; a step must read {need / 1e9:.3f} GB (bf16 "
+              f"{bf16_bytes / 1e9:.3f} GB): {need / step_ms / 1e6:.1f} GB/s"
+              f", {need / PEAK_BYTES * 1e3:.3f} ms at the HBM rate; {card}",
+              flush=True)
+        eng_prompt = torch.randint(
+            0, cfg.vocab, (ENGINE_SLOTS, ENGINE_BENCH_PROMPT),
+            generator=torch.Generator().manual_seed(3))
+        est = bench_serving._engine_throughput(model, eng_prompt.cuda(),
+                                               ENGINE_STEPS)
+        print(f"{kind}: bench_serving --engine --"
+              f"{'int4' if flag == 'int4' else 'quantized'} "
+              f"{est['tokens_per_sec']:.1f} tokens/s at {ENGINE_SLOTS} "
+              f"slots (prompts of {ENGINE_BENCH_PROMPT}, windows of "
+              f"{ENGINE_STEPS}, best of 3); {card}", flush=True)
+        out[kind] = dict(launches=got["flash_attn_fwd"],
+                         prefill_ms=stats["prefill_ms"],
+                         tokens_per_sec=stats["tokens_per_sec"],
+                         step_ms=step_ms, step_bytes=need,
+                         engine_tokens_per_sec=est["tokens_per_sec"])
+        del model, toks
+        _fresh(torch)
+    return out
+
+
+def spec_path(torch, np, obs, inference, llama, bench_serving, serving,
+              scheduler, speculative, engine, card):
+    """Phase 7b: Llama-3-8B bf16 (the main path's weights) with
+    Llama-3.2-1B bf16 as its draft: ``speculative_generate`` on the main
+    path's first prompt, with that draft and with the target as its own,
+    against ``greedy_generate`` (equal ids, or a first divergence at a
+    near tie); the scheduler phase's sixteen requests through
+    ``IterationScheduler`` over ``ServingEngine(n_slots=8, draft=...)``
+    and with ``draft="ngram"`` (the scheduler phase's ids, or a near
+    tie); ``bench_serving --spec``'s figures.  Then both models in f32,
+    where a GEMM's shape moves no argmax: ``speculative_generate`` gives
+    ``greedy_generate``'s ids exactly with either draft, and the target
+    as its own draft accepts every proposal."""
+    cfg, target = bench_serving.build_model_and_params(
+        "llama3-8b", MAX_LEN, device="cuda", seed=0)
+    dcfg, draft = bench_serving.build_model_and_params(
+        SPEC_DRAFT, MAX_LEN, device="cuda", seed=1)
+    print(f"speculative: target llama3-8b, draft {SPEC_DRAFT} "
+          f"({dcfg.n_params() / 1e9:.2f}B parameters, "
+          f"{weight_bytes(draft) / 1e9:.2f} GB bf16), gamma {SPEC_GAMMA}",
+          flush=True)
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1))[0]
+    prompt = prompt.tolist()
+    want = inference.greedy_generate(target, [prompt], NEW_TOKENS)[0]
+    want = want[0].tolist()
+    out = {}
+    for name, d in ((SPEC_DRAFT, draft), ("self", target)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, rate = speculative.speculative_generate(
+            target, d, prompt, NEW_TOKENS, gamma=SPEC_GAMMA)
+        wall = time.perf_counter() - t0
+        ids = ids.tolist()
+        print(f"speculative_generate (bf16, {name} draft): prompt "
+              f"{PROMPT}, {NEW_TOKENS} tokens in {wall:.3f} s, accept rate "
+              f"{rate:.4f}; {card}", flush=True)
+        first_divergence(torch, inference, target, prompt, want, ids,
+                         f"speculative_generate (bf16, {name} draft)")
+        out[f"generate_{name}_s"] = wall
+        out[f"accept_{name}"] = rate
+
+    trace = engine["scheduler"]["trace"]
+    base = engine["scheduler"]["streams"]
+    kw = dict(n_slots=ENGINE_SLOTS, logprobs_k=ENGINE_LOGPROBS, rng=0,
+              max_new_tokens=SCHED_NEW, device="cuda", gamma=SPEC_GAMMA)
+    for name, d in ((SPEC_DRAFT, draft), ("ngram", "ngram")):
+        eng = serving.ServingEngine(target, draft=d, **kw)
+        eng.warm_packed([SCHED_PACK])
+        streams, fig = run_scheduled(torch, np, obs, scheduler, eng, trace,
+                                     True, True, True)
+        st = eng.stats()
+        print(f"scheduler + spec ({name}): {len(trace)} requests in "
+              f"{fig['wall_s']:.3f} s, {fig['tokens']} tokens, "
+              f"{fig['tokens_per_sec']:.1f} tokens/s net of captures "
+              f"(the scheduler phase's overlap arm: "
+              f"{engine['scheduler']['arms']['interleave+packed+overlap']['tokens_per_sec']:.1f}); "
+              f"{st['spec_rounds']} spec rounds, accept rate "
+              f"{eng.accept_rate:.4f}; {card}", flush=True)
+        if not st["spec_rounds"]:
+            fail(f"scheduler + spec ({name}): no spec round ran")
+        diverged = 0
+        for i, (_, p, knobs) in enumerate(trace):
+            if streams[i][0] == base[i][0]:
+                if streams[i][1] != base[i][1]:
+                    fail(f"spec ({name}) request {i}: finish reason "
+                         f"{streams[i][1]} against {base[i][1]}")
+                continue
+            if "temperature" in knobs or "logprobs" in knobs:
+                # never in a spec round: their steps are the phase's
+                fail(f"spec ({name}) request {i} ({knobs}) gave other ids "
+                     "than the scheduler phase's")
+            first_divergence(torch, inference, target, p, base[i][0],
+                             streams[i][0], f"spec ({name}) request {i}")
+            diverged += 1
+        print(f"scheduler + spec ({name}): {len(trace) - diverged} of "
+              f"{len(trace)} requests give the scheduler phase's ids "
+              f"exactly", flush=True)
+        out[f"sched_{name}_tokens_per_sec"] = fig["tokens_per_sec"]
+        out[f"sched_{name}_accept"] = eng.accept_rate
+        del eng
+        _fresh(torch)
+
+    bench_prompt = torch.randint(0, cfg.vocab,
+                                 (ENGINE_SLOTS, ENGINE_BENCH_PROMPT),
+                                 generator=torch.Generator().manual_seed(3))
+    stats = bench_serving._spec_throughput(target, draft, bench_prompt.cuda(),
+                                           SPEC_GAMMA, ENGINE_STEPS)
+    stats.update(config="llama3-8b", draft=SPEC_DRAFT, quantized=False)
+    print(f"bench_serving --spec {SPEC_GAMMA} (its _spec_throughput at "
+          f"{ENGINE_SLOTS} prompts of {ENGINE_BENCH_PROMPT}); {card}",
+          flush=True)
+    print(json.dumps(stats), flush=True)
+    out["bench"] = stats
+    del target, draft
+    _fresh(torch)
+
+    # in f32 the logits carry no bf16 ties and the GEMMs of other shapes
+    # agree far below any gap: the ids must be equal, and the target as
+    # its own draft must accept every proposal
+    dt = torch.float32
+    target = llama.decoder(cfg, max_len=MAX_LEN, dtype=dt, device="cuda")
+    bench_serving.random_init_(target, seed=0)
+    draft = llama.decoder(dcfg, max_len=MAX_LEN, dtype=dt, device="cuda")
+    bench_serving.random_init_(draft, seed=1)
+    want = inference.greedy_generate(target, [prompt], NEW_TOKENS)[0]
+    want = want[0].tolist()
+    for name, d in ((SPEC_DRAFT, draft), ("self", target)):
+        ids, rate = speculative.speculative_generate(
+            target, d, prompt, NEW_TOKENS, gamma=SPEC_GAMMA)
+        print(f"speculative_generate (f32, {name} draft): accept rate "
+              f"{rate:.4f}, ids equal to greedy_generate's: "
+              f"{ids.tolist() == want}; {card}", flush=True)
+        if ids.tolist() != want:
+            fail(f"f32 speculative_generate ({name} draft) gave other ids "
+                 "than greedy_generate")
+        out[f"accept_{name}_f32"] = rate
+    if out["accept_self_f32"] != 1.0:
+        fail(f"in f32 the target as its own draft accepted "
+             f"{out['accept_self_f32']:.4f} of its proposals, not all")
+    del target, draft
+    _fresh(torch)
+    return out
+
+
+def lora_path(torch, np, inference, bench_serving, serving, engine, card):
+    """Phase 7c: Llama-3-8B bf16 (the main path's base weights) with 4
+    adapters of rank 8: the engine phase's eight requests over 8 slots
+    with adapters 0-3 and the base mixed, one captured window, each
+    request's ids those of its run alone in the same engine shape; with
+    no adapter, the engine phase's ids, finish reasons and logprobs."""
+    cfg = bench_serving.CONFIGS["llama3-8b"]
+    model = inference.make_decoder(
+        vocab=cfg.vocab, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_layers=cfg.n_layers, d_ff=cfg.d_ff, max_len=MAX_LEN,
+        n_kv_heads=cfg.n_kv_heads, ffn="swiglu", rope_theta=cfg.rope_theta,
+        n_adapters=LORA_ADAPTERS, lora_rank=LORA_RANK, device="cuda")
+    bench_serving.random_init_(model, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, p in model.named_parameters():
+        if name.endswith("_lora_B"):
+            p.normal_(0.0, LORA_B_SD, generator=gen)
+    reqs = engine_requests(np, model.vocab)
+    kw = dict(n_slots=ENGINE_SLOTS, logprobs_k=ENGINE_LOGPROBS, rng=0,
+              device="cuda")
+
+    base = serving.ServingEngine(model, **kw)
+    for p, knobs in reqs:
+        base.admit(p, **knobs)
+    base.run_scan(ENGINE_STEPS)
+    for s in range(ENGINE_SLOTS):
+        got = (base.output(s), base.finish_reason(s), base.token_logprobs(s))
+        if got != engine["window"][s]:
+            fail(f"lora, no adapter: slot {s} gave {got[0][:8]}... against "
+                 f"the engine phase's {engine['window'][s][0][:8]}...")
+    print(f"lora: with no adapter all {ENGINE_SLOTS} slots give the engine "
+          f"phase's ids, finish reasons and logprobs", flush=True)
+    del base
+    _fresh(torch)
+
+    mixed = serving.ServingEngine(model, **kw)
+    for (p, knobs), a in zip(reqs, LORA_SLOT_ADAPTERS):
+        mixed.admit(p, adapter=a, **knobs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mixed.run_scan(ENGINE_STEPS)
+    window_ms = (time.perf_counter() - t0) * 1e3
+    if mixed.graph_replays != ENGINE_STEPS:
+        fail(f"lora: the mixed window replayed {mixed.graph_replays} times")
+    solo = serving.ServingEngine(model, **kw)
+    changed = 0
+    for s, ((p, knobs), a) in enumerate(zip(reqs, LORA_SLOT_ADAPTERS)):
+        slot = solo.admit(p, adapter=a, **knobs)
+        solo.run_scan(ENGINE_STEPS)
+        got = (solo.output(slot), solo.finish_reason(slot),
+               solo.token_logprobs(slot))
+        solo.release(slot)
+        want = (mixed.output(s), mixed.finish_reason(s),
+                mixed.token_logprobs(s))
+        if got != want:
+            fail(f"lora: slot {s} (adapter {a}) gave {want[0][:8]}... "
+                 f"mixed against {got[0][:8]}... alone")
+        changed += want[0] != engine["window"][s][0]
+    print(f"lora: {LORA_ADAPTERS} adapters and the base over "
+          f"{ENGINE_SLOTS} slots: one captured window of {ENGINE_STEPS} "
+          f"steps in {window_ms:.1f} ms (capture {mixed.capture_ms:.1f} ms "
+          f"of it); every request's ids, finish reason and logprobs equal "
+          f"its run alone; {changed} of the {ENGINE_SLOTS - 1} adapted "
+          f"requests decode other ids than the base; {card}", flush=True)
+    prompt = torch.randint(0, cfg.vocab, (ENGINE_SLOTS, ENGINE_BENCH_PROMPT),
+                           generator=torch.Generator().manual_seed(3))
+    est = bench_serving._engine_throughput(model, prompt.cuda(),
+                                           ENGINE_STEPS)
+    print(f"lora: bench_serving --engine {est['tokens_per_sec']:.1f} "
+          f"tokens/s at {ENGINE_SLOTS} slots with adapters loaded (none "
+          f"asked: the base rows gated off); {card}", flush=True)
+    del model, mixed, solo
+    _fresh(torch)
+    return dict(window_ms=window_ms, changed=changed,
+                engine_tokens_per_sec=est["tokens_per_sec"])
+
+
+def moe_flops_per_step(layers: int, seq: int) -> float:
+    """Analytic FLOPs of one MoE training step on one sequence at
+    MIXTRAL's widths: 6 per weight per token for the attention
+    projections, the router and the LM head; the expert matmuls over the
+    E x C capacity slots (6 per weight per slot); the dispatch
+    contraction 4 FLOPs per (token, expert, slot, feature) (forward and
+    the input's gradient: the one-hot plan takes none) and the f32
+    combine 6 (forward and both gradients); attention 12 * Dh per
+    visible (query, key) pair per head."""
+    m = MIXTRAL
+    d, f, E = m["d_model"], m["d_ff"], m["n_experts"]
+    hd = d // m["n_heads"]
+    kv = m["n_kv_heads"] * hd
+    cap = math.ceil(m["moe_k"] * seq / E * m["moe_capacity_factor"])
+    proj = d * (d + 2 * kv) + d * d + d * E
+    experts = 6 * E * cap * 2 * d * f
+    routing = (4 + 6) * seq * E * cap * d
+    attn = 12 * hd * seq * (seq + 1) // 2 * m["n_heads"]
+    return layers * (6 * proj * seq + experts + routing + attn) + \
+        6 * d * m["vocab"] * seq
+
+
+def moe_path(torch, counts, fa, inference, transformer, serving,
+             bench_serving, card):
+    """Phase 7d: MoE at Mixtral-8x7B's widths.  Training at 2 layers (one
+    8192-token sequence, capacity factor 1.25, so 2560 slots an expert;
+    attention K4 with its lse, then K5 and K6): the launches of one
+    ``lm_train_step``, the loss over a few steps, tokens/s, MFU against
+    ``moe_flops_per_step``, peak memory and the f32 combine's share of
+    the step.  Serving at 4 layers, bf16: ``greedy_generate`` at batch 4
+    (the gather branch: B*k = 8 <= E), its captured decode against the
+    op-by-op loop, and an 8-slot engine (the dense branch) whose
+    captured window gives the op-by-op steps' ids."""
+    import numpy as np
+
+    m = MIXTRAL
+    model = transformer.TransformerLM(
+        vocab=m["vocab"], d_model=m["d_model"], n_heads=m["n_heads"],
+        n_layers=MOE_TRAIN_LAYERS, d_ff=m["d_ff"],
+        attn_fn=fa.flash_causal_attention, n_kv_heads=m["n_kv_heads"],
+        ffn=m["ffn"], rope_theta=m["rope_theta"],
+        n_experts=m["n_experts"], device="cuda", moe_k=m["moe_k"],
+        moe_capacity_factor=m["moe_capacity_factor"])
+    bench_serving.random_init_(model, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    cap = math.ceil(m["moe_k"] * LM_SEQ / m["n_experts"]
+                    * m["moe_capacity_factor"])
+    print(f"moe training: Mixtral-8x7B widths, {MOE_TRAIN_LAYERS} layers, "
+          f"{n_params / 1e9:.3f}B f32 parameters, {m['n_experts']} experts "
+          f"top-{m['moe_k']}, capacity {cap} an expert for {LM_SEQ} tokens",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens, labels, positions = transformer.synthetic_lm_batch(
+        gen, 1, LM_SEQ, m["vocab"])
+    opt = torch.optim.Adam(model.parameters(), lr=LM_LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+
+    def step():
+        return transformer.lm_train_step(model, opt, tokens, labels,
+                                         positions)
+
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    loss = step()
+    torch.cuda.synchronize()
+    got = counts.read()
+    expect = {"flash_attn_fwd": MOE_TRAIN_LAYERS,
+              "flash_attn_dq": MOE_TRAIN_LAYERS,
+              "flash_attn_dkv": MOE_TRAIN_LAYERS}
+    print(f"moe lm_train_step: loss {float(loss):.6f} (aux "
+          f"{float(model.aux_loss().detach()):.6f}); launches {got}",
+          flush=True)
+    if got != {n: expect.get(n, 0) for n in got}:
+        fail(f"MoE training step launches {got}, expected {expect}")
+    losses = [float(loss)] + [float(step()) for _ in range(4)]
+    print(f"moe losses over 5 steps on one batch: "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail("MoE training loss not finite or not falling")
+    for _ in range(MOE_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MOE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOE_STEPS
+    flops = moe_flops_per_step(MOE_TRAIN_LAYERS, LM_SEQ)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, opt, tokens, labels, positions
+    _fresh(torch)
+    # the f32 combine of one layer, forward and backward, at the step's
+    # shapes
+    g = torch.Generator(device="cuda").manual_seed(6)
+    comb = torch.rand(1, LM_SEQ, m["n_experts"], cap, device="cuda",
+                      generator=g).requires_grad_()
+    out = torch.randn(1, m["n_experts"], cap, m["d_model"], device="cuda",
+                      generator=g).requires_grad_()
+    dy = torch.randn(1, LM_SEQ, m["d_model"], device="cuda", generator=g)
+
+    def combine():
+        comb.grad = out.grad = None
+        y = torch.einsum("btec,becd->btd", comb, out)
+        y.backward(dy)
+
+    combine_ms = time_ms(torch, combine, 3)
+    share = combine_ms * MOE_TRAIN_LAYERS / (step_s * 1e3)
+    combine_flops = 6 * LM_SEQ * m["n_experts"] * cap * m["d_model"]
+    del comb, out, dy
+    _fresh(torch)
+    print(f"moe training ({MOE_TRAIN_LAYERS} layers, 1 x {LM_SEQ} tokens): "
+          f"{LM_SEQ / step_s:.1f} tokens/s, {step_s * 1e3:.3f} ms a step "
+          f"over {MOE_STEPS} steps after {MOE_WARMUP} warmup, {flops:.4e} "
+          f"FLOPs a step, MFU {flops / step_s / PEAK_BF16:.4f} (bf16 peak); "
+          f"the f32 combine, forward and backward, {combine_ms:.3f} ms a "
+          f"layer ({combine_flops / combine_ms / 1e9:.1f} TFLOP/s of "
+          f"{PEAK_F32 / 1e12:.0f} outside the tensor cores): share "
+          f"{share:.3f} of the step; peak memory {peak:.1f} GiB; {card}",
+          flush=True)
+    result = dict(train_launches=got, tokens_per_sec=LM_SEQ / step_s,
+                  step_ms=step_s * 1e3, mfu=flops / step_s / PEAK_BF16,
+                  combine_share=share, peak_gib=peak)
+
+    serve = inference.make_decoder(
+        vocab=m["vocab"], d_model=m["d_model"], n_heads=m["n_heads"],
+        n_layers=MOE_SERVE_LAYERS, d_ff=m["d_ff"], max_len=MAX_LEN,
+        n_experts=m["n_experts"], moe_k=m["moe_k"],
+        moe_capacity_factor=m["moe_capacity_factor"],
+        n_kv_heads=m["n_kv_heads"], ffn=m["ffn"],
+        rope_theta=m["rope_theta"], device="cuda")
+    bench_serving.random_init_(serve, seed=0)
+    prompt = torch.randint(0, m["vocab"], (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    prompt = prompt.to("cuda")
+    counts.zero()
+    toks, logits = inference.greedy_generate(serve, prompt, NEW_TOKENS)
+    torch.cuda.synchronize()
+    got = counts.read()
+    if got["flash_attn_fwd"] != MOE_SERVE_LAYERS or \
+            not torch.isfinite(logits).all():
+        fail(f"moe greedy_generate: launches {got}, or non-finite logits")
+    del logits
+    graph_vs_eager_decode(torch, inference, serve, prompt, toks)
+    stats = inference.decode_throughput(serve, prompt, NEW_TOKENS, rounds=3)
+    print(f"moe serving ({MOE_SERVE_LAYERS} layers, bf16): greedy_generate "
+          f"at batch {BATCH} (the gather branch, B*k = "
+          f"{BATCH * m['moe_k']} <= E = {m['n_experts']}): launches {got}; "
+          f"prefill {stats['prefill_ms']:.3f} ms, decode "
+          f"{stats['tokens_per_sec']:.1f} tokens/s; {card}", flush=True)
+    reqs = engine_requests(np, m["vocab"])
+    engines = []
+    for graphs in (True, False):
+        eng = serving.ServingEngine(serve, n_slots=ENGINE_SLOTS,
+                                    logprobs_k=ENGINE_LOGPROBS, rng=0,
+                                    device="cuda")
+        eng._use_graphs = graphs
+        eng.warm_packed([1])
+        _admit_all(torch, eng, reqs)
+        engines.append(eng)
+    graph, eager = engines
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.run_scan(MOE_ENGINE_STEPS)
+    window_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(MOE_ENGINE_STEPS):
+        eager.step()
+    if graph.graph_replays != MOE_ENGINE_STEPS:
+        fail(f"moe engine: {graph.graph_replays} replays")
+    for s in range(ENGINE_SLOTS):
+        if (graph.output(s), graph.token_logprobs(s),
+                graph.finish_reason(s)) != (eager.output(s),
+                                            eager.token_logprobs(s),
+                                            eager.finish_reason(s)):
+            fail(f"moe engine: slot {s}: the captured window's ids "
+                 f"{graph.output(s)[:8]}... differ from the op-by-op "
+                 f"steps' {eager.output(s)[:8]}...")
+    print(f"moe engine: {ENGINE_SLOTS} slots (the dense branch, B*k = "
+          f"{ENGINE_SLOTS * m['moe_k']} > E), one captured window of "
+          f"{MOE_ENGINE_STEPS} steps in {window_ms:.1f} ms (capture "
+          f"{graph.capture_ms:.1f} ms of it) gives the op-by-op steps' "
+          f"ids, logprobs and finish reasons in every slot; {card}",
+          flush=True)
+    result.update(serve_launches=got, serve_tokens_per_sec=
+                  stats["tokens_per_sec"], engine_window_ms=window_ms)
+    del serve, engines, graph, eager
+    _fresh(torch)
+    return result
+
+
+def rest_of_model_path(torch, counts, fa, inference, llama, transformer,
+                       bench_serving, serving, scheduler, speculative, obs,
+                       bf16, engine, card):
+    """Phase 7: the rest of the model, with no other model resident."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = dict(
+        quant=quant_path(torch, counts, inference, bench_serving, bf16,
+                         card),
+        spec=spec_path(torch, np, obs, inference, llama, bench_serving,
+                       serving, scheduler, speculative, engine, card),
+        lora=lora_path(torch, np, inference, bench_serving, serving, engine,
+                       card),
+        moe=moe_path(torch, counts, fa, inference, transformer, serving,
+                     bench_serving, card))
+    print(f"rest of the model: phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2661,7 +3250,7 @@ def main() -> int:
     from tpu_k8s_device_plugin_torch import build, obs
     from tpu_k8s_device_plugin_torch.workloads import (
         alexnet, bench_main, bench_serving, grammar, inference, llama,
-        scheduler, serving, transformer)
+        scheduler, serving, speculative, transformer)
     from tpu_k8s_device_plugin_torch.workloads import convpool as cp
     from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
     from tpu_k8s_device_plugin_torch.workloads import pool as mp
@@ -2694,14 +3283,18 @@ def main() -> int:
     flash_train = check_flash_training(torch, fa)
     pool = check_pool(torch, mp)
     conv_pool = check_conv_pool(torch, cp)
-    launches, _, engine = main_path(torch, counts, inference, llama,
-                                    bench_serving, serving, grammar, obs,
-                                    scheduler, card)
+    launches, bf16, engine = main_path(torch, counts, inference, llama,
+                                       bench_serving, serving, grammar, obs,
+                                       scheduler, card)
     torch.cuda.empty_cache()
     train, train_modes = training_path(torch, counts, alexnet, bench_main)
     torch.cuda.empty_cache()
     lm = lm_training_path(torch, counts, fa, llama, transformer,
                           bench_serving)
+    torch.cuda.empty_cache()
+    rest = rest_of_model_path(torch, counts, fa, inference, llama,
+                              transformer, bench_serving, serving, scheduler,
+                              speculative, obs, bf16, engine, card)
     torch.cuda.empty_cache()
     fleet_path(torch, llama.LLAMA3_8B, engine["scheduler"], card)
 
@@ -2714,13 +3307,23 @@ def main() -> int:
              launches=launches, **flash,
              note="launches and times: greedy_generate's prefill, without "
                   "the lse write; under lse_mode, the same for one "
-                  "lm_train_step, whose forward writes the lse",
+                  "lm_train_step, whose forward writes the lse; the "
+                  "launches_* keys count the same kernel on the int8, int4 "
+                  "and MoE prefills and the MoE training step",
+             launches_int8_prefill=rest["quant"]["int8"]["launches"],
+             launches_int4_prefill=rest["quant"]["int4"]["launches"],
+             launches_moe_prefill=rest["moe"]["serve_launches"][
+                 "flash_attn_fwd"],
              lse_mode=dict(launches=lm["flash_attn_fwd"],
+                           launches_moe_train=rest["moe"][
+                               "train_launches"]["flash_attn_fwd"],
                            **flash_train["lse"])),
         dict(name="flash_attn_dq", route="cuda",
              source=csrc + "flash_attn_bwd.cu",
              replaces=ref + "flash_attention.py:208",
              launches=lm["flash_attn_dq"], **flash_train["dq"],
+             launches_moe_train=rest["moe"]["train_launches"][
+                 "flash_attn_dq"],
              note="plain_ms is the plain backward (dQ, dK and dV) at the "
                   "head slice; library_ms is sdpa's whole backward, the "
                   "yardstick for K5 and K6 together"),
@@ -2728,6 +3331,8 @@ def main() -> int:
              source=csrc + "flash_attn_bwd.cu",
              replaces=ref + "flash_attention.py:254",
              launches=lm["flash_attn_dkv"], **flash_train["dkv"],
+             launches_moe_train=rest["moe"]["train_launches"][
+                 "flash_attn_dkv"],
              note="plain_ms is the plain backward (dQ, dK and dV) at the "
                   "head slice; library_ms is sdpa's whole backward, the "
                   "yardstick for K5 and K6 together"),

@@ -1,7 +1,7 @@
 """The port's entry points take the JAX package's arguments, in its order
 and with its defaults; a reference field the port does not implement yet
-raises ``NotImplementedError`` naming its ROADMAP item, not
-``TypeError``; generation returns the reference's int32 ids; and the
+(the mesh, tensor parallelism, checkpoints) raises
+``NotImplementedError`` naming its ROADMAP item, not ``TypeError``; generation returns the reference's int32 ids; and the
 AlexNet workload imports nothing of the LM side.
 
 All on the CPU; the JAX side runs with ``JAX_PLATFORMS=cpu``."""
@@ -98,11 +98,43 @@ def test_server_cli_options_match_reference(monkeypatch):
     (["--quantized"], "item 1b"), (["--int4"], "item 1b"),
     (["--draft-config", "tiny-draft"], "item 1b"),
     (["--spec-ngram", "3"], "item 1b")])
-def test_server_cli_unported_options_raise(flags, item):
-    """Each option of a feature the port does not have raises naming its
-    ROADMAP item before a model is built."""
-    with pytest.raises(NotImplementedError, match=item):
-        tserver.main(["--config", "tiny", "--device", "cpu", *flags])
+def test_server_cli_unported_options_raise(flags, item, monkeypatch):
+    """``--tp`` (item 6) and ``--checkpoint`` (item 7) raise naming their
+    ROADMAP item before a model is built.  The options of item 1b are
+    ported: each builds its engine (int8 or int4 weights, a draft model,
+    n-gram speculation), which the CLI hands to the server it starts
+    (stopped here at the start)."""
+    if item != "item 1b":
+        with pytest.raises(NotImplementedError, match=item):
+            tserver.main(["--config", "tiny", "--device", "cpu", *flags])
+        return
+    built = {}
+
+    class Started(Exception):
+        pass
+
+    def start(self, host, port):
+        built["engine"] = self.engine
+        raise Started
+
+    monkeypatch.setattr(tserver.EngineServer, "start", start)
+    with pytest.raises(Started):
+        tserver.main(["--config", "tiny", "--device", "cpu",
+                      "--max-len", "64", *flags])
+    eng = built["engine"]
+    if flags[0] in ("--quantized", "--int4"):
+        assert eng.model.quantized == ("int4" if flags[0] == "--int4"
+                                       else True)
+    elif flags[0] == "--draft-config":
+        assert eng._draft_model is not None and eng.gamma == 4
+    else:
+        assert eng._ngram and eng.ngram_n == 3
+    s = eng.admit([1, 2, 3, 1, 2])
+    if eng.spec_ready():
+        eng.spec_round()
+    else:
+        eng.step()
+    assert len(eng.output(s)) >= 2
 
 
 def test_server_cli_refuses_cpu_fallback(monkeypatch):
@@ -148,25 +180,38 @@ def test_reference_fields_build_with_their_features_off(build):
 ])
 @pytest.mark.parametrize("build", ["make_decoder", "DecodeTransformerLM"])
 def test_reference_fields_raise_not_implemented(build, kw, item):
-    """The fields of unported features raise naming their ROADMAP item;
-    ``kv_quant`` (item 4, the paged engine) is ported now: alone it is
-    accepted and recorded, as the reference's decoder takes it."""
+    """The fields of items 3 (experts), 1b (adapters) and 4 (``kv_quant``)
+    are ported now: each builds a decoder carrying them, with the
+    reference's parameter names (``moe.experts_up``, ``qkv_lora_A``) and
+    shapes."""
     fn = SIGNATURES[build][0]
+    model = fn(**GELU, device="cpu", **kw)
     if "kv_quant" in kw:
-        assert fn(**GELU, device="cpu", **kw).kv_quant is True
+        assert model.kv_quant is True
         return
-    with pytest.raises(NotImplementedError, match=item):
-        fn(**GELU, device="cpu", **kw)
+    names = dict(model.named_parameters())
+    if "n_experts" in kw:
+        moe = model.block_0.moe
+        assert moe.k == kw.get("moe_k", 2)
+        assert moe.capacity_factor == kw.get("moe_capacity_factor", 1.25)
+        assert tuple(names["block_0.moe.experts_up"].shape) == (4, 32, 64)
+        return
+    rank = kw.get("lora_rank", 8)
+    assert model.block_1.lora_scale == kw.get("lora_scale", 1.0)
+    assert tuple(names["block_0.qkv_lora_A"].shape) == (2, 32, rank)
+    assert tuple(names["block_1.mlp_down_lora_B"].shape) == (2, rank, 32)
 
 
 def test_quantized_by_position_raises():
     """The reference's positional calls name ``quantized`` in third
-    (decoder) and second (run) place; the port raises for it there
-    instead of taking it as a dtype or a batch."""
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tllama.decoder(tllama.TINY_LLAMA, 32, True, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="--quantized"):
-        tbench.run("tiny", True, 1, 2, 4, 16, device="cpu")
+    (decoder) and second (run) place; the port takes it there too
+    instead of as a dtype or a batch (int8 projections, an int8 run)."""
+    model = tllama.decoder(tllama.TINY_LLAMA, 32, True, torch.float32, "cpu")
+    assert model.quantized is True
+    assert model.block_0.qkv.kernel_int8.dtype == torch.int8
+    assert model.dtype == torch.float32
+    stats = tbench.run("tiny", True, 1, 2, 4, 16, device="cpu")
+    assert stats["quantized"] is True and stats["tokens_per_sec"] > 0
     stats = tbench.run("tiny", False, 1, 2, 4, 16, device="cpu")
     assert stats["device"] == "cpu" and stats["tokens_per_sec"] > 0
 

@@ -1,9 +1,8 @@
-"""Randomized engine fuzz on the port, mirroring tests/test_engine_fuzz.py
-without the draft (speculative decoding waits for ROADMAP item 1b).
+"""Randomized engine fuzz on the port, mirroring tests/test_engine_fuzz.py.
 
 Every request's output is independent of its neighbours, the admission
 order and which decode APIs happened to run (``step``, ``run_scan``,
-``jump_round``).  Random admits (greedy, seeded sampling, grammar
+``spec_round`` with n-gram proposals, ``jump_round``).  Random admits (greedy, seeded sampling, grammar
 constraints, stop ids, min_tokens, ignore_eos) go into random mixes of
 those calls with random releases, and every retired request is checked
 token for token against a solo single-slot engine running it alone.
@@ -147,10 +146,11 @@ def _solo(model, dfa, max_new, prompt, kw):
 def test_random_interleavings_match_solo_oracles(models):
     model, dfa = models
     rnd = random.Random(SEED)
-    checked = jumped = 0
+    checked = jumped = spec = 0
     for trial in range(3):
         max_new = rnd.randint(5, 8)
-        eng = _engine(model, dfa, 3, max_new, jump_len=4)
+        eng = _engine(model, dfa, 3, max_new, jump_len=4, draft="ngram",
+                      gamma=3)
         live, done = {}, []
 
         def harvest():
@@ -168,12 +168,15 @@ def test_random_interleavings_match_solo_oracles(models):
                 live[s] = (prompt, kw)
             elif op < 0.5:
                 eng.step()
-            elif op < 0.75:
+            elif op < 0.7:
                 n = rnd.randint(1, 4)
                 if any(eng.active) and all(
                         eng.lens[s] + n <= MAX_LEN
                         for s in range(3) if eng.active[s]):
                     eng.run_scan(n)
+            elif op < 0.8 and eng.spec_ready():
+                eng.spec_round()
+                spec += 1
             elif op < 0.9 and eng.forced_pending():
                 if eng.jump_round() is not None:
                     jumped += 1
@@ -193,7 +196,7 @@ def test_random_interleavings_match_solo_oracles(models):
             checked += 1
     assert checked >= (10 if SEED == 2026 else 1), checked
     if SEED == 2026:
-        assert jumped >= 1
+        assert jumped >= 1 and spec >= 1, (jumped, spec)
 
 
 def _sched_run(model, dfa, trace, max_new, interleave, packed, overlap,

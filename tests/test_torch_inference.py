@@ -172,14 +172,21 @@ def test_bf16_prefill_close(trained):
 
 
 def test_unported_features_raise():
-    """Quantized weights, experts and adapters raise naming their slice.
-    The paged pool is ported: a ``kv_page_size`` decoder builds, its
-    extend needs block tables and its prefill raises as the
-    reference's does; a contiguous decoder ignores block tables."""
+    """Quantized weights, experts and adapters are ported now: each
+    builds a decoder that generates.  The paged pool is ported: a
+    ``kv_page_size`` decoder builds, its extend needs block tables and
+    its prefill raises as the reference's does; a contiguous decoder
+    ignores block tables."""
     for kw in (dict(quantized=True), dict(quantized="int4"),
                dict(n_experts=4), dict(n_adapters=2)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tinf.DecodeTransformerLM(**GELU, device="cpu", **kw)
+        model = tinf.DecodeTransformerLM(**GELU, max_len=16, device="cpu",
+                                         dtype=torch.float32, **kw)
+        gen = torch.Generator().manual_seed(1)
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        ids, _ = tinf.greedy_generate(model, [[1, 2, 3]], 4)
+        assert tuple(ids.shape) == (1, 4)
     paged = tinf.DecodeTransformerLM(**GELU, device="cpu", kv_page_size=8)
     pool = tinf.init_pool_cache(paged, 1, 4, 8)
     tok = torch.zeros(1, 1, dtype=torch.long)
@@ -194,10 +201,11 @@ def test_unported_features_raise():
     for p in tdec.parameters():
         p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
     cache = tinf.init_cache(tdec, 1)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tinf.extend_step(tdec, cache, tok, pos,
-                         adapter_ids=torch.zeros(1, dtype=torch.int32))
     want, _ = tinf.extend_step(tdec, tinf.init_cache(tdec, 1), tok, pos)
+    # a decoder without adapters ignores adapter ids, as the reference's
+    got, _ = tinf.extend_step(tdec, tinf.init_cache(tdec, 1), tok, pos,
+                              adapter_ids=torch.zeros(1, dtype=torch.int32))
+    assert torch.equal(got, want)
     got, _ = tinf.extend_step(
         tdec, cache, tok, pos,
         block_tables=torch.zeros(1, 2, dtype=torch.int32))
@@ -205,10 +213,23 @@ def test_unported_features_raise():
 
 
 def test_converter_rejects_quantized_tree():
-    tree = {"block_0": {"qkv": {"kernel_int8": np.zeros((4, 8), np.int8),
-                                "scale": np.ones(8, np.float32)}}}
-    with pytest.raises(NotImplementedError, match="quantized"):
-        params_from_jax(tree)
+    """Quantized trees convert now: an int8 kernel keeps its [in, out]
+    layout and dtype (a packed int4 one too: never transposed), its
+    scale is as it is; a leaf of no LM layer is still refused."""
+    w8 = np.arange(32, dtype=np.int8).reshape(4, 8)
+    w4 = np.arange(16, dtype=np.int8).reshape(4, 4)
+    tree = {"block_0": {"qkv": {"kernel_int8": w8,
+                                "scale": np.ones(8, np.float32)},
+                        "mlp_up": {"kernel_int4": w4,
+                                   "scale": np.ones((1, 8), np.float32)}}}
+    sd = params_from_jax(tree)
+    assert sd["block_0.qkv.kernel_int8"].dtype == torch.int8
+    np.testing.assert_array_equal(sd["block_0.qkv.kernel_int8"].numpy(), w8)
+    np.testing.assert_array_equal(sd["block_0.mlp_up.kernel_int4"].numpy(),
+                                  w4)
+    assert sd["block_0.qkv.scale"].dtype == torch.float32
+    with pytest.raises(ValueError, match="not an LM parameter"):
+        params_from_jax({"block_0": {"qkv": {"bias": np.ones(8)}}})
 
 
 def test_decode_throughput_smoke(trained):
@@ -249,7 +270,17 @@ def test_bench_serving_cli(capsys):
                         "--max-len", "32"]) == 0
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["device"] == "cpu" and stats["tokens_per_sec"] > 0
-    for flag in (["--spec", "2"], ["--quantized"]):
-        with pytest.raises(SystemExit):
-            tbench.main(["--config", "tiny", "--device", "cpu", *flag])
-        assert "not yet ported" in capsys.readouterr().err
+    # --spec, --quantized and --int4 are ported: each prints its JSON line
+    for flag, key in ((["--spec", "2"], "breakeven_accept"),
+                      (["--quantized"], "tokens_per_sec"),
+                      (["--int4", "--engine"], "tokens_per_sec")):
+        assert tbench.main(["--config", "tiny", "--device", "cpu",
+                            "--prompt-len", "8", "--steps", "4",
+                            "--max-len", "64", *flag]) == 0
+        stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert stats[key] >= 0 and stats["device"] == "cpu"
+    assert stats["quantized"] == "int4"
+    with pytest.raises(SystemExit):
+        tbench.main(["--config", "tiny", "--device", "cpu", "--quantized",
+                     "--int4"])
+    assert "mutually exclusive" in capsys.readouterr().err

@@ -364,15 +364,52 @@ def test_large_finite_scratch_rows_do_not_move_ids(setup, kv_dtype):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda eng: eng.spec_round(), "item 1b"),
-    (lambda eng: eng.admit([1, 2, 3], adapter=0), "item 1b"),
+    ("spec_round", "item 1b"),
+    ("adapter", "item 1b"),
 ], ids=["spec_round", "adapter"])
 def test_lora_spec_and_scheduler_paths_raise(setup, call, item):
-    """What tests/test_kv_paging.py runs with LoRA or speculative
-    decoding waits for ROADMAP item 1b (its packed-prefill and scheduler
-    cases run on the port in tests/test_torch_scheduler.py)."""
-    eng = _port(setup)
-    with pytest.raises(NotImplementedError, match=item):
-        call(eng)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        _port(setup, draft="ngram")
+    """tests/test_kv_paging.py's LoRA and n-gram speculative cases
+    (ROADMAP item 1b, ported now): the paged engine gives the contiguous
+    engine's ids and the JAX paged engine's (its packed-prefill and
+    scheduler cases run on the port in tests/test_torch_scheduler.py)."""
+    jm, params, _ = setup
+    if call == "spec_round":
+        def run(make, paged):
+            eng = make(paged)
+            a = eng.admit([7, 8, 9, 7, 8, 9, 7, 8])
+            b = eng.admit(list(range(30, 40)))
+            while any(eng.active):
+                eng.spec_round()
+            return eng.output(a), eng.output(b), eng.stats()["spec_rounds"]
+
+        kw = dict(n_slots=2, chunk=8, max_new_tokens=10, draft="ngram",
+                  gamma=3, auto_prefix_min=4)
+        got = run(lambda p: ServingEngine(setup[2], kv_paging=p,
+                                          device="cpu", **kw), True)
+        assert got == run(lambda p: ServingEngine(
+            setup[2], kv_paging=p, device="cpu", **kw), False)
+        assert got == run(lambda p: JEngine(jm, params, kv_paging=p, **kw),
+                          True)
+        assert got[2] >= 1
+        return
+    from tpu_k8s_device_plugin.workloads.inference import attach_lora
+
+    jl = make_decoder(**CFG, max_len=MAX_LEN, dtype=jnp.float32,
+                      n_adapters=2)
+    lparams = jax.tree_util.tree_map(
+        np.asarray, attach_lora(params, jl, jax.random.PRNGKey(3)))
+    tl = tinf.make_decoder(**CFG, max_len=MAX_LEN, dtype=torch.float32,
+                           n_adapters=2, device="cpu")
+    tl.load_state_dict(params_from_jax(lparams))
+
+    def run(eng):
+        a = eng.admit(list(range(1, 10)), adapter=0)
+        b = eng.admit(list(range(1, 10)), adapter=1)
+        while any(eng.active):
+            eng.step()
+        return eng.output(a), eng.output(b)
+
+    kw = dict(n_slots=2, chunk=8, max_new_tokens=6, auto_prefix_min=4)
+    got = run(ServingEngine(tl, kv_paging=True, device="cpu", **kw))
+    assert got == run(ServingEngine(tl, kv_paging=False, device="cpu", **kw))
+    assert got == run(JEngine(jl, lparams, kv_paging=True, **kw))

@@ -53,6 +53,8 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert "tpu_k8s_device_plugin_torch/workloads/inference.py" in names
     assert "tpu_k8s_device_plugin_torch/workloads/serving.py" in names
+    assert "tpu_k8s_device_plugin_torch/workloads/moe.py" in names
+    assert "tpu_k8s_device_plugin_torch/workloads/speculative.py" in names
     assert all(p.exists() for p in _port_files())
 
 
@@ -132,8 +134,8 @@ def test_http_tier_imports_nothing_of_jax():
     """In a fresh interpreter, the HTTP and fleet tiers of the port (the
     server, the session tier, the load client, ``obs``, ``resilience``,
     the router, replay, the fleet reconciler, the trace generator and
-    the slice-membership reader) load neither JAX nor the JAX
-    package."""
+    the slice-membership reader) and the model's expert FFN and
+    speculative decoding load neither JAX nor the JAX package."""
     import subprocess
     import sys
 
@@ -149,6 +151,8 @@ def test_http_tier_imports_nothing_of_jax():
             "import tpu_k8s_device_plugin_torch.workloads.fleet\n"
             "import tpu_k8s_device_plugin_torch.workloads.trafficgen\n"
             "import tpu_k8s_device_plugin_torch.slice\n"
+            "import tpu_k8s_device_plugin_torch.workloads.moe\n"
+            "import tpu_k8s_device_plugin_torch.workloads.speculative\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax',\n"
             "        'tpu_k8s_device_plugin')]\n"

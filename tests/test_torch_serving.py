@@ -587,12 +587,20 @@ def test_engine_level_errors_match_reference(gelu):
     (dict(kv_dtype="int8"), "item 4.2"),
 ])
 def test_unported_engine_arguments_raise(gelu, kw, item):
-    """Arguments of features not ported yet raise naming their ROADMAP
-    item; those of item 4.2 (grammars, the paged pool, int8 pages) are
-    ported now and build an engine that decodes."""
-    if item != "item 4.2":
+    """``mesh`` (item 6) raises naming its ROADMAP item; the arguments of
+    items 4.2 (grammars, the paged pool, int8 pages) and 1b (a draft)
+    are ported now and build an engine that decodes."""
+    if item == "item 6":
         with pytest.raises(NotImplementedError, match=item):
             _port(gelu[2], n_slots=1, **kw)
+        return
+    if item == "item 1b":
+        eng = _port(gelu[2], n_slots=1, **kw)
+        s = eng.admit([1, 2, 3, 1, 2])
+        assert eng.spec_ready()
+        eng.spec_round()
+        assert len(eng.output(s)) >= 2
+        assert eng.stats()["spec_rounds"] == 1
         return
     if "grammar" in kw:
         kw = dict(grammar=tgrammar.token_dfa(
@@ -612,8 +620,10 @@ def test_unported_engine_arguments_raise(gelu, kw, item):
     (dict(prompt_logprobs=2), "item 4.2"),
 ])
 def test_unported_request_arguments_raise(gelu, kw, item):
-    """admit's adapter raises naming item 1b and leaves the slot free;
-    the request arguments of item 4.2 are ported now and admit."""
+    """admit's adapter (item 1b) is ported now: on a model without
+    adapters it raises ``ValueError`` and leaves the slot free, as the
+    reference's does; the request arguments of item 4.2 are ported and
+    admit."""
     eng = _port(gelu[2], n_slots=1, logprobs_k=2)
     if item == "item 4.2":
         if "grammar" in kw:
@@ -625,10 +635,10 @@ def test_unported_request_arguments_raise(gelu, kw, item):
         if "prompt_logprobs" in kw:
             assert len(eng.prompt_logprobs(s)) == 3
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="n_adapters"):
         eng.admit([1, 2, 3], **kw)
     assert eng.free_slots() == [0]
-    with pytest.raises(NotImplementedError, match="item 1b"):
+    with pytest.raises(ValueError, match="n_adapters"):
         eng.register_prefix([1, 2], adapter=1)
 
 

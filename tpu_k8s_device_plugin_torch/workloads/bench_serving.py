@@ -23,8 +23,12 @@ fused decode loop off against on) are its in-process A/Bs, and
 ``--router-kill`` and ``--assert-scaling``), ``--disagg`` (with
 ``--assert-disagg``) and ``--cold-start`` spawn replicas of the port's
 server CLI, on ``--device`` (default CUDA), behind the port's router or
-alone.  The speculative and quantized modes are not yet ported: they
-exit naming their ROADMAP item.
+alone.  ``--quantized`` (weight-only int8) and ``--int4`` build the
+model directly in that layout (``llama.random_quantized_params``), in
+every mode that builds one.  ``--spec GAMMA`` measures speculative
+rounds through the engine with the paired draft (``DRAFT_FOR``): the
+round and plain-step times, the break-even accept rate and the implied
+tokens/s over accept rates.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 
 from . import llama
 from .inference import decode_throughput
-from .transformer import _fill_, _unported, resolve_device
+from .transformer import _fill_, resolve_device
 
 CONFIGS = {
     "llama3-8b": llama.LLAMA3_8B,
@@ -48,34 +52,76 @@ CONFIGS = {
     "tiny-draft": llama.TINY_DRAFT,
 }
 
+# the draft each config is paired with for --spec (same vocabulary)
+DRAFT_FOR = {
+    "llama3-8b": "llama3-1b",
+    "tiny": "tiny-draft",
+}
+
 @torch.no_grad()
 def random_init_(model: torch.nn.Module, seed: int = 0) -> None:
     """Random weights at flax's initializer scales, made on the model's
     device from *seed*: Dense weights lecun-normal (truncated normal,
     sd 1/sqrt(fan_in)), the embedding the flax Embed default (normal,
-    sd 1/sqrt(d_model)), norm scales 1.  Each leaf is written in the
-    model dtype directly; no f32 copy of the model is made."""
+    sd 1/sqrt(d_model)), norm scales 1; the MoE router and expert stacks
+    lecun-normal over their input dim, LoRA A normal with sd 0.01 and B
+    zeros (the JAX initialisers).  Each leaf is written in the model
+    dtype directly; no f32 copy of the model is made.  Quantized models
+    take ``llama.random_quantized_params`` instead."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    for name, p in model.named_parameters():
+    # the adapter stacks draw last, so a model's base weights are those
+    # of the same model without adapters from the same seed
+    params = sorted(model.named_parameters(),
+                    key=lambda kv: "_lora_" in kv[0])
+    for name, p in params:
+        leaf = name.rpartition(".")[2]
+        if p.dtype == torch.int8 or leaf.endswith("_scale") or (
+                leaf == "scale" and not name.endswith("_norm.scale")):
+            raise ValueError(f"{name}: quantized models take "
+                             "llama.random_quantized_params")
         if name.endswith("_norm.scale"):
             p.fill_(1.0)
         elif name == "embed.weight":
             _fill_(p, gen, 1.0 / math.sqrt(p.shape[1]), truncated=False)
+        elif leaf.endswith("_lora_A"):
+            _fill_(p, gen, 0.01, truncated=False)
+        elif leaf.endswith("_lora_B"):
+            p.zero_()
+        elif leaf in ("router", "experts_up", "experts_down"):
+            # [D, E], [E, D, F], [E, F, D]: fan-in is the dim before last
+            _fill_(p, gen, 1.0 / math.sqrt(p.shape[-2]), truncated=True)
         else:  # Dense weight [out, in]
             _fill_(p, gen, 1.0 / math.sqrt(p.shape[1]), truncated=True)
 
 
 def build_model_and_params(config: str, max_len: int, device=None,
-                           seed: int = 0):
-    """``(cfg, model)`` for a named config with random bf16 weights
-    built directly on *device* (CUDA unless given).  The model holds its
-    weights, so there is no separate params tree."""
+                           seed: int = 0, quantized=False):
+    """``(cfg, model)`` for a named config with random weights built
+    directly on *device* (CUDA unless given): bf16, or with *quantized*
+    (True for int8, ``"int4"``) the quantized layout from
+    ``llama.random_quantized_params``, so no bf16 copy is made.  The
+    model holds its weights, so there is no separate params tree."""
     cfg = CONFIGS[config]
-    model = llama.decoder(cfg, max_len=max_len, device=device)
-    random_init_(model, seed)
+    model = llama.decoder(cfg, max_len=max_len, quantized=quantized,
+                          device=device)
+    if quantized:
+        params = llama.random_quantized_params(
+            cfg, seed=seed, bits=4 if quantized == "int4" else 8,
+            device=model.device)
+        model.load_state_dict(params)
+        del params
+    else:
+        random_init_(model, seed)
     return cfg, model
+
+
+def _quant_args(quantized) -> list:
+    """The server CLI's flag for *quantized*."""
+    if quantized == "int4":
+        return ["--int4"]
+    return ["--quantized"] if quantized else []
 
 
 # windows the engine benchmark runs: one warm-up, then the timed rounds
@@ -112,6 +158,69 @@ def _engine_throughput(model, prompt, steps: int,
         "steps": float(steps),
         "engine": True,
     }
+
+
+def _spec_throughput(model, draft_model, prompt, gamma: int, steps: int,
+                     rounds: int = _ENGINE_ROUNDS):
+    """Speculative-round economics through the engine.  Random weights
+    make the measured accept rate meaningless, but a round's time does
+    not depend on the data, so this reports a plain step's time (one
+    timed window of *steps*, after a warm-up window) and a round's (best
+    of *rounds*, after a warm-up round) and the throughput they imply
+    over accept rates, with the break-even accept probability:
+
+        E[commit | p] = 1 + sum_{k=1..gamma} p^k
+        tokens/sec(p) = batch * E[commit | p] / t_round
+        break-even:     E[commit | p*] = t_round / t_step
+
+    The plain step is a window of *steps* replays of the captured step
+    on CUDA; the spec round runs op by op."""
+    from .serving import ServingEngine
+
+    batch = prompt.shape[0]
+    eng = ServingEngine(model, n_slots=batch, draft=draft_model,
+                        gamma=gamma, device=model.device)
+    prompt_host = prompt.cpu().numpy()
+    for b in range(batch):
+        eng.admit(prompt_host[b].tolist())
+    eng.run_scan(steps)  # the captures
+    t0 = time.perf_counter()
+    eng.run_scan(steps)  # its harvest waits for the device
+    t_step = (time.perf_counter() - t0) / steps
+    eng.spec_round()     # warm propose and verify
+    best = None
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        eng.spec_round()  # reads the verify's argmaxes
+        dt = time.perf_counter() - t0
+        best = dt if best is None or dt < best else best
+
+    def commit(p):
+        return 1.0 + sum(p ** k for k in range(1, gamma + 1))
+
+    # the break-even accept rate: bisect E[commit | p] = t_round / t_step
+    ratio = best / t_step
+    if ratio <= 1.0:
+        breakeven = 0.0
+    elif ratio >= commit(1.0):
+        breakeven = 1.0
+    else:
+        lo, hi = 0.0, 1.0
+        for _ in range(40):
+            mid = (lo + hi) / 2
+            lo, hi = (mid, hi) if commit(mid) < ratio else (lo, mid)
+        breakeven = (lo + hi) / 2
+    out = {
+        "spec_round_ms": best * 1e3,
+        "plain_step_ms": t_step * 1e3,
+        "gamma": float(gamma),
+        "batch": float(batch),
+        "breakeven_accept": breakeven,
+        "measured_accept": eng.accept_rate,
+    }
+    for p in (0.5, 0.8, 1.0):
+        out[f"tokens_per_sec_at_accept_{p}"] = batch * commit(p) / best
+    return out
 
 
 def _percentile(xs, q):
@@ -571,10 +680,10 @@ def _spawn_replica(config, quantized, idx, port, router_port, slots,
     its command line."""
     from .loadclient import server_cmd, spawn_replica
 
-    _unported(quantized=quantized)
     cmd = server_cmd(
         device,
         "--config", config,
+        *_quant_args(quantized),
         "--n-slots", str(slots),
         "--max-len", str(max_len),
         "--max-new-tokens", str(steps),
@@ -687,7 +796,6 @@ def run_router(config, quantized, n_replicas, clients, n_requests,
     from .. import obs
     from .router import RouterServer, affinity_key
 
-    _unported(quantized=quantized)
     if n_requests < 2 * n_replicas:
         raise ValueError(
             f"--requests {n_requests} too small for --router "
@@ -962,7 +1070,6 @@ def run_disagg(config, quantized, clients, n_requests, slots, steps,
     from .. import obs
     from .router import RouterServer
 
-    _unported(quantized=quantized)
     cfg = CONFIGS[config]
     long_len = min(max_len - steps - 8, max(64, prompt_len * 4))
     if long_len < 32:
@@ -1093,10 +1200,10 @@ def run_prefill_heavy(config, quantized, clients, n_requests, slots,
     packed-prefill/overlap win.  Reports both arms' prefill tok/s,
     HTTP/engine ratio and the admit→first-token breakdown, plus the
     ON/OFF speedup."""
-    _unported(quantized=quantized)
     _check_budget(prompt_len, steps, max_len)
     device = resolve_device(device)
-    cfg, model = build_model_and_params(config, max_len, device, seed)
+    cfg, model = build_model_and_params(config, max_len, device, seed,
+                                        quantized)
     # one DISTINCT prompt per request: prefill every time, pack when
     # concurrent — the workload the packed path exists for
     prompt = _random_prompts(cfg.vocab, max(n_requests, clients),
@@ -1137,10 +1244,10 @@ def run_decode_heavy(config, quantized, clients, n_requests, slots,
     harvest-ms per window (from the server's
     tpu_serve_window_phase_seconds{phase="harvest"} histogram) and the
     ON/OFF tokens/sec speedup."""
-    _unported(quantized=quantized)
     _check_budget(prompt_len, steps, max_len)
     device = resolve_device(device)
-    cfg, model = build_model_and_params(config, max_len, device, seed)
+    cfg, model = build_model_and_params(config, max_len, device, seed,
+                                        quantized)
     prompt = _random_prompts(cfg.vocab, max(n_requests, clients),
                              prompt_len, seed + 11, device)
     out = {"decode_heavy": True, "config": config,
@@ -1177,10 +1284,10 @@ def _spawn_server(config, quantized, port, slots, steps, max_len,
     server, on *device* (none: CUDA)."""
     from .loadclient import server_cmd, spawn_replica
 
-    _unported(quantized=quantized)
     cmd = server_cmd(
         device,
         "--config", config,
+        *_quant_args(quantized),
         "--n-slots", str(slots),
         "--max-len", str(max_len),
         "--max-new-tokens", str(steps),
@@ -1212,7 +1319,6 @@ def run_cold_start(config, quantized, slots, steps, prompt_len,
     import shutil
     import tempfile
 
-    _unported(quantized=quantized)
     cache = cache_dir or tempfile.mkdtemp(prefix="tpu-compile-cache-")
     own_cache = cache_dir is None
     prompt = list(range(1, prompt_len + 1))
@@ -1268,15 +1374,15 @@ def run(config: str, quantized, batch: int, steps: int, prompt_len: int,
         fused_decode: bool = False, seed: int = 0, device=None):
     """Uniform-batch decode benchmark; returns the stats dict of
     ``decode_throughput`` (or, with *engine*, of the engine's windows;
-    with *http_clients*, of the front-door load test) with the config
-    and device added.  The JAX package's arguments in its order, then
-    the port's seed and device; the modes not yet ported raise
-    ``NotImplementedError``."""
-    for flag, on in (("--spec", spec), ("--quantized", quantized)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not yet ported (ROADMAP.md, queue 1, item 1b)")
-    if http_clients:
+    with *http_clients*, of the front-door load test; with *spec*, of
+    ``_spec_throughput`` at gamma *spec*) with the config, ``quantized``
+    and the device added.  The JAX package's arguments in its order,
+    then the port's seed and device."""
+    if spec:
+        # two plain windows, then the warm and the timed spec rounds,
+        # each committing at most gamma + 1
+        budget = 2 * steps + (1 + _ENGINE_ROUNDS) * (spec + 1)
+    elif http_clients:
         # the post-load direct-engine comparison is the deep consumer
         budget = steps * (_ENGINE_WARMUP + _ENGINE_ROUNDS)
     else:
@@ -1287,10 +1393,19 @@ def run(config: str, quantized, batch: int, steps: int, prompt_len: int,
             f"prompt_len {prompt_len} + decode budget {budget} exceed "
             f"max_len {max_len}")
     device = resolve_device(device)
-    cfg, model = build_model_and_params(config, max_len, device, seed)
+    cfg, model = build_model_and_params(config, max_len, device, seed,
+                                        quantized)
     prompt = _random_prompts(cfg.vocab, batch, prompt_len, seed + 1,
                              device)
-    if http_clients:
+    if spec:
+        draft_name = DRAFT_FOR.get(config)
+        if draft_name is None:
+            raise ValueError(f"no draft pairing for {config} (DRAFT_FOR)")
+        _, dmodel = build_model_and_params(draft_name, max_len, device,
+                                           seed + 2, quantized)
+        stats = _spec_throughput(model, dmodel, prompt, spec, steps)
+        stats["draft"] = draft_name
+    elif http_clients:
         stats = _http_throughput(
             model, prompt, steps, http_clients,
             http_requests or 4 * http_clients, slots=batch,
@@ -1304,6 +1419,7 @@ def run(config: str, quantized, batch: int, steps: int, prompt_len: int,
     else:
         stats = decode_throughput(model, prompt, steps)
     stats["config"] = config
+    stats["quantized"] = quantized
     stats["prompt_len"] = float(prompt_len)
     stats["device"] = (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu")
@@ -1388,8 +1504,13 @@ def main(argv=None) -> int:
                    help="with --http: N round-robin tenants under "
                         "weighted fair queueing")
     p.add_argument("--quantized", action="store_true",
-                   help="not yet ported")
-    p.add_argument("--spec", type=int, default=0, help="not yet ported")
+                   help="weight-only int8")
+    p.add_argument("--int4", action="store_true",
+                   help="weight-only int4 (packed; dense configs only)")
+    p.add_argument("--spec", type=int, default=0, metavar="GAMMA",
+                   help="speculative-round economics at this gamma "
+                        "(paired draft per DRAFT_FOR; reports round "
+                        "latency + implied tok/s over accept rate)")
     p.add_argument("--cold-start", action="store_true",
                    help="replica cold-start phase: boot the real "
                         "server CLI twice against one "
@@ -1431,6 +1552,9 @@ def main(argv=None) -> int:
                         "the follow-on traffic (zero non-429 errors, "
                         "failovers counted)")
     args = p.parse_args(argv)
+    if args.int4 and args.quantized:
+        p.error("--quantized and --int4 are mutually exclusive")
+    quantized = "int4" if args.int4 else args.quantized
     modes = [f for f, on in (("--engine", args.engine),
                              ("--spec", args.spec),
                              ("--http", args.http),
@@ -1458,7 +1582,7 @@ def main(argv=None) -> int:
     if args.cold_start:
         try:
             stats = run_cold_start(
-                args.config, args.quantized, slots=args.batch or 4,
+                args.config, quantized, slots=args.batch or 4,
                 steps=args.steps, prompt_len=args.prompt_len,
                 max_len=args.max_len,
                 cache_dir=args.compile_cache_dir, device=args.device)
@@ -1481,7 +1605,7 @@ def main(argv=None) -> int:
         if not getattr(args, f"{kind}_heavy"):
             continue
         try:
-            stats = fn(args.config, args.quantized, clients=args.http,
+            stats = fn(args.config, quantized, clients=args.http,
                        n_requests=args.requests or 4 * args.http,
                        slots=args.batch, steps=args.steps,
                        prompt_len=args.prompt_len, max_len=args.max_len,
@@ -1520,7 +1644,7 @@ def main(argv=None) -> int:
     if args.disagg:
         try:
             stats = run_disagg(
-                args.config, args.quantized, clients=args.http,
+                args.config, quantized, clients=args.http,
                 n_requests=args.requests or 8 * args.http,
                 slots=args.batch, steps=args.steps,
                 prompt_len=args.prompt_len, max_len=args.max_len,
@@ -1544,7 +1668,7 @@ def main(argv=None) -> int:
     if args.router:
         try:
             stats = run_router(
-                args.config, args.quantized, args.router,
+                args.config, quantized, args.router,
                 clients=args.http,
                 n_requests=args.requests or 8 * args.http,
                 slots=args.batch, steps=args.steps,
@@ -1571,7 +1695,7 @@ def main(argv=None) -> int:
             rc = 1
         return rc
     try:
-        stats = run(args.config, args.quantized, args.batch, args.steps,
+        stats = run(args.config, quantized, args.batch, args.steps,
                     args.prompt_len, args.max_len, engine=args.engine,
                     spec=args.spec, http_clients=args.http,
                     http_requests=args.requests,

@@ -1,7 +1,6 @@
 """Autoregressive inference with a KV cache: the serving-side model.
 
-The dense, full-precision subset of the JAX package's
-``workloads/inference.py``, in PyTorch:
+The JAX package's ``workloads/inference.py`` in PyTorch:
 
 * ``DecodeTransformerLM`` / ``CachedBlock`` carry the same parameters
   as the JAX decoder, under the same names (``block_i.qkv`` ...), so a
@@ -20,6 +19,13 @@ The dense, full-precision subset of the JAX package's
   pool back into the contiguous ``[B, max_len]`` view and runs the same
   attention.  With ``kv_quant`` the pool holds int8 rows and f32
   per-row scales.
+* weight-only int8 (``QuantDense``) and int4 (``Quant4Dense``)
+  projections, and their quantizers over a state dict
+  (``quantize_lm_params``, ``quantize_lm_params_int4``); expert FFNs
+  (``n_experts``, ``moe.MoEFFN``); per-request LoRA adapters
+  (``n_adapters``, ``attach_lora``).  The JAX package leaves these
+  matmuls to XLA, and here they are torch ops: an int8 or int4 kernel
+  is converted to the compute dtype at each call.
 
 The decode loop takes the first token from the prefill logits, then
 runs ``n_steps - 1`` extends.  On CUDA the step (extend and pick) is
@@ -51,7 +57,6 @@ from .transformer import (
     Dense,
     Embed,
     RMSNorm,
-    _unported,
     f32_rsqrt,
     local_causal_attention,
     resolve_device,
@@ -62,6 +67,202 @@ from .transformer import (
 _FLASH_PREFILL_MIN_T = 512
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
+
+
+class QuantDense(nn.Module):
+    """Weight-only int8 projection: ``kernel_int8 [in, out]`` (the JAX
+    package's layout) and a per-output-channel f32 ``scale [out]``.  The
+    kernel is cast to the compute dtype for the matmul and the scale
+    multiplies the dot's OUTPUT in f32, then one cast to the compute
+    dtype, as the JAX package's ``QuantDense`` rounds.  Weights stay
+    int8 in memory; the cast materialises a compute-dtype copy for each
+    call (no fused int8 matmul here)."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_int8 = nn.Parameter(torch.zeros(
+            d_in, d_out, dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(
+            d_out, dtype=torch.float32, device=device), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.matmul(x.to(self.dtype), self.kernel_int8.to(self.dtype))
+        return (out * self.scale).to(self.dtype)
+
+
+# int4 scale groups run along the INPUT dim, 64 wide (or the largest
+# divisor of it below that)
+_INT4_GROUP = 64
+
+# bytes of partial sums one chunk of Quant4Dense rows may hold (the
+# per-group products [rows, D/g, F] in the compute dtype plus their f32
+# copy): the whole [tokens, D/g, F] tensor of a 4 x 1024-token prefill
+# through mlp_down would take ~22 GB
+_INT4_PARTIAL_BYTES = 1 << 30
+
+
+def _int4_group(din: int) -> int:
+    """Largest divisor of the input dim at or below ``_INT4_GROUP``."""
+    g = min(_INT4_GROUP, din)
+    while din % g:
+        g -= 1
+    return g
+
+
+def pack_int4(w4: torch.Tensor) -> torch.Tensor:
+    """[D, F] int8 values in [-8, 7] -> [D, F // 2] int8 bytes: low
+    nibble = even column, high nibble = odd column.  Built in int16, so
+    no shift overflows, and mapped back to int8's two's complement."""
+    w = w4.to(torch.int16)
+    b = (w[:, 0::2] & 0x0F) | ((w[:, 1::2] & 0x0F) << 4)   # [0, 255]
+    return (b - ((b >= 128).to(torch.int16) << 8)).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[D, P] int8 bytes -> [D, 2P] sign-extended int8 values (the
+    inverse of :func:`pack_int4`), in int8 as the JAX package's: ``<< 4``
+    wraps (torch shifts the unsigned bits, on the CPU and on CUDA) and
+    the arithmetic ``>> 4`` sign-extends."""
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
+    d, p_cols = packed.shape
+    return torch.stack([lo, hi], dim=-1).reshape(d, 2 * p_cols)
+
+
+class Quant4Dense(nn.Module):
+    """Weight-only int4 projection: ``kernel_int4 [in, out // 2]`` (two
+    values a byte, see :func:`pack_int4`) and group-wise f32 scales
+    ``scale [in // g, out]``, g = ``_int4_group(in)``.  The scales vary
+    along the contraction, so the matmul runs per group: the partial
+    sums [rows, in // g, out] in the compute dtype, then their f32 sum
+    weighted by the scales, as the JAX package's ``Quant4Dense``.  The
+    rows go through in chunks that bound the partial sums to
+    ``_INT4_PARTIAL_BYTES``, each chunk by the same operations."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device):
+        super().__init__()
+        if d_out % 2:
+            raise ValueError(
+                f"int4 packing needs an even output dim, got {d_out}")
+        self.dtype = dtype
+        g = _int4_group(d_in)
+        self.kernel_int4 = nn.Parameter(torch.zeros(
+            d_in, d_out // 2, dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(
+            d_in // g, d_out, dtype=torch.float32, device=device),
+            requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        din = x.shape[-1]
+        g = _int4_group(din)
+        n_g = din // g
+        f = self.scale.shape[-1]
+        wg = unpack_int4(self.kernel_int4).to(self.dtype).reshape(n_g, g, f)
+        lead = x.shape[:-1]
+        # [n_g, rows, g]: one batched product a group
+        xg = x.to(self.dtype).reshape(-1, n_g, g).transpose(0, 1).contiguous()
+        rows = max(1, _INT4_PARTIAL_BYTES // (n_g * f * 6))
+        outs = []
+        for r0 in range(0, xg.shape[1], rows):
+            partial = torch.bmm(xg[:, r0:r0 + rows], wg)  # compute dtype
+            # the f32 scaled sum over the groups (bf16 x f32 is f32)
+            outs.append((partial * self.scale[:, None, :]).sum(dim=0))
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        return out.reshape(lead + (f,)).to(self.dtype)
+
+
+def _dense_cls(quantized):
+    """False -> ``Dense``, truthy -> int8, ``"int4"`` -> packed 4-bit."""
+    if quantized == "int4":
+        return Quant4Dense
+    return QuantDense if quantized else Dense
+
+
+# the projections every quantizer converts
+_QUANT_NAMES = (
+    "qkv", "out_proj", "mlp_up", "mlp_gate", "mlp_down", "lm_head"
+)
+
+
+def _quantize_tree(params: Dict[str, torch.Tensor], kernel_fn, experts_fn
+                   ) -> Dict[str, torch.Tensor]:
+    """The walk both quantizers share, over a port state dict: each
+    ``{scope}.weight [out, in]`` whose scope ends in a ``_QUANT_NAMES``
+    name is replaced by ``kernel_fn(w [in, out])`` (new leaves under the
+    same scope), each MoE stack ``experts_up`` / ``experts_down`` by
+    ``experts_fn(name, w)``; every other leaf is kept."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, w in params.items():
+        scope, _, leaf = key.rpartition(".")
+        if leaf == "weight" and scope.rpartition(".")[2] in _QUANT_NAMES:
+            for name, v in kernel_fn(w.to(torch.float32).T).items():
+                out[f"{scope}.{name}"] = v
+        elif leaf in ("experts_up", "experts_down"):
+            for name, v in experts_fn(leaf, w.to(torch.float32)).items():
+                out[f"{scope}.{name}"] = v
+        else:
+            out[key] = w
+    return out
+
+
+def quantize_lm_params_int4(params: Dict[str, torch.Tensor]
+                            ) -> Dict[str, torch.Tensor]:
+    """Weight-only int4 conversion of an LM state dict (projections only:
+    expert stacks raise; use int8 for MoE).  Each projection becomes
+    ``{kernel_int4, scale}`` with symmetric group-wise scales
+    [D / g, F] over the [-7, 7] grid, in the JAX package's layout and
+    bit for bit its values."""
+
+    def quant(w):
+        din, dout = w.shape
+        g = _int4_group(din)
+        wg = w.reshape(din // g, g, dout)
+        scale = wg.abs().amax(dim=1) / 7.0                # [D/g, F]
+        scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+        wq = torch.clamp(torch.round(wg / scale[:, None, :]), -7, 7)
+        return {"kernel_int4": pack_int4(wq.to(torch.int8).reshape(din,
+                                                                   dout)),
+                "scale": scale}
+
+    def experts(name, w):
+        raise NotImplementedError(
+            "int4 MoE expert stacks not supported; quantize MoE configs "
+            "with quantize_lm_params (int8)")
+
+    return _quantize_tree(params, quant, experts)
+
+
+def quantize_lm_params(params: Dict[str, torch.Tensor],
+                       dtype: torch.dtype = torch.int8
+                       ) -> Dict[str, torch.Tensor]:
+    """Weight-only integer conversion of an LM state dict, the layout
+    the quantized decoder loads: every projection becomes
+    ``{kernel_int8 [in, out], scale [out]}`` and the MoE stacks
+    ``{experts_*_int8, experts_*_scale}``, with symmetric
+    per-output-channel scales ``max|w| / qmax`` (per (expert,
+    out-channel) for the stacks).  Embeddings, norms, the router and
+    adapter stacks are kept.  Bit for bit the JAX package's
+    ``quantize_lm_params`` of the same weights."""
+    qmax = float(torch.iinfo(dtype).max)
+
+    def quant(w, reduce_dim):
+        scale = w.abs().amax(dim=reduce_dim) / qmax
+        scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+        return torch.round(w / scale.unsqueeze(reduce_dim)).to(dtype), scale
+
+    def kernel_fn(w):
+        wq, scale = quant(w, 0)
+        return {"kernel_int8": wq, "scale": scale}
+
+    def experts_fn(name, w):
+        # [E, D, F] / [E, F, D]: the contraction axis is 1
+        wq, scale = quant(w, 1)
+        return {f"{name}_int8": wq, f"{name}_scale": scale}
+
+    return _quantize_tree(params, kernel_fn, experts_fn)
 
 
 class CachedBlock(Block):
@@ -89,27 +290,97 @@ class CachedBlock(Block):
     rows attend one at a time, each at the shape of a one-row batch, and
     the rest attend to nothing (zeros): the admission extend's form, in
     which a row's arithmetic does not depend on how many rows are real
-    (see ``serving._ChunkBatch``)."""
+    (see ``serving._ChunkBatch``).
+
+    ``quantized`` makes the projections int8 (``QuantDense``) or int4
+    (``Quant4Dense``, dense FFNs only); ``n_experts > 0`` makes the FFN
+    the training model's ``MoEFFN`` (int8 stacks when quantized), whose
+    capacity every extend pins to T, which never drops a token.  With
+    ``n_adapters > 0`` every projection carries LoRA stacks
+    ``{name}_lora_A [n, in, r]`` and ``{name}_lora_B [n, r, out]`` (f32)
+    and each row adds the delta of its adapter (``adapter_ids`` [B],
+    -1 = none), computed in f32."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  max_len: int, dtype: torch.dtype = COMPUTE_DTYPE,
                  n_kv_heads: Optional[int] = None, ffn: str = "gelu",
-                 rope_theta: float = 10000.0, device=None):
+                 rope_theta: float = 10000.0, device=None,
+                 quantized=False, n_experts: int = 0, moe_k: int = 2,
+                 moe_capacity_factor: float = 1.25, n_adapters: int = 0,
+                 lora_rank: int = 8, lora_scale: float = 1.0):
+        if quantized == "int4" and n_experts > 0:
+            raise NotImplementedError(
+                "int4 + MoE not supported (expert stacks stay int8); use "
+                "quantized=True for MoE configs")
+        device = resolve_device(device)
+        cls = _dense_cls(quantized)
+        if cls is Dense:
+            def dense(d_in, d_out):
+                return Dense(d_in, d_out, dtype, device)
+        else:
+            def dense(d_in, d_out):
+                return cls(d_in, d_out, dtype, device)
         super().__init__(d_model, n_heads, d_ff, dtype=dtype,
                          n_kv_heads=n_kv_heads, ffn=ffn,
                          rope_theta=rope_theta, device=device,
-                         param_dtype=dtype)
+                         param_dtype=dtype, n_experts=n_experts,
+                         moe_k=moe_k,
+                         moe_capacity_factor=moe_capacity_factor,
+                         dense=dense, moe_quantized=bool(quantized),
+                         keep_aux=False)
         self.max_len = max_len
         self.dtype = dtype
+        self.n_adapters, self.lora_scale = n_adapters, lora_scale
+        if n_adapters > 0:
+            names = ["qkv", "out_proj"]
+            if n_experts == 0:
+                names += (["mlp_gate"] if ffn == "swiglu" else []) + [
+                    "mlp_up", "mlp_down"]
+            for name in names:
+                d_in, d_out = self._proj_dims(name, d_model, d_ff)
+                self.register_parameter(f"{name}_lora_A", nn.Parameter(
+                    torch.empty(n_adapters, d_in, lora_rank,
+                                dtype=torch.float32, device=device)))
+                self.register_parameter(f"{name}_lora_B", nn.Parameter(
+                    torch.zeros(n_adapters, lora_rank, d_out,
+                                dtype=torch.float32, device=device)))
+
+    def _proj_dims(self, name: str, d_model: int, d_ff: int):
+        if name == "qkv":
+            return d_model, (self.n_heads + 2 * self.n_kv) * self.head_dim
+        if name == "mlp_down":
+            return d_ff, d_model
+        if name in ("mlp_up", "mlp_gate"):
+            return d_model, d_ff
+        return d_model, d_model
+
+    def proj(self, name: str, x: torch.Tensor,
+             adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The projection plus, with adapters and *adapter_ids*, each
+        row's LoRA delta: its adapter's stacks gathered by id, the delta
+        ``(x A) B`` in f32 scaled by ``lora_scale`` (0 where the id is
+        -1), cast to the projection's dtype and added."""
+        y = getattr(self, name)(x)
+        if self.n_adapters > 0 and adapter_ids is not None:
+            sel = adapter_ids.clamp(min=0).long()
+            gate = (adapter_ids >= 0).to(torch.float32) * self.lora_scale
+            a = getattr(self, f"{name}_lora_A")[sel]
+            b = getattr(self, f"{name}_lora_B")[sel]
+            mid = torch.einsum("btd,bdr->btr", x.to(torch.float32), a)
+            delta = torch.einsum("btr,bro->bto", mid, b) \
+                * gate[:, None, None]
+            y = y + delta.to(y.dtype)
+        return y
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 layer_cache: Dict[str, torch.Tensor],
                 decode: bool = False,
                 block_tables: Optional[torch.Tensor] = None,
-                attend_rows: Optional[int] = None
+                attend_rows: Optional[int] = None,
+                adapter_ids: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         B, T, _ = x.shape
-        q, k, v = self.attention_inputs(x, positions)
+        q, k, v = self.attention_inputs(x, positions, adapter_ids)
         cached_k = layer_cache["cached_k"]
         cached_v = layer_cache["cached_v"]
         lens = layer_cache["cache_lens"]
@@ -144,7 +415,10 @@ class CachedBlock(Block):
                 att = self._paged_extend(q, k, v, idx, layer_cache,
                                          block_tables)
             lens += T
-        return self.finish(x, att)
+        # an extend's expert capacity is T: dropless, so a chunked
+        # extend keeps every token T one-token decodes would keep
+        return self.finish(x, att, positions, adapter_ids,
+                           T if decode else None)
 
     def _paged_extend(self, q, k, v, idx, layer_cache, block_tables):
         """Scatter this call's K/V rows *idx* [B, T] into the pool pages
@@ -252,7 +526,9 @@ def _rowwise_attention(q: torch.Tensor, k_cache: torch.Tensor,
 class DecodeTransformerLM(nn.Module):
     """Serving twin of the JAX ``TransformerLM``: embedding, cached
     blocks named ``block_i``, final RMSNorm, ``lm_head``; logits in f32.
-    The engine assumes the natural token order (positions 0..T-1 at
+    ``quantized`` (True for int8, ``"int4"``), ``n_experts`` and
+    ``n_adapters`` are the JAX decoder's (see :class:`CachedBlock`); the
+    LM head is quantized with the blocks.  The engine assumes the natural token order (positions 0..T-1 at
     prefill).  ``kv_page_size > 0`` makes the extend paged (the cache is
     a page pool and the call passes ``block_tables``); ``kv_quant`` says
     the pool stores int8 rows.  :meth:`clone` gives such a twin over the
@@ -269,25 +545,26 @@ class DecodeTransformerLM(nn.Module):
                  kv_page_size: int = 0, kv_quant: bool = False,
                  device=None):
         super().__init__()
-        # moe_k and moe_capacity_factor shape the experts, lora_rank and
-        # lora_scale the adapters: they take effect with n_experts and
-        # n_adapters, which raise until ported
-        _unported(quantized=quantized, n_experts=n_experts,
-                  n_adapters=n_adapters)
         device = resolve_device(device)
         self.vocab, self.d_model, self.n_heads = vocab, d_model, n_heads
         self.n_layers, self.max_len, self.dtype = n_layers, max_len, dtype
         self.n_kv_heads = n_kv_heads or n_heads
-        self.n_experts = n_experts  # 0: an expert FFN raises above
+        self.quantized = quantized
+        self.n_experts = n_experts
+        self.n_adapters, self.lora_rank = n_adapters, lora_rank
+        self.lora_scale = lora_scale
         self.kv_page_size, self.kv_quant = int(kv_page_size), bool(kv_quant)
         self.embed = Embed(vocab, d_model, dtype, device)
         for i in range(n_layers):
             self.add_module(f"block_{i}", CachedBlock(
                 d_model, n_heads, d_ff, max_len, dtype=dtype,
                 n_kv_heads=n_kv_heads, ffn=ffn, rope_theta=rope_theta,
-                device=device))
+                device=device, quantized=quantized, n_experts=n_experts,
+                moe_k=moe_k, moe_capacity_factor=moe_capacity_factor,
+                n_adapters=n_adapters, lora_rank=lora_rank,
+                lora_scale=lora_scale))
         self.final_norm = RMSNorm(d_model, dtype, device)
-        self.lm_head = Dense(d_model, vocab, dtype, device)
+        self.lm_head = _dense_cls(quantized)(d_model, vocab, dtype, device)
         self.requires_grad_(False)
 
     @property
@@ -313,7 +590,6 @@ class DecodeTransformerLM(nn.Module):
                 block_tables: Optional[torch.Tensor] = None,
                 attend_rows: Optional[int] = None
                 ) -> torch.Tensor:
-        _unported(adapter_ids=adapter_ids)
         if self.kv_page_size:
             if not decode:
                 raise NotImplementedError(
@@ -330,7 +606,7 @@ class DecodeTransformerLM(nn.Module):
         for i in range(self.n_layers):
             x = getattr(self, f"block_{i}")(
                 x, positions, cache[f"block_{i}"], decode, block_tables,
-                attend_rows)
+                attend_rows, adapter_ids)
         x = self.final_norm(x)
         return self.lm_head(x).to(torch.float32)
 
@@ -449,6 +725,44 @@ def _check_request(model: DecodeTransformerLM, prompt: torch.Tensor,
             f"prompt {T_p} + steps {n_steps} exceeds max_len {model.max_len}"
         )
     return B, T_p
+
+
+def attach_lora(params: Dict[str, torch.Tensor],
+                model: DecodeTransformerLM, seed: int = 0,
+                init_scale: float = 0.01) -> Dict[str, torch.Tensor]:
+    """Add LoRA stacks to a base state dict (full precision or
+    quantized) so it loads into an ``n_adapters > 0`` decoder: each
+    projection of each block gains ``{name}_lora_A [n, in, r]``, normal
+    with sd *init_scale* drawn from *seed*, and ``{name}_lora_B
+    [n, r, out]`` zeros, so a fresh adapter is exactly a no-op.  The
+    output width comes from the scale where there is one (an int4
+    kernel is packed, half as wide)."""
+    if model.n_adapters < 1:
+        raise ValueError("model has n_adapters == 0")
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    out = dict(params)
+    blocks = sorted({k.split(".")[0] for k in params
+                     if k.startswith("block_")},
+                    key=lambda b: int(b.split("_")[1]))
+    for bname in blocks:
+        for name in ("qkv", "out_proj", "mlp_gate", "mlp_up", "mlp_down"):
+            scope = f"{bname}.{name}"
+            if f"{scope}.weight" in params:
+                dout, din = params[f"{scope}.weight"].shape
+            elif f"{scope}.scale" in params:
+                kern = params.get(f"{scope}.kernel_int8",
+                                  params.get(f"{scope}.kernel_int4"))
+                din, dout = kern.shape[0], params[f"{scope}.scale"].shape[-1]
+            else:
+                continue
+            out[f"{scope}_lora_A"] = torch.randn(
+                model.n_adapters, din, model.lora_rank, generator=gen,
+                dtype=torch.float32) * init_scale
+            out[f"{scope}_lora_B"] = torch.zeros(
+                model.n_adapters, model.lora_rank, dout,
+                dtype=torch.float32)
+    return out
 
 
 def validate_top_k(model: DecodeTransformerLM, top_k) -> None:

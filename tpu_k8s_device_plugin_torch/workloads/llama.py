@@ -12,16 +12,19 @@ token, so the whole model serves from one card without quantization.  Training
 is another matter: f32 parameters, their gradients and Adam's two
 moments take 16 bytes per parameter, 128 GB for the 8.03 B of
 Llama-3-8B, so one card trains it at full width with fewer layers.
+Weight-only int8 takes its projections to 7.5 GB and int4 to 3.8 GB
+(``random_quantized_params`` builds those trees directly, for
+benchmarking).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from .inference import DecodeTransformerLM, make_decoder
+from .inference import DecodeTransformerLM, _int4_group, make_decoder
 from .transformer import COMPUTE_DTYPE, TransformerLM
 
 
@@ -106,8 +109,8 @@ def decoder(
     device=None,
 ) -> DecodeTransformerLM:
     """Serving model for *cfg* (weights uninitialised: load or fill).
-    The JAX package's arguments in its order; ``quantized`` (int8 or
-    int4 weights) raises ``NotImplementedError`` until it is ported."""
+    The JAX package's arguments in its order; ``quantized`` is False,
+    True (int8 projections) or ``"int4"``."""
     return make_decoder(
         vocab=cfg.vocab, d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_layers=cfg.n_layers, d_ff=cfg.d_ff,
@@ -115,3 +118,65 @@ def decoder(
         n_kv_heads=cfg.n_kv_heads, ffn="swiglu",
         rope_theta=cfg.rope_theta, device=device,
     )
+
+
+@torch.no_grad()
+def random_quantized_params(cfg: LlamaConfig, seed: int = 0,
+                            dtype: torch.dtype = COMPUTE_DTYPE,
+                            bits: int = 8, device=None
+                            ) -> Dict[str, torch.Tensor]:
+    """Random weight-only quantized state dict for ``decoder(cfg,
+    quantized=True)`` (*bits* 8) or ``quantized="int4"`` (*bits* 4),
+    built directly in that layout on *device* (CUDA unless given), so no
+    full-precision copy of the model is ever made: int8 kernels uniform
+    in [-127, 127] with scales 0.01, or packed int4 bytes uniform over
+    all 256 values with group scales 0.01, as the JAX package's
+    ``random_quantized_params``; the embedding normal with sd 0.02 in
+    *dtype* (the decoder stores it so) and norm scales 1.  The values
+    come from a torch generator seeded with *seed*, not from JAX's
+    keys; only their layout and distribution are the reference's."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    from .transformer import resolve_device
+
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    qkv_out = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def kern(prefix, din, dout):
+        if bits == 4:
+            g = _int4_group(din)
+            return {
+                f"{prefix}.kernel_int4": torch.randint(
+                    -128, 128, (din, dout // 2), generator=gen,
+                    dtype=torch.int8, device=device),
+                f"{prefix}.scale": torch.full((din // g, dout), 0.01, **f32),
+            }
+        return {
+            f"{prefix}.kernel_int8": torch.randint(
+                -127, 128, (din, dout), generator=gen, dtype=torch.int8,
+                device=device),
+            f"{prefix}.scale": torch.full((dout,), 0.01, **f32),
+        }
+
+    emb = torch.empty(v, d, dtype=dtype, device=device)
+    rows = max(1, (1 << 26) // d)
+    for r0 in range(0, v, rows):
+        emb[r0:r0 + rows] = torch.randn(
+            (min(rows, v - r0), d), generator=gen, **f32) * 0.02
+    params = {"embed.weight": emb,
+              "final_norm.scale": torch.ones(d, **f32)}
+    params.update(kern("lm_head", d, v))
+    for i in range(cfg.n_layers):
+        b = f"block_{i}"
+        params[f"{b}.attn_norm.scale"] = torch.ones(d, **f32)
+        params[f"{b}.mlp_norm.scale"] = torch.ones(d, **f32)
+        params.update(kern(f"{b}.qkv", d, qkv_out))
+        params.update(kern(f"{b}.out_proj", d, d))
+        params.update(kern(f"{b}.mlp_gate", d, f))
+        params.update(kern(f"{b}.mlp_up", d, f))
+        params.update(kern(f"{b}.mlp_down", f, d))
+    return params

@@ -4094,21 +4094,30 @@ def main(argv=None) -> int:
     # the modes of the JAX server that the port has not yet: each
     # raises naming its ROADMAP item, before the model is built
     _unported(tp=args.tp if args.tp > 1 else 0,
-              checkpoint=args.checkpoint,
-              quantized=args.quantized, int4=args.int4,
-              draft_config=args.draft_config,
-              spec_ngram=args.spec_ngram)
+              checkpoint=args.checkpoint)
     cache_dir = (args.compile_cache_dir
                  or _pd_os.environ.get("TPU_DP_COMPILE_CACHE_DIR"))
     if cache_dir:
         enable_compile_cache(cache_dir)
-    quantized = False
+    quantized = "int4" if args.int4 else args.quantized
     device = resolve_device(args.device)
-    cfg, model = build_model_and_params(args.config, args.max_len, device)
+    cfg, model = build_model_and_params(args.config, args.max_len, device,
+                                        quantized=quantized)
+    draft = None
+    if args.draft_config:
+        # greedy requests decode in spec rounds; sampled ones turn the
+        # scheduler to windows
+        _, draft = build_model_and_params(args.draft_config, args.max_len,
+                                          device, seed=1,
+                                          quantized=quantized)
+    elif args.spec_ngram:
+        draft = "ngram"
     engine = ServingEngine(model, n_slots=args.n_slots,
                            eos_id=getattr(cfg, "eos_id", None),
                            prefix_chunk=(args.prefix_chunk or "auto"),
                            logprobs_k=args.logprobs_k,
+                           draft=draft, gamma=args.gamma,
+                           ngram_n=args.spec_ngram or 3,
                            jump_len=args.jump_len,
                            kv_paging=args.kv_paging,
                            kv_pages=args.kv_pages or None,

@@ -53,8 +53,20 @@ key, global draw index, slot), a seeded request by (its seed and
 stream, its own draw index), so a window and the same steps one by one
 draw the same numbers, and a seeded request ignores its neighbours.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): tensor-parallel meshes, speculative decoding and LoRA adapters.
+* **speculative decoding** (``draft=model`` or ``draft="ngram"``):
+  ``spec_round`` proposes ``gamma`` tokens for every active slot (the
+  draft model from its own ``[S, max_len]`` cache, or prompt lookup over
+  the slot's history), verifies them in ONE ``[S, gamma + 1]`` extend
+  and commits each slot's accepted prefix plus the target's next token:
+  the ids of greedy ``step`` decoding.  It runs op by op (no CUDA
+  graph), and is greedy only.
+* **LoRA adapters** (a model with ``n_adapters``): each slot's adapter
+  id (-1 = the base model) is one more row of the step's buffers, and
+  of the admission extend's, written in place; prefixes are bound to
+  the adapter they were prefilled with.
+
+Not ported yet: tensor-parallel meshes (``mesh`` raises
+``NotImplementedError`` naming ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -71,6 +83,7 @@ from .inference import (
     cache_lens,
     capture_step,
     dequantize_kv_rows,
+    extend_step,
     gumbel_rows,
     init_cache,
     init_pool_cache,
@@ -82,6 +95,7 @@ from .inference import (
     validate_top_k,
 )
 from .kv_pool import PagePool, PagePoolExhausted
+from .speculative import _draft_propose
 from .transformer import _unported, resolve_device
 
 # Upper bound for the auto-selected prefill chunk; the resolved chunk is
@@ -108,7 +122,8 @@ _NO_BUDGET = 1 << 30
 
 # rows of the window's int64 block (see _Window), then its four scalars
 _IROWS = ("tok", "pos", "slot_draws", "emitted", "topks", "min_toks",
-          "seed_keys", "seed_on", "eos", "fin", "frs", "slots", "gstate")
+          "seed_keys", "seed_on", "eos", "fin", "frs", "slots", "gstate",
+          "adapters")
 _SCALARS = ("draws", "step", "key", "budget")
 # rows of its f32 block
 _FROWS = ("temps", "topps", "minps", "pres", "freqs", "reps")
@@ -370,6 +385,27 @@ def _lcp(a: np.ndarray, b: np.ndarray) -> int:
     return L if not neq[idx] else idx
 
 
+def _ngram_propose(seq: np.ndarray, n: int, g: int) -> np.ndarray:
+    """Prompt-lookup proposals (vLLM's [ngram] speculative mode): the *g*
+    tokens that followed the LATEST earlier occurrence of the sequence's
+    final *n*-gram; on a miss, the last token repeated.  Proposals are
+    guesses, the verify decides."""
+    L = len(seq)
+    n = min(n, L - 1)
+    out = np.full(g, seq[-1] if L else 0, np.int32)
+    if n < 1:
+        return out
+    key = seq[L - n:]
+    # every window against the key in one comparison, latest match
+    windows = np.lib.stride_tricks.sliding_window_view(seq[:L - 1], n)
+    hits = np.flatnonzero((windows == key).all(axis=1))
+    if len(hits):
+        i = int(hits[-1])
+        cont = seq[i + n:i + n + g]
+        out[:len(cont)] = cont
+    return out
+
+
 def _knobs_live_vec(temps, topks, topps, minps, pres, freqs,
                     reps) -> np.ndarray:
     """[S] bool: which slots' sampling knobs are armed."""
@@ -567,17 +603,19 @@ class _PrefillJob:
 
     ``packable`` gates the packed path: a fixed chunk grid (an unchunked
     job is one extend of its own length), no prompt-logprob capture, and
-    no expert FFN (expert capacity couples the rows of a batch)."""
+    no expert FFN (expert capacity couples the rows of a batch).
+    *adapter* is the request's LoRA adapter id (-1 = none)."""
 
     __slots__ = ("eng", "mini", "toks", "start", "n", "c", "total", "i",
                  "last", "counted", "plp_k", "plp_out", "packable",
-                 "packed_used")
+                 "packed_used", "aid")
 
     def __init__(self, eng: "ServingEngine", mini: Cache,
                  toks_np: np.ndarray, start: int, plp_k: int = 0,
-                 plp_out: Optional[list] = None):
+                 plp_out: Optional[list] = None, adapter: int = -1):
         n = int(toks_np.shape[1])
         self.eng = eng
+        self.aid = adapter
         self.mini = mini
         self.start = start
         self.n = n
@@ -679,21 +717,26 @@ class _ChunkBatch:
     compute on whatever they hold, and nothing reads them.  On CUDA the
     extend at each K is captured once as a CUDA graph and replayed;
     with the engine's ``_use_graphs`` off (the CPU, and the card's
-    check) it runs op by op on the same buffers."""
+    check) it runs op by op on the same buffers.  A model with adapters
+    reads each row's adapter id from ``aids`` [W]."""
 
     def __init__(self, model: DecodeTransformerLM, width: int, chunk: int):
         self.model = model
         self.cache = init_cache(model, width)
         self.inputs = torch.zeros(2, width, chunk, dtype=torch.int32,
                                   device=model.device)
+        self.aids = torch.full((width,), -1, dtype=torch.int64,
+                               device=model.device)
         self.logits: Dict[int, torch.Tensor] = {}
         self.graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
 
     @torch.no_grad()
     def run(self, k: int) -> torch.Tensor:
         """The extend with *k* real rows, op by op; its logits."""
+        aids = self.aids if self.model.n_adapters > 0 else None
         self.logits[k] = self.model(self.inputs[0], self.inputs[1],
-                                    self.cache, decode=True, attend_rows=k)
+                                    self.cache, decode=True, attend_rows=k,
+                                    adapter_ids=aids)
         return self.logits[k]
 
     def capture(self, k: int, stream) -> None:
@@ -715,7 +758,7 @@ class AdmitState:
         "min_tokens", "lp_n", "plp_n", "logit_bias", "gstart", "canon",
         "auto_src", "gen", "result", "plp_dev", "chunks_total",
         "chunks_done", "pick", "pick_stats", "spliced", "inplace",
-        "first_cached", "share_pages", "prefill_end",
+        "first_cached", "share_pages", "prefill_end", "aid",
     )
 
     def __init__(self):
@@ -776,8 +819,11 @@ class ServingEngine:
     The JAX package's arguments in its order, less ``params`` (the
     model holds its weights), then the device: the model's, which must
     be CUDA unless ``device="cpu"`` is passed.  ``rng`` is an integer
-    seed.  ``gamma`` and ``ngram_n`` shape speculative decoding, which
-    is not ported; they are accepted at the reference's defaults.
+    seed.  ``draft`` is a draft ``DecodeTransformerLM`` (or the
+    reference's ``(model, params)`` pair, whose second entry the port
+    ignores: the model holds its weights) or ``"ngram"``; ``gamma``
+    tokens are proposed a round, ``ngram_n`` is the prompt-lookup
+    n-gram.
     """
 
     def __init__(
@@ -806,8 +852,7 @@ class ServingEngine:
         fused_decode: bool = False,
         device=None,
     ):
-        # gamma and ngram_n shape the draft, which raises until ported
-        _unported(mesh=mesh, draft=draft)
+        _unported(mesh=mesh)
         device = resolve_device(device)
         if device.type != model.device.type or (
                 device.index is not None and device != model.device):
@@ -1030,6 +1075,44 @@ class ServingEngine:
         self._jump_forced = 0
         if grammar is not None:
             self.register_grammar(grammar)
+        # per-slot LoRA adapter ids (-1 = the base model), read by the
+        # step only when the model has adapters
+        self.adapters = np.full(n_slots, -1, np.int64)
+        # speculative decoding: a greedy draft model (with its own
+        # [S, max_len] cache) or prompt-lookup n-grams propose gamma
+        # tokens a round, one [S, gamma + 1] extend verifies them
+        self._draft_model = None
+        self._draft_cache: Optional[Cache] = None
+        self._ngram = False
+        self.ngram_n = ngram_n
+        self.gamma = gamma
+        self._spec_rounds = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        if draft == "ngram":
+            if gamma < 1:
+                raise ValueError("gamma must be >= 1")
+            if ngram_n < 1:
+                raise ValueError("ngram_n must be >= 1")
+            self._ngram = True
+        elif draft is not None:
+            draft_model = draft[0] if isinstance(draft, tuple) else draft
+            if gamma < 1:
+                raise ValueError("gamma must be >= 1")
+            if draft_model.vocab != model.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_model.vocab} != target vocab "
+                    f"{model.vocab}")
+            if draft_model.max_len < model.max_len:
+                raise ValueError(
+                    f"draft max_len {draft_model.max_len} < target "
+                    f"max_len {model.max_len} (the draft cache must "
+                    "cover every committable position)")
+            if draft_model.device != device:
+                raise ValueError(f"the draft lives on {draft_model.device},"
+                                 f" the target on {device}")
+            self._draft_model = draft_model
+            self._draft_cache = init_cache(draft_model, n_slots)
 
     # -- grammars ------------------------------------------------------------
 
@@ -1290,7 +1373,7 @@ class ServingEngine:
             "presence_penalty": float(self.pres[slot]),
             "frequency_penalty": float(self.freqs[slot]),
             "repetition_penalty": float(self.reps[slot]),
-            "adapter": -1,
+            "adapter": int(self.adapters[slot]),
             "seed": int(self._seeds[slot]),
             "seed_stream": int(self._seed_streams[slot]),
             "seed_on": int(self._seed_on[slot]),
@@ -1323,7 +1406,8 @@ class ServingEngine:
         (still under pressure); the caller re-queues and retries."""
         if not self._paged:
             raise RuntimeError("preemption needs kv_paging=True")
-        _unported(adapter=int(state["adapter"]) != -1)
+        self._check_adapter(None if int(state["adapter"]) < 0
+                            else int(state["adapter"]))
         slot = self._free_slot_for_restore()
         lens = int(state["lens"])
         self._restore_pages(state["kv"], lens, slot, lens)
@@ -1350,6 +1434,7 @@ class ServingEngine:
         self.pres[slot] = state["presence_penalty"]
         self.freqs[slot] = state["frequency_penalty"]
         self.reps[slot] = state["repetition_penalty"]
+        self.adapters[slot] = int(state["adapter"])
         self._seeds[slot] = int(state["seed"])
         self._seed_streams[slot] = int(state["seed_stream"])
         self._seed_on[slot] = int(state["seed_on"])
@@ -1418,7 +1503,12 @@ class ServingEngine:
         outs = np.asarray(self.outputs[slot][:kept], np.int32)
         tokens = (np.concatenate([prompt_np, outs])
                   if outs.size else prompt_np)
-        canon = max(min(int(self.lens[slot]), int(tokens.shape[0])), 0)
+        canon = min(int(self.lens[slot]), int(tokens.shape[0]))
+        if self._draft_model is not None or self._ngram:
+            # parked rows stay below the clamped verify band
+            # [max_len - gamma - 1, max_len - 1] (see begin_admit)
+            canon = min(canon, self.model.max_len - self.gamma - 1)
+        canon = max(canon, 0)
         self.active[slot] = False
         self._finished.pop(slot, None)
         self._finish_reason.pop(slot, None)
@@ -1483,7 +1573,8 @@ class ServingEngine:
         canon = int(state["canon"])
         if not 0 <= canon <= min(int(tokens.shape[0]), self.model.max_len):
             raise ValueError(f"bad session canon {canon}")
-        _unported(adapter=int(state["adapter"]) != -1)
+        self._check_adapter(None if int(state["adapter"]) < 0
+                            else int(state["adapter"]))
         slot = self._free_slot_for_restore()
         self._restore_pages(state["kv"], canon, slot, canon)
         self.lens[slot] = 0
@@ -1525,14 +1616,51 @@ class ServingEngine:
         return [s for s in range(self.n_slots)
                 if not self.active[s] and not self._reserved[s]]
 
-    def _extend_prompt(self, mini: Cache, toks: np.ndarray, start: int):
+    def _extend_prompt(self, mini: Cache, toks: np.ndarray, start: int,
+                       adapter: int = -1):
         """Push *toks* [1, n] into *mini* from depth *start*; returns
         (mini, the last real token's logits row)."""
-        job = _PrefillJob(self, mini, toks, start)
+        job = _PrefillJob(self, mini, toks, start, adapter=adapter)
         self._advance_jobs([job], job.remaining)
         return job.mini, job.last
 
-    def _auto_match(self, pnp: np.ndarray, t_p: int,
+    @torch.no_grad()
+    def _draft_prefill(self, prompt_np: np.ndarray) -> Cache:
+        """Cold prefill of the draft with the whole prompt [1, n] on the
+        engine's chunk grid (the target's rows cannot seed another
+        model's cache), op by op; a B=1 draft cache holding n rows."""
+        n = int(prompt_np.shape[1])
+        mini = init_cache(self._draft_model, 1)
+        c = self.chunk
+        put = self._stage.put
+        if c is None:
+            extend_step(self._draft_model, mini, put(prompt_np.astype(
+                np.int64)), put(np.arange(n, dtype=np.int32)[None, :]))
+            return mini
+        padded = ((n + c - 1) // c) * c
+        toks = np.zeros((1, padded), np.int64)
+        toks[0, :n] = prompt_np[0]
+        for i in range(padded // c):
+            extend_step(self._draft_model, mini,
+                        put(toks[:, i * c:(i + 1) * c]),
+                        put((np.arange(c, dtype=np.int32) + i * c)[None, :]))
+        _set_len(mini, 0, n)
+        return mini
+
+    def _check_adapter(self, adapter) -> int:
+        """The request's adapter id, -1 for none; raises for a model
+        without adapters or an id outside [0, n_adapters)."""
+        if adapter is None:
+            return -1
+        if self.model.n_adapters == 0:
+            raise ValueError(
+                "model was built without LoRA adapters (n_adapters=0)")
+        if not 0 <= adapter < self.model.n_adapters:
+            raise ValueError(
+                f"adapter {adapter} outside [0, {self.model.n_adapters})")
+        return int(adapter)
+
+    def _auto_match(self, pnp: np.ndarray, t_p: int, aid: int = -1,
                     session: Optional[str] = None):
         """The best automatic prefix donor for the prompt: the registry
         entry or resident slot prompt sharing the longest common prefix,
@@ -1542,14 +1670,17 @@ class ServingEngine:
         extend at all ("reg_full" / "slot_full", m = t_p).  Session
         records (see :meth:`park_session`) are private to their
         conversation: other traffic never matches them, and the owning
-        session's request matches its own record first.  Returns
-        (kind, ref, m) or None."""
+        session's request matches its own record first.  Donors are
+        bound to the adapter *aid* they were prefilled with (the adapter
+        shapes the K/V).  Returns (kind, ref, m) or None."""
         if not self.auto_prefix:
             return None
         c = self.chunk
         best = None
         best_m = 0
-        for h, (ptoks, _pc, _pl) in self._prefixes.items():
+        for h, (ptoks, _pc, _pl, paid) in self._prefixes.items():
+            if paid != aid:
+                continue
             lcp = _lcp(pnp, ptoks)
             if lcp == t_p == len(ptoks):
                 return ("reg_full", h, t_p)
@@ -1562,7 +1693,9 @@ class ServingEngine:
             rec_sess = rec[5] if len(rec) > 5 else None
             if rec_sess is not None and rec_sess != session:
                 continue  # another conversation's decode rows
-            stoks, canon = rec[0], rec[2]
+            stoks, said, canon = rec[0], rec[1], rec[2]
+            if said != aid:
+                continue
             lcp = _lcp(pnp, stoks)
             if rec_sess is not None:
                 # the conversation's own parked rows win outright
@@ -1591,22 +1724,24 @@ class ServingEngine:
         positions.  Returns an opaque handle.  The registry holds at
         most ``prefix_registry_max`` entries (each a full B=1 cache);
         past that the least recently used is evicted
-        (``prefix_evictions``)."""
-        if adapter is not None:
-            _unported(adapter=True)
+        (``prefix_evictions``).  A prefix is bound to its *adapter* (the
+        adapter shapes its K/V): admissions that use it must ask for the
+        same one."""
         toks = np.asarray(tokens, np.int32).reshape(1, -1)
         if int(toks.shape[1]) < 1:
             raise ValueError("empty prefix")
+        aid = self._check_adapter(adapter)
         while len(self._prefixes) >= self.prefix_registry_max:
             lru = min(self._prefixes,
                       key=lambda h: self._prefix_touch.get(h, 0))
             self._prefixes.pop(lru, None)
             self._prefix_touch.pop(lru, None)
             self._prefix_evictions += 1
-        mini, last = self._extend_prompt(init_cache(self.model, 1), toks, 0)
+        mini, last = self._extend_prompt(init_cache(self.model, 1), toks, 0,
+                                         adapter=aid)
         handle = self._next_prefix
         self._next_prefix += 1
-        self._prefixes[handle] = (toks[0].copy(), mini, last)
+        self._prefixes[handle] = (toks[0].copy(), mini, last, aid)
         self._touch_prefix(handle)
         return handle
 
@@ -1731,7 +1866,6 @@ class ServingEngine:
         :meth:`finish_admit` (or drop it with :meth:`abort_admit`).
         Every validation error raises here, before any engine state is
         touched."""
-        _unported(adapter=adapter is not None)
         prompt_np = np.asarray(prompt, np.int32).reshape(1, -1)
         t_p = int(prompt_np.shape[1])
         if t_p < 1:
@@ -1755,6 +1889,7 @@ class ServingEngine:
         if not repetition_penalty > 0:
             raise ValueError(
                 f"repetition_penalty {repetition_penalty} must be > 0")
+        aid = self._check_adapter(adapter)
         stops = frozenset(int(t) for t in (stop or ()))
         for t in stops:
             if not 0 <= t < self.model.vocab:
@@ -1784,6 +1919,21 @@ class ServingEngine:
         # t_p <= max_len - 1 keeps released slots' prompt rows valid
         # donors: a parked slot's masked decode writes clamp to row
         # max_len - 1, which this bound keeps out of the prompt rows
+        if (self._draft_model is not None or self._ngram) \
+                and self.auto_prefix:
+            # with a proposer the bound is stronger: the verify extend
+            # writes gamma + 1 rows for EVERY slot, so a parked slot's
+            # clamped band is [max_len - gamma - 1, max_len - 1] and a
+            # donor's prompt must sit below it (without donor matching
+            # parked rows are never read back)
+            spec_limit = self.model.max_len - self.gamma - 1
+            if t_p > spec_limit:
+                raise ValueError(
+                    f"prompt {t_p} exceeds the speculative donor bound "
+                    f"{spec_limit} (max_len - gamma - 1): parked-slot "
+                    "prompt K/V must stay below the clamped verify "
+                    "band; shorten the prompt, raise max_len, or "
+                    "lower gamma")
         # grammar opt-in: True = grammar 0 (the constructor's), an int
         # selects a register_grammar() id; gstart -1 = unconstrained
         if grammar is False or grammar is None:
@@ -1839,17 +1989,22 @@ class ServingEngine:
         if prefix is not None:
             if prefix not in self._prefixes:
                 raise ValueError(f"unknown prefix handle {prefix}")
-            ptoks, pcache, plast = self._prefixes[prefix]
+            ptoks, pcache, plast, paid = self._prefixes[prefix]
             L = len(ptoks)
             if t_p < L or not np.array_equal(prompt_np[0, :L], ptoks):
                 raise ValueError(
                     "prompt does not start with the registered prefix")
+            if paid != aid:
+                raise ValueError(
+                    f"prefix was registered with adapter {paid}, "
+                    f"request uses {aid}: the adapter shapes the prefix "
+                    "K/V, register one per adapter")
             start, n = L, t_p - L
         else:
             # prompt_logprobs needs every position's logits, so it
             # forces a full (cold) prefill: no automatic prefix reuse
             auto_src = (None if plp_n
-                        else self._auto_match(prompt_np[0], t_p,
+                        else self._auto_match(prompt_np[0], t_p, aid,
                                               session or None))
             start = auto_src[2] if auto_src is not None else 0
             n = t_p - start
@@ -1860,6 +2015,7 @@ class ServingEngine:
                     f"padded prompt {start + padded} exceeds max_len "
                     f"{self.model.max_len} (shrink chunk or prompt)")
         if (auto_src is not None and auto_src[0] == "slot_full"
+                and self._draft_model is None
                 and not self.active[auto_src[1]]
                 and not self._reserved[auto_src[1]]):
             # prefix-affinity placement: an exact repeat goes back into
@@ -1886,6 +2042,7 @@ class ServingEngine:
         st.plp_n = plp_n
         st.logit_bias = logit_bias
         st.gstart = gstart
+        st.aid = aid
         st.auto_src = auto_src
         # an unaligned explicit prefix leaves the suffix rows off the
         # chunk grid: only the prefix part is reusable later
@@ -1909,7 +2066,8 @@ class ServingEngine:
             ps, c = pool.page_size, self.chunk
             st.prefill_end = (start + ((n + c - 1) // c) * c
                               if n > 0 else t_p)
-            if auto_src is not None and auto_src[0] == "slot_full":
+            if (auto_src is not None and auto_src[0] == "slot_full"
+                    and self._draft_model is None):
                 shared_est = (t_p + ps - 1) // ps  # in place or shared
             elif auto_src is not None and auto_src[0] == "slot":
                 shared_est = auto_src[2] // ps
@@ -1933,7 +2091,7 @@ class ServingEngine:
                 # the extend writes in place: the registry entry must
                 # survive for the next admit
                 st.gen = _PrefillJob(self, _clone_cache(pcache),
-                                     prompt_np[:, L:], start=L)
+                                     prompt_np[:, L:], start=L, adapter=aid)
             else:
                 # exact-prefix prompt: the splice only reads the entry
                 st.result = (pcache, plast)
@@ -1942,14 +2100,16 @@ class ServingEngine:
             if kind in ("reg", "reg_full"):
                 self._touch_prefix(ref)
             if kind == "reg_full":
-                _, pc_full, pl_full = self._prefixes[ref]
+                _, pc_full, pl_full, _ = self._prefixes[ref]
                 st.result = (pc_full, pl_full)
             elif kind == "slot_full":
                 rec_full = self._slot_prompts[ref]
-                if ref == slot:
+                # with a draft the slot's draft rows are re-prefilled at
+                # finish, so the target rows are copied as for any donor
+                if ref == slot and self._draft_model is None:
                     st.inplace = True
                     st.result = (None, rec_full[3])
-                elif self._paged:
+                elif self._paged and self._draft_model is None:
                     # a paged exact repeat into another slot maps the
                     # donor's pages by reference: the first append past
                     # the shared rows pays one page copy instead
@@ -1975,12 +2135,13 @@ class ServingEngine:
                 # rows beyond m are stale donor data masked by the
                 # cache_lens reset; the suffix extend overwrites them
                 _set_len(src, 0, m)
-                st.gen = _PrefillJob(self, src, prompt_np[:, m:], start=m)
+                st.gen = _PrefillJob(self, src, prompt_np[:, m:], start=m,
+                                     adapter=aid)
         else:
             st.gen = _PrefillJob(self, init_cache(self.model, 1),
                                  prompt_np, start=0,
                                  plp_k=self.logprobs_k if plp_n else 0,
-                                 plp_out=st.plp_dev)
+                                 plp_out=st.plp_dev, adapter=aid)
         # the reservation is the last begin-side mutation
         self._reserved[slot] = True
         return st
@@ -2098,17 +2259,24 @@ class ServingEngine:
         k = len(jobs)
         for job in jobs:
             job.charge()
+        lora = self.model.n_adapters > 0
         if self.chunk is None:
             (job,) = jobs
+            aids = (self._stage.put(np.asarray([job.aid], np.int64))
+                    if lora else None)
             logits = self.model(self._stage.put(job.chunk_np()),
                                 self._stage.put(job.pos_np()), job.mini,
-                                decode=True)
+                                decode=True, adapter_ids=aids)
             job.absorb_logits(logits[0])
             job.attach_mini()
             return
         b = self._chunk_batch(k)
         minis = [job.mini for job in jobs]
         _pack_minis(minis, b.cache)
+        if lora:
+            aids = np.full(b.aids.shape[0], -1, np.int64)
+            aids[:k] = [job.aid for job in jobs]
+            self._stage.copy_into(b.aids, aids)
         inputs = np.zeros(tuple(b.inputs.shape), np.int32)
         for _ in range(rounds):
             for i, job in enumerate(jobs):
@@ -2175,11 +2343,14 @@ class ServingEngine:
             self._paged_land(st, mini)
         else:
             _splice_slot(self.cache, mini, slot)
+        if self._draft_model is not None:
+            _splice_slot(self._draft_cache,
+                         self._draft_prefill(st.prompt_np), slot)
         # the final-position logits row rides the record: an exact
         # repeat of this prompt admits with no extend; resolve fills in
         # the greedy first token when this admission qualifies
-        self._slot_prompts[slot] = (st.prompt_np[0], -1, st.canon, last,
-                                    None)
+        self._slot_prompts[slot] = (st.prompt_np[0], st.aid, st.canon,
+                                    last, None)
         self.lens[slot] = st.t_p
         self.active[slot] = True
         self.temps[slot] = st.temperature
@@ -2189,6 +2360,7 @@ class ServingEngine:
         self.pres[slot] = st.presence_penalty
         self.freqs[slot] = st.frequency_penalty
         self.reps[slot] = st.repetition_penalty
+        self.adapters[slot] = st.aid
         self._stops[slot] = st.stops
         self._ignore_eos[slot] = bool(st.ignore_eos)
         V = self.model.vocab
@@ -2401,7 +2573,8 @@ class ServingEngine:
         (sampled, lp_k, pen, rep, seeded, biased, minned, grammared,
          fused, K, paged) = flags
         w = self._w
-        logits = self._extend(w.tok[:, None], w.pos[:, None], paged)
+        logits = self._extend(w.tok[:, None], w.pos[:, None], paged,
+                              w.adapters)
         lg = logits[:, -1, :]
         if biased:
             lg = lg + self._bias
@@ -2452,14 +2625,20 @@ class ServingEngine:
         w.step.add_(1)
 
     def _extend(self, tokens: torch.Tensor, positions: torch.Tensor,
-                paged: bool) -> torch.Tensor:
+                paged: bool, adapter_ids: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """One extend on the engine cache (the admission minis always
         run contiguous): the paged engine's twin model reads the pool
-        through the block-table buffer."""
+        through the block-table buffer.  *adapter_ids* [S] reach the
+        model only when it has adapters."""
+        if self.model.n_adapters == 0:
+            adapter_ids = None
         if paged:
             return self._pmodel(tokens, positions, self.cache, decode=True,
-                                block_tables=self._btables)
-        return self.model(tokens, positions, self.cache, decode=True)
+                                block_tables=self._btables,
+                                adapter_ids=adapter_ids)
+        return self.model(tokens, positions, self.cache, decode=True,
+                          adapter_ids=adapter_ids)
 
     def _graph(self, flags: tuple) -> "torch.cuda.CUDAGraph":
         """The captured step of *flags*, captured at its first use."""
@@ -2623,7 +2802,8 @@ class ServingEngine:
         if self._paged:
             self._bt()
         logits = self._extend(torch.from_numpy(toks).to(dev), positions,
-                              self._paged)
+                              self._paged,
+                              torch.from_numpy(self.adapters).to(dev))
         # the bonus pick from each slot's post-chain position
         kd = torch.from_numpy(k).to(dev)
         lg = logits[torch.arange(S, device=dev), kd]
@@ -2774,7 +2954,7 @@ class ServingEngine:
             "budget": (self.max_new_tokens
                        if self.max_new_tokens is not None
                        else _NO_BUDGET),
-            "gstate": self.gstate,
+            "gstate": self.gstate, "adapters": self.adapters,
         }
         floats = {"temps": self.temps, "topps": self.topps,
                   "minps": self.minps, "pres": self.pres,
@@ -3003,8 +3183,7 @@ class ServingEngine:
 
     def stats(self) -> Dict[str, int]:
         """Engine counters, with the reference's keys (the pool's, the
-        preemptions and the parked sessions too on a paged engine);
-        those of features not ported yet stay 0."""
+        preemptions and the parked sessions too on a paged engine)."""
         out = {
             "n_slots": self.n_slots,
             "active_slots": sum(self.active),
@@ -3017,9 +3196,9 @@ class ServingEngine:
             "prefill_tokens": self._prefill_tokens,
             "prefix_cache_hits": self._prefix_hits,
             "prefix_reused_tokens": self._prefix_reused_tokens,
-            "spec_rounds": 0,
-            "spec_proposed": 0,
-            "spec_accepted": 0,
+            "spec_rounds": self._spec_rounds,
+            "spec_proposed": self._spec_proposed,
+            "spec_accepted": self._spec_accepted,
             "jump_rounds": self._jump_rounds,
             "jump_forced_tokens": self._jump_forced,
             "prefix_evictions": self._prefix_evictions,
@@ -3041,7 +3220,9 @@ class ServingEngine:
         record survives: the rows [0, canon) stay valid donors for
         automatic prefix matches until the slot is admitted into again,
         since a parked slot's masked decode writes clamp to row
-        max_len - 1, below which every prompt lies."""
+        max_len - 1 (max_len - gamma - 1 under a speculative proposer,
+        whose verify writes gamma + 1 rows), below which every prompt
+        lies."""
         if self._inflight_scan is not None:
             self._inflight_scan.skip.add(slot)
         self.active[slot] = False
@@ -3060,6 +3241,7 @@ class ServingEngine:
         self.pres[slot] = 0.0
         self.freqs[slot] = 0.0
         self.reps[slot] = 1.0
+        self.adapters[slot] = -1
         self._stops[slot] = frozenset()
         self._ignore_eos[slot] = False
         self._seed_on[slot] = 0
@@ -3069,15 +3251,181 @@ class ServingEngine:
         self._park_counter += 1
         self._park_seq[slot] = self._park_counter
 
-    # -- speculative decoding (not ported yet) -------------------------------
+    # -- speculative decoding ----------------------------------------------
+
+    @torch.no_grad()
+    def spec_round(self) -> Dict[int, List[int]]:
+        """One speculative round for every active slot: the proposer
+        gives ``gamma`` tokens a slot (the draft model's greedy steps on
+        its own cache, or prompt lookup over the slot's history), the
+        target verifies them in ONE ``[S, gamma + 1]`` extend, and each
+        slot commits its accepted prefix plus the target's own next
+        token: 1..gamma+1 tokens a slot for one host round trip, the ids
+        of greedy :meth:`step` decoding.  Op by op, on CUDA too.
+
+        Greedy only, as its first-mismatch rule is: raises if an active
+        slot armed sampling knobs, logprobs or a grammar.  Near the end
+        of the cache (a slot with fewer than gamma + 1 rows left) it
+        steps instead.  Returns {slot: [tokens]}."""
+        if self._draft_model is None and not self._ngram:
+            raise RuntimeError(
+                "engine was built without a speculative proposer "
+                "(ServingEngine(..., draft=model) or draft=\"ngram\")")
+        if _knobs_live(self.temps, self.topks, self.topps, self.minps,
+                       self.pres, self.freqs, self.reps):
+            raise ValueError(
+                "speculative decoding is greedy-only: a slot armed "
+                "sampling/penalty knobs")
+        if self.logprobs_k and any(
+                self._lp_want[s] for s in range(self.n_slots)
+                if self.active[s]):
+            raise ValueError(
+                "speculative decoding does not produce per-token "
+                "logprobs (the accepted tokens skip their own decode "
+                "step)")
+        if self._grammar_live():
+            raise ValueError(
+                "speculative decoding does not compose with grammar "
+                "constraints (verify positions depend on sequential "
+                "DFA states); decode grammar requests with "
+                "step/run_scan")
+        if self._inflight_scan is not None:
+            raise RuntimeError(
+                "a dispatched window is outstanding (scan_harvest it "
+                "first)")
+        if not any(self.active):
+            return {}
+        for s in range(self.n_slots):
+            if self.active[s] and self.lens[s] >= self.model.max_len:
+                self._finish(s)
+        if not any(self.active):
+            return {}
+        S, g = self.n_slots, self.gamma
+        headroom = min(self.model.max_len - self.lens[s]
+                       for s in range(S) if self.active[s])
+        if headroom < g + 1:
+            # a verify position at max_len would clamp onto the slot's
+            # last valid row: the endgame steps (the draft cache goes
+            # stale for those tokens, which costs accept rate only)
+            return {s: [t] for s, t in self.step().items()}
+        self._ensure_append_pages(g + 1)
+        if not any(self.active):
+            return {}
+        dev = self.device
+        first = torch.from_numpy(self.last_token.astype(np.int64)).to(dev)
+        pos0 = torch.from_numpy(np.asarray(self.lens, np.int32)).to(dev)
+        if self._ngram:
+            # host-side proposals from the resident prompt and outputs
+            pnp = np.zeros((S, g), np.int64)
+            for s in range(S):
+                if not self.active[s]:
+                    continue
+                rec = self._slot_prompts[s]
+                hist = np.concatenate([
+                    rec[0] if rec is not None else np.zeros(0, np.int32),
+                    np.asarray(self.outputs[s], np.int32)])
+                pnp[s] = _ngram_propose(hist, self.ngram_n, g)
+            props = torch.from_numpy(pnp).to(dev)
+        else:
+            props, _ = _draft_propose(self._draft_model, g,
+                                      self._draft_cache, first, pos0)
+            props = props.long()
+        verify = torch.cat([first[:, None], props], dim=1)
+        positions = pos0[:, None] + torch.arange(g + 1, dtype=torch.int32,
+                                                 device=dev)
+        if self._paged:
+            self._bt()
+        logits = self._extend(verify, positions, self._paged,
+                              torch.from_numpy(self.adapters).to(dev))
+        if self._bias_live():
+            # the verify rule is the biased argmax plain decoding uses
+            logits = logits + self._bias[:, None, :]
+        if self._min_live():
+            # verify position j emits output token emitted + j: the
+            # floor lifts per position where plain decoding lifts it
+            emitted = np.asarray([len(self.outputs[s]) for s in range(S)])
+            gate = ((emitted[:, None] + np.arange(g + 1)[None, :])
+                    < self.min_toks[:, None]).astype(np.float32)
+            logits = logits + self._min_mask[:, None, :] * \
+                torch.from_numpy(gate).to(dev)[:, :, None]
+        tgt = torch.argmax(logits, dim=-1)                   # [S, g + 1]
+        # one read of proposals and choices together
+        both = torch.cat([props, tgt], dim=1).cpu().numpy()
+        props_h, tgt_h = both[:, :g], both[:, g:]
+        self._steps += 1
+        self._spec_rounds += 1
+
+        out: Dict[int, List[int]] = {}
+        new_lens = np.zeros(S, np.int32)
+        dispatched = np.asarray(self.active, bool)  # active at verify
+        for s in range(S):
+            if not dispatched[s]:
+                # host mirror only: a parked slot's device lens stays
+                # high, so its clamped writes stay past its donor rows
+                self.lens[s] += g + 1
+                continue
+            acc = 0
+            while acc < g and props_h[s, acc] == tgt_h[s, acc]:
+                acc += 1
+            self._spec_proposed += g
+            self._spec_accepted += acc
+            # committed: the accepted proposals and the target's own
+            # token, tgt_h[s, :acc + 1], capped at the cache end
+            k = min(acc + 1, self.model.max_len - self.lens[s])
+            toks = []
+            for j in range(k):
+                tok = int(tgt_h[s, j])
+                self.last_token[s] = tok
+                self.outputs[s].append(tok)
+                self._tokens += 1
+                toks.append(tok)
+                self._maybe_finish(s, tok)
+                if not self.active[s]:
+                    k = j + 1  # later verify tokens are dropped
+                    break
+            self.lens[s] += k
+            new_lens[s] = self.lens[s]
+            if self.active[s] and self.lens[s] >= self.model.max_len:
+                self._finish(s)
+            out[s] = toks
+        # both caches roll back to the committed length: the target
+        # keeps its accepted verify rows, the draft holds [first,
+        # props[:-1]] and the extra append, so rows below lens are valid
+        # in both (slots that finished in the loop get their exact lens)
+        _rollback_active(self.cache, new_lens, dispatched)
+        if self._draft_cache is not None:
+            _rollback_active(self._draft_cache, new_lens, dispatched)
+        return out
+
+    def run_spec(self, max_rounds: int) -> None:
+        """Speculative rounds until every slot retires (the counterpart
+        of :meth:`run`)."""
+        for _ in range(max_rounds):
+            if not any(self.active):
+                return
+            self.spec_round()
+
+    @property
+    def accept_rate(self) -> float:
+        """Share of the proposals the target kept (a measure of the
+        proposer, not a correctness knob)."""
+        return (self._spec_accepted / self._spec_proposed
+                if self._spec_proposed else 0.0)
 
     def spec_ready(self) -> bool:
-        """Would :meth:`spec_round` run right now?  Never while no draft
-        is loaded, and a draft does not load yet (``draft`` raises at
-        construction, naming ROADMAP item 1b): the schedulers' predicate
-        for choosing spec rounds over windows."""
-        return False
-
-    def spec_round(self):
-        """Speculative decoding is not ported (ROADMAP item 1b)."""
-        _unported(spec_round=True)
+        """Would :meth:`spec_round` run right now?  True iff a proposer
+        is loaded and no active slot armed sampling knobs, logprobs or a
+        grammar: the schedulers' predicate for spec rounds (greedy
+        traffic) over windows (mixed traffic)."""
+        if self._draft_model is None and not self._ngram:
+            return False
+        if _knobs_live(self.temps, self.topks, self.topps, self.minps,
+                       self.pres, self.freqs, self.reps):
+            return False
+        if self.logprobs_k and any(
+                self._lp_want[s] for s in range(self.n_slots)
+                if self.active[s]):
+            return False
+        if self._grammar_live():
+            return False
+        return True

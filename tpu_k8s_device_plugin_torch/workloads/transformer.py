@@ -89,35 +89,13 @@ def _unported(**features) -> None:
     """Raise for a feature of the JAX models that the port does not have
     yet, naming where ROADMAP.md puts it."""
     later = {
-        "quantized": "int8/int4 weights arrive with the quantization "
-                     "slice (ROADMAP.md, queue 1, item 1b)",
-        # the serving CLI's options (workloads/server.py)
-        "int4": "int4 weights arrive with the quantization slice "
-                "(ROADMAP.md, queue 1, item 1b)",
-        "draft_config": "speculative decoding arrives with its slice "
-                        "(ROADMAP.md, queue 1, item 1b)",
-        "spec_ngram": "speculative decoding arrives with its slice "
-                      "(ROADMAP.md, queue 1, item 1b)",
         "tp": "tensor-parallel serving arrives with multi-device "
               "(ROADMAP.md, queue 1, item 6)",
         "checkpoint": "restoring weights arrives with checkpointing "
                       "(ROADMAP.md, queue 1, item 7)",
-        "n_experts": "MoE FFNs (moe.py) were left out of the LM-training "
-                     "slice; they come after the fleet tier (ROADMAP.md, "
-                     "queue 1, item 3)",
-        "n_adapters": "LoRA adapters arrive with the quantization and "
-                      "adapter slice (ROADMAP.md, queue 1, item 1b)",
-        "adapter_ids": "LoRA adapters arrive with the quantization and "
-                       "adapter slice (ROADMAP.md, queue 1, item 1b)",
         # the serving engine's arguments (workloads/serving.py)
         "mesh": "tensor-parallel serving arrives with multi-device "
                 "(ROADMAP.md, queue 1, item 6)",
-        "draft": "speculative decoding arrives with its slice "
-                 "(ROADMAP.md, queue 1, item 1b)",
-        "adapter": "LoRA adapters arrive with the quantization and "
-                   "adapter slice (ROADMAP.md, queue 1, item 1b)",
-        "spec_round": "speculative decoding arrives with its slice "
-                      "(ROADMAP.md, queue 1, item 1b)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
@@ -270,67 +248,102 @@ class Block(nn.Module):
     """Pre-norm transformer block: RMSNorm -> attention -> residual,
     RMSNorm -> FFN -> residual.  Multi-head or grouped-query attention
     (``n_kv_heads < n_heads``: K/V reach ``attn_fn`` grouped); the FFN is
-    the dense GELU MLP (tanh approximation, as flax's ``nn.gelu``) or
-    SwiGLU (``mlp_down(silu(mlp_gate(h)) * mlp_up(h))``).  Parameters
-    are *param_dtype* (f32, flax's default) and train."""
+    the dense GELU MLP (tanh approximation, as flax's ``nn.gelu``),
+    SwiGLU (``mlp_down(silu(mlp_gate(h)) * mlp_up(h))``) or, with
+    ``n_experts > 0``, a routed expert FFN (``moe``, see ``moe.MoEFFN``)
+    whose capacity slots go by position.  Parameters are *param_dtype*
+    (f32, flax's default) and train.  *dense* builds each projection
+    from ``(d_in, d_out)`` (the serving model's quantized layers)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  dtype: torch.dtype = COMPUTE_DTYPE,
                  attn_fn: AttnFn = local_causal_attention,
                  n_kv_heads: Optional[int] = None, ffn: str = "gelu",
                  rope_theta: float = 10000.0, n_experts: int = 0,
-                 device=None, param_dtype: torch.dtype = torch.float32):
+                 device=None, param_dtype: torch.dtype = torch.float32,
+                 moe_k: int = 2, moe_capacity_factor: float = 1.25,
+                 dense: Optional[Callable[[int, int], nn.Module]] = None,
+                 moe_quantized: bool = False, keep_aux: bool = True):
         super().__init__()
-        _unported(n_experts=n_experts)
         device = resolve_device(device)
         self.n_heads = n_heads
         self.n_kv = n_kv_heads or n_heads
         _validate_attn_ffn(n_heads, self.n_kv, ffn)
         self.d_model, self.head_dim = d_model, d_model // n_heads
         self.attn_fn, self.ffn, self.rope_theta = attn_fn, ffn, rope_theta
+        self.n_experts = n_experts
+        if dense is None:
+            def dense(d_in, d_out):
+                return Dense(d_in, d_out, dtype, device, param_dtype)
         self.attn_norm = RMSNorm(d_model, dtype, device)
-        self.qkv = Dense(
-            d_model, (n_heads + 2 * self.n_kv) * self.head_dim, dtype,
-            device, param_dtype)
-        self.out_proj = Dense(d_model, d_model, dtype, device, param_dtype)
+        self.qkv = dense(d_model, (n_heads + 2 * self.n_kv) * self.head_dim)
+        self.out_proj = dense(d_model, d_model)
         self.mlp_norm = RMSNorm(d_model, dtype, device)
-        if ffn == "swiglu":
-            self.mlp_gate = Dense(d_model, d_ff, dtype, device, param_dtype)
-        self.mlp_up = Dense(d_model, d_ff, dtype, device, param_dtype)
-        self.mlp_down = Dense(d_ff, d_model, dtype, device, param_dtype)
+        if n_experts > 0:
+            from .moe import MoEFFN
 
-    def attention_inputs(self, x: torch.Tensor, positions: torch.Tensor):
+            self.moe = MoEFFN(
+                n_experts, d_model, d_ff, k=moe_k,
+                capacity_factor=moe_capacity_factor, dtype=dtype,
+                quantized=moe_quantized, device=device,
+                param_dtype=param_dtype, keep_aux=keep_aux)
+            return
+        if ffn == "swiglu":
+            self.mlp_gate = dense(d_model, d_ff)
+        self.mlp_up = dense(d_model, d_ff)
+        self.mlp_down = dense(d_ff, d_model)
+
+    def proj(self, name: str, x: torch.Tensor,
+             adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The projection *name* of *x* (the serving block adds its
+        per-request adapter delta here)."""
+        return getattr(self, name)(x)
+
+    def attention_inputs(self, x: torch.Tensor, positions: torch.Tensor,
+                         adapter_ids: Optional[torch.Tensor] = None):
         """q [B, T, H, Dh] and k [B, T, Hkv, Dh] with RoPE applied, and v
         (a view of the fused projection)."""
         q, k, v = split_qkv_heads(
-            self.qkv(self.attn_norm(x)), self.n_heads, self.n_kv,
-            self.head_dim)
+            self.proj("qkv", self.attn_norm(x), adapter_ids), self.n_heads,
+            self.n_kv, self.head_dim)
         return (apply_rope(q, positions, self.rope_theta),
                 apply_rope(k, positions, self.rope_theta), v)
 
-    def finish(self, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
-        """The attention residual, then the FFN and its residual."""
+    def finish(self, x: torch.Tensor, att: torch.Tensor,
+               positions: Optional[torch.Tensor] = None,
+               adapter_ids: Optional[torch.Tensor] = None,
+               capacity: Optional[int] = None) -> torch.Tensor:
+        """The attention residual, then the FFN and its residual; an
+        expert FFN takes *positions* as its slot priority and *capacity*
+        in place of its own."""
         B, T, _ = x.shape
-        x = x + self.out_proj(att.reshape(B, T, self.d_model))
+        x = x + self.proj("out_proj", att.reshape(B, T, self.d_model),
+                          adapter_ids)
         h = self.mlp_norm(x)
+        if self.n_experts > 0:
+            return x + self.moe(h, positions, capacity)
         if self.ffn == "swiglu":
-            return x + self.mlp_down(
-                F.silu(self.mlp_gate(h)) * self.mlp_up(h))
-        return x + self.mlp_down(
-            F.gelu(self.mlp_up(h), approximate="tanh"))
+            return x + self.proj(
+                "mlp_down", F.silu(self.proj("mlp_gate", h, adapter_ids))
+                * self.proj("mlp_up", h, adapter_ids), adapter_ids)
+        return x + self.proj(
+            "mlp_down", F.gelu(self.proj("mlp_up", h, adapter_ids),
+                               approximate="tanh"), adapter_ids)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
         q, k, v = self.attention_inputs(x, positions)
-        return self.finish(x, self.attn_fn(q, k, v, positions))
+        return self.finish(x, self.attn_fn(q, k, v, positions), positions)
 
 
 class TransformerLM(nn.Module):
     """Next-token LM: embedding, blocks named ``block_i``, final RMSNorm,
     ``lm_head``; f32 logits.  ``attn_fn`` swaps the einsum attention for
     the flash kernels (``flash_attention.flash_causal_attention``)
-    without touching any other part of the model.  Parameters are f32
-    and left uninitialised: load a converted tree, or fill them
+    without touching any other part of the model; ``n_experts > 0``
+    swaps every block's MLP for a routed expert FFN (``moe_k`` experts a
+    token, ``moe_capacity_factor``).  Parameters are f32 and left
+    uninitialised: load a converted tree, or fill them
     (``bench_serving.random_init_``)."""
 
     def __init__(self, vocab: int, d_model: int = 256, n_heads: int = 4,
@@ -339,18 +352,20 @@ class TransformerLM(nn.Module):
                  attn_fn: AttnFn = local_causal_attention,
                  n_kv_heads: Optional[int] = None, ffn: str = "gelu",
                  rope_theta: float = 10000.0, n_experts: int = 0,
-                 device=None):
+                 device=None, moe_k: int = 2,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
-        _unported(n_experts=n_experts)
         device = resolve_device(device)
         self.vocab, self.n_layers, self.dtype = vocab, n_layers, dtype
+        self.n_experts = n_experts
         f32 = torch.float32
         self.embed = Embed(vocab, d_model, dtype, device, f32)
         for i in range(n_layers):
             self.add_module(f"block_{i}", Block(
                 d_model, n_heads, d_ff, dtype=dtype, attn_fn=attn_fn,
                 n_kv_heads=n_kv_heads, ffn=ffn, rope_theta=rope_theta,
-                device=device))
+                n_experts=n_experts, device=device, moe_k=moe_k,
+                moe_capacity_factor=moe_capacity_factor))
         self.final_norm = RMSNorm(d_model, dtype, device)
         self.lm_head = Dense(d_model, vocab, dtype, device, f32)
 
@@ -365,6 +380,14 @@ class TransformerLM(nn.Module):
             x = getattr(self, f"block_{i}")(x, positions)
         return self.lm_head(self.final_norm(x)).to(torch.float32)
 
+    def aux_loss(self) -> torch.Tensor:
+        """The sum of every expert layer's last auxiliary term (already
+        scaled by its weight): what flax's ``losses`` collection holds
+        after a forward.  0 without experts."""
+        terms = [getattr(self, f"block_{i}").moe.aux
+                 for i in range(self.n_layers) if self.n_experts > 0]
+        return sum(terms) if terms else torch.zeros(())
+
 
 # ---------------------------------------------------------------------------
 # training
@@ -376,12 +399,16 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy of the f32 logits over the labels
     >= 0 (a negative label, such as the -1 in the last slot, is
-    ignored); 0 when every label is ignored, as in the JAX package."""
+    ignored); 0 when every label is ignored, as in the JAX package.
+    The expert layers' load-balancing terms are added on top."""
     logits = model(tokens, positions)
     labels = labels.long().masked_fill(labels < 0, -1)
     total = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
                             ignore_index=-1, reduction="sum")
-    return total / (labels >= 0).sum().clamp(min=1)
+    ce = total / (labels >= 0).sum().clamp(min=1)
+    if model.n_experts > 0:
+        return ce + model.aux_loss()
+    return ce
 
 
 def lm_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
