@@ -23,7 +23,9 @@ Phases, each fatal on failure:
    its lse residual, K5 (dQ) and K6
    (dK, dV) on a head slice of the LM training call (q [1, 8192, 8, 128],
    K/V [1, 8192, 2, 128], where the plain version's [T, T] f32 scores
-   fit) and edge shapes (among them T 1024 with GQA 4:1, and D 96, which
+   fit), on the same slice of the checkpointing phase's LM resume call
+   (q [1, 4096, 8, 64], K/V [1, 4096, 2, 64]) and edge shapes (among
+   them T 1024 with GQA 4:1, and D 96, which
    the bf16 kernels pad to 128), timed at the full call (q [1, 8192, 32,
    128], K/V [1, 8192, 8, 128]) against ``scaled_dot_product_attention``'s
    forward and backward; K1/K2 (max-pool forward/backward, bit-exact,
@@ -163,7 +165,29 @@ Phases, each fatal on failure:
    ``--assert-fleet`` checks pass; ``run_cold_start`` (cold and warm
    boot times, printed, not gated); the replicas' capture times and the
    phase's wall time;
-9. print the ``kernels`` JSON line, then the result line.
+9. checkpointing, with no other model resident, under a temporary
+   directory whose free bytes are printed first (each checkpoint deleted
+   once checked; too little room fails): a save and a restore of
+   AlexNet's stepped state timed (GB/s); the elastic AlexNet loop at the
+   training phase's size (pool ``pallas``, 6 steps, a save every 2)
+   through ``bench_main``'s CLI in subprocesses: run 1 SIGKILLed once
+   step_4 is committed, run 2 with the membership file moved to
+   generation 2 resumes from 4, exits 77 after step 5 and leaves
+   step_5, run 3 under generation 2 resumes from 5 and leaves [4, 5, 6],
+   whose step_6 equals an uninterrupted run's (in this process, K1 and
+   K2 counted) bit for bit, under deterministic cuDNN algorithms; the
+   elastic loop's images/s against ``run_single``'s; the LM resume
+   (Llama-3.2-1B at full width, 2 of 16 layers, one 4096-token
+   sequence, Adam): a worker takes 2 steps, saves and SIGKILLs itself, a
+   fresh one restores and takes 3 more, whose losses equal this
+   process's uninterrupted 5 (K4 with its lse, K5, K6 counted) bit for
+   bit, save and restore GB/s printed; Llama-3.2-1B at full width and
+   depth saved in f32 and served by the server CLI with ``--checkpoint``
+   (bf16, ``--quantized``, ``--int4``), each answering the scheduler
+   phase's greedy requests with the ids of an in-process engine over the
+   same weights loaded without a checkpoint, each boot's restore seconds
+   printed;
+10. print the ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -542,7 +566,8 @@ def _held_line(name: str, r: dict) -> str:
 
 def check_flash_training(torch, fa):
     """Phase 3: K4 with its lse, K5 and K6 against their plain versions on
-    the LM training call's head slice and on edge shapes (the plain
+    the LM training call's head slice, the checkpointing phase's LM resume
+    head slice (head dim 64, 4096 tokens) and edge shapes (the plain
     forward's lse and delta feed both backward versions, so each kernel is
     held alone); then the kernels' times at the full call against their
     bounds and ``scaled_dot_product_attention``, and the plain versions'
@@ -553,6 +578,8 @@ def check_flash_training(torch, fa):
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, q shape, Tk, KV heads, dtype, causal
         ("slice", ATTN_SLICE[0], LM_SEQ, ATTN_SLICE[1], bf16, True),
+        ("ckpt-lm", ATTN_CKPT_SLICE[0], CKPT_LM_SEQ, ATTN_CKPT_SLICE[1],
+         bf16, True),
         ("ragged", (1, 200, 4, 128), 200, 1, bf16, True),
         ("ragged-long", (2, 700, 8, 128), 700, 2, bf16, True),
         ("t1024", (1, 1024, 8, 128), 1024, 2, bf16, True),
@@ -3239,6 +3266,552 @@ def rest_of_model_path(torch, counts, fa, inference, llama, transformer,
     return out
 
 
+# the checkpointing phase, with no other model resident: the elastic
+# AlexNet loop at the training phase's size (224 px, 1000 classes, s2d,
+# bf16 compute, f32 parameters, batch 1024, pool pallas), 6 steps with a
+# save every 2 (run 1 SIGKILLed once step_4 is committed, run 2 resumed
+# under a moved membership generation, run 3 under the new one); the LM
+# resume on Llama-3.2-1B at full width with 2 of its 16 layers (f32
+# parameters and Adam's moments: 12 bytes a parameter saved), one
+# 4096-token sequence, 2 steps, a save, a SIGKILL and 3 more steps in a
+# fresh process; and Llama-3.2-1B at full width and depth (f32, seed 0)
+# served from a checkpoint by the server CLI, bf16, int8 and int4
+CKPT_STEPS, CKPT_EVERY = 6, 2
+CKPT_LM_LAYERS, CKPT_LM_SEQ, CKPT_LM_STEPS, CKPT_LM_SAVE_AT = 2, 4096, 5, 2
+# the head slice of the LM resume's attention call (Llama-3.2-1B: 32 / 8
+# heads of 64), which phase 3 holds against the plain versions
+ATTN_CKPT_SLICE = ((1, CKPT_LM_SEQ, 8, 64), 2)
+CKPT_SERVE_CONFIG = "llama3-1b"
+CKPT_KINDS = (("bf16", False), ("int8", True), ("int4", "int4"))
+# subprocess bounds: a run of the elastic loop, an LM worker, a boot
+CKPT_RUN_S, CKPT_BOOT_S = 600, 900
+
+
+def _ckpt_numerics(torch) -> dict:
+    """Set the phase's numerics (no TF32; cuDNN's deterministic
+    algorithms, chosen without benchmarking) and return the settings it
+    replaced: cuDNN's conv gradients may otherwise take algorithms whose
+    sums are not reproducible, and every comparison of the phase is bit
+    for bit."""
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), \
+        (torch.backends.cudnn, "allow_tf32"), \
+        (torch.backends.cudnn, "deterministic"), \
+        (torch.backends.cudnn, "benchmark")
+    before = {(mod, name): getattr(mod, name) for mod, name in flags}
+    for (mod, name), value in zip(flags, (False, False, True, False)):
+        setattr(mod, name, value)
+    return before
+
+
+def _lm_resume_setup(torch, fa, llama, transformer, bench_serving):
+    """The LM resume model (Llama-3.2-1B at full width, 2 layers, flash
+    attention, random f32 weights from seed 0), its Adam and its one
+    4096-token batch from seed 7: the same in every process."""
+    cfg = dataclasses.replace(llama.LLAMA32_1B, n_layers=CKPT_LM_LAYERS)
+    model = llama.train_model(cfg, attn_fn=fa.flash_causal_attention,
+                              device="cuda")
+    bench_serving.random_init_(model, seed=0)
+    opt = torch.optim.Adam(model.parameters(), lr=LM_LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = transformer.synthetic_lm_batch(gen, 1, CKPT_LM_SEQ, cfg.vocab)
+    return cfg, model, opt, batch
+
+
+def worker(argv) -> int:
+    """``chip_smoke.py --worker KIND ARGS``: the checkpointing phase's
+    subprocesses, under the phase's numerics (``_ckpt_numerics``):
+
+    ``elastic ARGS``: ``bench_main``'s CLI with ARGS;
+    ``lm-crash DIR``: the LM resume model takes 2 steps, saves step_2
+    under DIR, prints the save's seconds and SIGKILLs itself;
+    ``lm-resume DIR OUT``: restores the newest step under DIR in this
+    fresh process, takes the rest of the 5 steps and writes the step,
+    the restore's seconds and the losses to OUT."""
+    import signal
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    _ckpt_numerics(torch)
+    kind, args = argv[0], argv[1:]
+    if kind == "elastic":
+        from tpu_k8s_device_plugin_torch.workloads import bench_main
+
+        return bench_main.main(args)
+    from tpu_k8s_device_plugin_torch.workloads import (
+        bench_serving, checkpoint, llama, transformer)
+    from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
+
+    _, model, opt, batch = _lm_resume_setup(torch, fa, llama, transformer,
+                                            bench_serving)
+    if kind == "lm-crash":
+        for _ in range(CKPT_LM_SAVE_AT):
+            transformer.lm_train_step(model, opt, *batch)
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(args[0], CKPT_LM_SAVE_AT, {
+            "params": model.state_dict(), "opt_state": opt.state_dict()})
+        print(f"saved {time.perf_counter() - t0:.6f}", flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)
+    if kind != "lm-resume":
+        raise SystemExit(f"unknown worker {kind!r}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, restored = checkpoint.restore_latest(args[0], template={
+        "params": model.state_dict(),
+        "opt_state": checkpoint.optimizer_template(opt)})
+    model.load_state_dict(restored["params"])
+    opt.load_state_dict(restored["opt_state"])
+    del restored
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    losses = [float(transformer.lm_train_step(model, opt, *batch))
+              for _ in range(CKPT_LM_STEPS - step)]
+    with open(args[1], "w") as f:
+        json.dump({"step": step, "restore_s": restore_s, "losses": losses},
+                  f)
+    return 0
+
+
+def _room(path: str, need: int, what: str) -> None:
+    import shutil
+
+    free = shutil.disk_usage(path).free
+    print(f"checkpointing, {what}: {free} bytes free under {path}, "
+          f"{need} needed", flush=True)
+    if free < need:
+        fail(f"checkpointing, {what}: {need} bytes needed under {path}, "
+             f"{free} free")
+
+
+def _payload_bytes(checkpoint, base: str, step: int) -> int:
+    with open(os.path.join(base, f"step_{step}",
+                           checkpoint._METADATA)) as f:
+        return sum(json.load(f)["payloads"].values())
+
+
+def _rate(nbytes: int, seconds: float) -> str:
+    return (f"{seconds * 1e3:.1f} ms for {nbytes} bytes, "
+            f"{nbytes / seconds / 1e9:.3f} GB/s")
+
+
+def _trees_equal(torch, checkpoint, a, b) -> int:
+    """Fail unless trees *a* and *b* have the same keys and every leaf
+    the same bits; returns the number of tensor leaves."""
+    la, lb = list(checkpoint._leaves(a)), list(checkpoint._leaves(b))
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        fail("checkpointing: the trees' keys differ")
+    n = 0
+    for (key, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            n += 1
+            if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+                fail(f"checkpointing: {key} differs")
+        elif x != y:
+            fail(f"checkpointing: {key} is {x!r} against {y!r}")
+    return n
+
+
+def _write_membership(path: str, generation: int, workers: int,
+                      degraded: bool = False) -> None:
+    """A membership file as the slice agent writes it (atomically)."""
+    from tpu_k8s_device_plugin_torch.slice.state import Membership
+
+    hosts = tuple(f"host-{i}" for i in range(workers))
+    m = Membership(slice_id=f"slice-{generation}", generation=generation,
+                   hostnames=hosts, coordinator_address=f"{hosts[0]}:8476",
+                   degraded=degraded)
+    with open(path + ".tmp", "w") as f:
+        json.dump(m.to_dict(), f)
+    os.replace(path + ".tmp", path)
+
+
+def _elastic_run(args, generation: int, log: str, kill_at: str = ""):
+    """One run of the elastic loop through ``bench_main``'s CLI in a
+    subprocess with ``TPU_SLICE_GENERATION`` = *generation*; with
+    *kill_at* (a step dir), SIGKILLed as soon as that dir is committed.
+    Returns (exit code, output, wall seconds)."""
+    import signal
+
+    from tpu_k8s_device_plugin_torch.types import constants
+
+    env = dict(os.environ)
+    env[constants.ENV_TPU_SLICE_GENERATION] = str(generation)
+    cmd = [sys.executable, os.path.abspath(__file__), "--worker", "elastic",
+           *args]
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            if kill_at:
+                while not os.path.isdir(kill_at):
+                    if proc.poll() is not None:
+                        break
+                    if time.perf_counter() - t0 > CKPT_RUN_S:
+                        fail(f"checkpointing: {kill_at} never appeared")
+                    time.sleep(0.002)
+                else:
+                    proc.send_signal(signal.SIGKILL)
+            rc = proc.wait(timeout=CKPT_RUN_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log) as f:
+        text = f.read()
+    return rc, text, time.perf_counter() - t0
+
+
+def ckpt_elastic(torch, counts, alexnet, bench_main, checkpoint, work,
+                 card):
+    """The elastic AlexNet loop at full size: a save and a restore of one
+    stepped state timed; run 1 SIGKILLed once step_4 is committed; run 2,
+    with the membership file moved to generation 2, resumes from 4,
+    exits 77 after step 5 and leaves step_5; run 3 under generation 2
+    resumes from 5 and leaves [4, 5, 6], whose step_6 must equal an
+    uninterrupted run's bit for bit; the elastic loop's images/s against
+    ``run_single``'s.  Returns the uninterrupted run's launches."""
+    import shutil
+
+    model, opt = alexnet.create_train_state(seed=0, s2d=True, pool="pallas",
+                                            device="cuda")
+    step_bytes = 8 * sum(p.numel() for p in model.parameters())
+    # the runs keep 3 step dirs and write a fourth, twice over, and the
+    # timed save one more
+    _room(work, 9 * step_bytes, "elastic AlexNet")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images, labels = alexnet.synthetic_batch(gen, ALEX_BATCH, s2d=True)
+    alexnet.train_step(model, opt, images, labels)
+    state = {"params": model.state_dict(), "opt_state": opt.state_dict()}
+    timed = os.path.join(work, "timed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(timed, 1, state)
+    save_s = time.perf_counter() - t0
+    nbytes = _payload_bytes(checkpoint, timed, 1)
+    fresh, fresh_opt = alexnet.create_train_state(
+        seed=1, s2d=True, pool="pallas", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = checkpoint.restore_checkpoint(timed, template={
+        "params": fresh.state_dict(),
+        "opt_state": checkpoint.optimizer_template(fresh_opt)})
+    fresh.load_state_dict(restored["params"])
+    fresh_opt.load_state_dict(restored["opt_state"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    n = _trees_equal(torch, checkpoint, {
+        "params": fresh.state_dict(), "opt_state": fresh_opt.state_dict()},
+        state)
+    print(f"checkpointing, AlexNet (224 px, 1000 classes, f32 parameters "
+          f"and momentum, {n} tensors): save {_rate(nbytes, save_s)}; "
+          f"restore into a fresh model and optimizer "
+          f"{_rate(nbytes, restore_s)}; the restored state equals the "
+          f"saved one bit for bit; {card}", flush=True)
+    del model, opt, fresh, fresh_opt, restored, state, images, labels
+    shutil.rmtree(timed)
+    _fresh(torch)
+
+    ckpt = os.path.join(work, "elastic")
+    members = os.path.join(work, "membership.json")
+    args = ["--batch", str(ALEX_BATCH), "--steps", str(CKPT_STEPS),
+            "--pool", "pallas", "--checkpoint-dir", ckpt,
+            "--checkpoint-every", str(CKPT_EVERY), "--slice-state", members]
+    _write_membership(members, 1, 2)
+    rc, out, wall1 = _elastic_run(args, 1, os.path.join(work, "run1.log"),
+                                  kill_at=os.path.join(ckpt, "step_4"))
+    steps = checkpoint.list_steps(ckpt)
+    print(f"checkpointing, elastic run 1 (generation 1): SIGKILLed once "
+          f"step_4 was committed, exit {rc} after {wall1:.2f} s; step dirs "
+          f"{steps}", flush=True)
+    if rc != -9 or steps != [2, 4]:
+        fail(f"elastic run 1: exit {rc}, steps {steps} (want -9, [2, 4]); "
+             f"output:\n{out}")
+    _write_membership(members, 2, 1, degraded=True)
+    rc, out, wall2 = _elastic_run(args, 1, os.path.join(work, "run2.log"))
+    steps = checkpoint.list_steps(ckpt)
+    lines = out.splitlines()
+    print(f"checkpointing, elastic run 2 (membership at generation 2, the "
+          f"identity at 1): exit {rc} after {wall2:.2f} s; step dirs "
+          f"{steps}; {[l for l in lines if 'checkpoint' in l]}", flush=True)
+    reshaped = ("slice reshaped to gen 2 (1 worker(s), degraded); "
+                "checkpointed step 5; exiting 77 for restart under the new "
+                "identity")
+    if rc != checkpoint.RESHAPE_EXIT_CODE or steps != [2, 4, 5] or \
+            "resumed from checkpoint step 4" not in lines or \
+            reshaped not in lines:
+        fail(f"elastic run 2: exit {rc}, steps {steps}; output:\n{out}")
+    rc, out, wall3 = _elastic_run(args, 2, os.path.join(work, "run3.log"))
+    steps = checkpoint.list_steps(ckpt)
+    lines = out.splitlines()
+    print(f"checkpointing, elastic run 3 (generation 2): exit {rc} after "
+          f"{wall3:.2f} s; step dirs {steps}; "
+          f"{[l for l in lines if 'checkpoint' in l or 'loss' in l]}",
+          flush=True)
+    if rc != 0 or steps != [4, 5, 6] or \
+            "resumed from checkpoint step 5" not in lines or not any(
+                l.startswith(f"final loss after {CKPT_STEPS} steps: ")
+                for l in lines):
+        fail(f"elastic run 3: exit {rc}, steps {steps}; output:\n{out}")
+
+    solo = os.path.join(work, "uninterrupted")
+    signal = checkpoint.ReshapeSignal(os.path.join(work, "none.json"),
+                                      generation=1)
+    counts.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = bench_main.run_elastic(ALEX_BATCH, CKPT_STEPS, solo, CKPT_EVERY,
+                                "", pool="pallas", signal=signal,
+                                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    want = {"maxpool_fwd": 3 * CKPT_STEPS, "maxpool_bwd": 3 * CKPT_STEPS}
+    print(f"checkpointing, elastic loop uninterrupted in this process: exit "
+          f"{rc}, {CKPT_STEPS} steps in {wall:.3f} s (the model's build and "
+          f"{CKPT_STEPS // CKPT_EVERY} saves included): "
+          f"{ALEX_BATCH * CKPT_STEPS / wall:.1f} images/s; launches "
+          f"{launches}", flush=True)
+    if rc != 0 or launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"elastic loop: exit {rc}, launches {launches}, expected "
+             f"{want}")
+    n = _trees_equal(torch, checkpoint,
+                     checkpoint.restore_checkpoint(ckpt, step=CKPT_STEPS),
+                     checkpoint.restore_checkpoint(solo, step=CKPT_STEPS))
+    print(f"checkpointing, elastic: step_{CKPT_STEPS} after a SIGKILL, a "
+          f"reshape exit and two resumes equals the uninterrupted run's bit "
+          f"for bit ({n} tensors: parameters and momentum)", flush=True)
+    shutil.rmtree(ckpt)
+    shutil.rmtree(solo)
+    _fresh(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ips = bench_main.run_single(ALEX_BATCH, CKPT_STEPS, 0, pool="pallas",
+                                device="cuda")
+    single_wall = time.perf_counter() - t0
+    print(f"checkpointing, elastic loop {ALEX_BATCH * CKPT_STEPS / wall:.1f} "
+          f"images/s against run_single's {ips:.1f} images/s over its timed "
+          f"steps and {ALEX_BATCH * CKPT_STEPS / single_wall:.1f} over its "
+          f"whole call (batch {ALEX_BATCH}, {CKPT_STEPS} steps, no warmup, "
+          f"pool pallas, deterministic cuDNN); the three runs' walls "
+          f"{wall1:.2f}, {wall2:.2f}, {wall3:.2f} s; {card}", flush=True)
+    return launches
+
+
+def ckpt_lm_resume(torch, counts, fa, llama, transformer, bench_serving,
+                   checkpoint, work, card):
+    """The LM resume: the uninterrupted 5 steps in this process (K4 with
+    its lse, K5 and K6 counted); a worker takes 2 steps, saves and
+    SIGKILLs itself; a fresh worker restores and takes 3 more, whose
+    losses must be this process's last 3, bit for bit.  Returns the
+    launches of the 5 steps."""
+    import shutil
+
+    cfg, model, opt, batch = _lm_resume_setup(torch, fa, llama, transformer,
+                                              bench_serving)
+    n_params = sum(p.numel() for p in model.parameters())
+    _room(work, 12 * n_params + 2**30, "LM resume")
+    counts.zero()
+    losses = [float(transformer.lm_train_step(model, opt, *batch))
+              for _ in range(CKPT_LM_STEPS)]
+    launches = counts.read()
+    want = {k: CKPT_LM_LAYERS * CKPT_LM_STEPS
+            for k in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")}
+    print(f"checkpointing, LM resume: llama3-1b at full width, "
+          f"{cfg.n_layers} of 16 layers, {n_params / 1e9:.3f}B f32 "
+          f"parameters, 1 x {CKPT_LM_SEQ} tokens: {CKPT_LM_STEPS} "
+          f"uninterrupted losses {losses}; launches {launches}", flush=True)
+    if launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"LM resume launches {launches}, expected {want}")
+    del model, opt, batch
+    _fresh(torch)
+    base = os.path.join(work, "lm")
+    out = os.path.join(work, "lm_resumed.json")
+    me = [sys.executable, os.path.abspath(__file__), "--worker"]
+    t0 = time.perf_counter()
+    crash = subprocess.run(me + ["lm-crash", base], capture_output=True,
+                           text=True, timeout=CKPT_RUN_S)
+    crash_wall = time.perf_counter() - t0
+    saved = [l for l in crash.stdout.splitlines() if l.startswith("saved ")]
+    if crash.returncode != -9 or not saved:
+        fail(f"LM crash worker: exit {crash.returncode}, output "
+             f"{crash.stdout[-2000:]} {crash.stderr[-4000:]}")
+    nbytes = _payload_bytes(checkpoint, base, CKPT_LM_SAVE_AT)
+    save_s = float(saved[0].split()[1])
+    t0 = time.perf_counter()
+    resume = subprocess.run(me + ["lm-resume", base, out],
+                            capture_output=True, text=True,
+                            timeout=CKPT_RUN_S)
+    resume_wall = time.perf_counter() - t0
+    if resume.returncode != 0:
+        fail(f"LM resume worker: exit {resume.returncode}, "
+             f"{resume.stderr[-4000:]}")
+    with open(out) as f:
+        data = json.load(f)
+    print(f"checkpointing, LM resume: the worker took {CKPT_LM_SAVE_AT} "
+          f"steps, saved ({_rate(nbytes, save_s)}) and was SIGKILLed (exit "
+          f"{crash.returncode}, {crash_wall:.2f} s); a fresh process "
+          f"restored step {data['step']} into its model and Adam "
+          f"({_rate(nbytes, data['restore_s'])}) and took "
+          f"{len(data['losses'])} steps ({resume_wall:.2f} s): losses "
+          f"{data['losses']} against {losses[CKPT_LM_SAVE_AT:]}; {card}",
+          flush=True)
+    if data["step"] != CKPT_LM_SAVE_AT or \
+            data["losses"] != losses[CKPT_LM_SAVE_AT:]:
+        fail("LM resume: the resumed losses are not the uninterrupted "
+             "run's")
+    shutil.rmtree(base)
+    return launches
+
+
+def ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
+                 scheduler, obs, sched, work, card):
+    """Llama-3.2-1B at full width and depth, random f32 weights from seed
+    0, saved as ``{"params": ...}``; the server CLI with ``--checkpoint``
+    (bf16, ``--quantized``, ``--int4``) answers the scheduler phase's
+    greedy requests with the ids of an in-process engine over a decoder
+    loaded from the same weights without a checkpoint (quantized in
+    process for int8 and int4)."""
+    import shutil
+
+    import numpy as np
+
+    from tpu_k8s_device_plugin_torch.workloads import inference, loadclient
+
+    cfg = bench_serving.CONFIGS[CKPT_SERVE_CONFIG]
+    _room(work, 4 * cfg.n_params() + 2**30, "serving from a checkpoint")
+    train = llama.train_model(cfg, device="cuda")
+    bench_serving.random_init_(train, seed=0)
+    params = train.state_dict()
+    base = os.path.join(work, "serve")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(base, 0, {"params": params})
+    save_s = time.perf_counter() - t0
+    nbytes = _payload_bytes(checkpoint, base, 0)
+    print(f"checkpointing, serving: {CKPT_SERVE_CONFIG} train layout "
+          f"({cfg.n_params() / 1e9:.3f}B f32 parameters) saved: "
+          f"{_rate(nbytes, save_s)}", flush=True)
+    host = {k: v.cpu() for k, v in params.items()}
+    del train, params
+    _fresh(torch)
+    greedy = [r for r in sched["trace"] if not r[2]]
+    want = {}
+    for kind, q in CKPT_KINDS:
+        tree = host if not q else (
+            inference.quantize_lm_params_int4(host) if q == "int4"
+            else inference.quantize_lm_params(host))
+        model = llama.decoder(cfg, max_len=MAX_LEN, quantized=q,
+                              device="cuda")
+        model.load_state_dict(tree)
+        del tree
+        eng = serving.ServingEngine(model, n_slots=ENGINE_SLOTS,
+                                    logprobs_k=ENGINE_LOGPROBS, rng=0,
+                                    max_new_tokens=SCHED_NEW, device="cuda")
+        eng.warm_packed([SCHED_PACK])
+        want[kind], _ = run_scheduled(torch, np, obs, scheduler, eng, greedy,
+                                      True, True, True)
+        del eng, model
+        _fresh(torch)
+    del host
+    log_dir = os.path.join(work, "replicas")
+    os.environ[loadclient.REPLICA_LOG_DIR_ENV] = log_dir
+    try:
+        for kind, q in CKPT_KINDS:
+            port = loadclient.free_port()
+            cmd = loadclient.server_cmd(
+                None, "--config", CKPT_SERVE_CONFIG,
+                *bench_serving._quant_args(q), "--checkpoint", base,
+                "--n-slots", str(ENGINE_SLOTS), "--max-len", str(MAX_LEN),
+                "--max-new-tokens", str(SCHED_NEW), *FLEET_ARGS,
+                "--host", "127.0.0.1", "--port", str(port))
+            t0 = time.perf_counter()
+            proc = loadclient.spawn_replica(cmd, f"ckpt-{kind}",
+                                            env=bench_serving._spawn_env())
+            try:
+                loadclient.wait_http_ok(port, "/healthz", CKPT_BOOT_S,
+                                        procs=[proc])
+                boot_s = time.perf_counter() - t0
+                got, res, wall = serve_trace(loadclient, port, greedy,
+                                             HTTP_CLIENTS)
+            finally:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            text = "".join(t for n, t in _replica_logs(log_dir).items()
+                           if n.startswith(f"ckpt-{kind}-"))
+            m = re.search(r"restored \S+ in ([0-9.]+)s", text)
+            if m is None:
+                fail(f"serving {kind} from a checkpoint: no restore line in "
+                     f"the server's output:\n{text[-4000:]}")
+            for i in range(len(greedy)):
+                if res[i].outcome != "ok" or got[i] != want[kind][i]:
+                    fail(f"serving {kind} from a checkpoint: request {i} "
+                         f"gave {got[i][0]} ({got[i][1]}, {res[i].outcome}) "
+                         f"against the in-process {want[kind][i][0]} "
+                         f"({want[kind][i][1]})")
+            print(f"checkpointing, serving {kind}: the server CLI restored "
+                  f"the checkpoint in {float(m.group(1)):.2f} s (restore, "
+                  f"quantize, load onto the card), ready in {boot_s:.2f} s; "
+                  f"the scheduler phase's {len(greedy)} greedy requests in "
+                  f"{wall:.3f} s gave the in-process engine's ids and finish "
+                  f"reasons; {card}", flush=True)
+    except BaseException:
+        for name, text in _replica_logs(log_dir).items():
+            tail = "\n    ".join(text.splitlines()[-15:])
+            print(f"checkpointing: replica log {name}:\n    {tail}",
+                  flush=True)
+        raise
+    finally:
+        del os.environ[loadclient.REPLICA_LOG_DIR_ENV]
+    shutil.rmtree(base)
+
+
+def checkpoint_path(torch, counts, sched, card):
+    """Phase 9, checkpointing, with no other model resident: the elastic
+    AlexNet loop (SIGKILL, resume, a reshape exit, resume, a bit-equal
+    final step), the LM resume across processes (bit-equal losses) and
+    the server CLI serving from a checkpoint (bf16, int8, int4 with the
+    in-process ids), under a temporary directory whose free bytes are
+    printed first; each checkpoint is deleted once checked.  Returns the
+    launches of the elastic loop and the LM steps.  Every check is
+    fatal."""
+    import shutil
+    import tempfile
+
+    from tpu_k8s_device_plugin_torch import obs
+    from tpu_k8s_device_plugin_torch.workloads import (
+        alexnet, bench_main, bench_serving, checkpoint, llama, scheduler,
+        serving, transformer)
+    from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    print(f"checkpointing: {shutil.disk_usage(work).free} bytes free under "
+          f"{work}", flush=True)
+    before = _ckpt_numerics(torch)
+    try:
+        elastic = ckpt_elastic(torch, counts, alexnet, bench_main,
+                               checkpoint, work, card)
+        _fresh(torch)
+        lm = ckpt_lm_resume(torch, counts, fa, llama, transformer,
+                            bench_serving, checkpoint, work, card)
+        _fresh(torch)
+        ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
+                     scheduler, obs, sched, work, card)
+    finally:
+        for (mod, name), value in before.items():
+            setattr(mod, name, value)
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"checkpointing: phase wall {time.perf_counter() - t_phase:.1f} "
+          f"s; {card}", flush=True)
+    return dict(elastic=elastic, lm=lm)
+
+
 def main() -> int:
     import torch
 
@@ -3297,6 +3870,8 @@ def main() -> int:
                               speculative, obs, bf16, engine, card)
     torch.cuda.empty_cache()
     fleet_path(torch, llama.LLAMA3_8B, engine["scheduler"], card)
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_path(torch, counts, engine["scheduler"], card)
 
     csrc = "tpu_k8s_device_plugin_torch/csrc/"
     ref = "tpu_k8s_device_plugin/workloads/"
@@ -3317,6 +3892,8 @@ def main() -> int:
              lse_mode=dict(launches=lm["flash_attn_fwd"],
                            launches_moe_train=rest["moe"][
                                "train_launches"]["flash_attn_fwd"],
+                           launches_checkpoint_lm=ckpt["lm"][
+                               "flash_attn_fwd"],
                            **flash_train["lse"])),
         dict(name="flash_attn_dq", route="cuda",
              source=csrc + "flash_attn_bwd.cu",
@@ -3324,6 +3901,7 @@ def main() -> int:
              launches=lm["flash_attn_dq"], **flash_train["dq"],
              launches_moe_train=rest["moe"]["train_launches"][
                  "flash_attn_dq"],
+             launches_checkpoint_lm=ckpt["lm"]["flash_attn_dq"],
              note="plain_ms is the plain backward (dQ, dK and dV) at the "
                   "head slice; library_ms is sdpa's whole backward, the "
                   "yardstick for K5 and K6 together"),
@@ -3333,12 +3911,14 @@ def main() -> int:
              launches=lm["flash_attn_dkv"], **flash_train["dkv"],
              launches_moe_train=rest["moe"]["train_launches"][
                  "flash_attn_dkv"],
+             launches_checkpoint_lm=ckpt["lm"]["flash_attn_dkv"],
              note="plain_ms is the plain backward (dQ, dK and dV) at the "
                   "head slice; library_ms is sdpa's whole backward, the "
                   "yardstick for K5 and K6 together"),
         dict(name="maxpool_fwd", route="cuda", source=csrc + "maxpool.cu",
              replaces=ref + "pool.py:150",
              launches=train["pallas"]["maxpool_fwd"], **pool["fwd"],
+             launches_checkpoint_elastic=ckpt["elastic"]["maxpool_fwd"],
              load_modes=train_modes["pallas"]["maxpool_fwd"]),
         dict(name="maxpool_bwd", route="cuda", source=csrc + "maxpool.cu",
              replaces=ref + "pool.py:169",
@@ -3346,6 +3926,7 @@ def main() -> int:
              note="launches: the pool=pallas step; the pool=fused step's "
                   "are under launches_fused",
              launches_fused=train["fused"]["maxpool_bwd"],
+             launches_checkpoint_elastic=ckpt["elastic"]["maxpool_bwd"],
              load_modes=train_modes["pallas"]["maxpool_bwd"],
              load_modes_fused=train_modes["fused"]["maxpool_bwd"]),
         dict(name="conv_pool_fwd", route="cuda",
@@ -3364,4 +3945,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker(sys.argv[2:]))
     sys.exit(main())

@@ -9,7 +9,9 @@ seed.  Logits agree to 1e-4, parameter gradients to 2e-3 (the
 frameworks sum in different orders), and two SGD-momentum steps give
 the same losses to 1e-5 and the same parameters to 1e-4."""
 
+import functools
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -214,11 +216,24 @@ def test_bench_main_prints_one_json_line(capsys):
         talex.AlexNet(s2d=True, device="cpu").train_flops_per_image()
 
 
-def test_bench_main_unported_modes():
+def test_bench_main_unported_modes(tmp_path, monkeypatch, capsys):
+    """``--sharded`` raises naming item 6; ``--checkpoint-dir`` (item 7)
+    runs the elastic loop (AlexNet cut to 64 px and 10 classes here) and
+    leaves the final step's checkpoint."""
     with pytest.raises(NotImplementedError, match="item 6"):
         bench_main.main(["--device", "cpu", "--sharded"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        bench_main.main(["--device", "cpu", "--checkpoint-dir", "ckpt"])
+    small = dict(image_size=64, num_classes=10)
+    monkeypatch.setattr(bench_main, "create_train_state", functools.partial(
+        talex.create_train_state, **small))
+    monkeypatch.setattr(bench_main, "synthetic_batch", functools.partial(
+        talex.synthetic_batch, **small))
+    ckpt = tmp_path / "ckpt"
+    assert bench_main.main(["--device", "cpu", "--batch", "2", "--steps",
+                            "1", "--checkpoint-dir", str(ckpt),
+                            "--slice-state", str(tmp_path / "none.json")]
+                           ) == 0
+    assert sorted(os.listdir(ckpt)) == ["step_1"]
+    assert capsys.readouterr().out.startswith("final loss after 1 steps: ")
 
 
 def test_resolve_pool(monkeypatch):

@@ -94,20 +94,29 @@ def test_server_cli_options_match_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "item 6"), (["--checkpoint", "/nonexistent"], "item 7"),
+    (["--tp", "2"], "item 6"), (["--checkpoint", "DIR"], "item 7"),
     (["--quantized"], "item 1b"), (["--int4"], "item 1b"),
     (["--draft-config", "tiny-draft"], "item 1b"),
     (["--spec-ngram", "3"], "item 1b")])
-def test_server_cli_unported_options_raise(flags, item, monkeypatch):
-    """``--tp`` (item 6) and ``--checkpoint`` (item 7) raise naming their
-    ROADMAP item before a model is built.  The options of item 1b are
-    ported: each builds its engine (int8 or int4 weights, a draft model,
-    n-gram speculation), which the CLI hands to the server it starts
-    (stopped here at the start)."""
-    if item != "item 1b":
+def test_server_cli_unported_options_raise(flags, item, monkeypatch,
+                                           tmp_path):
+    """``--tp`` (item 6) raises naming its ROADMAP item before a model is
+    built.  The options of items 1b and 7 are ported: each builds its
+    engine (int8 or int4 weights, a draft model, n-gram speculation,
+    weights restored from a checkpoint), which the CLI hands to the
+    server it starts (stopped here at the start)."""
+    if item == "item 6":
         with pytest.raises(NotImplementedError, match=item):
             tserver.main(["--config", "tiny", "--device", "cpu", *flags])
         return
+    if item == "item 7":
+        from tpu_k8s_device_plugin_torch.workloads.checkpoint import (
+            save_checkpoint)
+
+        train = tllama.train_model(tllama.TINY_LLAMA, device="cpu")
+        tbench.random_init_(train, 5)
+        save_checkpoint(str(tmp_path), 1, {"params": train.state_dict()})
+        flags = ["--checkpoint", str(tmp_path)]
     built = {}
 
     class Started(Exception):
@@ -122,7 +131,13 @@ def test_server_cli_unported_options_raise(flags, item, monkeypatch):
         tserver.main(["--config", "tiny", "--device", "cpu",
                       "--max-len", "64", *flags])
     eng = built["engine"]
-    if flags[0] in ("--quantized", "--int4"):
+    if item == "item 7":
+        want = tllama.decoder(tllama.TINY_LLAMA, max_len=64, device="cpu")
+        want.load_state_dict(train.state_dict())
+        got = eng.model.state_dict()
+        assert all(torch.equal(got[k], v)
+                   for k, v in want.state_dict().items())
+    elif flags[0] in ("--quantized", "--int4"):
         assert eng.model.quantized == ("int4" if flags[0] == "--int4"
                                        else True)
     elif flags[0] == "--draft-config":

@@ -551,6 +551,48 @@ def test_controller_heals_sigkill_and_drains_live(tmp_path):
         rt.stop()
 
 
+class _FakeProc:
+    """A replica process that records its SIGKILL."""
+
+    def __init__(self):
+        self.killed = False
+
+    def poll(self):
+        return -9 if self.killed else None
+
+    def kill(self):
+        self.killed = True
+
+
+def test_kill_serving_spares_drained_starting_and_stale(tmp_path):
+    """The episode's SIGKILL takes a ready replica on the advertised
+    generation: never one that is draining or starting, nor one the
+    degraded rolling drain will take, and no replica when none
+    qualifies."""
+    cap = tmp_path / "capacity.json"
+    cap.write_text(json.dumps({"slices": [
+        {"slice_id": "s0", "generation": 2, "workers": 4}]}))
+    controller = FleetController("http://127.0.0.1:1",
+                                 capacity_spec=str(cap))
+
+    def add(rid, state, generation):
+        controller._procs[rid] = fleet._Managed(
+            rid=rid, proc=_FakeProc(), port=0, role="mixed",
+            slice_id="s0", generation=generation, state=state,
+            started_at_s=0.0)
+
+    add("draining", "draining", 2)
+    add("stale", "ready", 1)
+    add("starting", "starting", 2)
+    assert controller.kill_serving() is None
+    add("serving", "ready", 2)
+    assert controller.kill_serving() == "serving"
+    assert [rid for rid, p in controller.managed() if p.killed] \
+        == ["serving"]
+    # a corpse is not a victim twice
+    assert controller.kill_serving() is None
+
+
 # ---------------------------------------------------------------------------
 # layer 4: the reference's planner and membership reader, and the spawn
 # helpers' command lines

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_k8s_device_plugin")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "tpu_k8s_device_plugin")
 
 
 def _port_files():
@@ -55,6 +56,8 @@ def test_port_files_exist():
     assert "tpu_k8s_device_plugin_torch/workloads/serving.py" in names
     assert "tpu_k8s_device_plugin_torch/workloads/moe.py" in names
     assert "tpu_k8s_device_plugin_torch/workloads/speculative.py" in names
+    assert "tpu_k8s_device_plugin_torch/workloads/checkpoint.py" in names
+    assert "tpu_k8s_device_plugin_torch/types/constants.py" in names
     assert all(p.exists() for p in _port_files())
 
 
@@ -134,8 +137,10 @@ def test_http_tier_imports_nothing_of_jax():
     """In a fresh interpreter, the HTTP and fleet tiers of the port (the
     server, the session tier, the load client, ``obs``, ``resilience``,
     the router, replay, the fleet reconciler, the trace generator and
-    the slice-membership reader) and the model's expert FFN and
-    speculative decoding load neither JAX nor the JAX package."""
+    the slice-membership reader), the model's expert FFN and
+    speculative decoding, checkpointing and its constants, and the
+    elastic AlexNet loop load neither JAX, orbax nor the JAX
+    package."""
     import subprocess
     import sys
 
@@ -153,8 +158,11 @@ def test_http_tier_imports_nothing_of_jax():
             "import tpu_k8s_device_plugin_torch.slice\n"
             "import tpu_k8s_device_plugin_torch.workloads.moe\n"
             "import tpu_k8s_device_plugin_torch.workloads.speculative\n"
+            "import tpu_k8s_device_plugin_torch.workloads.checkpoint\n"
+            "import tpu_k8s_device_plugin_torch.workloads.bench_main\n"
+            "import tpu_k8s_device_plugin_torch.types.constants\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'jaxlib', 'flax', 'optax',\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
             "        'tpu_k8s_device_plugin')]\n"
             "print(' '.join(sorted(bad)) or 'clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,7 +1,8 @@
 """PyTorch workloads of the port: the Llama-family decoder, its
 continuous-batching serving engine and iteration scheduler, and its
 LM trainer, with their flash-attention kernels (forward and backward), and AlexNet training
-with its max-pool and fused conv+pool kernels.  Module names
+with its max-pool and fused conv+pool kernels; ``checkpoint`` saves and
+restores their state.  Module names
 mirror the JAX package's ``workloads/``; the kernel functions live in ``workloads.flash_attention``,
 ``workloads.pool`` and ``workloads.convpool`` (not re-exported here, so
 those names stay the modules).
@@ -16,6 +17,7 @@ workload (``workloads.alexnet``) does not import the others."""
 import importlib
 
 _EXPORTS = {
+    "checkpoint": None,
     "llama": None,
     "scheduler": None,
     "AlexNet": "alexnet",

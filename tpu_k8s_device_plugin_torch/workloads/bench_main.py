@@ -10,8 +10,15 @@ prints one JSON line: images/sec on one GPU and the model FLOP
 utilisation.  FLOPs are counted analytically from the layer shapes
 (``AlexNet.train_flops_per_image``), so they are the same whatever
 ``--pool`` implements the stages; the peak comes from a table keyed by
-the card's name.  ``--sharded`` and ``--checkpoint-dir`` are not yet
-ported.
+the card's name.
+
+``--checkpoint-dir DIR`` runs the elastic loop instead (``run_elastic``):
+it resumes from the newest whole checkpoint under DIR, saves every
+``--checkpoint-every`` steps, and when the slice membership file
+(``--slice-state``) moves past the generation in
+``$TPU_SLICE_GENERATION``, saves and exits with 77 so that the
+orchestrator restarts it under the new identity.  ``--sharded`` is not
+yet ported.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from typing import Callable, Optional
 import torch
 
 from .alexnet import create_train_state, synthetic_batch, train_step
-from .transformer import resolve_device
+from .transformer import _unported, resolve_device
+from ..types import constants
 
 # dense bf16 tensor-core peaks in FLOP/s (NVIDIA data sheets), matched
 # against torch.cuda.get_device_name() in order: the PCIe part's name
@@ -95,6 +103,85 @@ def run_single(batch: int, steps: int, warmup: int, s2d: bool = True,
     return ips
 
 
+def run_elastic(
+    batch: int,
+    steps: int,
+    checkpoint_dir: str,
+    checkpoint_every: int,
+    slice_state: str,
+    s2d: bool = True,
+    sharded: bool = False,
+    pool: Optional[str] = None,
+    signal=None,
+    device=None,
+) -> int:
+    """Checkpointed train loop for elastic slices: resume from the
+    newest whole checkpoint, save every *checkpoint_every* steps, and —
+    when the slice reshapes under us (ReshapeSignal observes the
+    membership generation moving past the one our TPU_SLICE_GENERATION
+    identity was issued for) — checkpoint immediately and exit with
+    RESHAPE_EXIT_CODE so the orchestrator restarts this pod under the
+    new generation's identity.  Reformation becomes a restart, not a
+    loss.  The state is ``{"params": model.state_dict(), "opt_state":
+    opt.state_dict()}``; the batch is the same synthetic one every step,
+    from seed 0, so a resumed run ends where an uninterrupted one does.
+    Runs on CUDA unless *device* is given."""
+    from . import checkpoint as ckpt
+
+    _unported(sharded=sharded)
+    device = resolve_device(device)
+    if signal is None:
+        signal = ckpt.ReshapeSignal(slice_state)
+    model, opt = create_train_state(seed=0, s2d=s2d,
+                                    pool=_resolve_pool(pool), device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    images, labels = synthetic_batch(gen, batch, s2d=s2d)
+
+    start = 0
+    if ckpt.latest_step(checkpoint_dir) is not None:
+        start, restored = ckpt.restore_latest(checkpoint_dir, template={
+            "params": model.state_dict(),
+            "opt_state": ckpt.optimizer_template(opt)})
+        model.load_state_dict(restored["params"])
+        opt.load_state_dict(restored["opt_state"])
+        del restored
+        print(f"resumed from checkpoint step {start}", flush=True)
+
+    def save(done_steps):
+        ckpt.save_checkpoint(
+            checkpoint_dir, done_steps,
+            {"params": model.state_dict(), "opt_state": opt.state_dict()},
+            keep_last=3)
+
+    loss = None
+    for i in range(start, steps):
+        loss = train_step(model, opt, images, labels)
+        done = i + 1
+        membership = signal.check()
+        if membership is not None:
+            # save_checkpoint drains the device before it serializes
+            save(done)
+            print(
+                f"slice reshaped to gen {membership.generation} "
+                f"({membership.num_workers} worker(s)"
+                f"{', degraded' if membership.degraded else ''}); "
+                f"checkpointed step {done}; exiting "
+                f"{ckpt.RESHAPE_EXIT_CODE} for restart under the new "
+                "identity", flush=True,
+            )
+            return ckpt.RESHAPE_EXIT_CODE
+        if checkpoint_every and done % checkpoint_every == 0 \
+                and done < steps:
+            save(done)
+    if loss is not None:
+        print(f"final loss after {steps} steps: {float(loss):.4f}",
+              flush=True)
+    if steps > start:
+        save(steps)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="alexnet-torch-bench")
     p.add_argument("--batch", type=int, default=256,
@@ -109,19 +196,27 @@ def main(argv=None) -> int:
     p.add_argument("--sharded", action="store_true",
                    help="not yet ported (ROADMAP queue 1, item 6)")
     p.add_argument("--checkpoint-dir", default="",
-                   help="not yet ported (ROADMAP queue 1, item 7)")
+                   help="elastic mode: checkpoint/resume under this dir "
+                        "(PVC mount); on a slice reshape the loop saves "
+                        "and exits 77 for a restart under the new "
+                        "identity")
+    p.add_argument("--checkpoint-every", type=int, default=10,
+                   help="steps between periodic checkpoints in elastic "
+                        "mode (default 10; 0 = only reshape/final saves)")
+    p.add_argument("--slice-state", default=None,
+                   help="slice membership file the reshape watch reads "
+                        "(default: the device plugin's standard path)")
     args = p.parse_args(argv)
     if args.steps < 1:
         p.error("--steps must be >= 1")
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded waits for multi-device training (ROADMAP queue 1, "
-            "item 6)")
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir waits for checkpointing (ROADMAP queue 1, "
-            "item 7)")
+    _unported(sharded=args.sharded)
     device = resolve_device(args.device)
+    if args.checkpoint_dir:
+        return run_elastic(
+            args.batch, args.steps, args.checkpoint_dir,
+            args.checkpoint_every,
+            args.slice_state or constants.SLICE_STATE_FILE,
+            pool=args.pool, device=device)
     pool = _resolve_pool(args.pool)
     ips, flops = run_single(args.batch, args.steps, args.warmup,
                             want_flops=True, pool=pool, device=device)

@@ -102,7 +102,9 @@ def build_model_and_params(config: str, max_len: int, device=None,
     directly on *device* (CUDA unless given): bf16, or with *quantized*
     (True for int8, ``"int4"``) the quantized layout from
     ``llama.random_quantized_params``, so no bf16 copy is made.  The
-    model holds its weights, so there is no separate params tree."""
+    model holds its weights, so there is no separate params tree
+    (``load_checkpoint_params`` gives the same pair from a
+    checkpoint)."""
     cfg = CONFIGS[config]
     model = llama.decoder(cfg, max_len=max_len, quantized=quantized,
                           device=device)
@@ -114,6 +116,49 @@ def build_model_and_params(config: str, max_len: int, device=None,
         del params
     else:
         random_init_(model, seed)
+    return cfg, model
+
+
+def _train_init(cfg, device="meta"):
+    """The train-layout template: ``llama.train_model(cfg)``'s state
+    dict (f32), the tree a training run saves under ``"params"``.  On
+    the ``meta`` device by default, so that it holds shapes and dtypes
+    and nothing is materialised twice."""
+    return llama.train_model(cfg, device=device).state_dict()
+
+
+def load_checkpoint_params(config: str, max_len: int, quantized,
+                           checkpoint_dir: str, step=None, device=None,
+                           mesh=None):
+    """``(cfg, model)`` as :func:`build_model_and_params` gives them, with
+    REAL weights restored from a checkpoint (``workloads.checkpoint``
+    layout, state ``{"params": ...}`` in the f32 train layout — what a
+    training run saves).  The single-chip recipe: the train tree
+    restores into host memory, is quantized there for *quantized*
+    (True: int8, ``"int4"``), and loads strictly into
+    ``llama.decoder(cfg, ...)`` on *device* (CUDA unless given), so only
+    the serving tree reaches the card and every key is consumed.  The
+    train model's keys are the decoder's (``train_model`` and
+    ``decoder`` build the same layers), so no mapping is needed; the
+    load casts each f32 leaf to its parameter's dtype once.  *mesh*
+    raises ``NotImplementedError`` (ROADMAP.md, queue 1, item 6)."""
+    from .checkpoint import restore_checkpoint
+    from .inference import quantize_lm_params, quantize_lm_params_int4
+    from .transformer import _unported
+
+    _unported(mesh=mesh)
+    cfg = CONFIGS[config]
+    device = resolve_device(device)
+    restored = restore_checkpoint(
+        checkpoint_dir, step=step, template={"params": _train_init(cfg)})
+    params = restored.pop("params")
+    if quantized == "int4":
+        params = quantize_lm_params_int4(params)
+    elif quantized:
+        params = quantize_lm_params(params)
+    model = llama.decoder(cfg, max_len=max_len, quantized=quantized,
+                          device=device)
+    model.load_state_dict(params, strict=True)
     return cfg, model
 
 

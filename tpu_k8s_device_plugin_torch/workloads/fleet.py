@@ -1086,6 +1086,21 @@ class FleetController:
         with self._lock:
             return [(m.rid, m.proc) for m in self._procs.values()]
 
+    def kill_serving(self) -> Optional[str]:
+        """SIGKILL one ready replica that no drain will take: not
+        draining, and on its slice's advertised generation (the degraded
+        rolling drain takes the others).  A replica that a drain stops
+        journals no failure replacement, so its death tests no failover.
+        Returns the victim's rid, or None when there is none."""
+        gens = {c.slice_id: c.generation for c in self.capacity()}
+        with self._lock:
+            for m in self._procs.values():
+                if m.state == STATE_READY and m.proc.poll() is None \
+                        and gens.get(m.slice_id) == m.generation:
+                    m.proc.kill()
+                    return m.rid
+        return None
+
     def step(self) -> Optional[Plan]:
         """One reconcile cycle.  Returns the plan (None when the
         router was unobservable and the loop held)."""
@@ -1328,17 +1343,26 @@ def run_episode(args: argparse.Namespace) -> Tuple[
             log.info("chaos: %s fires with %d routable replicas",
                      label, routable_now())
 
+        degrade_first = not args.no_degrade \
+            and degrade_at_ms <= kill_at_ms
+        degrade_fired: Dict[str, Optional[float]] = {}
+
         def kill_one() -> None:
             await_live_fleet("SIGKILL")
-            for rid, proc in controller.managed():
-                if proc.poll() is None:
-                    killed["rid"] = rid
-                    log.info("chaos: SIGKILL %s at trace t=%.0fms",
-                             rid, kill_at_ms)
-                    proc.kill()
-                    return
-
-        degrade_fired: Dict[str, Optional[float]] = {}
+            # both hooks can wake on the same routable fleet: the victim
+            # is a serving replica, chosen after an earlier reshape has
+            # landed, never one its rolling drain is taking.  With none
+            # within the bound nothing dies, and the gate fails on it.
+            deadline = time.monotonic() + 90.0
+            while time.monotonic() < deadline:
+                if not degrade_first or "t" in degrade_fired:
+                    rid = controller.kill_serving()
+                    if rid is not None:
+                        killed["rid"] = rid
+                        log.info("chaos: SIGKILL %s at trace t=%.0fms",
+                                 rid, kill_at_ms)
+                        return
+                time.sleep(0.25)
 
         def degrade_slice() -> None:
             await_live_fleet("degraded reshape", bound_s=120.0)

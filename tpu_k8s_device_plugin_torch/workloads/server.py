@@ -3950,9 +3950,9 @@ def main(argv=None) -> int:
                         "feeding tpu_serve_prefix_evictions_total "
                         "(each entry pins a full-length KV copy)")
     p.add_argument("--checkpoint", default=None, metavar="DIR",
-                   help="serve REAL weights: an orbax checkpoint dir "
+                   help="serve REAL weights: a checkpoint dir "
                         "(workloads.checkpoint layout, state "
-                        "{'params': ...} in the bf16 train layout); "
+                        "{'params': ...} in the f32 train layout); "
                         "--quantized/--int4 quantize after restore. "
                         "Without it the CLI serves random weights in "
                         "the benchmark posture. (--draft-config drafts "
@@ -4093,16 +4093,29 @@ def main(argv=None) -> int:
 
     # the modes of the JAX server that the port has not yet: each
     # raises naming its ROADMAP item, before the model is built
-    _unported(tp=args.tp if args.tp > 1 else 0,
-              checkpoint=args.checkpoint)
+    _unported(tp=args.tp if args.tp > 1 else 0)
     cache_dir = (args.compile_cache_dir
                  or _pd_os.environ.get("TPU_DP_COMPILE_CACHE_DIR"))
     if cache_dir:
         enable_compile_cache(cache_dir)
     quantized = "int4" if args.int4 else args.quantized
     device = resolve_device(args.device)
-    cfg, model = build_model_and_params(args.config, args.max_len, device,
-                                        quantized=quantized)
+    if args.checkpoint:
+        from .bench_serving import load_checkpoint_params
+
+        t_restore = time.perf_counter()
+        try:
+            cfg, model = load_checkpoint_params(
+                args.config, args.max_len, quantized, args.checkpoint,
+                step=args.checkpoint_step, device=device)
+        except FileNotFoundError as e:
+            p.error(str(e))
+        print(f"restored {args.checkpoint} in "
+              f"{time.perf_counter() - t_restore:.2f}s (restore, "
+              f"quantize, load onto {device})", flush=True)
+    else:
+        cfg, model = build_model_and_params(args.config, args.max_len,
+                                            device, quantized=quantized)
     draft = None
     if args.draft_config:
         # greedy requests decode in spec rounds; sampled ones turn the

@@ -91,11 +91,15 @@ def _unported(**features) -> None:
     later = {
         "tp": "tensor-parallel serving arrives with multi-device "
               "(ROADMAP.md, queue 1, item 6)",
-        "checkpoint": "restoring weights arrives with checkpointing "
-                      "(ROADMAP.md, queue 1, item 7)",
-        # the serving engine's arguments (workloads/serving.py)
+        # the serving engine's and load_checkpoint_params's arguments
         "mesh": "tensor-parallel serving arrives with multi-device "
                 "(ROADMAP.md, queue 1, item 6)",
+        # restore_checkpoint's (workloads/checkpoint.py)
+        "shardings": "restoring onto a mesh arrives with multi-device "
+                     "training (ROADMAP.md, queue 1, item 6)",
+        # bench_main's run_elastic and --sharded
+        "sharded": "data-parallel training arrives with multi-device "
+                   "training (ROADMAP.md, queue 1, item 6)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
