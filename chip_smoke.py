@@ -11,7 +11,33 @@ Phases, each fatal on failure:
    kernels of K3, K4, K5 and K6 must spill nothing and run on ``wgmma``
    (``HGMMA`` in the built library's SASS), and K1 and K2 must spill
    nothing and copy their bands with ``cp.async.bulk`` (``UBLKCP``);
-3. hold each kernel against its plain PyTorch version on the card, at
+3. the device plugin, before any kernel is checked or any model is on
+   the card, in a process of its own (``--worker device-plugin``), as
+   the agents run on a node, so that none of its servers, threads or
+   sockets outlives it (the threads of this process before and after
+   it, and the child's before the agents and after their teardown, which
+   must leave none): what the machine exposes of its GPUs (the
+   nvidia-bound PCI functions in sysfs, ``/proc/driver/nvidia/gpus``, the ``/dev/nvidia*``
+   nodes, whether NVML loads, ``nvidia-smi``'s view); the port's
+   discovery on the real roots, matched to torch's device 0 by PCI bus
+   id (or as the only GPU where this machine hides the bus id), its UUID
+   torch's where it is exposed, its memory within 1% of torch's, its
+   name and its spec-table SM count torch's; the gpuprobe shim, built
+   with the host compiler, finding ``/dev/nvidia<minor>`` a char device
+   of major 195; the ``PluginManager`` behind a stub kubelet made from
+   the port's proto (registration, ListAndWatch's first frame Healthy
+   with the NUMA node, GetPreferredAllocation, Allocate's nodes and
+   ``NVIDIA_VISIBLE_DEVICES``); Allocate p50/p99 us, measured as
+   ``bench.py`` measures it, for 1 GPU on this host and 4 of 8 on the
+   ``h100-sxm-8`` fixture; the health server reporting the card Healthy,
+   a ListAndWatch frame Unhealthy within two pulses of arming
+   ``probe:hang:1`` and Healthy within two of disarming it; every label,
+   product-name, memory, device-id and driver-version held to torch,
+   NVML and sysfs where they expose them; a child process given the
+   Allocate env and ``CUDA_VISIBLE_DEVICES`` as the container runtime
+   sets it: one device, torch's UUID, K4 on a small prefill within 3e-2
+   of its plain version; the phase's wall time;
+4. hold each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few edge shapes (attention by blocks of
    64 rows, each with bars scaled to its own values), and time the kernel,
    the plain version and one PyTorch library call for the same function
@@ -32,7 +58,7 @@ Phases, each fatal on failure:
    each stage in the bulk-copy mode, its bands and grid printed) and K3
    (fused conv+pool) at AlexNet's three stage shapes, batch 1024, bf16,
    K3 also at 128 features and at an odd size with 8 channels;
-4. the generation path: Llama-3-8B at full width and depth, bf16, random
+5. the generation path: Llama-3-8B at full width and depth, bf16, random
    weights from a seed, through ``greedy_generate`` (batch 4, prompt
    1024, 32 new tokens): the launch counts are zeroed just before and
    read just after, and K4 must have run once per layer; the decode
@@ -95,7 +121,7 @@ Phases, each fatal on failure:
    token p50 and p99, server admit-to-first-token p50 and p99, the 429s
    and the phase's wall time; and a 4-layer model at the same width with
    the flash prefill against the einsum prefill;
-5. the training path: AlexNet at full width (224 px, 1000 classes, s2d,
+6. the training path: AlexNet at full width (224 px, 1000 classes, s2d,
    bf16 compute, f32 parameters from a seed), batch 1024, one
    ``train_step`` under each ``pool`` with the launch counts zeroed just
    before and read just after (``pallas``: K1 and K2 three times each;
@@ -104,7 +130,7 @@ Phases, each fatal on failure:
    against ``xla``'s; images/sec and MFU of ``bench_main.run_single``
    (3 warmup, 10 steps) per ``pool``; a profile of one ``pallas`` and
    one ``fused`` step by kernel;
-6. the LM training path: Llama-3-8B at full width and 4 of its 32
+7. the LM training path: Llama-3-8B at full width and 4 of its 32
    layers, bf16 compute, f32 parameters from seed 0, the flash kernels
    as attention, ``torch.optim.Adam(3e-4)``, one sequence of 8192
    tokens from ``synthetic_lm_batch``: the same model with the einsum
@@ -114,7 +140,7 @@ Phases, each fatal on failure:
    K6 four times each); the loss finite and lower after 5 steps on the
    same batch; tokens/s and MFU over 5 steps after 2 warmup, the peak
    memory, and a profile of one step by kernel;
-7. the rest of the model, with no other model resident: Llama-3-8B with
+8. the rest of the model, with no other model resident: Llama-3-8B with
    int8 and with int4 projections (``random_quantized_params``, seed 0;
    the int4 unpack on the card against the CPU's for every byte):
    ``greedy_generate`` at the main path's shapes with K4 once a layer,
@@ -144,7 +170,7 @@ Phases, each fatal on failure:
    the gather branch with K4 once a layer and its captured decode
    against the op-by-op loop; an 8-slot engine in the dense branch whose
    captured window gives the op-by-op steps' ids);
-8. the fleet tier, after the LM training path has released its model:
+9. the fleet tier, after the LM training path has released its model:
    replicas of the port's server CLI on the card (Llama-3-8B at full
    width and depth, bf16, random weights from seed 0, 8 slots,
    ``max_len`` 2048, windows of 8), spawned by the port's own helpers
@@ -165,7 +191,7 @@ Phases, each fatal on failure:
    ``--assert-fleet`` checks pass; ``run_cold_start`` (cold and warm
    boot times, printed, not gated); the replicas' capture times and the
    phase's wall time;
-9. checkpointing, with no other model resident, under a temporary
+10. checkpointing, with no other model resident, under a temporary
    directory whose free bytes are printed first (each checkpoint deleted
    once checked; too little room fails): a save and a restore of
    AlexNet's stepped state timed (GB/s); the elastic AlexNet loop at the
@@ -187,7 +213,7 @@ Phases, each fatal on failure:
    phase's greedy requests with the ids of an in-process engine over the
    same weights loaded without a checkpoint, each boot's restore seconds
    printed;
-10. print the ``kernels`` JSON line, then the result line.
+11. print the ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -343,7 +369,7 @@ def check_build(build, library: str, kernels, instruction: str) -> None:
     -sass``); its registers and static shared memory are printed beside
     them (registers at launch: the flash kernels then move them from the
     producer warpgroup to the consumers with ``setmaxnreg``; the max-pool
-    kernels' band ring is dynamic shared memory, printed by phase 3)."""
+    kernels' band ring is dynamic shared memory, printed by phase 4)."""
     lib = str(build.lib_path(library))
     usage, name = {}, None
     for line in _cuobjdump(build, "-res-usage", lib).splitlines():
@@ -424,7 +450,7 @@ def _forward_failed(r: dict) -> bool:
 
 
 def check_flash(torch, fa):
-    """Phase 3: the flash kernel against its plain version: every entry
+    """Phase 4: the flash kernel against its plain version: every entry
     and every block of 64 rows within the bars, every bf16 block within
     ROUNDING_X of rounding alone, and a second launch giving the same
     bits."""
@@ -565,7 +591,7 @@ def _held_line(name: str, r: dict) -> str:
 
 
 def check_flash_training(torch, fa):
-    """Phase 3: K4 with its lse, K5 and K6 against their plain versions on
+    """Phase 4: K4 with its lse, K5 and K6 against their plain versions on
     the LM training call's head slice, the checkpointing phase's LM resume
     head slice (head dim 64, 4096 tokens) and edge shapes (the plain
     forward's lse and delta feed both backward versions, so each kernel is
@@ -797,7 +823,7 @@ def graph_vs_eager_decode(torch, inference, model, prompt, toks):
 
 def main_path(torch, counts, inference, llama, bench_serving, serving,
               grammar, obs, scheduler, card):
-    """Phase 4: Llama-3-8B greedy generation through the port, then the
+    """Phase 5: Llama-3-8B greedy generation through the port, then the
     serving engine, the paged engine and the iteration scheduler."""
     t0 = time.perf_counter()
     cfg, model = bench_serving.build_model_and_params(
@@ -875,7 +901,9 @@ def main_path(torch, counts, inference, llama, bench_serving, serving,
     got = counts.read()
     print(f"http: kernel launches over the phase {got}", flush=True)
     del model
-    torch.cuda.empty_cache()
+    # the servers' engines can sit in reference cycles: collect them now,
+    # not whenever the collector next reaches its oldest generation
+    _fresh(torch)
 
     # the same width at 4 layers: flash prefill against einsum prefill
     cfg4 = dataclasses.replace(cfg, n_layers=4)
@@ -937,7 +965,7 @@ def graph_ms(torch, fn, iters: int = 10) -> float:
 
 
 def engine_path(torch, inference, serving, bench_serving, model, card):
-    """Phase 4, the engine: the same eight admissions on two
+    """Phase 5, the engine: the same eight admissions on two
     ``ServingEngine(n_slots=8)``; one run_scan window of ENGINE_STEPS
     steps replayed from the captured step on the first, as many
     ``step`` calls run op by op on the second; identical ids (sampled
@@ -1124,7 +1152,7 @@ def window_rate(torch, serving, model, prompt, steps: int, **kw):
 
 
 def paged_path(torch, inference, serving, grammar, model, engine, card):
-    """Phase 4, the paged engine: ``ServingEngine(kv_paging=True)`` on
+    """Phase 5, the paged engine: ``ServingEngine(kv_paging=True)`` on
     the engine phase's model and eight requests, page 32.  (1) a full
     pool: ids, finish reasons and logprobs of one window of 32 replays
     equal the contiguous engine's; (2) a pool of about half the pages
@@ -1691,7 +1719,7 @@ def _kernel_events(path: str):
 
 
 def http_path(torch, obs, serving, model, sched, card):
-    """Phase 4, the HTTP front door on the engine phase's model: an
+    """Phase 5, the HTTP front door on the engine phase's model: an
     ``EngineServer`` (windows of 8, at most 32 new tokens, interleave,
     packed prefill and overlap on: the server's defaults) over a paged
     ``ServingEngine(n_slots=8)``, warmed, then: the scheduler phase's
@@ -1888,7 +1916,7 @@ def http_path(torch, obs, serving, model, sched, card):
 
 
 def scheduler_path(torch, obs, inference, serving, scheduler, model, card):
-    """Phase 4, the iteration scheduler on the engine phase's model: the
+    """Phase 5, the iteration scheduler on the engine phase's model: the
     captured admission extend (``admission_extends``); then sixteen
     requests (``scheduler_trace``) through ``IterationScheduler`` over a
     fresh ``ServingEngine(n_slots=8)`` in each of SCHED_ARMS, and over a
@@ -1991,7 +2019,7 @@ def _timed_stage(torch, kernel, plain, library, iters=20):
 
 
 def check_pool(torch, mp):
-    """Phase 3: K1 and K2 bit-exact against their plain versions at the
+    """Phase 4: K1 and K2 bit-exact against their plain versions at the
     training path's three pool shapes (batch 1024, bf16) and at small f32
     and edge cases; kernel, plain and library (``F.max_pool2d`` and its
     backward) times summed over the three stages."""
@@ -2077,7 +2105,7 @@ def _pool_decided(torch, conv, rel):
 
 
 def check_conv_pool(torch, cp):
-    """Phase 3: K3 against its plain version at the training path's three
+    """Phase 4: K3 against its plain version at the training path's three
     stage shapes (batch 1024, bf16: values at 2e-2, the index where the
     plain version's best and second-best differ by more than two bf16
     units in the last place) and at small f32 shapes (1e-5; the index
@@ -2192,7 +2220,7 @@ ALEX_LAUNCHES = {
 
 
 def training_path(torch, counts, alexnet, bench_main):
-    """Phase 5: AlexNet training at full width through the port, under
+    """Phase 6: AlexNet training at full width through the port, under
     each pool; returns the launches of each pool's counted step, by
     kernel, and the pool kernels' launches by load mode."""
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -2270,7 +2298,7 @@ def _loss_and_grads(transformer, model, batch):
 
 
 def lm_training_path(torch, counts, fa, llama, transformer, bench_serving):
-    """Phase 6: Llama-3-8B LM training at full width, 4 layers, through the
+    """Phase 7: Llama-3-8B LM training at full width, 4 layers, through the
     port; returns the launches of the counted step, by kernel."""
     cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=LM_LAYERS)
     t0 = time.perf_counter()
@@ -2653,7 +2681,7 @@ def fleet_cold_start(bench_serving, card):
 
 
 def fleet_path(torch, cfg, sched, card):
-    """Phase 7, the fleet tier on the card: replicas of the port's server
+    """Phase 9, the fleet tier on the card: replicas of the port's server
     CLI (``FLEET_CONFIG`` at full width and depth, seed 0, 8 slots,
     ``max_len`` 2048, windows of 8), spawned by the port's own helpers
     behind the port's router: ``run_router`` with two replicas and the
@@ -2775,7 +2803,7 @@ def first_divergence(torch, inference, model, prompt, want, got, what):
 
 
 def quant_path(torch, counts, inference, bench_serving, bf16, card):
-    """Phase 7a: Llama-3-8B with int8 and with int4 projections, all 32
+    """Phase 8a: Llama-3-8B with int8 and with int4 projections, all 32
     layers, weights from ``random_quantized_params`` (seed 0) through
     ``build_model_and_params``: ``greedy_generate`` at the main path's
     shapes (K4 once a layer in the prefill; the captured decode gives
@@ -2856,7 +2884,7 @@ def quant_path(torch, counts, inference, bench_serving, bf16, card):
 
 def spec_path(torch, np, obs, inference, llama, bench_serving, serving,
               scheduler, speculative, engine, card):
-    """Phase 7b: Llama-3-8B bf16 (the main path's weights) with
+    """Phase 8b: Llama-3-8B bf16 (the main path's weights) with
     Llama-3.2-1B bf16 as its draft: ``speculative_generate`` on the main
     path's first prompt, with that draft and with the target as its own,
     against ``greedy_generate`` (equal ids, or a first divergence at a
@@ -2980,7 +3008,7 @@ def spec_path(torch, np, obs, inference, llama, bench_serving, serving,
 
 
 def lora_path(torch, np, inference, bench_serving, serving, engine, card):
-    """Phase 7c: Llama-3-8B bf16 (the main path's base weights) with 4
+    """Phase 8c: Llama-3-8B bf16 (the main path's base weights) with 4
     adapters of rank 8: the engine phase's eight requests over 8 slots
     with adapters 0-3 and the base mixed, one captured window, each
     request's ids those of its run alone in the same engine shape; with
@@ -3080,7 +3108,7 @@ def moe_flops_per_step(layers: int, seq: int) -> float:
 
 def moe_path(torch, counts, fa, inference, transformer, serving,
              bench_serving, card):
-    """Phase 7d: MoE at Mixtral-8x7B's widths.  Training at 2 layers (one
+    """Phase 8d: MoE at Mixtral-8x7B's widths.  Training at 2 layers (one
     8192-token sequence, capacity factor 1.25, so 2560 slots an expert;
     attention K4 with its lse, then K5 and K6): the launches of one
     ``lm_train_step``, the loss over a few steps, tokens/s, MFU against
@@ -3248,7 +3276,7 @@ def moe_path(torch, counts, fa, inference, transformer, serving,
 def rest_of_model_path(torch, counts, fa, inference, llama, transformer,
                        bench_serving, serving, scheduler, speculative, obs,
                        bf16, engine, card):
-    """Phase 7: the rest of the model, with no other model resident."""
+    """Phase 8: the rest of the model, with no other model resident."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -3279,7 +3307,7 @@ def rest_of_model_path(torch, counts, fa, inference, llama, transformer,
 CKPT_STEPS, CKPT_EVERY = 6, 2
 CKPT_LM_LAYERS, CKPT_LM_SEQ, CKPT_LM_STEPS, CKPT_LM_SAVE_AT = 2, 4096, 5, 2
 # the head slice of the LM resume's attention call (Llama-3.2-1B: 32 / 8
-# heads of 64), which phase 3 holds against the plain versions
+# heads of 64), which phase 4 holds against the plain versions
 ATTN_CKPT_SLICE = ((1, CKPT_LM_SEQ, 8, 64), 2)
 CKPT_SERVE_CONFIG = "llama3-1b"
 CKPT_KINDS = (("bf16", False), ("int8", True), ("int4", "int4"))
@@ -3319,8 +3347,11 @@ def _lm_resume_setup(torch, fa, llama, transformer, bench_serving):
 
 
 def worker(argv) -> int:
-    """``chip_smoke.py --worker KIND ARGS``: the checkpointing phase's
-    subprocesses, under the phase's numerics (``_ckpt_numerics``):
+    """``chip_smoke.py --worker KIND ARGS``: the device-plugin phase
+    (``device-plugin``, :func:`device_plugin_child`) and its container
+    child (``container``, :func:`container_child`), and the
+    checkpointing phase's subprocesses, under that phase's numerics
+    (``_ckpt_numerics``):
 
     ``elastic ARGS``: ``bench_main``'s CLI with ARGS;
     ``lm-crash DIR``: the LM resume model takes 2 steps, saves step_2
@@ -3330,6 +3361,10 @@ def worker(argv) -> int:
     the restore's seconds and the losses to OUT."""
     import signal
 
+    if argv[:1] == ["container"]:
+        return container_child()
+    if argv[:1] == ["device-plugin"]:
+        return device_plugin_child()
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3772,7 +3807,7 @@ def ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
 
 
 def checkpoint_path(torch, counts, sched, card):
-    """Phase 9, checkpointing, with no other model resident: the elastic
+    """Phase 10, checkpointing, with no other model resident: the elastic
     AlexNet loop (SIGKILL, resume, a reshape exit, resume, a bit-equal
     final step), the LM resume across processes (bit-equal losses) and
     the server CLI serving from a checkpoint (bf16, int8, int4 with the
@@ -3812,6 +3847,468 @@ def checkpoint_path(torch, counts, sched, card):
     return dict(elastic=elastic, lm=lm)
 
 
+# -- the device plugin: discovery, the plugin, health and labels ------------
+
+DP_FIXTURE = os.path.join("testdata", "nvidia", "h100-sxm-8")
+DP_PULSE_S = 1
+DP_WATCHDOG_S = 0.5
+DP_PROBE_HANG = "probe:hang:1"
+DP_CHILD_QUERY = ((1, 512, 8, 128), 512, 2)  # K4's prefill in the child
+DP_TIMEOUT_S = 300
+
+
+class _StubKubelet:
+    """The kubelet's Registration service on ``kubelet.sock``, from the
+    port's own proto: it records each RegisterRequest."""
+
+    def __init__(self, directory: str):
+        import concurrent.futures
+        import threading
+
+        import grpc
+
+        from tpu_k8s_device_plugin_torch.proto import (
+            deviceplugin_pb2 as pb, deviceplugin_pb2_grpc as pb_grpc)
+
+        self.dir = directory
+        self.requests = []
+        self.registered = threading.Event()
+        self._empty = pb.Empty
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+        self._server = grpc.server(self._pool)
+        pb_grpc.add_RegistrationServicer_to_server(self, self._server)
+        self._server.add_insecure_port(
+            f"unix://{os.path.join(directory, 'kubelet.sock')}")
+        self._server.start()
+
+    def Register(self, request, context):  # noqa: N802 (gRPC API)
+        self.requests.append(request)
+        self.registered.set()
+        return self._empty()
+
+    def stop(self) -> None:
+        self._server.stop(grace=0).wait()
+        self._pool.shutdown(wait=True)
+
+
+def allocate_us(impl, ctx, ids):
+    """Allocate p50 and p99 in microseconds, as ``bench.py``'s
+    ``bench_allocate_us`` measures them: 500 warm-ups, then the best of 5
+    rounds of 2000 calls (the round with the lowest median)."""
+    import statistics
+
+    from tpu_k8s_device_plugin_torch.proto import deviceplugin_pb2 as pb
+
+    req = pb.AllocateRequest(container_requests=[
+        pb.ContainerAllocateRequest(devices_ids=ids)])
+    for _ in range(500):
+        impl.allocate(ctx, req)
+    best = None
+    for _ in range(5):
+        samples = []
+        for _ in range(2000):
+            t0 = time.perf_counter_ns()
+            impl.allocate(ctx, req)
+            samples.append((time.perf_counter_ns() - t0) / 1000.0)
+        samples.sort()
+        stats = (statistics.median(samples),
+                 samples[int(len(samples) * 0.99)])
+        if best is None or stats[0] < best[0]:
+            best = stats
+    return best
+
+
+def _exposed(nvml_mod, say):
+    """Step 1: what the machine exposes of its GPUs."""
+    import glob
+    import stat
+
+    drv = "/sys/bus/pci/drivers/nvidia"
+    say("exposed: " + drv + ": " + (
+        str(sorted(e for e in os.listdir(drv) if ":" in e))
+        if os.path.isdir(drv) else "absent"))
+    gpus_dir = "/proc/driver/nvidia/gpus"
+    say("exposed: " + gpus_dir + ": " + (
+        str(sorted(os.listdir(gpus_dir))) if os.path.isdir(gpus_dir)
+        else "absent"))
+    nodes = []
+    for path in sorted(glob.glob("/dev/nvidia*")):
+        st = os.stat(path)
+        nodes.append(f"{path} " + (
+            f"char {os.major(st.st_rdev)}:{os.minor(st.st_rdev)}"
+            if stat.S_ISCHR(st.st_mode) else "not a char device"))
+    say("exposed: device nodes " + "; ".join(nodes))
+    nvml = nvml_mod.load()
+    say("exposed: libnvidia-ml.so.1 " + (
+        f"loads, {len(nvml.gpus())} GPU(s), driver {nvml.driver_version()}"
+        if nvml is not None else "does not load"))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pci.bus_id,uuid,name,memory.total",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    say("exposed: nvidia-smi pci.bus_id, uuid, name, memory.total: "
+        + " | ".join(smi.stdout.strip().splitlines()))
+    return nvml, bool(os.path.isdir(drv) and os.listdir(drv))
+
+
+def _frames(stub, pb):
+    """A ListAndWatch stream consumed into a queue by a thread."""
+    import queue
+    import threading
+
+    frames = queue.Queue()
+    call = stub.ListAndWatch(pb.Empty())
+
+    def consume():
+        try:
+            for frame in call:
+                frames.put(frame)
+        except Exception as e:  # the stream ends when the call is cancelled
+            frames.put(e)
+
+    threading.Thread(target=consume, daemon=True).start()
+    return call, frames
+
+
+def _await_health(frames, gpu_id, want, pulses, what):
+    """Frames until *gpu_id* reads *want*; fails past *pulses* frames."""
+    for n in range(1, pulses + 1):
+        frame = frames.get(timeout=DP_PULSE_S * 10 + 30)
+        if isinstance(frame, Exception):
+            fail(f"ListAndWatch ended while {what}: {frame}")
+        health = {d.ID: d.health for d in frame.devices}.get(gpu_id)
+        if health == want:
+            return n
+    fail(f"{what}: the GPU did not read {want} within {pulses} pulses")
+
+
+def device_plugin_path(card):
+    """Phase 3, the device plugin, run in a process of its own
+    (:func:`device_plugin_child`): the agents' gRPC servers, threads and
+    sockets end with it, so nothing of them stays in the process that
+    runs every later phase.  Prints the child's lines and returns its
+    result."""
+    import threading
+
+    threads = threading.active_count()
+    t_phase = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             "device-plugin"], capture_output=True, text=True,
+            timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        fail(f"the device-plugin phase ran past {DP_TIMEOUT_S} s:\n"
+             f"{e.stdout or ''}{e.stderr or ''}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if out.returncode != 0 or not lines:
+        fail(f"the device-plugin phase failed ({out.returncode}):\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    result = json.loads(lines[-1])
+    print(f"device plugin, threads in this process: {threads} before the "
+          f"phase, {threading.active_count()} after; phase wall with the "
+          f"child's start {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+    return result
+
+
+def device_plugin_child() -> int:
+    """``chip_smoke.py --worker device-plugin``: the port's node agents on
+    this host (discovery, the gpuprobe shim, the plugin behind a stub
+    kubelet, Allocate latency, health under the probe fault, labels) and
+    a child process that gets only the allocated GPU and runs K4 on it.
+    Tears every agent down, reports the threads left, and prints the
+    result as its last line."""
+    import functools
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    import grpc
+
+    from tpu_k8s_device_plugin_torch.gpu import discovery
+    from tpu_k8s_device_plugin_torch.gpu import nvml as nvml_mod
+    from tpu_k8s_device_plugin_torch.gpu.device_impl import GpuContainerImpl
+    from tpu_k8s_device_plugin_torch.health import (
+        GpuHealthServer, get_gpu_health)
+    from tpu_k8s_device_plugin_torch.hostinfo import gpuprobe
+    from tpu_k8s_device_plugin_torch.labeller import (
+        LabelContext, generate_labels)
+    from tpu_k8s_device_plugin_torch.labeller.generators import slug
+    from tpu_k8s_device_plugin_torch.manager import PluginManager
+    from tpu_k8s_device_plugin_torch.proto import (
+        deviceplugin_pb2 as pb, deviceplugin_pb2_grpc as pb_grpc)
+    from tpu_k8s_device_plugin_torch.resilience import faults
+    from tpu_k8s_device_plugin_torch.types import (
+        DevicePluginContext, constants)
+
+    t_phase = time.perf_counter()
+    threads = threading.active_count()
+    card = card_line()
+
+    def say(msg: str) -> None:
+        print(f"device plugin, {msg}; {card}", flush=True)
+
+    # 1. what the machine exposes
+    nvml, sysfs_bound = _exposed(nvml_mod, say)
+    if not sysfs_bound and nvml is None:
+        fail("the machine exposes neither nvidia-bound sysfs PCI nor NVML: "
+             "the card cannot be discovered")
+
+    # 2. discovery on the real roots, matched to torch's device 0
+    props = torch.cuda.get_device_properties(0)
+    torch_bus = (f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:"
+                 f"{props.pci_device_id:02x}.0")
+    torch_uuid = f"GPU-{props.uuid}"
+    torch_name = torch.cuda.get_device_name(0)
+    gpus, topo = discovery.get_gpus("/sys", "/dev", "/proc", nvml)
+    say(f"discovery: {len(gpus)} GPU(s) "
+        + ", ".join(f"{g.id} (index {g.index}, minor {g.minor}, {g.source})"
+                    for g in gpus.values())
+        + f"; NVLink cliques {topo.topology_str}")
+    hit = [g for g in gpus.values() if g.pci_address == torch_bus]
+    if hit:
+        gpu, how = hit[0], f"by its PCI bus id {torch_bus}"
+    elif len(gpus) == 1 and not next(iter(gpus.values())).pci_address:
+        gpu = next(iter(gpus.values()))
+        how = (f"as the only GPU: this machine exposes no PCI bus id "
+               f"(torch's is {torch_bus})")
+    else:
+        fail(f"no discovered GPU at torch's PCI bus id {torch_bus}")
+    nvml_gpu = next((n for n in (nvml.gpus() if nvml else [])
+                     if n.index == gpu.index), None)
+    if gpu.uuid and gpu.uuid != torch_uuid:
+        fail(f"discovered UUID {gpu.uuid} is not torch's {torch_uuid}")
+    uuid_line = (f"UUID {gpu.uuid} = torch's" if gpu.uuid else
+                 f"UUID not exposed (NVML answers "
+                 f"{nvml_gpu.uuid if nvml_gpu else None!r}; torch's is "
+                 f"{torch_uuid})")
+    mem_rel = abs(gpu.memory_bytes - props.total_memory) / props.total_memory
+    if mem_rel > 0.01:
+        fail(f"discovered memory {gpu.memory_bytes} is not within 1% of "
+             f"torch's {props.total_memory}")
+    if gpu.name and gpu.name != torch_name:
+        fail(f"discovered name {gpu.name!r} is not torch's {torch_name!r}")
+    if topo.spec is None:
+        fail(f"no spec-table entry for device id {gpu.device_id!r}, "
+             f"name {gpu.name!r}")
+    if not gpu.dev_path or not os.path.exists(gpu.dev_path):
+        fail(f"no device node for minor {gpu.minor}")
+    say(f"discovered torch's device 0 {how}: {gpu.id}, {uuid_line}; "
+        f"name {gpu.name!r}, device id {gpu.device_id or 'not exposed'}, "
+        f"memory {gpu.memory_bytes} bytes against torch's "
+        f"{props.total_memory} ({mem_rel:.4%}), NUMA node {gpu.numa_node}, "
+        f"{len(gpu.nvlinks)} active NVLinks, node {gpu.dev_path}; spec "
+        f"{topo.spec.product} ({topo.spec.sm_count} SMs against torch's "
+        f"{props.multi_processor_count})")
+    if topo.spec.sm_count != props.multi_processor_count:
+        fail("the spec table's SM count is not torch's")
+
+    # 3. the gpuprobe shim on the real node
+    t0 = time.perf_counter()
+    rc = gpuprobe.probe_device_node(gpu.dev_path)
+    major = gpuprobe.char_device_major(gpu.dev_path)
+    say(f"gpuprobe {gpuprobe.version()} (built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s): probe {gpu.dev_path} -> {rc}, "
+        f"char major {major}")
+    if rc != 0 or major != constants.NVIDIA_CHAR_MAJOR:
+        fail(f"{gpu.dev_path} is not a char device of major "
+             f"{constants.NVIDIA_CHAR_MAJOR}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    kubelet_dir = os.path.join(work, "device-plugins")
+    os.makedirs(kubelet_dir)
+    sock = os.path.join(work, "exporter.sock")
+    exporter = GpuHealthServer(sock, nvml=nvml).start()
+    kubelet = _StubKubelet(kubelet_dir)
+    manager = channel = call = None
+    try:
+        # 6 (first half). the port's health server reports the card Healthy
+        health = get_gpu_health(sock, timeout_s=5.0)
+        if health.get(gpu.id) != constants.HEALTHY:
+            fail(f"the health server reports {health}")
+        # 4. the plugin end to end
+        impl = GpuContainerImpl(
+            nvml=nvml, probe_watchdog_s=DP_WATCHDOG_S,
+            health_fn=functools.partial(get_gpu_health, sock,
+                                        timeout_s=5.0))
+        manager = PluginManager(impl, pulse_seconds=DP_PULSE_S,
+                                kubelet_dir=kubelet_dir,
+                                kubelet_watch_interval_s=0.1)
+        manager.run(block=False)
+        if not kubelet.registered.wait(30):
+            fail("the plugin did not register with the stub kubelet")
+        reg = kubelet.requests[0]
+        if (reg.resource_name != "nvidia.com/gpu"
+                or reg.version != constants.KUBELET_DP_VERSION
+                or not reg.options.get_preferred_allocation_available):
+            fail(f"unexpected registration {reg}")
+        channel = grpc.insecure_channel(
+            f"unix://{os.path.join(kubelet_dir, reg.endpoint)}")
+        stub = pb_grpc.DevicePluginStub(channel)
+        call, frames = _frames(stub, pb)
+        first = frames.get(timeout=30)
+        dev = {d.ID: d for d in first.devices}.get(gpu.id)
+        if (dev is None or dev.health != constants.HEALTHY
+                or [n.ID for n in dev.topology.nodes] != [gpu.numa_node]):
+            fail(f"ListAndWatch's first frame: {first}")
+        pref = stub.GetPreferredAllocation(pb.PreferredAllocationRequest(
+            container_requests=[pb.ContainerPreferredAllocationRequest(
+                available_deviceIDs=list(impl.gpus), allocation_size=1)]))
+        chosen = list(pref.container_responses[0].deviceIDs)
+        alloc = stub.Allocate(pb.AllocateRequest(container_requests=[
+            pb.ContainerAllocateRequest(devices_ids=[gpu.id])]))
+        car = alloc.container_responses[0]
+        mounts = [d.host_path for d in car.devices]
+        controls = [os.path.join("/dev", n)
+                    for n in constants.CONTROL_DEVICE_NODES
+                    if os.path.exists(os.path.join("/dev", n))]
+        visible = car.envs.get(constants.ENV_NVIDIA_VISIBLE_DEVICES)
+        say(f"plugin: registered {reg.resource_name} at {reg.endpoint}; "
+            f"first frame {[(d.ID, d.health, [n.ID for n in d.topology.nodes]) for d in first.devices]}; "
+            f"preferred {chosen}; Allocate mounts {mounts}, "
+            f"{constants.ENV_NVIDIA_VISIBLE_DEVICES}={visible}")
+        if len(chosen) != 1 or chosen[0] not in impl.gpus:
+            fail(f"GetPreferredAllocation answered {chosen}")
+        if mounts != [gpu.dev_path] + controls:
+            fail(f"Allocate mounted {mounts}, not {[gpu.dev_path] + controls}")
+        if visible != gpu.visible_id or (gpu.uuid and visible != torch_uuid):
+            fail(f"Allocate set {constants.ENV_NVIDIA_VISIBLE_DEVICES}="
+                 f"{visible}")
+        if constants.ENV_CUDA_VISIBLE_DEVICES in car.envs:
+            fail("Allocate set CUDA_VISIBLE_DEVICES")
+
+        # 6 (second half). the probe fault flips health and back
+        faults.install(DP_PROBE_HANG)
+        n_down = _await_health(frames, gpu.id, constants.UNHEALTHY, 2,
+                               f"with {DP_PROBE_HANG} armed")
+        faults.uninstall()
+        n_up = _await_health(frames, gpu.id, constants.HEALTHY, 2,
+                             "after disarming the probe fault")
+        say(f"health: the server reports {health}; with {DP_PROBE_HANG} "
+            f"armed (watchdog {DP_WATCHDOG_S} s) frame {n_down} after "
+            f"arming read Unhealthy, and frame {n_up} after disarming "
+            f"read Healthy (pulse {DP_PULSE_S} s)")
+    finally:
+        faults.uninstall()
+        if call is not None:
+            call.cancel()
+        if channel is not None:
+            channel.close()
+        if manager is not None:
+            manager.stop()
+        kubelet.stop()
+        exporter.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 5. Allocate p50 / p99, on this host and on the 8-GPU fixture
+    ctx = DevicePluginContext(constants.DEVICE_TYPE_GPU, None)
+    host_us = allocate_us(impl, ctx, [gpu.id])
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           DP_FIXTURE)
+    fixture_impl = GpuContainerImpl(
+        sysfs_root=os.path.join(fixture, "sys"),
+        dev_root=os.path.join(fixture, "dev"),
+        proc_root=os.path.join(fixture, "proc"),
+        nvml=nvml_mod.load(os.path.join(fixture, "nvml.json")))
+    fixture_us = allocate_us(fixture_impl, ctx, list(fixture_impl.gpus)[:4])
+    say(f"Allocate p50 / p99: {host_us[0]:.2f} / {host_us[1]:.2f} us for 1 "
+        f"GPU on this host; {fixture_us[0]:.2f} / {fixture_us[1]:.2f} us "
+        f"for 4 of 8 on {DP_FIXTURE} (best of 5 rounds of 2000 after 500)")
+
+    # 7. labels on the real host
+    labels = generate_labels(LabelContext.collect(nvml=nvml))
+    short = {k.split(".", 2)[-1]: v for k, v in labels.items()
+             if k.startswith(constants.LABEL_PREFIX + ".")}
+    say(f"labels: {short}")
+    want = {"product-name": slug(torch_name),
+            "driver-version": nvml.driver_version() if nvml else None}
+    if nvml_gpu is not None and nvml_gpu.memory_total:
+        want["memory"] = f"{nvml_gpu.memory_total // 2 ** 20}Mi"
+    sys_version = "/sys/module/nvidia/version"
+    if os.path.exists(sys_version):
+        with open(sys_version) as f:
+            want["driver-version"] = f.read().strip()
+    if gpu.device_id:
+        want["device-id"] = gpu.device_id
+    for key, value in want.items():
+        if value is not None and short.get(key) != value:
+            fail(f"label {key}={short.get(key)!r}, want {value!r}")
+    if "device-id" not in want and "device-id" in short:
+        fail("a device-id label where no PCI id is exposed")
+
+    # 8. the container contract: a child sees only the allocated GPU
+    env = dict(os.environ)
+    env.update(car.envs)
+    env[constants.ENV_CUDA_VISIBLE_DEVICES] = visible
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--worker", "container"],
+        env=env, capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        fail(f"the container child failed ({out.returncode}):\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    child = json.loads(lines[-1])
+    say(f"container child with {constants.ENV_CUDA_VISIBLE_DEVICES}="
+        f"{visible}: {child['devices']} device(s), UUID {child['uuid']}, "
+        f"K4 {child['launches']} launch(es) on q {list(DP_CHILD_QUERY[0])} "
+        f"bf16 causal: {child['held']}")
+    if child["devices"] != 1 or child["uuid"] != torch_uuid \
+            or not child["ok"] or child["launches"] < 1:
+        fail(f"the container child saw {child}")
+
+    # the probe fault's hung call, if still asleep, ends within its 1 s
+    deadline = time.monotonic() + 5
+    while (threading.active_count() > threads
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    left = [t.name for t in threading.enumerate()
+            if t is not threading.main_thread()]
+    wall = time.perf_counter() - t_phase
+    say(f"threads: {threads} before the agents, "
+        f"{threading.active_count()} after their teardown {left}; "
+        f"phase wall {wall:.1f} s")
+    if threading.active_count() > threads:
+        fail(f"the agents left threads running: {left}")
+    print(json.dumps({"allocate_host_us": host_us,
+                      "allocate_fixture_us": fixture_us,
+                      "wall_s": wall}), flush=True)
+    return 0
+
+
+def container_child() -> int:
+    """``chip_smoke.py --worker container``: run with the Allocate
+    response's env and CUDA_VISIBLE_DEVICES as the container runtime sets
+    it: count the devices CUDA shows, and hold K4 on a small prefill
+    against its plain version (bf16, 3e-2).  Prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
+
+    n = torch.cuda.device_count()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qs, tk, hkv = DP_CHILD_QUERY
+    q, k, v, _ = _attention_inputs(torch, gen, qs, tk, hkv, torch.bfloat16)
+    fa.flash_attention_cuda.launches = 0
+    got = fa.flash_attention_cuda(q, k, v, True)
+    want = fa.flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    held = _held_forward(torch, fa, got, want, q, k, v, True)
+    print(json.dumps({
+        "devices": n,
+        "uuid": f"GPU-{torch.cuda.get_device_properties(0).uuid}",
+        "launches": fa.flash_attention_cuda.launches,
+        "held": _forward_line(held),
+        "ok": not _forward_failed(held) and bool(torch.isfinite(got).all()),
+    }), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3845,6 +4342,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     for library, names, instruction in BUILD_CHECKS:
         check_build(build, library, names, instruction)
+    device_plugin_path(card)
 
     counts = Counts(flash_attn_fwd=fa.flash_attention_cuda,
                     flash_attn_dq=fa.flash_attention_dq_cuda,
@@ -3859,18 +4357,18 @@ def main() -> int:
     launches, bf16, engine = main_path(torch, counts, inference, llama,
                                        bench_serving, serving, grammar, obs,
                                        scheduler, card)
-    torch.cuda.empty_cache()
+    _fresh(torch)
     train, train_modes = training_path(torch, counts, alexnet, bench_main)
-    torch.cuda.empty_cache()
+    _fresh(torch)
     lm = lm_training_path(torch, counts, fa, llama, transformer,
                           bench_serving)
-    torch.cuda.empty_cache()
+    _fresh(torch)
     rest = rest_of_model_path(torch, counts, fa, inference, llama,
                               transformer, bench_serving, serving, scheduler,
                               speculative, obs, bf16, engine, card)
-    torch.cuda.empty_cache()
+    _fresh(torch)
     fleet_path(torch, llama.LLAMA3_8B, engine["scheduler"], card)
-    torch.cuda.empty_cache()
+    _fresh(torch)
     ckpt = checkpoint_path(torch, counts, engine["scheduler"], card)
 
     csrc = "tpu_k8s_device_plugin_torch/csrc/"

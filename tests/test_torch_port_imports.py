@@ -58,7 +58,58 @@ def test_port_files_exist():
     assert "tpu_k8s_device_plugin_torch/workloads/speculative.py" in names
     assert "tpu_k8s_device_plugin_torch/workloads/checkpoint.py" in names
     assert "tpu_k8s_device_plugin_torch/types/constants.py" in names
+    for agent in AGENT_MODULES:
+        assert agent in names, agent
     assert all(p.exists() for p in _port_files())
+
+
+# the node agents of the device-plugin slice, one file per reference
+# module they port
+AGENT_MODULES = [
+    f"tpu_k8s_device_plugin_torch/{m}.py" for m in (
+        "types/api", "proto/deviceplugin_pb2", "proto/deviceplugin_pb2_grpc",
+        "proto/tpuhealth_pb2", "proto/tpuhealth_pb2_grpc",
+        "hostinfo/gpuprobe", "gpu/sysfs", "gpu/nvml", "gpu/topology",
+        "gpu/discovery", "gpu/device_impl", "allocator/allocator",
+        "allocator/besteffort", "allocator/device", "plugin/plugin",
+        "manager/manager", "health/server", "health/client",
+        "health/metrics", "labeller/generators", "labeller/controller",
+        "labeller/k8s_client", "cmd/device_plugin", "cmd/node_labeller",
+        "cmd/metrics_exporter", "observability")]
+AGENT_DIRS = ("gpu", "allocator", "plugin", "manager", "health", "hostinfo",
+              "labeller", "cmd")
+
+
+def _agent_files():
+    pkg = ROOT / "tpu_k8s_device_plugin_torch"
+    return sorted(p for d in AGENT_DIRS for p in (pkg / d).rglob("*.py"))
+
+
+@pytest.mark.parametrize(
+    "path", _agent_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_agents_never_import_torch(path):
+    """The node agents run on every node: a CUDA context there would take
+    device memory from workloads, so no agent module imports torch."""
+    bad = [name for name in _imports(path) if name.split(".")[0] == "torch"]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_agent_leaves_torch_unloaded():
+    """Not even through the port's shared modules (obs, resilience)."""
+    import subprocess
+    import sys
+
+    modules = [m[len("tpu_k8s_device_plugin_torch/"):-3].replace("/", ".")
+               for m in AGENT_MODULES]
+    code = ("import sys\n"
+            + "".join(f"import tpu_k8s_device_plugin_torch.{m}\n"
+                      for m in modules)
+            + "print(sorted(m for m in sys.modules if m == 'torch' "
+              "or m.startswith('torch.') or m == 'jax'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize(

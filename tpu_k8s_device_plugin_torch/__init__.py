@@ -6,3 +6,5 @@ PyTorch; every kernel the reference wrote in Pallas for the TPU is a
 kernel written by hand for Hopper under ``csrc/``, built by
 :mod:`.build` at first use.
 """
+
+__version__ = "0.1.0"

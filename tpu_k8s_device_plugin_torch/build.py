@@ -10,6 +10,10 @@ an unchanged tree is reused.  Nothing is compiled
 at import: the first wrapper that launches a kernel builds it, and
 :func:`build_all` builds every source at once, one ``nvcc`` process per
 source, all started together.
+
+Host sources, ``csrc/<name>.cpp`` (the node agents' ``gpuprobe`` shim),
+are compiled by the host C++ compiler into the same directory, named by a
+hash of the source and the flags, by :func:`load_host` at first use.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ NVCC_FLAGS = [
 ]
 # after the source: libcuda, for the TMA tensor maps encoded per call
 NVCC_LIBS = ["-lcuda"]
+CXX_FLAGS = ["-O2", "-Wall", "-fPIC", "-fvisibility=hidden", "-std=c++17",
+             "-shared"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -129,4 +135,52 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             lib = ctypes.CDLL(str(lib_path(name)))
             _libs[name] = lib
+        return lib
+
+
+def cxx_path() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++``, else ``c++``."""
+    for c in (os.environ.get("CXX"), shutil.which("g++"),
+              shutil.which("c++")):
+        if c:
+            return c
+    raise RuntimeError("no C++ compiler (set CXX or put g++ on PATH); the "
+                       "host shims are compiled from csrc/*.cpp at first use")
+
+
+def host_lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cpp`` is, or will be, built:
+    named by a hash of the source and the compiler flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    digest.update(b"\0" + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for the host source ``csrc/<name>.cpp``, built
+    with the host compiler if needed.  Raises RuntimeError when it cannot
+    be built."""
+    key = f"host:{name}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            path = host_lib_path(name)
+            if not path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [cxx_path(), *CXX_FLAGS, "-o", str(tmp),
+                       str(CSRC / f"{name}.cpp")]
+                try:
+                    subprocess.run(cmd, check=True, capture_output=True,
+                                   text=True, timeout=120)
+                except subprocess.CalledProcessError as e:
+                    raise RuntimeError(
+                        f"{cmd[0]} failed for csrc/{name}.cpp:\n"
+                        f"{e.stdout}{e.stderr}") from e
+                except (subprocess.SubprocessError, OSError) as e:
+                    raise RuntimeError(
+                        f"cannot build csrc/{name}.cpp: {e}") from e
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(str(path), use_errno=True)
+            _libs[key] = lib
         return lib

@@ -1,8 +1,9 @@
 """The slice-membership record and its reader: what the fleet
 reconciler needs of the JAX package's ``slice/`` (``fleet.
 capacity_from_membership`` reads membership state files through it).
-The rendezvous state machine, the coordinator and the client stay with
-the device-plugin side of the port (ROADMAP.md, queue 1, item 8)."""
+The rendezvous state machine, the coordinator and the client come with
+the slice coordination of the device-plugin side (ROADMAP.md, queue 1,
+item 8.3)."""
 
 from .state import Membership, load_membership
 
