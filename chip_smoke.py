@@ -2754,7 +2754,7 @@ LORA_SLOT_ADAPTERS = (0, 1, 2, 3, None, 0, 1, 2)
 MIXTRAL = dict(vocab=32000, d_model=4096, n_heads=32, n_kv_heads=8,
                d_ff=14336, n_experts=8, moe_k=2, moe_capacity_factor=1.25,
                ffn="gelu", rope_theta=1e6)
-MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS, MOE_WARMUP, MOE_STEPS = 2, 4, 1, 3
+MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS, MOE_WARMUP, MOE_STEPS = 2, 2, 1, 3
 MOE_ENGINE_STEPS = 16
 NEAR_TIE_ULPS = 4
 
@@ -3365,6 +3365,8 @@ def worker(argv) -> int:
         return container_child()
     if argv[:1] == ["device-plugin"]:
         return device_plugin_child()
+    if argv[:1] == ["rank"]:
+        return rank_child()
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3855,6 +3857,14 @@ DP_WATCHDOG_S = 0.5
 DP_PROBE_HANG = "probe:hang:1"
 DP_CHILD_QUERY = ((1, 512, 8, 128), 512, 2)  # K4's prefill in the child
 DP_TIMEOUT_S = 300
+# the slice: two plugin processes on this host under two loopback
+# hostnames (both resolve here; the first serves the rendezvous and is
+# rank 0), pulsing each second; a member silent past the heartbeat
+# timeout and then unhealthy past the grace is evicted
+DP_SLICE_HOSTS = ("127.0.0.1", "127.0.0.2")
+DP_SLICE_HEARTBEAT_TIMEOUT_S = 2
+DP_SLICE_GRACE_S = 6
+DP_SLICE_PULSES = 6   # frames allowed to demote, and to recover
 
 
 class _StubKubelet:
@@ -4261,6 +4271,12 @@ def device_plugin_child() -> int:
             or not child["ok"] or child["launches"] < 1:
         fail(f"the container child saw {child}")
 
+    # 9. the slice: two plugin processes, their ranks' children, a fault
+    # on one member, and the survivor's reshape
+    slice_result = slice_path(gpu, nvml, say)
+    # 10. MIG and passthrough: what this machine exposes
+    partitions = partitions_report(gpu, nvml_gpu, nvml, say)
+
     # the probe fault's hung call, if still asleep, ends within its 1 s
     deadline = time.monotonic() + 5
     while (threading.active_count() > threads
@@ -4276,6 +4292,7 @@ def device_plugin_child() -> int:
         fail(f"the agents left threads running: {left}")
     print(json.dumps({"allocate_host_us": host_us,
                       "allocate_fixture_us": fixture_us,
+                      "slice": slice_result, "partitions": partitions,
                       "wall_s": wall}), flush=True)
     return 0
 
@@ -4306,6 +4323,424 @@ def container_child() -> int:
         "held": _forward_line(held),
         "ok": not _forward_failed(held) and bool(torch.isfinite(got).all()),
     }), flush=True)
+    return 0
+
+
+class _FaultableHealth:
+    """A member's health exporter (the health service on a unix socket,
+    probing the real roots) whose GPU reads Unhealthy while ``fault`` is
+    set: how a fault reported by one member's exporter looks to its
+    plugin."""
+
+    def __init__(self, socket_path, nvml, gpu_id):
+        import concurrent.futures
+        import threading
+
+        import grpc
+
+        from tpu_k8s_device_plugin_torch.health import probe_gpu_states
+        from tpu_k8s_device_plugin_torch.proto import (
+            tpuhealth_pb2 as hpb, tpuhealth_pb2_grpc as hpb_grpc)
+        from tpu_k8s_device_plugin_torch.types import constants
+
+        self.fault = threading.Event()
+        outer = self
+
+        class Servicer(hpb_grpc.TpuHealthServiceServicer):
+            def List(self, request, context):  # noqa: N802 (gRPC API)
+                states = probe_gpu_states(nvml=nvml)
+                if outer.fault.is_set() and gpu_id in states:
+                    states[gpu_id].health = constants.UNHEALTHY
+                return hpb.ListTpuStateResponse(
+                    states=[states[k] for k in sorted(states)])
+
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+        self._server = grpc.server(self._pool)
+        hpb_grpc.add_TpuHealthServiceServicer_to_server(Servicer(),
+                                                        self._server)
+        self._server.add_insecure_port(f"unix://{socket_path}")
+        self._server.start()
+
+    def stop(self) -> None:
+        self._server.stop(grace=0).wait()
+        self._pool.shutdown(wait=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Member:
+    """One slice member: the port's plugin CLI in a process of its own
+    under *hostname*, its exporter and its stub kubelet here."""
+
+    def __init__(self, hostname, work, rendezvous, master_port, nvml,
+                 gpu_id):
+        from tpu_k8s_device_plugin_torch.proto import (
+            deviceplugin_pb2 as pb, deviceplugin_pb2_grpc as pb_grpc)
+
+        self.pb, self.pb_grpc = pb, pb_grpc
+        self.hostname = hostname
+        d = os.path.join(work, hostname)
+        os.makedirs(os.path.join(d, "device-plugins"))
+        self.state_file = os.path.join(d, "membership.json")
+        self.exporter = _FaultableHealth(os.path.join(d, "exporter.sock"),
+                                         nvml, gpu_id)
+        self.kubelet = _StubKubelet(os.path.join(d, "device-plugins"))
+        argv = ["--kubelet-dir", self.kubelet.dir, "--pulse",
+                str(DP_PULSE_S), "--exporter-socket",
+                os.path.join(d, "exporter.sock"),
+                "--slice-rendezvous", rendezvous, "--slice-workers",
+                str(len(DP_SLICE_HOSTS)), "--slice-master-port",
+                str(master_port), "--slice-reshape-grace",
+                str(DP_SLICE_GRACE_S), "--slice-heartbeat-timeout",
+                str(DP_SLICE_HEARTBEAT_TIMEOUT_S), "--slice-state-file",
+                self.state_file]
+        code = ("import socket, sys\n"
+                f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+                f"socket.gethostname = lambda: {hostname!r}\n"
+                "from tpu_k8s_device_plugin_torch.cmd.device_plugin "
+                "import main\n"
+                f"sys.exit(main({argv!r}))")
+        self.log = open(os.path.join(d, "plugin.log"), "w")
+        self.proc = subprocess.Popen([sys.executable, "-c", code],
+                                     stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        self.channel = self.call = self.frames = self.stub = None
+        self._stopped = False
+
+    def connect(self) -> None:
+        import grpc
+
+        if not self.kubelet.registered.wait(60):
+            fail(f"slice member {self.hostname} did not register: "
+                 f"{self.tail()}")
+        reg = self.kubelet.requests[0]
+        self.channel = grpc.insecure_channel(
+            f"unix://{os.path.join(self.kubelet.dir, reg.endpoint)}")
+        self.stub = self.pb_grpc.DevicePluginStub(self.channel)
+        self.call, self.frames = _frames(self.stub, self.pb)
+
+    def allocate(self, gpu_id) -> dict:
+        pb = self.pb
+        alloc = self.stub.Allocate(pb.AllocateRequest(container_requests=[
+            pb.ContainerAllocateRequest(devices_ids=[gpu_id])]))
+        return dict(alloc.container_responses[0].envs)
+
+    def tail(self) -> str:
+        self.log.flush()
+        with open(self.log.name) as f:
+            return f.read()[-3000:]
+
+    def stop(self) -> None:
+        if self._stopped:
+            return
+        self._stopped = True
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        if self.call is not None:
+            self.call.cancel()
+            self.call = None
+        if self.channel is not None:
+            self.channel.close()
+            self.channel = None
+        self.kubelet.stop()
+        self.exporter.stop()
+        self.log.close()
+
+
+def _await_slice_health(members, gpu_id, want, what):
+    """Frames on every member's stream until each reads *want*; returns
+    the frames each took.  Fails past DP_SLICE_PULSES frames."""
+    took = []
+    for m in members:
+        for n in range(1, DP_SLICE_PULSES + 1):
+            frame = m.frames.get(timeout=DP_PULSE_S * 10 + 30)
+            if isinstance(frame, Exception):
+                fail(f"{m.hostname}'s ListAndWatch ended while {what}: "
+                     f"{frame}")
+            if {d.ID: d.health for d in frame.devices}.get(gpu_id) == want:
+                took.append(n)
+                break
+        else:
+            fail(f"{what}: {m.hostname}'s GPU did not read {want} within "
+                 f"{DP_SLICE_PULSES} frames")
+    return took
+
+
+def _drain(q) -> None:
+    import queue
+
+    while True:
+        try:
+            q.get_nowait()
+        except queue.Empty:
+            return
+
+
+def slice_path(gpu, nvml, say):
+    """Phase 3's slice: two port plugin processes on this host form a
+    2-member slice; each Allocates the card and the two envs must agree
+    but for the rank; a child per rank initialises torch.distributed from
+    its env alone and runs K4 on the card, meanwhile a fault on member 1
+    demotes both members' devices and its clearing restores them, and
+    stopping member 1 re-forms the survivor as generation 2, which its
+    membership file, a fresh Allocate and a ReshapeSignal show."""
+    import shutil
+    import tempfile
+
+    from tpu_k8s_device_plugin_torch.slice import load_membership
+    from tpu_k8s_device_plugin_torch.types import constants
+    from tpu_k8s_device_plugin_torch.workloads.checkpoint import (
+        ReshapeSignal)
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_slice_")
+    rendezvous = f"{DP_SLICE_HOSTS[0]}:{_free_port()}"
+    master_port = _free_port()
+    members, children = [], []
+    try:
+        for host in DP_SLICE_HOSTS:
+            members.append(_Member(host, work, rendezvous, master_port,
+                                   nvml, gpu.id))
+        for m in members:
+            m.connect()
+        # the slice forms within a few pulses of both registering
+        envs = [{} for _ in members]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not all(
+                constants.ENV_RANK in e for e in envs):
+            envs = [m.allocate(gpu.id) for m in members]
+            if not all(constants.ENV_RANK in e for e in envs):
+                time.sleep(0.2)
+        formed_s = time.perf_counter() - t0
+        if not all(constants.ENV_RANK in e for e in envs):
+            fail("the slice did not form within 60 s: "
+                 + " | ".join(m.tail() for m in members))
+        keys = (constants.ENV_MASTER_ADDR, constants.ENV_MASTER_PORT,
+                constants.ENV_WORLD_SIZE, constants.ENV_PET_NNODES,
+                constants.ENV_SLICE_WORKER_HOSTNAMES,
+                constants.ENV_TPU_SLICE_GENERATION)
+        if any(envs[0][k] != envs[1][k] for k in keys):
+            fail(f"the members' slice envs disagree: {envs}")
+        want = {constants.ENV_MASTER_ADDR: DP_SLICE_HOSTS[0],
+                constants.ENV_MASTER_PORT: str(master_port),
+                constants.ENV_WORLD_SIZE: "2",
+                constants.ENV_TPU_SLICE_GENERATION: "1"}
+        for rank, env in enumerate(envs):
+            got = {k: env.get(k) for k in want}
+            if got != want or env[constants.ENV_RANK] != str(rank) \
+                    or env[constants.ENV_PET_NODE_RANK] != str(rank):
+                fail(f"member {rank}'s slice env: {env}")
+        say(f"slice: formed in {formed_s:.1f} s from the members' start; "
+            f"Allocate envs agree but for the rank: "
+            + ", ".join(f"{k}={envs[0][k]}" for k in keys)
+            + f"; RANK {envs[0][constants.ENV_RANK]} and "
+            f"{envs[1][constants.ENV_RANK]}")
+
+        # a child per rank, each with its own Allocate env alone (gloo,
+        # because NCCL refuses two ranks on one GPU); they run while the
+        # fault and the reshape below are driven
+        for env in envs:
+            child_env = dict(os.environ)
+            for k in keys + (constants.ENV_RANK,
+                             constants.ENV_PET_NODE_RANK,
+                             constants.ENV_NVIDIA_VISIBLE_DEVICES):
+                child_env.pop(k, None)
+            child_env.update(env)
+            child_env[constants.ENV_CUDA_VISIBLE_DEVICES] = env[
+                constants.ENV_NVIDIA_VISIBLE_DEVICES]
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 "rank"], env=child_env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        # a fault on member 1: both members' devices read Unhealthy, and
+        # Healthy again once it clears
+        for m in members:
+            _drain(m.frames)
+        t_fault = time.perf_counter()
+        members[1].exporter.fault.set()
+        down = _await_slice_health(members, gpu.id, constants.UNHEALTHY,
+                                   "member 1 faulty")
+        down_s = time.perf_counter() - t_fault
+        members[1].exporter.fault.clear()
+        t_clear = time.perf_counter()
+        up = _await_slice_health(members, gpu.id, constants.HEALTHY,
+                                 "member 1's fault cleared")
+        up_s = time.perf_counter() - t_clear
+        say(f"slice: a fault on member 1's GPU read Unhealthy on both "
+            f"members after {down} frames ({down_s:.1f} s), Healthy "
+            f"again after {up} ({up_s:.1f} s); pulse {DP_PULSE_S} s")
+
+        # member 1 stops: the survivor re-forms as generation 2
+        signal = ReshapeSignal(members[0].state_file, generation=1)
+        t_stop = time.perf_counter()
+        members[1].stop()
+        deadline = time.monotonic() + (DP_SLICE_HEARTBEAT_TIMEOUT_S
+                                       + DP_SLICE_GRACE_S + 30)
+        m2 = load_membership(members[0].state_file)
+        while time.monotonic() < deadline and (m2 is None
+                                               or m2.generation < 2):
+            time.sleep(0.2)
+            m2 = load_membership(members[0].state_file)
+        reshape_s = time.perf_counter() - t_stop
+        if m2 is None or m2.generation != 2 \
+                or m2.hostnames != (DP_SLICE_HOSTS[0],) or not m2.degraded:
+            fail(f"the survivor did not re-form as generation 2: {m2}")
+        fired = signal.check()
+        if fired is None or fired.generation != 2:
+            fail(f"a ReshapeSignal on the membership file gave {fired}")
+        env2 = members[0].allocate(gpu.id)
+        if (env2.get(constants.ENV_WORLD_SIZE),
+                env2.get(constants.ENV_RANK),
+                env2.get(constants.ENV_TPU_SLICE_GENERATION)) != (
+                    "1", "0", "2"):
+            fail(f"the survivor's Allocate env after the reshape: {env2}")
+        say(f"slice: member 1 stopped; the survivor re-formed as "
+            f"generation 2 ({m2.slice_id}, reshaped from "
+            f"{list(m2.reshaped_from)}, degraded) {reshape_s:.1f} s later "
+            f"(heartbeat timeout {DP_SLICE_HEARTBEAT_TIMEOUT_S} s, grace "
+            f"{DP_SLICE_GRACE_S} s); its membership file and a "
+            f"ReshapeSignal show it, and Allocate now gives WORLD_SIZE 1")
+        # the rank children ran meanwhile
+        ranks = []
+        for c in children:
+            out, err = c.communicate(timeout=600)
+            lines = out.strip().splitlines()
+            if c.returncode != 0 or not lines:
+                fail(f"a rank child failed ({c.returncode}):\n"
+                     f"{out[-2000:]}\n{err[-3000:]}")
+            ranks.append(json.loads(lines[-1]))
+        for i, r in enumerate(ranks):
+            if r["rank"] != i or r["world"] != 2 or not r["ok"] \
+                    or r["launches"] < 1:
+                fail(f"rank child {i} saw {r}")
+        say("slice: rank children from the Allocate env alone "
+            "(torch.distributed env://, gloo): "
+            + "; ".join(f"rank {r['rank']} of {r['world']}, K4 "
+                        f"{r['launches']} launch(es) on q "
+                        f"{list(DP_CHILD_QUERY[0])} bf16 causal: "
+                        f"{r['held']}" for r in ranks)
+            + f"; all-reduced max_abs_err {ranks[0]['all_max_abs_err']:.3e}")
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.communicate()
+        for m in members:
+            m.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    say(f"slice: {wall:.1f} s in all")
+    return dict(formed_s=formed_s, frames_down=down, frames_up=up,
+                down_s=down_s, up_s=up_s, reshape_s=reshape_s,
+                all_max_abs_err=ranks[0]["all_max_abs_err"], wall_s=wall)
+
+
+def partitions_report(gpu, nvml_gpu, nvml, say):
+    """MIG and passthrough as this machine exposes them: the card's MIG
+    mode from NVML, what vfio-pci holds, the driver type autodetect
+    picks; where MIG is on, one MIG device allocated and K4 run in a
+    child that sees only it."""
+    from tpu_k8s_device_plugin_torch.cmd.device_plugin import (
+        build_parser, select_device_impl)
+    from tpu_k8s_device_plugin_torch.gpu.device_impl import (
+        GpuContainerImpl)
+    from tpu_k8s_device_plugin_torch.proto import deviceplugin_pb2 as pb
+    from tpu_k8s_device_plugin_torch.types import (
+        DevicePluginContext, constants)
+
+    mig = nvml_gpu.mig_mode if nvml_gpu is not None else ""
+    vfio_dir = "/sys/bus/pci/drivers/vfio-pci"
+    vfio = (sorted(e for e in os.listdir(vfio_dir) if ":" in e)
+            if os.path.isdir(vfio_dir) else None)
+    args = build_parser().parse_args([])
+    impl, driver_type = select_device_impl(args, nvml)
+    say(f"partitions: MIG mode {mig or 'not reported'}; {vfio_dir} "
+        f"{'absent' if vfio is None else vfio}; autodetect picks "
+        f"{driver_type} ({impl.get_resource_names()})")
+    if driver_type != constants.CONTAINER:
+        fail(f"autodetect picked {driver_type} on a container host")
+    out = dict(mig_mode=mig, vfio_pci=vfio, driver_type=driver_type)
+    if mig != "enabled" or not gpu.mig:
+        say("partitions: MIG is off on this card (turning it on needs "
+            "root and a GPU reset) and nothing is bound to vfio-pci, so "
+            "MIG and passthrough are held on fixtures only")
+        return out
+    mixed = GpuContainerImpl(
+        nvml=nvml,
+        resource_naming_strategy=constants.RESOURCE_NAMING_STRATEGY_MIXED)
+    resource = [r for r in mixed.get_resource_names() if r.startswith(
+        constants.DEVICE_TYPE_MIG_PREFIX)][0]
+    ctx = DevicePluginContext(resource, None)
+    dev_id = mixed.enumerate(ctx)[0].ID
+    car = mixed.allocate(ctx, pb.AllocateRequest(container_requests=[
+        pb.ContainerAllocateRequest(devices_ids=[dev_id])
+    ])).container_responses[0]
+    visible = car.envs[constants.ENV_NVIDIA_VISIBLE_DEVICES]
+    env = dict(os.environ)
+    env[constants.ENV_CUDA_VISIBLE_DEVICES] = visible
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--worker",
+         "container"], env=env, capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        fail(f"the MIG child failed ({res.returncode}):\n{res.stderr[-2000:]}")
+    child = json.loads(lines[-1])
+    if child["devices"] != 1 or not child["ok"] or child["launches"] < 1:
+        fail(f"the MIG child saw {child}")
+    say(f"partitions: {resource} device {dev_id} ({visible}): mounts "
+        f"{[d.host_path for d in car.devices]}; K4 in a child: "
+        f"{child['held']}")
+    out.update(mig_device=dev_id, mig_child=child)
+    return out
+
+
+def rank_child() -> int:
+    """``chip_smoke.py --worker rank``: one rank of the slice, started
+    with its Allocate env alone: ``torch.distributed`` initialises from
+    it (env://, gloo: NCCL refuses two ranks on one GPU), K4 runs on the
+    card at DP_CHILD_QUERY against its plain version, and the ranks
+    all-reduce their largest error.  Prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
+
+    dist.init_process_group("gloo", init_method="env://")
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        qs, tk, hkv = DP_CHILD_QUERY
+        q, k, v, _ = _attention_inputs(torch, gen, qs, tk, hkv,
+                                       torch.bfloat16)
+        fa.flash_attention_cuda.launches = 0
+        got = fa.flash_attention_cuda(q, k, v, True)
+        want = fa.flash_attention_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        held = _held_forward(torch, fa, got, want, q, k, v, True)
+        err = torch.tensor([held["max_abs_err"]], dtype=torch.float64)
+        dist.all_reduce(err, op=dist.ReduceOp.MAX)
+        result = {
+            "rank": dist.get_rank(), "world": dist.get_world_size(),
+            "launches": fa.flash_attention_cuda.launches,
+            "held": _forward_line(held),
+            "all_max_abs_err": float(err[0]),
+            "ok": not _forward_failed(held)
+            and bool(torch.isfinite(got).all()),
+        }
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(result), flush=True)
     return 0
 
 

@@ -21,6 +21,8 @@ import sys
 import uuid
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the JAX package's fixture trees, which the passthrough trees are made from
+TESTDATA = os.path.dirname(HERE)
 
 DRIVER_VERSION = "550.54.15"
 H100_SXM = dict(device="0x2330", name="NVIDIA H100 80GB HBM3",
@@ -78,9 +80,12 @@ def pci_function(sys_root, chain, vendor, device, klass, numa,
     return d
 
 
-def make_host(name, gpus, switches=(), nvlinks=None, with_nvml=True):
+def make_host(name, gpus, switches=(), nvlinks=None, with_nvml=True,
+              mig=None):
     """*gpus*: [(chain, numa, product)] in PCI bus order; *nvlinks*:
-    {gpu index: [(link, remote bus id, remote type)]}."""
+    {gpu index: [(link, remote bus id, remote type)]}; *mig*: {gpu index:
+    [(gpu instance id, compute instance id, gpu slices, memory MiB)]}, the
+    MIG devices of the GPUs with MIG enabled."""
     root = os.path.join(HERE, name)
     if os.path.isdir(root):
         shutil.rmtree(root)
@@ -131,12 +136,22 @@ def make_host(name, gpus, switches=(), nvlinks=None, with_nvml=True):
             "index": i, "minor": i, "bus_id": "0000" + bus_id,
             "uuid": gpu_uuid(name, i), "name": product["name"],
             "memory_total": MEMORY_TOTAL, "vbios": product["vbios"],
-            "pci_device_id": product["device"], "mig_mode": "disabled",
+            "pci_device_id": product["device"],
+            "mig_mode": "enabled" if i in (mig or {}) else "disabled",
             "remapped_rows_failure": False,
             "nvlinks": [{"link": link, "remote": "0000" + remote,
                          "remote_type": kind}
                         for link, remote, kind in (nvlinks or {}).get(i, [])],
         })
+        if i in (mig or {}):
+            devices[-1]["mig_devices"] = [
+                {"index": k, "uuid": "MIG-" + gpu_uuid(name, f"{i}/{gi}/{ci}")
+                 [len("GPU-"):], "gpu_instance_id": gi,
+                 "compute_instance_id": ci, "gpu_slices": slices,
+                 "compute_slices": slices, "memory_mb": memory_mb}
+                for k, (gi, ci, slices, memory_mb) in enumerate(mig[i])]
+    if mig:
+        write_mig_minors(root, len(gpus), mig)
     if with_nvml:
         with open(os.path.join(root, "nvml.json"), "w",
                   encoding="utf-8") as f:
@@ -196,8 +211,109 @@ def h100_sxm_1():
     return make_host("h100-sxm-1", gpus, with_nvml=False)
 
 
+def mig_minor(gpu, gi, ci=-1):
+    """The capability minor the driver gives a GPU instance (ci -1) or a
+    compute instance: numbered in order from 3 (after "config" 1 and
+    "monitor" 2), 15 GPU instances a GPU, each followed by its 8
+    compute instances."""
+    return 3 + gpu * 15 * 9 + gi * 9 + (ci + 1)
+
+
+def write_mig_minors(root, n_gpus, mig):
+    """``/proc/driver/nvidia-caps/mig-minors`` for *n_gpus* GPUs, and the
+    ``/dev/nvidia-caps`` nodes of the MIG devices made."""
+    lines = ["config 1", "monitor 2"]
+    for g in range(n_gpus):
+        for gi in range(15):
+            lines.append(f"gpu{g}/gi{gi}/access {mig_minor(g, gi)}")
+            lines += [f"gpu{g}/gi{gi}/ci{ci}/access {mig_minor(g, gi, ci)}"
+                      for ci in range(8)]
+    w(os.path.join(root, "proc", "driver", "nvidia-caps", "mig-minors"),
+      "\n".join(lines))
+    for g, devs in mig.items():
+        for gi, ci, _, _ in devs:
+            for minor in (mig_minor(g, gi), mig_minor(g, gi, ci)):
+                w(os.path.join(root, "dev", "nvidia-caps",
+                               f"nvidia-cap{minor}"), "")
+
+
+def h100_mig_4():
+    """The h100-pcie-4 layout with MIG on two cards: 0 and 1 whole, 2
+    split into seven 1g.10gb devices (GPU instances 7-13), 3 into two
+    3g.40gb (GPU instances 1 and 2), each with compute instance 0 over
+    its whole GPU instance.  Memory: 9.75 and 39.25 GiB, as NVML reports
+    these profiles on an H100 80GB."""
+    gpus = []
+    for i, (root_bus, numa) in enumerate((("30", 0), ("30", 0),
+                                          ("b0", 1), ("b0", 1))):
+        rp = f"0000:{root_bus}:0{1 + i % 2}.0"
+        gpu = f"0000:{root_bus[0]}{1 + i % 2}:00.0"
+        gpus.append(([f"pci0000:{root_bus}", rp, gpu], numa, H100_PCIE))
+    mig = {2: [(gi, 0, 1, 9984) for gi in range(7, 14)],
+           3: [(gi, 0, 3, 40192) for gi in (1, 2)]}
+    return make_host("h100-mig-4", gpus, mig=mig)
+
+
+# the JAX package's passthrough trees, and what changes in them: the
+# vendor and device ids, the host driver (tpu-vf -> nvidia) and its
+# module, and the class of a GPU (a 3D controller); the TPU-only chip
+# attributes are dropped
+_SWAP_NAMES = {"tpu-vf": "nvidia", "tpu_vf": "nvidia", "tpu": "nvidia"}
+_DROP = {"chip_state", "firmware_version", "uncorrectable_errors"}
+
+
+def from_reference(ref_name, name):
+    """``testdata/nvidia/<name>`` made from the JAX package's
+    ``testdata/<ref_name>`` with NVIDIA's vendor, device and driver."""
+    src = os.path.join(TESTDATA, ref_name)
+    root = os.path.join(HERE, name)
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    for dirpath, dirnames, filenames in os.walk(src):
+        rel = os.path.relpath(dirpath, src)
+        parts = [] if rel == "." else rel.split(os.sep)
+        out_dir = os.path.join(root, *[_SWAP_NAMES.get(p, p) for p in parts])
+        os.makedirs(out_dir, exist_ok=True)
+        for entry in dirnames + filenames:
+            path = os.path.join(dirpath, entry)
+            out = os.path.join(out_dir, _SWAP_NAMES.get(entry, entry))
+            if os.path.islink(path):
+                target = "/".join(_SWAP_NAMES.get(p, p)
+                                  for p in os.readlink(path).split("/"))
+                os.symlink(target, out)
+            elif os.path.isfile(path) and entry not in _DROP:
+                with open(path, encoding="utf-8") as f:
+                    value = f.read().strip()
+                if entry == "vendor":
+                    value = "0x10de"
+                elif entry == "device":
+                    value = H100_SXM["device"]
+                elif entry == "class":
+                    value = "0x030200"
+                elif entry == "version" and "module" in parts:
+                    value = DRIVER_VERSION
+                elif entry == "srcversion":
+                    value = "5B1A9F3C7E2D8A6B4C0E1F2"
+                w(out, value)
+    return root
+
+
+def vfio_pf():
+    """Four H100s bound to vfio-pci (IOMMU groups 8-11): the JAX
+    package's vfio-pf tree with NVIDIA's ids."""
+    return from_reference("vfio-pf", "vfio-pf")
+
+
+def sriov_vf():
+    """Two H100 PFs on the nvidia host driver with two SR-IOV VFs each
+    (IOMMU groups 100, 101, 108, 109), a vGPU host: the JAX package's
+    vfio-vf tree with NVIDIA's ids and driver."""
+    return from_reference("vfio-vf", "sriov-vf")
+
+
 def main():
-    for make in (h100_sxm_8, h100_pcie_4, h100_sxm_1):
+    for make in (h100_sxm_8, h100_pcie_4, h100_sxm_1, h100_mig_4, vfio_pf,
+                 sriov_vf):
         make()
     print("fixtures written under", HERE)
 

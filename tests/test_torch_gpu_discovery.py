@@ -11,6 +11,7 @@ import shutil
 import pytest
 
 from tpu_k8s_device_plugin_torch.gpu import discovery, nvml, topology
+from tpu_k8s_device_plugin_torch.gpu.device_impl import GpuContainerImpl
 from tpu_k8s_device_plugin_torch.gpu.discovery import get_gpus
 from tpu_k8s_device_plugin_torch.gpu.topology import (
     LEVEL_HOST_BRIDGE,
@@ -169,16 +170,26 @@ class TestSpecTable:
 
 class TestFallbacks:
     def test_unbound_gpus_are_not_inventoried(self, sxm8_copy):
-        """No nvidia binding at all, with a PCI tree: nothing is
-        discovered, and NVML is not asked to stand in (GPUs bound
-        elsewhere are passthrough's, ROADMAP item 8.2)."""
+        """No nvidia binding at all, with a PCI tree: the raw PCI scan
+        finds the eight GPUs (not the NVSwitches) as the reference's
+        raw fallback finds its chips, with no minor and no device node,
+        and NVML is not asked to stand in: they are not inventoried as
+        container GPUs (the passthrough impls serve them)."""
         shutil.rmtree(os.path.join(sxm8_copy, "sys", "bus", "pci",
                                    "drivers", "nvidia"))
         gpus, topo = get_gpus(
             os.path.join(sxm8_copy, "sys"), os.path.join(sxm8_copy, "dev"),
             os.path.join(sxm8_copy, "proc"),
             nvml.load(os.path.join(sxm8_copy, "nvml.json")))
-        assert gpus == {} and topo.spec is None
+        assert len(gpus) == 8 and topo.spec is not None
+        for g in gpus.values():
+            assert g.source == discovery.SOURCE_PCI
+            assert g.minor == -1 and g.dev_path == "" and g.uuid == ""
+            assert g.device_id == "0x2330" and g.pci_path
+        with pytest.raises(RuntimeError, match="device node"):
+            GpuContainerImpl(os.path.join(sxm8_copy, "sys"),
+                             os.path.join(sxm8_copy, "dev"),
+                             os.path.join(sxm8_copy, "proc"))
 
     def test_no_pci_tree_inventories_from_nvml(self, testdata, tmp_path):
         """A sandboxed container: no PCI tree in sysfs, no /proc gpus,

@@ -69,15 +69,18 @@ AGENT_MODULES = [
     f"tpu_k8s_device_plugin_torch/{m}.py" for m in (
         "types/api", "proto/deviceplugin_pb2", "proto/deviceplugin_pb2_grpc",
         "proto/tpuhealth_pb2", "proto/tpuhealth_pb2_grpc",
+        "proto/slice_pb2", "proto/slice_pb2_grpc",
         "hostinfo/gpuprobe", "gpu/sysfs", "gpu/nvml", "gpu/topology",
-        "gpu/discovery", "gpu/device_impl", "allocator/allocator",
+        "gpu/discovery", "gpu/device_impl", "gpu/vfio",
+        "gpu/device_impl_vfio", "slice/state", "slice/metrics",
+        "slice/server", "slice/client", "allocator/allocator",
         "allocator/besteffort", "allocator/device", "plugin/plugin",
         "manager/manager", "health/server", "health/client",
         "health/metrics", "labeller/generators", "labeller/controller",
         "labeller/k8s_client", "cmd/device_plugin", "cmd/node_labeller",
         "cmd/metrics_exporter", "observability")]
 AGENT_DIRS = ("gpu", "allocator", "plugin", "manager", "health", "hostinfo",
-              "labeller", "cmd")
+              "labeller", "cmd", "slice")
 
 
 def _agent_files():

@@ -1,8 +1,11 @@
 """Allocator device model and the pairwise weights.
 
 The port's counterpart of the JAX package's ``allocator/device.py``.
-The weight of a pair is its link level (:mod:`..gpu.topology`) on the
-reference's scale: one NVLink costs what one ICI hop costs there, and
+A MIG-enabled GPU expands into one device per MIG device, as the
+reference's core-partitioned chip expands into one per TensorCore; two
+MIG devices of one GPU cost what two cores of one chip cost there.
+Between GPUs, the weight of a pair is its link level
+(:mod:`..gpu.topology`) on the reference's scale: one NVLink costs what one ICI hop costs there, and
 PCIe-only pairs cost what the reference's PCIe/NUMA fallback charges,
 with a PCIe switch and a host bridge below the same-NUMA figure.
 Without topology data the weights are exactly the reference's
@@ -18,8 +21,10 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 from ..gpu import topology as topo_mod
 from ..gpu.topology import GpuTopology
 
-# Same scale as the reference's weights: an NVLink pair costs one ICI
-# hop, a PCIe-only pair 2-4x that.
+# Same scale as the reference's weights: two MIG devices of one GPU
+# cost what two cores of one chip do, an NVLink pair one ICI hop, a
+# PCIe-only pair 2-4x that.
+WEIGHT_SAME_GPU = 5           # two MIG devices of one GPU
 WEIGHT_NVLINK = 10            # NVLink between the two GPUs
 WEIGHT_NUMA_PENALTY = 2       # added to an NVLink pair across NUMA nodes
 WEIGHT_PCIE_SWITCH = 14       # below one PCIe switch
@@ -38,26 +43,45 @@ LEVEL_WEIGHTS = {
 
 @dataclass(frozen=True)
 class AllocDevice:
-    """One allocatable device: a whole GPU (MIG instances come with
-    ROADMAP item 8.2, as children of their GPU's ``parent_id``)."""
+    """One allocatable device: a whole GPU, or one MIG device of it."""
 
     id: str                   # kubelet device id
     parent_id: str            # the owning GPU's id
     index: int                # the GPU's discovery order
     numa_node: int = 0
+    part_index: int = 0       # the MIG device's index (0 for whole)
+    partition_type: str = "gpu"  # resource type: gpu or mig-<profile>
 
     @property
     def sort_key(self) -> Tuple[int, int]:
-        return (self.index, 0)
+        return (self.index, self.part_index)
 
 
-def devices_from_discovery(gpus) -> List[AllocDevice]:
-    """Allocatable devices of discovered GPUs (``{id: GpuDevice}``), in
-    index order."""
+def devices_from_discovery(
+    gpus, partitioned: Optional[bool] = None,
+) -> List[AllocDevice]:
+    """Expand discovered GPUs (``{id: GpuDevice}``) into allocatable
+    devices, in index order.
+
+    A MIG-enabled GPU contributes one device per MIG device (ids
+    ``<GPU id>#mig<gi>.<ci>``), a whole GPU itself.  When *partitioned*
+    is given, only GPUs of that kind are included (mixed naming runs one
+    policy per resource), as in the reference."""
+    out: List[AllocDevice] = []
     ordered = sorted(gpus.values(), key=lambda g: (g.index, g.id))
-    return [AllocDevice(id=g.id, parent_id=g.id, index=ordinal,
-                        numa_node=g.numa_node)
-            for ordinal, g in enumerate(ordered)]
+    for ordinal, g in enumerate(ordered):
+        if partitioned is not None and g.partitioned != partitioned:
+            continue
+        if not g.partitioned:
+            out.append(AllocDevice(id=g.id, parent_id=g.id, index=ordinal,
+                                   numa_node=g.numa_node))
+            continue
+        for m in g.mig:
+            out.append(AllocDevice(
+                id=m.id, parent_id=g.id, index=ordinal,
+                numa_node=g.numa_node, part_index=m.index,
+                partition_type=m.partition_type))
+    return out
 
 
 class WeightModel:
@@ -86,6 +110,8 @@ class WeightModel:
                 else topo_mod.LEVEL_SYSTEM)
 
     def _pair_weight(self, a: AllocDevice, b: AllocDevice) -> int:
+        if a.parent_id == b.parent_id:
+            return WEIGHT_SAME_GPU
         level = self.level(a, b)
         w = LEVEL_WEIGHTS[level]
         if level == topo_mod.LEVEL_NVLINK and a.numa_node != b.numa_node:

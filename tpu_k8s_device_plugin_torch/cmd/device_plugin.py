@@ -3,13 +3,11 @@
     python -m tpu_k8s_device_plugin_torch.cmd.device_plugin [flags]
 
 The port's counterpart of the JAX package's ``cmd/device_plugin.py``:
-flag parsing and validation, device-impl selection, then the plugin
-manager's lifecycle.  The container driver type is the one this port
-has; passthrough (``--driver-type vf-passthrough`` / ``pf-passthrough``),
-MIG-typed names (``--resource-naming-strategy mixed``) and multi-host
-slices (``--slice-*``) raise NotImplementedError naming their ROADMAP
-items.  ``--sysfs-root``, ``--dev-root``, ``--proc-root``
-and ``--nvml-json`` point the agent at a fixture host.
+flag parsing and validation, device-impl selection (an explicit driver
+type, or the reference's chain: container, then vf-passthrough, then
+pf-passthrough), multi-host slice wiring (``--slice-*``), then the
+plugin manager's lifecycle.  ``--sysfs-root``, ``--dev-root``,
+``--proc-root`` and ``--nvml-json`` point the agent at a fixture host.
 """
 
 from __future__ import annotations
@@ -19,11 +17,13 @@ import functools
 import logging
 import os
 import signal
+import socket
 import sys
 
 from .. import __version__
 from ..gpu import nvml as nvml_mod
 from ..gpu.device_impl import GpuContainerImpl
+from ..gpu.device_impl_vfio import GpuPfImpl, GpuVfImpl
 from ..health import get_gpu_health
 from ..manager import PluginManager
 from ..types import constants
@@ -45,9 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
         choices=[constants.CONTAINER, constants.VF_PASSTHROUGH,
                  constants.PF_PASSTHROUGH],
         default=None,
-        help="device driver mode; omit to autodetect (container; the "
-             "passthrough modes come with ROADMAP item "
-             f"{constants.ITEM_PASSTHROUGH})",
+        help="device driver mode; omit to autodetect "
+             "(container, then vf-passthrough, then pf-passthrough)",
     )
     p.add_argument(
         "--resource_naming_strategy", "--resource-naming-strategy",
@@ -55,9 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
         choices=[constants.RESOURCE_NAMING_STRATEGY_SINGLE,
                  constants.RESOURCE_NAMING_STRATEGY_MIXED],
         default=constants.RESOURCE_NAMING_STRATEGY_SINGLE,
-        help="single: whole GPUs under nvidia.com/gpu; mixed: MIG-typed "
-             "names (ROADMAP item "
-             f"{constants.ITEM_PASSTHROUGH}; not in this port yet)",
+        help="single: everything under nvidia.com/gpu (whole GPUs, or MIG "
+             "devices of one profile); mixed: nvidia.com/gpu for whole "
+             "GPUs and nvidia.com/mig-<profile> for MIG devices "
+             "(gpu_vf / gpu_pf under passthrough)",
     )
     p.add_argument(
         "--kubelet-dir", default=constants.DEVICE_PLUGIN_PATH,
@@ -75,22 +75,49 @@ def build_parser() -> argparse.ArgumentParser:
         "--slice-rendezvous", "--slice_rendezvous", dest="slice_rendezvous",
         default=os.environ.get(constants.ENV_SLICE_RENDEZVOUS, ""),
         metavar="HOST:PORT",
-        help="multi-host slice rendezvous (ROADMAP item "
-             f"{constants.ITEM_SLICE}; not in this port yet)",
+        help="multi-host slice rendezvous address; every member of the "
+             "slice passes the same value, and the plugin whose hostname "
+             "is HOST also serves the coordinator.  Empty (the default) "
+             "disables slice coordination.  Env override: "
+             f"{constants.ENV_SLICE_RENDEZVOUS}",
     )
     p.add_argument(
         "--slice-workers", "--slice_workers", dest="slice_workers",
         type=int, metavar="N",
         default=os.environ.get(constants.ENV_SLICE_WORKERS, "0"),
-        help=f"hosts in the slice (ROADMAP item {constants.ITEM_SLICE})",
+        help="hosts in the slice; required with --slice-rendezvous.  "
+             f"Env override: {constants.ENV_SLICE_WORKERS}",
     )
     p.add_argument(
         "--slice-reshape-grace", "--slice_reshape_grace",
-        dest="slice_reshape_grace", type=float, default=0.0,
-        metavar="SECONDS",
-        help=f"slice reshape grace (ROADMAP item {constants.ITEM_SLICE})",
+        dest="slice_reshape_grace", type=float, metavar="SECONDS",
+        default=float(
+            os.environ.get(constants.ENV_SLICE_RESHAPE_GRACE, "0") or 0),
+        help="degraded-mode reshape grace window in seconds.  0 (the "
+             "default) keeps demote-all: an unhealthy member demotes "
+             "every member's devices until it recovers.  > 0: members "
+             "still unhealthy or absent when the window expires are "
+             "evicted and the survivors re-form a smaller slice under "
+             "the next generation.  Acts on the rendezvous host; pass it "
+             "to every member anyway.  Env override: "
+             f"{constants.ENV_SLICE_RESHAPE_GRACE}",
     )
-    p.add_argument("--slice-state-file", default="", help=argparse.SUPPRESS)
+    p.add_argument(
+        "--slice-master-port", type=int, default=constants.SLICE_MASTER_PORT,
+        metavar="PORT",
+        help="torch.distributed port on rank 0's host (MASTER_PORT in the "
+             f"slice env; default {constants.SLICE_MASTER_PORT})",
+    )
+    p.add_argument(
+        "--slice-state-file", default=constants.SLICE_STATE_FILE,
+        help=argparse.SUPPRESS,
+    )
+    # seconds of silence after which the coordinator counts a member
+    # unhealthy (a short one lets a test see a member's death quickly)
+    p.add_argument(
+        "--slice-heartbeat-timeout", type=float,
+        default=constants.SLICE_HEARTBEAT_TIMEOUT_S, help=argparse.SUPPRESS,
+    )
     p.add_argument(
         "--debug-port", type=int, default=0, metavar="PORT",
         help="serve /healthz, /debug/status, /debug/threads, /metrics "
@@ -134,53 +161,112 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _passthrough(driver_type: str):
-    raise NotImplementedError(
-        f"--driver-type {driver_type}: NVIDIA PF/VF passthrough (vfio-pci, "
-        f"IOMMU groups, /dev/vfio) comes with ROADMAP item "
-        f"{constants.ITEM_PASSTHROUGH}")
-
-
 def select_device_impl(args, nvml=None):
-    """The container impl (explicitly or by autodetect); the passthrough
-    modes and the mixed naming strategy raise NotImplementedError naming
-    their ROADMAP item."""
-    if args.driver_type in (constants.VF_PASSTHROUGH,
-                            constants.PF_PASSTHROUGH):
-        _passthrough(args.driver_type)
-    if args.naming_strategy == constants.RESOURCE_NAMING_STRATEGY_MIXED:
-        raise NotImplementedError(
-            "--resource-naming-strategy mixed: MIG-typed resource names "
-            f"come with ROADMAP item {constants.ITEM_PASSTHROUGH}")
-
-    def build():
-        return GpuContainerImpl(
+    """An explicit driver type, or the reference's chain: container,
+    then vf-passthrough, then pf-passthrough (the first that finds
+    devices)."""
+    health_fn = functools.partial(get_gpu_health, args.exporter_socket)
+    impls = {
+        constants.CONTAINER: lambda: GpuContainerImpl(
             sysfs_root=args.sysfs_root,
             dev_root=args.dev_root,
             proc_root=args.proc_root,
             nvml=nvml,
-            health_fn=functools.partial(get_gpu_health,
-                                        args.exporter_socket),
-        )
-
+            health_fn=health_fn,
+            resource_naming_strategy=args.naming_strategy,
+        ),
+        constants.VF_PASSTHROUGH: lambda: GpuVfImpl(
+            resource_naming_strategy=args.naming_strategy,
+            sysfs_root=args.sysfs_root,
+            dev_root=args.dev_root,
+            health_fn=health_fn,
+        ),
+        constants.PF_PASSTHROUGH: lambda: GpuPfImpl(
+            resource_naming_strategy=args.naming_strategy,
+            sysfs_root=args.sysfs_root,
+            dev_root=args.dev_root,
+            health_fn=health_fn,
+        ),
+    }
     if args.driver_type:
-        return build(), args.driver_type
-    try:
-        impl = build()
-    except RuntimeError as e:
+        return impls[args.driver_type](), args.driver_type
+    last_err = None
+    for driver_type in (constants.CONTAINER, constants.VF_PASSTHROUGH,
+                        constants.PF_PASSTHROUGH):
+        try:
+            impl = impls[driver_type]()
+        except RuntimeError as e:
+            log.info("driver type %s not usable: %s", driver_type, e)
+            last_err = e
+            continue
+        log.info("autodetected driver type: %s", driver_type)
+        return impl, driver_type
+    raise SystemExit(f"no usable NVIDIA driver mode found: {last_err}")
+
+
+def check_slice_flags(args) -> str:
+    """The reference's validation of the slice flags: the problem, or
+    "" when they are consistent (the CLI exits 2 on a problem)."""
+    if args.slice_workers and not args.slice_rendezvous:
+        return "--slice-workers without --slice-rendezvous has no effect"
+    if args.slice_reshape_grace and not args.slice_rendezvous:
+        return ("--slice-reshape-grace without --slice-rendezvous has no "
+                "effect")
+    if args.slice_reshape_grace < 0:
+        return (f"invalid --slice-reshape-grace "
+                f"{args.slice_reshape_grace:.1f}; must be >= 0")
+    return ""
+
+
+def setup_slice(args, impl, driver_type, registry=None, recorder=None):
+    """Wire slice coordination when --slice-rendezvous is set: serve the
+    coordinator if this is the named host, attach a client to the impl,
+    start its background join and heartbeat loop.  *registry* turns the
+    slice metrics on; *recorder* journals membership transitions.
+    Returns (coordinator or None, client)."""
+    from ..slice import SliceClient, SliceCoordinator
+
+    address = args.slice_rendezvous
+    host, _, port_s = address.rpartition(":")
+    if not host or not port_s.isdigit():
         raise SystemExit(
-            f"no usable NVIDIA driver mode found: {e} (the passthrough "
-            f"modes come with ROADMAP item {constants.ITEM_PASSTHROUGH})")
-    log.info("autodetected driver type: %s", constants.CONTAINER)
-    return impl, constants.CONTAINER
-
-
-def check_slice_flags(args) -> None:
-    if args.slice_rendezvous or args.slice_workers \
-            or args.slice_reshape_grace or args.slice_state_file:
-        raise NotImplementedError(
-            "--slice-*: multi-host slice coordination comes with ROADMAP "
-            f"item {constants.ITEM_SLICE}")
+            f"--slice-rendezvous must be HOST:PORT, got {address!r}")
+    if args.slice_workers < 2:
+        raise SystemExit(
+            "--slice-workers must be >= 2 with --slice-rendezvous "
+            f"(got {args.slice_workers})")
+    if driver_type != constants.CONTAINER:
+        raise SystemExit(
+            "slice coordination requires the container driver type "
+            f"(got {driver_type}): passthrough VMs run their own runtime")
+    hostname = socket.gethostname()
+    coordinator = None
+    # exact hostname match only: every member runs identical flags, and
+    # exactly one of them may serve the rendezvous
+    if host == hostname:
+        coordinator = SliceCoordinator(
+            expected_workers=args.slice_workers,
+            bind_address=f"[::]:{port_s}",
+            master_port=args.slice_master_port,
+            state_path=args.slice_state_file,
+            heartbeat_timeout_s=args.slice_heartbeat_timeout,
+            registry=registry,
+            recorder=recorder,
+            reshape_grace_s=args.slice_reshape_grace,
+        ).start()
+        log.info("this host (%s) serves the slice rendezvous", hostname)
+    client = SliceClient(
+        rendezvous_address=address,
+        hostname=hostname,
+        chip_count=len(impl.gpus),
+        state_path=args.slice_state_file,
+        local_health_fn=impl.local_health,
+        registry=registry,
+        recorder=recorder,
+    )
+    impl.set_slice_client(client)
+    client.start()
+    return coordinator, client
 
 
 def main(argv=None) -> int:
@@ -198,14 +284,16 @@ def main(argv=None) -> int:
     if args.pulse < 0:
         log.error("invalid pulse %d; must be >= 0", args.pulse)
         return 2
-    check_slice_flags(args)
+    problem = check_slice_flags(args)
+    if problem:
+        log.error("%s", problem)
+        return 2
 
     nvml = nvml_mod.load(args.nvml_json)
     impl, driver_type = select_device_impl(args, nvml)
     resources = impl.get_resource_names()
-    log.info("driver=%s resources=%s gpus=%d nvlink=%s", driver_type,
-             [f"{constants.RESOURCE_NAMESPACE}/{r}" for r in resources],
-             len(impl.gpus), impl.topology.topology_str)
+    log.info("driver=%s resources=%s", driver_type,
+             [f"{constants.RESOURCE_NAMESPACE}/{r}" for r in resources])
 
     # the node's ONE metrics registry + flight recorder
     from .. import obs, resilience
@@ -217,10 +305,17 @@ def main(argv=None) -> int:
         resilience.install(args.fault_spec, seed=args.fault_seed,
                            recorder=recorder)
 
+    coordinator = client = None
+    if args.slice_rendezvous:
+        coordinator, client = setup_slice(args, impl, driver_type,
+                                          registry=registry,
+                                          recorder=recorder)
+
     manager = PluginManager(
         impl,
         pulse_seconds=args.pulse,
         kubelet_dir=args.kubelet_dir,
+        slice_client=client,
         registry=registry,
         recorder=recorder,
     )
@@ -242,6 +337,10 @@ def main(argv=None) -> int:
         manager.run(block=True)
     finally:
         manager.stop()
+        if client is not None:
+            client.stop()
+        if coordinator is not None:
+            coordinator.stop()
         if debug_server is not None:
             debug_server.stop()
     return 0

@@ -22,7 +22,7 @@ from ..health import GpuHealthServer, MetricsHTTPServer
 from ..types import constants
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpu-metrics-exporter")
     p.add_argument(
         "--socket", default=constants.METRICS_EXPORTER_SOCKET,
@@ -37,7 +37,11 @@ def main(argv=None) -> int:
     p.add_argument("--proc-root", default="/proc", help=argparse.SUPPRESS)
     p.add_argument("--nvml-json", default="", help=argparse.SUPPRESS)
     p.add_argument("--version", action="version", version=__version__)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
     # chaos runs arm the probe hook through TPU_DP_FAULTS; unset env

@@ -37,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--driver_type", "--driver-type", dest="driver_type",
-        choices=[constants.CONTAINER], default=constants.CONTAINER,
+        choices=[constants.CONTAINER, constants.VF_PASSTHROUGH,
+                 constants.PF_PASSTHROUGH], default=constants.CONTAINER,
     )
     for label in constants.SUPPORTED_LABELS:
         p.add_argument(
@@ -63,6 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dev-root", default="/dev", help=argparse.SUPPRESS)
     p.add_argument("--proc-root", default="/proc", help=argparse.SUPPRESS)
     p.add_argument("--nvml-json", default="", help=argparse.SUPPRESS)
+    p.add_argument(
+        "--slice-state-file", default=constants.SLICE_STATE_FILE,
+        help="membership file the device plugin's slice client keeps "
+             "(the slice-* labels); absent on a single-host node",
+    )
     p.add_argument("--oneshot", action="store_true",
                    help="reconcile once and exit (for jobs/tests)")
     p.add_argument("--version", action="version", version=__version__)
@@ -96,6 +102,7 @@ def main(argv=None) -> int:
             dev_root=args.dev_root,
             proc_root=args.proc_root,
             nvml=nvml,
+            slice_state_path=args.slice_state_file,
         )
         return generate_labels(ctx, enabled)
 

@@ -1,10 +1,23 @@
 """Container-workload device implementation for NVIDIA GPUs.
 
 The port's counterpart of the JAX package's ``tpu/device_impl.py``:
-discovers the GPUs at init, precomputes the device list, answers every
-kubelet RPC from memory, and hands a container exactly its GPUs: the
-allocated ``/dev/nvidia<minor>`` nodes, the control nodes once, and
-``NVIDIA_VISIBLE_DEVICES`` naming them for the container runtime.
+discovers the GPUs at init, precomputes a device list per resource,
+answers every kubelet RPC from memory, and hands a container exactly its
+GPUs: the allocated ``/dev/nvidia<minor>`` nodes, the control nodes
+once, and ``NVIDIA_VISIBLE_DEVICES`` naming them for the container
+runtime.
+
+MIG devices take the place of the reference's TensorCore partitions: a
+MIG-enabled GPU serves one device per MIG device (the parent's node, the
+control nodes, and its GPU and compute instance capability nodes under
+``/dev/nvidia-caps``; ``NVIDIA_VISIBLE_DEVICES=MIG-<uuid>``), the
+``single`` strategy names uniform devices ``nvidia.com/gpu`` and
+refuses a heterogeneous node, and ``mixed`` names whole GPUs
+``nvidia.com/gpu`` and MIG devices ``nvidia.com/mig-<profile>``.
+
+On a member of a multi-host slice (:mod:`..slice`), a full-host grant
+also carries the slice's ``torch.distributed`` env, and a slice-wide
+Unhealthy verdict demotes every device of every member.
 """
 
 from __future__ import annotations
@@ -12,15 +25,19 @@ from __future__ import annotations
 import logging
 import os
 import threading
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import (TYPE_CHECKING, Callable, Dict, List, Optional, Tuple,
+                    Union)
 
 from .. import resilience
 from ..allocator import AllocationError, devices_from_discovery, first_fit
 from ..proto import deviceplugin_pb2 as pluginapi
 from ..types import DeviceImpl, DevicePluginContext, constants
 from . import discovery
-from .discovery import GpuDevice
+from .discovery import GpuDevice, MigPartition
 from .topology import GpuTopology, build_topology
+
+if TYPE_CHECKING:  # hints only; the slice stays an optional wiring
+    from ..slice import SliceClient
 
 log = logging.getLogger(__name__)
 
@@ -40,7 +57,11 @@ class GpuContainerImpl(DeviceImpl):
         nvml=None,
         health_fn: Optional[HealthFn] = None,
         probe_watchdog_s: float = constants.PROBE_WATCHDOG_TIMEOUT_S,
+        resource_naming_strategy: str = (
+            constants.RESOURCE_NAMING_STRATEGY_SINGLE),
     ):
+        self._strategy = resource_naming_strategy
+        self._slice: Optional["SliceClient"] = None
         self._sysfs_root = sysfs_root
         self._dev_root = dev_root
         self._proc_root = proc_root
@@ -56,8 +77,12 @@ class GpuContainerImpl(DeviceImpl):
 
         self.gpus: Dict[str, GpuDevice] = {}
         self.topology: Optional[GpuTopology] = None
+        self._homogeneous = True
         self._control_nodes: List[Tuple[str, str]] = []
-        self._dev_list: List[pluginapi.Device] = []
+        # per resource: the advertised devices; per kubelet id: the GPU
+        # or MIG device it names
+        self._dev_list: Dict[str, List[pluginapi.Device]] = {}
+        self._by_dev_id: Dict[str, Union[GpuDevice, MigPartition]] = {}
         # operator-visible fragmentation signal: Allocates whose GPUs
         # span NVLink cliques when one clique could have held them
         self._counters_lock = threading.Lock()
@@ -87,28 +112,48 @@ class GpuContainerImpl(DeviceImpl):
                 f"no NVIDIA GPU bound to the nvidia driver has a device "
                 f"node under {self._dev_root}")
         topology = build_topology(usable, topology.spec)
-        return ({g.id: g for g in usable}, topology,
-                discovery.control_nodes(self._dev_root))
+        gpus = {g.id: g for g in usable}
+        homogeneous = discovery.is_homogeneous(gpus)
+        if (not homogeneous and self._strategy
+                == constants.RESOURCE_NAMING_STRATEGY_SINGLE):
+            raise RuntimeError(
+                "GPUs with different MIG partitions on one node require "
+                "resource_naming_strategy=mixed")
+        return (gpus, topology, discovery.control_nodes(self._dev_root),
+                homogeneous)
 
-    def _apply_discovery(self, gpus, topology, control_nodes) -> None:
-        """Swap in a discovery result: the id map before the device list,
-        since concurrent handlers read the list and index the map."""
+    def _apply_discovery(self, gpus, topology, control_nodes,
+                         homogeneous) -> None:
+        """Swap in a discovery result: the id map before the device
+        lists, since concurrent handlers read a list and index the
+        map."""
         self.gpus = gpus
         self.topology = topology
         self._control_nodes = control_nodes
-        self._dev_list = [
-            pluginapi.Device(
-                ID=g.id,
-                health=constants.HEALTHY,
-                topology=pluginapi.TopologyInfo(
-                    nodes=[pluginapi.NUMANode(ID=g.numa_node)]),
-            )
-            for g in gpus.values()
-        ]
+        self._homogeneous = homogeneous
+        by_dev_id: Dict[str, Union[GpuDevice, MigPartition]] = {}
+        dev_list: Dict[str, List[pluginapi.Device]] = {}
+        for resource in self.get_resource_names():
+            devs = []
+            for ad in self._alloc_devices_for(resource):
+                gpu = gpus[ad.parent_id]
+                by_dev_id[ad.id] = (gpu if ad.id == gpu.id else
+                                    next(m for m in gpu.mig
+                                         if m.id == ad.id))
+                devs.append(pluginapi.Device(
+                    ID=ad.id,
+                    health=constants.HEALTHY,
+                    topology=pluginapi.TopologyInfo(
+                        nodes=[pluginapi.NUMANode(ID=gpu.numa_node)])))
+            dev_list[resource] = devs
+        self._by_dev_id = by_dev_id
+        self._dev_list = dev_list
 
     @staticmethod
     def _signature(gpus, topology):
-        return (tuple(sorted((g.id, g.minor, g.uuid) for g in gpus.values())),
+        return (tuple(sorted((g.id, g.minor, g.uuid, g.mig_mode,
+                              tuple(m.id for m in g.mig))
+                             for g in gpus.values())),
                 topology.topology_str if topology else "")
 
     def rediscover(self) -> bool:
@@ -128,12 +173,33 @@ class GpuContainerImpl(DeviceImpl):
         self._apply_discovery(*found)
         return True
 
-    # -- DeviceImpl RPC surface ----------------------------------------------
+    # -- resource naming -----------------------------------------------------
 
     def get_resource_names(self) -> List[str]:
-        # whole GPUs only: MIG-typed names (the mixed naming strategy)
-        # come with ROADMAP item 8.2
-        return [constants.DEVICE_TYPE_GPU] if self.gpus else []
+        """The reference's rules with MIG profiles for partition modes:
+        one "gpu" under ``single`` (whole GPUs, or MIG devices of one
+        profile); under ``mixed``, "gpu" for whole GPUs and
+        ``mig-<profile>`` for each profile present."""
+        if not self.gpus:
+            return []
+        counts = discovery.unique_partition_config_count(self.gpus)
+        if not counts:
+            # every GPU MIG-enabled with no MIG device made yet
+            return []
+        if (self._homogeneous and self._strategy
+                == constants.RESOURCE_NAMING_STRATEGY_SINGLE):
+            return [constants.DEVICE_TYPE_GPU]
+        return sorted(counts)
+
+    def _alloc_devices_for(self, resource: str):
+        """The allocatable devices a resource advertises."""
+        devices = devices_from_discovery(self.gpus)
+        if (self._homogeneous and self._strategy
+                == constants.RESOURCE_NAMING_STRATEGY_SINGLE):
+            return devices
+        return [d for d in devices if d.partition_type == resource]
+
+    # -- DeviceImpl RPC surface ----------------------------------------------
 
     def start(self, ctx: DevicePluginContext) -> None:
         """Initialise this resource's allocator; failure degrades to the
@@ -143,7 +209,8 @@ class GpuContainerImpl(DeviceImpl):
             ctx.set_allocator_error(True)
             return
         try:
-            policy.init(devices_from_discovery(self.gpus), self.topology)
+            policy.init(self._alloc_devices_for(ctx.resource_name()),
+                        self.topology)
             # start() re-runs after rediscovery: a successful re-init
             # clears a previous sticky failure
             ctx.set_allocator_error(False)
@@ -161,7 +228,7 @@ class GpuContainerImpl(DeviceImpl):
             get_preferred_allocation_available=True)
 
     def enumerate(self, ctx: DevicePluginContext) -> List[pluginapi.Device]:
-        return list(self._dev_list)
+        return list(self._dev_list.get(ctx.resource_name(), []))
 
     def allocate(self, ctx: DevicePluginContext,
                  req: pluginapi.AllocateRequest
@@ -172,12 +239,19 @@ class GpuContainerImpl(DeviceImpl):
         for creq in req.container_requests:
             car = resp.container_responses.add()
             gpus: List[GpuDevice] = []
+            migs: List[MigPartition] = []
             for dev_id in creq.devices_ids:
-                gpu = self.gpus.get(dev_id)
-                if gpu is None:
+                dev = self._by_dev_id.get(dev_id)
+                if dev is None:
                     raise RuntimeError(f"allocate for unknown device {dev_id}")
-                if gpu not in gpus:
-                    gpus.append(gpu)
+                if isinstance(dev, MigPartition):
+                    if dev not in migs:
+                        migs.append(dev)
+                    dev = self.gpus[dev.parent_id]
+                if dev not in gpus:
+                    gpus.append(dev)
+            # a MIG device opens its parent's node (once, however many of
+            # its MIG devices the container holds)
             for gpu in gpus:
                 car.devices.add(host_path=gpu.dev_path,
                                 container_path=gpu.container_path,
@@ -186,12 +260,30 @@ class GpuContainerImpl(DeviceImpl):
                 car.devices.add(host_path=host_path,
                                 container_path=container_path,
                                 permissions="rw")
-            # the runtime exposes exactly these GPUs; CUDA_VISIBLE_DEVICES
-            # stays unset, since inside the container CUDA numbers only
-            # the nodes it can open
+            for mig in migs:
+                for minor in (mig.gi_cap_minor, mig.ci_cap_minor):
+                    path = discovery.cap_node(self._dev_root, minor)
+                    if path:
+                        car.devices.add(
+                            host_path=path,
+                            container_path=discovery.cap_node("/dev", minor),
+                            permissions="rw")
+            # the runtime exposes exactly these GPUs or MIG devices;
+            # CUDA_VISIBLE_DEVICES stays unset, since inside the
+            # container CUDA numbers only what it can open
             car.envs[constants.ENV_NVIDIA_VISIBLE_DEVICES] = ",".join(
-                g.visible_id for g in gpus)
-            self._check_cliques(gpus)
+                _mig_visible_id(m, self.gpus[m.parent_id]) for m in migs
+            ) if migs else ",".join(g.visible_id for g in gpus)
+            if not migs:
+                self._check_cliques(gpus)
+            if len(gpus) == len(self.gpus) and self._slice is not None:
+                # whole host granted: the pod is this host's worker of a
+                # multi-host slice, so it gets the rendezvous-agreed
+                # torch.distributed env, identical on every member but
+                # for the rank (empty before formation); a sub-host grant
+                # is a standalone job and gets none
+                for key, val in self._slice.slice_env().items():
+                    car.envs[key] = val
         return resp
 
     def _check_cliques(self, gpus: List[GpuDevice]) -> None:
@@ -238,6 +330,12 @@ class GpuContainerImpl(DeviceImpl):
 
     # -- health --------------------------------------------------------------
 
+    def set_slice_client(self, client: Optional["SliceClient"]) -> None:
+        """Late wiring: the client needs this impl's GPU count and
+        local_health before it can be built, so the CLI attaches it
+        after construction."""
+        self._slice = client
+
     def set_resilience(self, metrics=None, recorder=None) -> None:
         """(Re)build the probe watchdog and breaker, optionally wired to
         a registry's resilience families and the flight recorder (the
@@ -273,6 +371,23 @@ class GpuContainerImpl(DeviceImpl):
         self._probe_wedged = False
         return out
 
+    def local_health(self) -> Tuple[bool, str]:
+        """This host's contribution to slice-wide health, what the slice
+        client reports in every heartbeat: one faulty GPU makes the
+        whole host unhealthy here, and the coordinator fans that out to
+        the whole slice."""
+        if not self.simple_health_check():
+            return False, "node health probe failed"
+        per_gpu = self._granular_health()
+        if self._probe_wedged:
+            return False, "health probe hung (watchdog abandoned it)"
+        bad = sorted(gid for gid in self.gpus
+                     if per_gpu.get(gid, constants.HEALTHY)
+                     != constants.HEALTHY)
+        if bad:
+            return False, "unhealthy GPUs: " + ",".join(bad)
+        return True, ""
+
     def simple_health_check(self) -> bool:
         """Cheap whole-node probe: every advertised GPU found in sysfs is
         still bound to the nvidia driver, and every device node exists."""
@@ -295,12 +410,36 @@ class GpuContainerImpl(DeviceImpl):
             # frame, within one pulse of the hang, demotes everything
             node_health = constants.UNHEALTHY
             per_gpu = {}
+        # slice-wide verdict: any member's faulty GPU (or a silent
+        # member) stalls every rank's collectives, so an Unhealthy
+        # verdict demotes every local device until the slice recovers;
+        # None while the slice forms or this host is evicted
+        overlay = self._slice.health_overlay() if self._slice else None
+        slice_down = overlay is not None and not overlay[0]
+        if slice_down:
+            log.debug("slice unhealthy (members: %s); demoting all local "
+                      "devices", overlay[1])
         # fresh messages: the cached list is shared with every open
         # ListAndWatch stream
         out: List[pluginapi.Device] = []
-        for dev in self._dev_list:
+        for dev in self._dev_list.get(ctx.resource_name(), []):
             fresh = pluginapi.Device()
             fresh.CopyFrom(dev)
-            fresh.health = per_gpu.get(dev.ID, node_health)
+            if slice_down:
+                fresh.health = constants.UNHEALTHY
+            else:
+                # a MIG device's health is its parent GPU's; .get(): a
+                # rediscovery swap can land between the list read and
+                # this lookup, leaving the id unknown for one frame
+                owner = self._by_dev_id.get(dev.ID)
+                gid = getattr(owner, "parent_id", dev.ID)
+                fresh.health = per_gpu.get(gid, node_health)
             out.append(fresh)
         return out
+
+
+def _mig_visible_id(mig: MigPartition, gpu: GpuDevice) -> str:
+    """What ``NVIDIA_VISIBLE_DEVICES`` names a MIG device by: its
+    ``MIG-<uuid>``, else ``<GPU index>:<MIG device index>`` (the
+    container runtime takes either)."""
+    return mig.uuid or f"{gpu.index}:{mig.index}"

@@ -2,15 +2,19 @@
 
 The port's counterpart of the JAX package's ``tpu/discovery.py``.  The
 inventory comes from the PCI functions bound to the ``nvidia`` driver
-(``/sys/bus/pci/drivers/nvidia/<bus id>``): a GPU bound elsewhere
-(``vfio-pci``) is left to passthrough, ROADMAP item 8.2, which brings the
-raw scan of the PCI bus by vendor with it.  Each GPU's minor, UUID,
-model and VBIOS come from ``/proc/driver/nvidia/gpus/<bus id>/
-information`` (parsed by key), its NUMA node from sysfs, and NVML adds
-what only the driver knows (memory, NVLinks, MIG mode) where it is
-present.  A node with no PCI tree in sysfs at all (a sandboxed
-container) is inventoried from NVML alone.  Every root is injectable, so
-the tests run on the fixture trees under ``testdata/nvidia/``.
+(``/sys/bus/pci/drivers/nvidia/<bus id>``).  Where none is bound, the
+raw scan of the PCI bus by vendor (``0x10de``) finds the GPUs bound
+elsewhere (``vfio-pci``) as the reference's falls back to its raw scan:
+they have no minor and no device node, so the container path skips
+them and the passthrough impls (:mod:`.vfio`) serve them.  Each GPU's
+minor, UUID, model and VBIOS come from ``/proc/driver/nvidia/gpus/<bus
+id>/information`` (parsed by key), its NUMA node from sysfs, and NVML
+adds what only the driver knows (memory, NVLinks, MIG mode and MIG
+devices) where it is present.  A MIG device's capability minors come
+from ``/proc/driver/nvidia-caps/mig-minors``.  A node with no PCI tree
+in sysfs at all (a sandboxed container) is inventoried from NVML alone.
+Every root is injectable, so the tests run on the fixture trees under
+``testdata/nvidia/``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..types import constants
 from . import sysfs
-from .nvml import NvLink, by_bus_id, looks_like_uuid
+from .nvml import MigDevice, NvLink, by_bus_id, looks_like_uuid
 from .topology import (
     GpuSpec,
     GpuTopology,
@@ -40,6 +44,33 @@ _BUS_ID_RE = re.compile(r"^[0-9a-f]{4}:[0-9a-f]{2}:[0-9a-f]{2}\.[0-7]$")
 # where a GpuDevice's inventory entry came from
 SOURCE_SYSFS = "sysfs"  # bound to the nvidia driver in sysfs
 SOURCE_NVML = "nvml"    # no PCI tree in sysfs; NVML's inventory
+SOURCE_PCI = "pci"      # the raw PCI scan: bound to another driver
+
+# PCI class codes of a GPU function: a VGA or a 3D controller (an
+# NVSwitch is a bridge, 0x0680xx, and is not one)
+_GPU_CLASSES = ("0x0300", "0x0302")
+
+_MIG_MINOR_RE = re.compile(r"^gpu(\d+)/gi(\d+)(?:/ci(\d+))?/access\s+(\d+)$")
+
+
+@dataclass(frozen=True)
+class MigPartition:
+    """One MIG device as the container path serves it: a kubelet device
+    of its parent GPU."""
+
+    id: str                   # kubelet device id: <parent id>#mig<gi>.<ci>
+    parent_id: str
+    index: int                # its index among the parent's MIG devices
+    uuid: str = ""            # MIG-...; "" when NVML refused it
+    profile: str = ""         # e.g. 1g.10gb
+    gpu_instance_id: int = -1
+    compute_instance_id: int = -1
+    gi_cap_minor: int = -1    # /dev/nvidia-caps/nvidia-cap<minor>
+    ci_cap_minor: int = -1
+
+    @property
+    def partition_type(self) -> str:
+        return constants.DEVICE_TYPE_MIG_PREFIX + self.profile
 
 
 @dataclass
@@ -61,6 +92,22 @@ class GpuDevice:
     pci_path: str = ""        # sysfs realpath of the PCI function
     nvlinks: Tuple[NvLink, ...] = field(default_factory=tuple)
     source: str = SOURCE_SYSFS
+    # the MIG devices of a MIG-enabled GPU, in NVML's order
+    mig: Tuple[MigPartition, ...] = field(default_factory=tuple)
+
+    @property
+    def partitioned(self) -> bool:
+        """True for a MIG-enabled GPU: it serves its MIG devices, never
+        itself (CUDA cannot use a MIG-enabled GPU whole)."""
+        return self.mig_mode == "enabled"
+
+    @property
+    def partition_types(self) -> List[str]:
+        """The resource type of each device this GPU contributes: "gpu"
+        for a whole GPU, ``mig-<profile>`` for each MIG device."""
+        if not self.partitioned:
+            return [constants.DEVICE_TYPE_GPU]
+        return [m.partition_type for m in self.mig]
 
     @property
     def visible_id(self) -> str:
@@ -83,6 +130,61 @@ def list_nvidia_bound(sysfs_root: str = "/sys") -> List[Tuple[str, str]]:
         if _BUS_ID_RE.match(name) and os.path.exists(entry):
             out.append((name, os.path.realpath(entry)))
     return out
+
+
+def list_nvidia_pci(sysfs_root: str = "/sys") -> List[Tuple[str, str]]:
+    """The raw scan: NVIDIA GPU functions (vendor 0x10de, a VGA or 3D
+    controller class) on the PCI bus whatever their driver, as [(bus id,
+    realpath)]."""
+    out = []
+    pci_dir = os.path.join(sysfs_root, "bus", "pci", "devices")
+    for entry in sorted(glob.glob(os.path.join(pci_dir, "*"))):
+        if sysfs.read_file(os.path.join(entry, "vendor")) != \
+                constants.NVIDIA_VENDOR_ID:
+            continue
+        if not sysfs.read_file(os.path.join(entry, "class")).startswith(
+                _GPU_CLASSES):
+            continue
+        out.append((os.path.basename(entry), os.path.realpath(entry)))
+    return out
+
+
+def read_mig_minors(proc_root: str = "/proc") -> Dict[Tuple[int, int, int],
+                                                       int]:
+    """``/proc/driver/nvidia-caps/mig-minors``: {(GPU minor, GPU instance,
+    compute instance or -1): capability minor}.  {} when absent."""
+    out: Dict[Tuple[int, int, int], int] = {}
+    try:
+        with open(os.path.join(proc_root, constants.MIG_MINORS_FILE),
+                  "r", encoding="utf-8") as f:
+            for line in f:
+                m = _MIG_MINOR_RE.match(line.strip())
+                if m:
+                    ci = int(m.group(3)) if m.group(3) is not None else -1
+                    out[(int(m.group(1)), int(m.group(2)), ci)] = \
+                        int(m.group(4))
+    except OSError:
+        pass
+    return out
+
+
+def _mig_partitions(gpu_id: str, minor: int, devices: Tuple[MigDevice, ...],
+                    minors: Dict[Tuple[int, int, int], int]
+                    ) -> Tuple[MigPartition, ...]:
+    out = []
+    for md in devices:
+        gi, ci = md.gpu_instance_id, md.compute_instance_id
+        out.append(MigPartition(
+            id=f"{gpu_id}#mig{gi}.{ci}",
+            parent_id=gpu_id,
+            index=md.index,
+            uuid=md.uuid if looks_like_uuid(md.uuid) else "",
+            profile=md.profile,
+            gpu_instance_id=gi,
+            compute_instance_id=ci,
+            gi_cap_minor=minors.get((minor, gi, -1), -1),
+            ci_cap_minor=minors.get((minor, gi, ci), -1)))
+    return tuple(out)
 
 
 def has_pci_tree(sysfs_root: str = "/sys") -> bool:
@@ -117,6 +219,7 @@ def get_gpus(
     """
     nvml_gpus = nvml.gpus() if nvml is not None else []
     nvml_by_bus = by_bus_id(nvml_gpus)
+    minors = read_mig_minors(proc_root)
     gpus: List[GpuDevice] = []
 
     pci = list_nvidia_bound(sysfs_root)
@@ -148,7 +251,27 @@ def get_gpus(
             dev_path=_dev_path(dev_root, minor),
             pci_path=pci_dir,
             nvlinks=ng.nvlinks if ng is not None else (),
+            mig=_mig_partitions(bus_id, minor, ng.mig_devices, minors)
+            if ng is not None else (),
         ))
+
+    if not pci:
+        # nothing bound to the nvidia driver: the raw scan by vendor
+        # finds the GPUs bound elsewhere (vfio-pci on a passthrough
+        # host), with no minor and no node, as the reference's raw
+        # fallback finds chips off the accel driver
+        for ordinal, (bus_id, pci_dir) in enumerate(
+                list_nvidia_pci(sysfs_root)):
+            gpus.append(GpuDevice(
+                id=bus_id,
+                minor=-1,
+                index=ordinal,
+                pci_address=bus_id,
+                device_id=sysfs.read_file(os.path.join(pci_dir, "device")),
+                numa_node=sysfs.numa_node(pci_dir),
+                pci_path=pci_dir,
+                source=SOURCE_PCI,
+            ))
 
     if not pci and not has_pci_tree(sysfs_root):
         # no PCI tree at all (a sandboxed container): NVML's inventory is
@@ -168,6 +291,9 @@ def get_gpus(
                 dev_path=_dev_path(dev_root, ng.minor),
                 nvlinks=ng.nvlinks,
                 source=SOURCE_NVML,
+                mig=_mig_partitions(
+                    ng.bus_id or f"{constants.NVIDIA_DEV_PREFIX}{ng.minor}",
+                    ng.minor, ng.mig_devices, minors),
             ))
 
     gpus.sort(key=lambda g: (g.index, g.id))
@@ -195,6 +321,34 @@ def node_spec(gpus) -> Optional[GpuSpec]:
         if spec is not None:
             return spec
     return None
+
+
+def is_homogeneous(gpus: Dict[str, GpuDevice]) -> bool:
+    """True when every device the GPUs contribute is of one type: all
+    whole GPUs, or MIG devices of one profile (the reference's
+    ``is_homogeneous`` over partition modes)."""
+    return len(unique_partition_config_count(gpus)) <= 1
+
+
+def unique_partition_config_count(gpus: Dict[str, GpuDevice]
+                                  ) -> Dict[str, int]:
+    """GPU count per resource type ("gpu", ``mig-<profile>``), as the
+    reference counts chips per partition type: what the mixed naming
+    strategy advertises."""
+    out: Dict[str, int] = {}
+    for g in gpus.values():
+        for kind in set(g.partition_types):
+            out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def cap_node(dev_root: str, minor: int) -> str:
+    """``/dev/nvidia-caps/nvidia-cap<minor>`` under *dev_root*; "" for
+    an unknown minor."""
+    if minor < 0:
+        return ""
+    return os.path.join(dev_root, constants.NVIDIA_CAPS_DIR,
+                        f"{constants.NVIDIA_CAP_PREFIX}{minor}")
 
 
 def control_nodes(dev_root: str = "/dev") -> List[Tuple[str, str]]:

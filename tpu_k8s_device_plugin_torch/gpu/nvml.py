@@ -4,8 +4,10 @@ A ctypes binding to ``libnvidia-ml.so.1`` (:class:`Nvml`) and a stand-in
 that answers from a JSON file (:class:`NvmlFixture`, the tests'
 ``testdata/nvidia/*/nvml.json``), behind one small interface: the driver
 version, and per GPU its index, minor, PCI bus id, UUID, name, memory,
-VBIOS, MIG mode, active NVLinks with their remote ends, and whether row
-remapping has failed.  NVML plays the part libdrm and hwloc play in the
+VBIOS, MIG mode, active NVLinks with their remote ends, whether row
+remapping has failed, and on a MIG-enabled GPU its MIG devices (their
+GPU and compute instance ids, UUIDs, and the slice counts and memory
+that name their profile, e.g. ``1g.10gb``).  NVML plays the part libdrm and hwloc play in the
 AMD plugin the reference was modelled on; it is not a kernel library,
 and it creates no CUDA context.
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import json
 import logging
+import math
 import re
 import threading
 from dataclasses import dataclass, field, replace
@@ -69,6 +72,31 @@ class NvLink:
 
 
 @dataclass(frozen=True)
+class MigDevice:
+    """One MIG device of a MIG-enabled GPU, as NVML describes it."""
+
+    index: int                  # its index among the GPU's MIG devices
+    uuid: str = ""              # MIG-...; "" when NVML refused it
+    gpu_instance_id: int = -1
+    compute_instance_id: int = -1
+    gpu_slices: int = 0         # gpuInstanceSliceCount
+    compute_slices: int = 0     # computeInstanceSliceCount
+    memory_mb: int = 0          # memorySizeMB
+
+    @property
+    def profile(self) -> str:
+        """NVIDIA's profile name: ``<g>g.<GB>gb`` (memory rounded up to
+        whole GiB), ``<c>c.<g>g.<GB>gb`` for a compute instance smaller
+        than its GPU instance; "" when the attributes were refused."""
+        if not self.gpu_slices or not self.memory_mb:
+            return ""
+        name = f"{self.gpu_slices}g.{math.ceil(self.memory_mb / 1024)}gb"
+        if self.compute_slices and self.compute_slices != self.gpu_slices:
+            name = f"{self.compute_slices}c.{name}"
+        return name
+
+
+@dataclass(frozen=True)
 class NvmlGpu:
     """What NVML says of one GPU.  Empty fields: NVML refused the call."""
 
@@ -83,6 +111,7 @@ class NvmlGpu:
     mig_mode: str = ""          # "enabled", "disabled", "" unsupported
     nvlinks: Tuple[NvLink, ...] = field(default_factory=tuple)
     remapped_rows_failure: bool = False
+    mig_devices: Tuple[MigDevice, ...] = field(default_factory=tuple)
 
 
 class NvmlError(RuntimeError):
@@ -105,6 +134,19 @@ class _Memory(ctypes.Structure):
     _fields_ = [("total", ctypes.c_ulonglong),
                 ("free", ctypes.c_ulonglong),
                 ("used", ctypes.c_ulonglong)]
+
+
+class _Attributes(ctypes.Structure):
+    # nvmlDeviceAttributes_t
+    _fields_ = [("multiprocessorCount", ctypes.c_uint),
+                ("sharedCopyEngineCount", ctypes.c_uint),
+                ("sharedDecoderCount", ctypes.c_uint),
+                ("sharedEncoderCount", ctypes.c_uint),
+                ("sharedJpegCount", ctypes.c_uint),
+                ("sharedOfaCount", ctypes.c_uint),
+                ("gpuInstanceSliceCount", ctypes.c_uint),
+                ("computeInstanceSliceCount", ctypes.c_uint),
+                ("memorySizeMB", ctypes.c_ulonglong)]
 
 
 _P = ctypes.POINTER
@@ -132,6 +174,15 @@ _SIGNATURES = {
                                             _P(ctypes.c_int)],
     "nvmlDeviceGetRemappedRows": [_HANDLE] + [_P(_UINT)] * 4,
 }
+# the MIG calls: a library without them (a driver older than MIG)
+# answers no MIG devices
+_MIG_SIGNATURES = {
+    "nvmlDeviceGetMaxMigDeviceCount": [_HANDLE, _P(_UINT)],
+    "nvmlDeviceGetMigDeviceHandleByIndex": [_HANDLE, _UINT, _P(_HANDLE)],
+    "nvmlDeviceGetGpuInstanceId": [_HANDLE, _P(_UINT)],
+    "nvmlDeviceGetComputeInstanceId": [_HANDLE, _P(_UINT)],
+    "nvmlDeviceGetAttributes_v2": [_HANDLE, _P(_Attributes)],
+}
 
 
 class Nvml:
@@ -146,6 +197,14 @@ class Nvml:
                 fn.restype = ctypes.c_int
         except (OSError, AttributeError) as e:
             raise NvmlError(f"cannot load {library}: {e}") from e
+        self._has_mig = True
+        for name, argtypes in _MIG_SIGNATURES.items():
+            fn = getattr(self._lib, name, None)
+            if fn is None:
+                self._has_mig = False
+                break
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         rc = self._lib.nvmlInit_v2()
         if rc != NVML_SUCCESS:
             raise NvmlError(f"nvmlInit_v2 returned {rc}")
@@ -247,7 +306,36 @@ class Nvml:
             mig_mode=mig,
             nvlinks=tuple(links),
             remapped_rows_failure=remap_failed,
+            mig_devices=(self._mig_devices(handle)
+                         if mig == "enabled" and self._has_mig else ()),
         )
+
+    def _mig_devices(self, handle) -> Tuple[MigDevice, ...]:
+        """The MIG devices of a MIG-enabled GPU; a slot without a MIG
+        device answers an error and is skipped."""
+        lib = self._lib
+        out = []
+        for slot in range(self._uint(lib.nvmlDeviceGetMaxMigDeviceCount,
+                                     handle) or 0):
+            mig = ctypes.c_void_p()
+            if lib.nvmlDeviceGetMigDeviceHandleByIndex(
+                    handle, ctypes.c_uint(slot),
+                    ctypes.byref(mig)) != NVML_SUCCESS:
+                continue
+            gi = self._uint(lib.nvmlDeviceGetGpuInstanceId, mig)
+            ci = self._uint(lib.nvmlDeviceGetComputeInstanceId, mig)
+            attrs = _Attributes()
+            ok = lib.nvmlDeviceGetAttributes_v2(
+                mig, ctypes.byref(attrs)) == NVML_SUCCESS
+            out.append(MigDevice(
+                index=slot,
+                uuid=self._string(lib.nvmlDeviceGetUUID, mig),
+                gpu_instance_id=-1 if gi is None else gi,
+                compute_instance_id=-1 if ci is None else ci,
+                gpu_slices=attrs.gpuInstanceSliceCount if ok else 0,
+                compute_slices=attrs.computeInstanceSliceCount if ok else 0,
+                memory_mb=attrs.memorySizeMB if ok else 0))
+        return tuple(out)
 
 
 class NvmlFixture:
@@ -255,7 +343,9 @@ class NvmlFixture:
     "devices": [{"index", "minor", "bus_id", "uuid", "name",
     "memory_total", "vbios", "pci_device_id", "mig_mode",
     "remapped_rows_failure", "nvlinks": [{"link", "remote",
-    "remote_type"}]}]}``.  Re-read on every call, so a test can edit it
+    "remote_type"}], "mig_devices": [{"index", "uuid",
+    "gpu_instance_id", "compute_instance_id", "gpu_slices",
+    "compute_slices", "memory_mb"}]}]}``.  Re-read on every call, so a test can edit it
     to model a failing GPU."""
 
     def __init__(self, path: str):
@@ -297,6 +387,16 @@ def _gpu_from_json(d: dict) -> NvmlGpu:
                    remote_type=x.get("remote_type", "gpu"))
             for x in d.get("nvlinks", [])),
         remapped_rows_failure=bool(d.get("remapped_rows_failure", False)),
+        mig_devices=tuple(
+            MigDevice(index=int(m.get("index", -1)),
+                      uuid=m.get("uuid", ""),
+                      gpu_instance_id=int(m.get("gpu_instance_id", -1)),
+                      compute_instance_id=int(
+                          m.get("compute_instance_id", -1)),
+                      gpu_slices=int(m.get("gpu_slices", 0)),
+                      compute_slices=int(m.get("compute_slices", 0)),
+                      memory_mb=int(m.get("memory_mb", 0)))
+            for m in d.get("mig_devices", [])),
     )
 
 

@@ -1,4 +1,4 @@
-"""Shared sysfs parsing helpers for discovery and health.
+"""Shared sysfs parsing helpers for discovery, VFIO scanning and health.
 
 The port's copy of the JAX package's ``tpu/sysfs.py``: the NUMA read
 goes through the native gpuprobe shim when it loads, and portable Python
@@ -58,6 +58,14 @@ def numa_node(dev_dir: str) -> int:
         if rc >= 0:
             return rc
     return max(read_int(os.path.join(dev_dir, "numa_node"), 0), 0)
+
+
+def iommu_group(dev_dir: str) -> str:
+    """IOMMU group number of a PCI device dir, "" when absent."""
+    link = os.path.join(dev_dir, "iommu_group")
+    if not os.path.exists(link):
+        return ""
+    return os.path.basename(os.path.realpath(link))
 
 
 def driver_name(dev_dir: str) -> str:

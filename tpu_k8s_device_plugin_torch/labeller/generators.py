@@ -3,19 +3,23 @@
 The port's counterpart of the JAX package's ``labeller/generators.py``:
 the same generator map, validation and dual prefixes, with NVIDIA
 content read once per reconcile by discovery (sysfs, ``/proc``, NVML)
-and the spec table.  ``types/constants.REFERENCE_LABELS`` maps each of
-the reference's labels to its counterpart here.
+and the spec table, and the slice labels from the membership file the
+plugin's slice client keeps (:mod:`..slice.state`), as the reference's
+are.  ``types/constants.REFERENCE_LABELS`` maps each of the reference's
+labels to its counterpart here.
 """
 
 from __future__ import annotations
 
 import logging
 import re
+import socket
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 from ..gpu import discovery
 from ..gpu.discovery import GpuDevice
+from ..slice.state import Membership, load_membership
 from ..gpu.topology import GpuTopology
 from ..types import constants
 
@@ -46,6 +50,10 @@ class LabelContext:
     gpus: Dict[str, GpuDevice] = field(default_factory=dict)
     topology: Optional[GpuTopology] = None
     driver_version: str = ""
+    # formed multi-host slice membership, from the crash-safe state file
+    # the plugin's slice client maintains (absent on single-host nodes)
+    slice_membership: Optional[Membership] = None
+    hostname: str = ""
 
     @classmethod
     def collect(
@@ -55,9 +63,12 @@ class LabelContext:
         dev_root: str = "/dev",
         proc_root: str = "/proc",
         nvml=None,
+        slice_state_path: str = constants.SLICE_STATE_FILE,
     ) -> "LabelContext":
         # discovery lists what the nvidia driver drives (a GPU bound to
-        # vfio-pci is not this node's container capacity)
+        # vfio-pci is not this node's container capacity), and only
+        # where nothing is bound to it the GPUs the raw PCI scan finds
+        # (a passthrough host's)
         gpus, topo = discovery.get_gpus(sysfs_root, dev_root, proc_root,
                                         nvml)
         return cls(
@@ -66,6 +77,8 @@ class LabelContext:
             topology=topo,
             driver_version=discovery.get_driver_version(
                 sysfs_root, proc_root, nvml),
+            slice_membership=load_membership(slice_state_path),
+            hostname=socket.gethostname(),
         )
 
     @property
@@ -160,6 +173,44 @@ def _mig_mode(ctx: LabelContext) -> str:
     return "mixed" if len(modes) > 1 else next(iter(modes))
 
 
+def _slice_rank(ctx: LabelContext) -> str:
+    m = ctx.slice_membership
+    if m is None:
+        return ""
+    rank = m.rank_of(ctx.hostname)
+    return str(rank) if rank is not None else ""
+
+
+def _slice_workers(ctx: LabelContext) -> str:
+    """Hosts in the current generation: shrinks when a reshape evicts a
+    member, the real remaining shape schedulers should place against."""
+    m = ctx.slice_membership
+    return str(m.num_workers) if m is not None else ""
+
+
+def _slice_id(ctx: LabelContext) -> str:
+    """Rendezvous slice identity: the pod-affinity key that pins a
+    multi-host job's pods onto hosts of the same formed slice."""
+    m = ctx.slice_membership
+    return m.slice_id if m is not None else ""
+
+
+def _slice_generation(ctx: LabelContext) -> str:
+    """Membership generation: bumps whenever the member set changes
+    (degraded-mode reshape, evicted member returning)."""
+    m = ctx.slice_membership
+    return str(m.generation) if m is not None else ""
+
+
+def _slice_degraded(ctx: LabelContext) -> str:
+    """'true' while the slice runs below its configured worker count,
+    'false' on a whole slice."""
+    m = ctx.slice_membership
+    if m is None:
+        return ""
+    return "true" if m.degraded else "false"
+
+
 # key -> generator; keys are the SUPPORTED_LABELS flag names
 LABEL_GENERATORS: Dict[str, Callable[[LabelContext], str]] = {
     "mode": _mode,
@@ -175,6 +226,16 @@ LABEL_GENERATORS: Dict[str, Callable[[LabelContext], str]] = {
     "nvlink-topology": _nvlink_topology,
     "partitioning-supported": _partitioning_supported,
     "mig-mode": _mig_mode,
+    # the reference reads worker-id and num-workers from its TPU
+    # metadata; a GPU node has none, so both come from the membership
+    # file, as its slice-* labels do
+    "worker-id": _slice_rank,
+    "num-workers": _slice_workers,
+    "slice-id": _slice_id,
+    "slice-rank": _slice_rank,
+    "slice-generation": _slice_generation,
+    "slice-workers": _slice_workers,
+    "slice-degraded": _slice_degraded,
 }
 
 assert set(LABEL_GENERATORS) == set(constants.SUPPORTED_LABELS)

@@ -16,8 +16,9 @@ port's ``obs``, ``resilience`` and ``gpuprobe.DirWatcher``:
   resource set changes
 
 The watch uses the native inotify shim when it builds, stat polling
-otherwise.  Slice coordination (the reference's slice heartbeat on each
-pulse) comes with ROADMAP item 8.3.
+otherwise.  On a member of a multi-host slice the pulse heartbeats the
+slice client before it beats the plugins, as the reference's does, so
+each ListAndWatch resend carries this round's slice verdict.
 """
 
 from __future__ import annotations
@@ -107,6 +108,7 @@ class PluginManager:
         kubelet_dir: str = constants.DEVICE_PLUGIN_PATH,
         resource_namespace: str = constants.RESOURCE_NAMESPACE,
         kubelet_watch_interval_s: float = 1.0,
+        slice_client=None,
         registry: Optional[obs.Registry] = None,
         recorder: Optional[obs.FlightRecorder] = None,
     ):
@@ -133,8 +135,12 @@ class PluginManager:
         self._plugin_metrics = PluginMetrics(self.registry)
         self._m_pulse = self.registry.histogram(
             "tpu_plugin_pulse_round_seconds",
-            "One pulse round: rediscovery + plugin beats.",
-            buckets=obs.LATENCY_BUCKETS_S)
+            "One pulse round: rediscovery + slice heartbeat + "
+            "plugin beats.", buckets=obs.LATENCY_BUCKETS_S)
+        # optional multi-host slice client: the pulse loop heartbeats it
+        # BEFORE beating the plugins, so each ListAndWatch resend already
+        # reflects this round's local probe and the peers' latest verdict
+        self.slice_client = slice_client
         self.kubelet_socket = os.path.join(kubelet_dir, "kubelet.sock")
         self.namespace = resource_namespace
         self._watch_interval = kubelet_watch_interval_s
@@ -399,7 +405,8 @@ class PluginManager:
         what pushes the changed device list down every open ListAndWatch
         stream."""
         while not self._stop.wait(self.pulse):
-            # every pulse round is a ROOT trace
+            # every pulse round is a ROOT trace: the slice heartbeat it
+            # drives carries the same trace-id over gRPC
             ctx = obs.new_trace()
             with self._plugins_lock:
                 resources = sorted(self._plugins)
@@ -408,6 +415,15 @@ class PluginManager:
                           trace=ctx, recorder=self.recorder) as sp:
                 sp.annotate(resources=",".join(resources) or "-")
                 self._maybe_rediscover()
+                if self.slice_client is not None:
+                    # heartbeat first: ships the fresh local probe to the
+                    # coordinator and pulls the slice verdict this round's
+                    # update_health frames render (a faulty GPU anywhere
+                    # reaches every member within one pulse + heartbeat)
+                    try:
+                        self.slice_client.heartbeat_now(trace=ctx.child())
+                    except Exception as e:
+                        log.warning("slice heartbeat failed: %s", e)
                 with self._plugins_lock:
                     plugins = list(self._plugins.values())
                 for sp in plugins:

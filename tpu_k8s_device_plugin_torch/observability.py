@@ -71,6 +71,23 @@ def manager_status(manager: "PluginManager") -> dict:
             "nvlink_topology": topo.topology_str,
             "cliques": [list(c) for c in topo.cliques],
         }
+    client = getattr(manager, "slice_client", None)
+    if client is not None:
+        m = client.membership
+        overlay = client.health_overlay()
+        status["slice"] = {
+            "formed": m is not None,
+            "slice_id": m.slice_id if m else "",
+            "rank": client.rank,
+            "hostnames": list(m.hostnames) if m else [],
+            "coordinator_address": m.coordinator_address if m else "",
+            "generation": m.generation if m else 0,
+            "degraded": m.degraded if m else False,
+            "reshaped_from": list(m.reshaped_from) if m else [],
+            # null until the first heartbeat verdict arrives
+            "healthy": None if overlay is None else overlay[0],
+            "unhealthy_hostnames": [] if overlay is None else overlay[1],
+        }
     return status
 
 
@@ -166,7 +183,7 @@ class DebugServer:
                 recorder=getattr(manager, "recorder", None),
                 tsdb=self.tsdb,
                 profiler=self.profiler,
-                metric_prefixes=("tpu_plugin_",),
+                metric_prefixes=("tpu_plugin_", "tpu_slice_"),
                 collectors={
                     "statz.json": lambda: manager_status(self._manager),
                 })

@@ -2,11 +2,13 @@
 JAX package's agents, and the NVIDIA node agents' resource names, paths,
 environment and labels.
 
-The two slice names keep the reference's values: the slice membership
-file and the generation variable are the slice agent's contract with a
-workload, so the port reads what the agent writes.  The device-plugin
-names follow the JAX package's ``types/constants.py`` with NVIDIA
-values where they name the hardware.
+The slice membership file, the generation variable and the rendezvous
+port keep the reference's values: the membership file is the slice
+agent's contract with a workload and with the labeller, so either
+package reads what the other writes.  The rest of the container's slice
+env is ``torch.distributed``'s (``REFERENCE_SLICE_ENV``).  The
+device-plugin names follow the JAX package's ``types/constants.py`` with
+NVIDIA values where they name the hardware.
 """
 
 # ---------------------------------------------------------------------------
@@ -22,11 +24,55 @@ ENV_TPU_SLICE_GENERATION = "TPU_SLICE_GENERATION"
 # Crash-safe membership file the slice agent keeps current on the host.
 SLICE_STATE_FILE = "/var/lib/tpu-slice/membership.json"
 
+# gRPC port of the slice rendezvous (the reference's, so one coordinator
+# serves members of either package).
+SLICE_RENDEZVOUS_PORT = 8475
+
+# Port of the workload's torch.distributed store on rank 0's host: the
+# coordinator address is ``<rank 0's hostname>:<port>``, as the
+# reference's is with its JAX coordinator port (8476); 29500 is
+# torch.distributed's and torchrun's default MASTER_PORT.
+SLICE_MASTER_PORT = 29500
+
+# Heartbeat period of each member, and the silence after which the
+# coordinator counts a member unhealthy (the reference's values).
+SLICE_HEARTBEAT_PERIOD_S = 5.0
+SLICE_HEARTBEAT_TIMEOUT_S = 30.0
+
+# Degraded-mode reshape grace: 0 keeps demote-all (an unhealthy member
+# demotes every member until it recovers); > 0 evicts members still
+# unhealthy after that many seconds and re-forms the survivors under
+# the next generation.
+SLICE_RESHAPE_GRACE_S = 0.0
+
+# The slice env a full-host grant carries: the names torch.distributed's
+# env:// initialisation and torchrun read (Kubeflow's PyTorchJob sets
+# the same), one process a host as in the reference.
+ENV_MASTER_ADDR = "MASTER_ADDR"
+ENV_MASTER_PORT = "MASTER_PORT"
+ENV_WORLD_SIZE = "WORLD_SIZE"
+ENV_RANK = "RANK"
+ENV_PET_NNODES = "PET_NNODES"
+ENV_PET_NODE_RANK = "PET_NODE_RANK"
+# every member's hostname by rank, comma-separated
+ENV_SLICE_WORKER_HOSTNAMES = "SLICE_WORKER_HOSTNAMES"
+
+# Each variable of the reference's slice env (its ``SliceClient.
+# slice_env``) and the port's variables that carry the same value.
+REFERENCE_SLICE_ENV = {
+    "JAX_COORDINATOR_ADDRESS": (ENV_MASTER_ADDR, ENV_MASTER_PORT),
+    "JAX_NUM_PROCESSES": (ENV_WORLD_SIZE, ENV_PET_NNODES),
+    "JAX_PROCESS_ID": (ENV_RANK, ENV_PET_NODE_RANK),
+    "TPU_WORKER_ID": (ENV_RANK, ENV_PET_NODE_RANK),
+    "TPU_WORKER_HOSTNAMES": (ENV_SLICE_WORKER_HOSTNAMES,),
+    "TPU_SLICE_GENERATION": (ENV_TPU_SLICE_GENERATION,),
+}
+
 # ---------------------------------------------------------------------------
 # Node labels (one bool flag per entry in the labeller CLI).
 # ---------------------------------------------------------------------------
 SUPPORTED_LABELS = [
-    "mode",                    # container (passthrough modes: item 8.2)
+    "mode",                    # container, vf-passthrough or pf-passthrough
     "product",                 # spec-table product, e.g. H100-SXM5-80GB
     "product-name",            # the driver's model name, e.g. NVIDIA-H100-80GB-HBM3
     "device-id",               # PCI device id, e.g. 0x2330
@@ -39,18 +85,24 @@ SUPPORTED_LABELS = [
     "nvlink-topology",         # NVLink cliques x size, e.g. 1x8, 2x2, 4x1
     "partitioning-supported",  # MIG-capable
     "mig-mode",                # enabled / disabled / mixed
+    "worker-id",               # this host's rank in the slice
+    "num-workers",             # hosts in the slice
+    "slice-id",                # the slice's content hash
+    "slice-rank",              # this host's rank in the slice
+    "slice-generation",        # the membership generation
+    "slice-workers",           # hosts in the current generation
+    "slice-degraded",          # true while the slice runs short of hosts
 ]
 
-# Each label of the JAX package's labeller and its counterpart here, or
-# the ROADMAP item that brings it (queue 1, item 8).
+# Each label of the JAX package's labeller and its counterpart here.
 REFERENCE_LABELS = {
     "mode": "mode",
     "accelerator-type": "product",
     "topology": "nvlink-topology",
     "chips-per-host": "count",
     "cores-per-chip": "sm-count",
-    "worker-id": "later item 8.3 (slice coordination)",
-    "num-workers": "later item 8.3 (slice coordination)",
+    "worker-id": "worker-id",
+    "num-workers": "num-workers",
     "firmware": "firmware",
     "driver-version": "driver-version",
     "device-id": "device-id",
@@ -58,11 +110,11 @@ REFERENCE_LABELS = {
     "hbm": "memory",
     "partitioning-supported": "partitioning-supported",
     "core-partition": "mig-mode",
-    "slice-id": "later item 8.3 (slice coordination)",
-    "slice-rank": "later item 8.3 (slice coordination)",
-    "slice-generation": "later item 8.3 (slice coordination)",
-    "slice-workers": "later item 8.3 (slice coordination)",
-    "slice-degraded": "later item 8.3 (slice coordination)",
+    "slice-id": "slice-id",
+    "slice-rank": "slice-rank",
+    "slice-generation": "slice-generation",
+    "slice-workers": "slice-workers",
+    "slice-degraded": "slice-degraded",
 }
 
 # Label prefixes, mirroring the reference's primary and legacy beta
@@ -80,9 +132,12 @@ CONTAINER = "container"
 VF_PASSTHROUGH = "vf-passthrough"
 PF_PASSTHROUGH = "pf-passthrough"
 
-# ROADMAP items (queue 1) that bring what the port's agents refuse today.
-ITEM_PASSTHROUGH = "8.2"
-ITEM_SLICE = "8.3"
+# Resource names: whole GPUs are "gpu"; under the mixed strategy a MIG
+# device is "mig-<profile>" (e.g. mig-1g.10gb) and a passthrough
+# function "gpu_vf" / "gpu_pf", as the reference's tpu_vf / tpu_pf.
+DEVICE_TYPE_MIG_PREFIX = "mig-"
+DEVICE_TYPE_GPU_VF = "gpu_vf"
+DEVICE_TYPE_GPU_PF = "gpu_pf"
 
 # ---------------------------------------------------------------------------
 # NVIDIA hardware.
@@ -110,6 +165,24 @@ AER_TOTAL_FATAL = "TOTAL_ERR_FATAL"
 # Resource namespace and device type reported to the kubelet.
 RESOURCE_NAMESPACE = "nvidia.com"
 DEVICE_TYPE_GPU = "gpu"
+
+# MIG: a MIG device's node is its parent GPU's /dev/nvidia<minor> plus
+# the capability nodes of its GPU instance and compute instance,
+# /dev/nvidia-caps/nvidia-cap<minor>, whose minors the driver lists in
+# /proc/driver/nvidia-caps/mig-minors ("gpu<G>/gi<I>/access <minor>",
+# "gpu<G>/gi<I>/ci<C>/access <minor>").
+NVIDIA_CAPS_DIR = "nvidia-caps"
+NVIDIA_CAP_PREFIX = "nvidia-cap"
+MIG_MINORS_FILE = "driver/nvidia-caps/mig-minors"
+
+# VM passthrough: PFs bound to vfio-pci, or the SR-IOV VFs of PFs the
+# nvidia host driver keeps (vGPU hosts), keyed by IOMMU group; a VM's
+# container gets /dev/vfio/<group> and /dev/vfio/vfio, and the PCI
+# addresses in PCI_RESOURCE_NVIDIA_COM_<RESOURCE> (KubeVirt's
+# convention, the reference's PCI_RESOURCE_GOOGLE_COM).
+VFIO_DRIVER_NAME = "vfio-pci"
+VFIO_DEV_DIR = "vfio"
+PCI_RESOURCE_PREFIX = "PCI_RESOURCE_NVIDIA_COM"
 
 # Environment the container runtime reads to expose the allocated GPUs
 # (UUIDs, else NVML indices).  CUDA_VISIBLE_DEVICES is not set: inside
@@ -148,6 +221,7 @@ UNHEALTHY = "Unhealthy"
 # ---------------------------------------------------------------------------
 ENV_SLICE_RENDEZVOUS = "TPU_DP_SLICE_RENDEZVOUS"
 ENV_SLICE_WORKERS = "TPU_DP_SLICE_WORKERS"
+ENV_SLICE_RESHAPE_GRACE = "TPU_DP_SLICE_RESHAPE_GRACE_S"
 
 # Flight recorder: the directory the event journal is dumped to on
 # exit/SIGTERM (off unless set).
