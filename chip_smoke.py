@@ -54,10 +54,31 @@ Phases, each fatal on failure:
    them T 1024 with GQA 4:1, and D 96, which
    the bf16 kernels pad to 128), timed at the full call (q [1, 8192, 32,
    128], K/V [1, 8192, 8, 128]) against ``scaled_dot_product_attention``'s
-   forward and backward; K1/K2 (max-pool forward/backward, bit-exact,
+   forward and backward; K5 and K6 in their f32 output mode (ring
+   attention's partials) against their plain versions at that head slice
+   and an edge shape, the bf16 mode's result equal to the f32 mode's
+   rounded, bit for bit, and both modes timed at the full call; the
+   block forms (``flash_block_forward``, ``flash_block_grads``) at the
+   ring's zig-zag tile (q [1, 2048, 32, 128], K/V [1, 1024, 32, 128]);
+   K1/K2 (max-pool forward/backward, bit-exact,
    each stage in the bulk-copy mode, its bands and grid printed) and K3
    (fused conv+pool) at AlexNet's three stage shapes, batch 1024, bf16,
    K3 also at 128 features and at an odd size with 8 channels;
+4b. multi-device, in children (``--worker md-rank``): four ranks on one
+   gloo group on this card (NCCL refuses two ranks on one GPU), the
+   kernels built by this process first: ring attention at Llama-3-8B's
+   attention on the LM call's sequence (q [1, 8192, 32, 128], K/V 8
+   heads, repeated to 32 for the flash impl, causal, 2048 tokens a
+   rank), every impl and layout, its gathered output and gradients held
+   by blocks of 64 rows against the single-device flash attention (K4;
+   K4 with its lse, K5, K6) at the reference tests' bf16 bars, each
+   rank's launches counted (contiguous flash: r + 1 blocks on rank r;
+   zig-zag: 6); the data x model AlexNet on a (2, 2) mesh at the
+   training path's size (global batch 1024, ``pool="pallas"``), 3 steps
+   whose losses and every gathered parameter are held against the
+   single-device step's, K1 and K2 three times a step on each rank; and
+   beside them one NCCL rank, ``bench_main --sharded`` under torchrun's
+   env at world size 1;
 5. the generation path: Llama-3-8B at full width and depth, bf16, random
    weights from a seed, through ``greedy_generate`` (batch 4, prompt
    1024, 32 new tokens): the launch counts are zeroed just before and
@@ -184,7 +205,7 @@ Phases, each fatal on failure:
    finish reasons; ``run_disagg``'s homogeneous and prefill+decode arms
    (decode TTFT and TPOT p99 and their ratios, the migrations), the
    scheduler phase's longest greedy prompt migrated across processes
-   giving its ids; a seeded ``trafficgen`` trace of 32 requests replayed
+   giving its ids; a seeded ``trafficgen`` trace of 16 requests replayed
    open loop through ``replay.run_fleet`` (two replicas), its report
    parsing with its schema and no request failing outside a 429;
    one ``fleet.run_episode`` (floor 1, ceiling 2, a cut ramp) whose
@@ -209,10 +230,10 @@ Phases, each fatal on failure:
    process's uninterrupted 5 (K4 with its lse, K5, K6 counted) bit for
    bit, save and restore GB/s printed; Llama-3.2-1B at full width and
    depth saved in f32 and served by the server CLI with ``--checkpoint``
-   (bf16, ``--quantized``, ``--int4``), each answering the scheduler
-   phase's greedy requests with the ids of an in-process engine over the
-   same weights loaded without a checkpoint, each boot's restore seconds
-   printed;
+   (bf16, ``--quantized``, ``--int4``, the three booting side by side),
+   each answering the scheduler phase's greedy requests with the ids of
+   an in-process engine over the same weights loaded without a
+   checkpoint, each boot's restore seconds printed;
 11. print the ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -400,7 +421,7 @@ def check_build(build, library: str, kernels, instruction: str) -> None:
             # f: f32), if any, then the integers
             kind = re.search(r"I([a-z])Li", n)
             label = ",".join(([kind.group(1)] if kind else [])
-                             + re.findall(r"Li(\d+)E", n)) or "?"
+                             + re.findall(r"L[ib](\d+)E", n)) or "?"
             print(f"  {kernel}<{label}>: "
                   f"{u.get('REG')} registers at launch, stack "
                   f"{u.get('STACK')} B, local {u.get('LOCAL')} B, shared "
@@ -722,6 +743,134 @@ def check_flash_training(torch, fa):
                       plain_ms=times[key][1], bound_ms=bounds[key][0],
                       bound_by=bounds[key][1], library_ms=times[key][2])
             for key in times}
+
+
+# the ring phase's zig-zag tile: a rank's whole query (2 chunks of the
+# LM call's 8192 tokens over 4 ranks) against its early K/V chunk, with
+# the flash impl's equal head counts
+ZZ_TILE = ((1, 2048, 32, 128), 1024, 32)
+
+
+def check_flash_f32_modes(torch, fa, library_bwd_ms):
+    """Phase 4: the f32 output mode of the bf16 K5 and K6 (ring
+    attention's partials) against the plain versions on the training
+    call's head slice and an edge shape (Tq != Tk, D 48), the bf16 mode's
+    result equal to the f32 mode's rounded to bf16 bit for bit; the block
+    forms at the ring's zig-zag tile (Tq = 2 Tk, not causal); both
+    modes timed at the full call."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = {}
+    for name, qs, tk, hkv, causal in (
+            ("slice", ATTN_SLICE[0], LM_SEQ, ATTN_SLICE[1], True),
+            ("cross", (1, 100, 4, 48), 150, 4, False)):
+        q, k, v, do = _attention_inputs(torch, gen, qs, tk, hkv, bf16)
+        po, plse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        delta = fa.attention_delta(do, po)
+        got = (fa.flash_attention_dq_cuda(q, k, v, do, plse, delta, causal,
+                                          out_dtype=f32),
+               *fa.flash_attention_dkv_cuda(q, k, v, do, plse, delta, causal,
+                                            out_dtype=f32))
+        rounded = (fa.flash_attention_dq_cuda(q, k, v, do, plse, delta,
+                                              causal),
+                   *fa.flash_attention_dkv_cuda(q, k, v, do, plse, delta,
+                                                causal))
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, do, plse, delta, causal)
+        held = {n: _held(torch, g, w, GRAD_TOL["bfloat16"],
+                         BLOCK_REL["bfloat16"])
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        same = [torch.equal(r, g.to(bf16)) for r, g in zip(rounded, got)]
+        print(f"flash f32 mode {name}: q {list(qs)} kv "
+              f"{[qs[0], tk, hkv, qs[3]]} bf16 in, f32 out, causal={causal} "
+              + ", ".join(_held_line(n, r) for n, r in held.items())
+              + f"; the bf16 mode equals the f32 mode rounded, bit for bit: "
+              f"{same} (gradients {GRAD_TOL['bfloat16']} x (block rms + "
+              f"|want|); block bar {BLOCK_REL['bfloat16']})", flush=True)
+        if any(g.dtype != f32 for g in got) or not all(same) or any(
+                r["mismatches"] for r in held.values()):
+            fail(f"K5 or K6 in f32 mode disagrees ({name})")
+        if name == "slice":
+            err = {"dq": (held["dq"]["max_abs_err"], held["dq"]["block_rel"]),
+                   "dkv": (max(held["dk"]["max_abs_err"],
+                               held["dv"]["max_abs_err"]),
+                           max(held["dk"]["block_rel"],
+                               held["dv"]["block_rel"]))}
+            plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, do, plse, delta, True), 2, warmup=1)
+        del q, k, v, do, po, plse, delta, got, rounded, want
+        torch.cuda.empty_cache()
+
+    # the block forms at the zig-zag tile: K4 with its lse as [B, T, H],
+    # K5/K6 writing f32 from the global lse and delta
+    qs, tk, hkv = ZZ_TILE
+    q, k, v, do = _attention_inputs(torch, gen, qs, tk, hkv, bf16)
+    o, lse = fa.flash_block_forward(q, k, v, causal=False)
+    po, plse = fa.flash_attention_fwd_plain(q, k, v, False)
+    delta = fa.attention_delta(do, po)
+    grads = fa.flash_block_grads(q, k, v, do, plse.transpose(1, 2),
+                                 delta.transpose(1, 2), causal=False)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, do, plse, delta, False)
+    lse_err, lse_bad = _mismatches(torch, lse, plse.transpose(1, 2), 1e-4,
+                                   1e-5)
+    held = {"o": _held_forward(torch, fa, o, po, q, k, v, False),
+            **{n: _held(torch, g, w, GRAD_TOL["bfloat16"],
+                        BLOCK_REL["bfloat16"])
+               for n, g, w in zip(("dq", "dk", "dv"), grads, want)}}
+    print(f"flash block forms at the zig-zag tile: q {list(qs)} kv "
+          f"{[qs[0], tk, hkv, qs[3]]} bf16, not causal: lse [B, T, H] "
+          f"max_abs_err={lse_err:.3e} mismatches={lse_bad}, "
+          + ", ".join(_forward_line(r) if n == "o" else _held_line(n, r)
+                      for n, r in held.items())
+          + f"; gradients {[str(g.dtype) for g in grads]}", flush=True)
+    if lse_bad or _forward_failed(held["o"]) or any(
+            g.dtype != f32 for g in grads) or any(
+            r["mismatches"] for n, r in held.items() if n != "o"):
+        fail("the flash block forms disagree with their plain versions")
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    tile_ms = (time_ms(torch, lambda: fa.flash_block_forward(q, k, v), 20),
+               time_ms(torch, lambda: fa.flash_attention_fwd_plain(
+                   q, k, v, False), 3),
+               time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt), 20))
+    bound, by = attention_bound_ms(q, k, False, 4, q, k, v, o, lse)
+    print(f"flash_block_forward at the zig-zag tile: kernel {tile_ms[0]:.4f}"
+          f" ms, plain {tile_ms[1]:.4f} ms, library (sdpa forward) "
+          f"{tile_ms[2]:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    del q, k, v, do, o, lse, po, plse, delta, grads, want, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # both modes at the full call of the training path
+    q, k, v, do = _attention_inputs(torch, gen, ATTN_FULL[0], LM_SEQ,
+                                    ATTN_FULL[1], bf16)
+    o, lse = fa.flash_attention_cuda(q, k, v, True, return_lse=True)
+    delta = fa.attention_delta(do, o)
+    out = {}
+    for key, fn, per_pair in (
+            ("dq", lambda dt: fa.flash_attention_dq_cuda(
+                q, k, v, do, lse, delta, True, out_dtype=dt), 6),
+            ("dkv", lambda dt: fa.flash_attention_dkv_cuda(
+                q, k, v, do, lse, delta, True, out_dtype=dt), 8)):
+        ms = {str(dt).split(".")[-1]: time_ms(torch, lambda: fn(dt), 10)
+              for dt in (bf16, f32, bf16, f32)}
+        res = fn(f32)
+        res = res if isinstance(res, tuple) else (res,)
+        bound, by = attention_bound_ms(q, k, True, per_pair, q, k, v, do,
+                                       lse, delta, *res)
+        print(f"{'K5 dQ' if key == 'dq' else 'K6 dK/dV'} at q "
+              f"{list(ATTN_FULL[0])}: bf16 out {ms['bfloat16']:.4f} ms, f32 "
+              f"out {ms['float32']:.4f} ms (bound of the f32 mode "
+              f"{bound:.4f} ms, {by}; the second of two turns each)",
+              flush=True)
+        out[key] = dict(max_abs_err=err[key][0],
+                        max_block_rel_err=err[key][1], ms=ms["float32"],
+                        bf16_mode_ms=ms["bfloat16"], plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by,
+                        library_ms=library_bwd_ms)
+    return out
 
 
 def profile_region(torch, name: str, fn) -> None:
@@ -2233,7 +2382,8 @@ def training_path(torch, counts, alexnet, bench_main):
         loss = alexnet.train_step(model, opt, images, labels)
         torch.cuda.synchronize()
         got = counts.read()
-        modes = counts.modes()
+        modes = {n: m for n, m in counts.modes().items()
+                 if n.startswith("maxpool")}
         print(f"alexnet {pool}: first step loss {float(loss):.6f}; "
               f"launches {got}; pool launches by load mode {modes}",
               flush=True)
@@ -2394,10 +2544,10 @@ FLEET_CONFIG = "llama3-8b"
 FLEET_ARGS = ("--window", str(SCHED_WINDOW))
 # run_router: 8 clients, 16 requests over 4 distinct 128-token prompts;
 # run_disagg: 4 clients, 8 requests (512-token unary prefills and
-# 32-token streams); the replay: a trafficgen trace of 32 requests
+# 32-token streams); the replay: a trafficgen trace of 16 requests
 ROUTER_CLIENTS, ROUTER_REQUESTS, ROUTER_PROMPT = 8, 16, 128
 DISAGG_CLIENTS, DISAGG_REQUESTS = 4, 8
-REPLAY_REQUESTS = 32
+REPLAY_REQUESTS = 16
 # the fleet episode: the reference's ramp cut from 16 calm, 72 peak and
 # 20 tail requests to 4, 12 and 40 (a peak that still fills the floor
 # replica's 8 slots and queues, a demand scale-up; a tail of light
@@ -2407,12 +2557,12 @@ REPLAY_REQUESTS = 32
 # replica is ready, about 17 s in) and the SIGKILL at 23 s of trace time
 # (it waits through the rolling drain that the reshape starts, and lands
 # on two fresh replicas after the trace is served: no stream to tear);
-# scale-in after 60 s of calm (the reference's 2 s would drain a ready
-# replica while others boot); the settle bound (the loop leaves as soon
-# as the fleet is back at its floor)
+# scale-in after 45 s of calm (the reference's 2 s would drain a ready
+# replica while others boot; a replica boots in 11-15 s); the settle
+# bound (the loop leaves as soon as the fleet is back at its floor)
 EPISODE_RAMP = dict(calm_requests=4, peak_requests=12, tail_requests=40,
                     calm_rate=2.0, peak_rate=10.0)
-EPISODE_KILL_AT_MS, EPISODE_DOWN_STABLE_S = 23000.0, 60.0
+EPISODE_KILL_AT_MS, EPISODE_DOWN_STABLE_S = 23000.0, 45.0
 EPISODE_SETTLE_S = 240.0
 
 
@@ -3303,7 +3453,8 @@ def rest_of_model_path(torch, counts, fa, inference, llama, transformer,
 # parameters and Adam's moments: 12 bytes a parameter saved), one
 # 4096-token sequence, 2 steps, a save, a SIGKILL and 3 more steps in a
 # fresh process; and Llama-3.2-1B at full width and depth (f32, seed 0)
-# served from a checkpoint by the server CLI, bf16, int8 and int4
+# served from a checkpoint by the server CLI, bf16, int8 and int4, the
+# three boots side by side
 CKPT_STEPS, CKPT_EVERY = 6, 2
 CKPT_LM_LAYERS, CKPT_LM_SEQ, CKPT_LM_STEPS, CKPT_LM_SAVE_AT = 2, 4096, 5, 2
 # the head slice of the LM resume's attention call (Llama-3.2-1B: 32 / 8
@@ -3367,6 +3518,8 @@ def worker(argv) -> int:
         return device_plugin_child()
     if argv[:1] == ["rank"]:
         return rank_child()
+    if argv[:1] == ["md-rank"]:
+        return md_rank_child()
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3706,10 +3859,10 @@ def ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
                  scheduler, obs, sched, work, card):
     """Llama-3.2-1B at full width and depth, random f32 weights from seed
     0, saved as ``{"params": ...}``; the server CLI with ``--checkpoint``
-    (bf16, ``--quantized``, ``--int4``) answers the scheduler phase's
-    greedy requests with the ids of an in-process engine over a decoder
-    loaded from the same weights without a checkpoint (quantized in
-    process for int8 and int4)."""
+    in each of ``CKPT_KINDS`` answers the scheduler phase's greedy
+    requests with the ids of an in-process engine over a decoder loaded
+    from the same weights without a checkpoint (quantized in process
+    for a quantized kind)."""
     import shutil
 
     import numpy as np
@@ -3734,42 +3887,49 @@ def ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
     del train, params
     _fresh(torch)
     greedy = [r for r in sched["trace"] if not r[2]]
-    want = {}
-    for kind, q in CKPT_KINDS:
-        tree = host if not q else (
-            inference.quantize_lm_params_int4(host) if q == "int4"
-            else inference.quantize_lm_params(host))
-        model = llama.decoder(cfg, max_len=MAX_LEN, quantized=q,
-                              device="cuda")
-        model.load_state_dict(tree)
-        del tree
-        eng = serving.ServingEngine(model, n_slots=ENGINE_SLOTS,
-                                    logprobs_k=ENGINE_LOGPROBS, rng=0,
-                                    max_new_tokens=SCHED_NEW, device="cuda")
-        eng.warm_packed([SCHED_PACK])
-        want[kind], _ = run_scheduled(torch, np, obs, scheduler, eng, greedy,
-                                      True, True, True)
-        del eng, model
-        _fresh(torch)
-    del host
+    # every kind's server boots from the checkpoint while this process's
+    # engines give the ids it must answer with
     log_dir = os.path.join(work, "replicas")
     os.environ[loadclient.REPLICA_LOG_DIR_ENV] = log_dir
+    boots = {}
     try:
         for kind, q in CKPT_KINDS:
             port = loadclient.free_port()
+            while port in [b[0] for b in boots.values()]:
+                port = loadclient.free_port()
             cmd = loadclient.server_cmd(
                 None, "--config", CKPT_SERVE_CONFIG,
                 *bench_serving._quant_args(q), "--checkpoint", base,
                 "--n-slots", str(ENGINE_SLOTS), "--max-len", str(MAX_LEN),
                 "--max-new-tokens", str(SCHED_NEW), *FLEET_ARGS,
                 "--host", "127.0.0.1", "--port", str(port))
-            t0 = time.perf_counter()
-            proc = loadclient.spawn_replica(cmd, f"ckpt-{kind}",
-                                            env=bench_serving._spawn_env())
+            boots[kind] = (port, time.perf_counter(), loadclient.spawn_replica(
+                cmd, f"ckpt-{kind}", env=bench_serving._spawn_env()))
+        want = {}
+        for kind, q in CKPT_KINDS:
+            tree = host if not q else (
+                inference.quantize_lm_params_int4(host) if q == "int4"
+                else inference.quantize_lm_params(host))
+            model = llama.decoder(cfg, max_len=MAX_LEN, quantized=q,
+                                  device="cuda")
+            model.load_state_dict(tree)
+            del tree
+            eng = serving.ServingEngine(model, n_slots=ENGINE_SLOTS,
+                                        logprobs_k=ENGINE_LOGPROBS, rng=0,
+                                        max_new_tokens=SCHED_NEW,
+                                        device="cuda")
+            eng.warm_packed([SCHED_PACK])
+            want[kind], _ = run_scheduled(torch, np, obs, scheduler, eng,
+                                          greedy, True, True, True)
+            del eng, model
+            _fresh(torch)
+        del host
+        for kind, q in CKPT_KINDS:
+            port, t0, proc = boots[kind]
+            loadclient.wait_http_ok(port, "/healthz", CKPT_BOOT_S,
+                                    procs=[proc])
+            ready_s = time.perf_counter() - t0
             try:
-                loadclient.wait_http_ok(port, "/healthz", CKPT_BOOT_S,
-                                        procs=[proc])
-                boot_s = time.perf_counter() - t0
                 got, res, wall = serve_trace(loadclient, port, greedy,
                                              HTTP_CLIENTS)
             finally:
@@ -3793,7 +3953,10 @@ def ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
                          f"({want[kind][i][1]})")
             print(f"checkpointing, serving {kind}: the server CLI restored "
                   f"the checkpoint in {float(m.group(1)):.2f} s (restore, "
-                  f"quantize, load onto the card), ready in {boot_s:.2f} s; "
+                  f"quantize, load onto the card), ready within "
+                  f"{ready_s:.2f} s of its spawn (the {len(CKPT_KINDS)} "
+                  f"servers booting together beside the in-process "
+                  f"engines); "
                   f"the scheduler phase's {len(greedy)} greedy requests in "
                   f"{wall:.3f} s gave the in-process engine's ids and finish "
                   f"reasons; {card}", flush=True)
@@ -3804,6 +3967,10 @@ def ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
                   flush=True)
         raise
     finally:
+        for _, _, proc in boots.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         del os.environ[loadclient.REPLICA_LOG_DIR_ENV]
     shutil.rmtree(base)
 
@@ -4744,6 +4911,298 @@ def rank_child() -> int:
     return 0
 
 
+# the multi-device phase: MD_RANKS gloo ranks on the one card (NCCL
+# refuses two ranks on one GPU); the ring at Llama-3-8B's attention on
+# the LM training call's sequence (q [1, 8192, 32, 128], K/V 8 heads,
+# repeated to 32 for the flash impl), causal, in every impl and layout;
+# the data x model AlexNet on a (2, 2) mesh at the training phase's size
+# (224 px, 1000 classes, s2d, bf16, global batch 1024, pool pallas), 3
+# steps against the single-device step; and one NCCL rank running
+# bench_main --sharded under torchrun's env
+MD_RANKS, MD_QUERY = 4, ((1, LM_SEQ, 32, 128), 8)
+MD_RING = (("einsum", "contiguous"), ("einsum", "zigzag"),
+           ("flash", "contiguous"), ("flash", "zigzag"))
+# the reference tests' bf16 bars for ring attention: outputs 3e-2,
+# gradients 6e-2 (x (block rms + |want|), by blocks of 64 rows)
+MD_TOL = {"o": 3e-2, "grad": 6e-2}
+MD_MESH, MD_ALEX_BATCH, MD_ALEX_STEPS = (2, 2), 1024, 3
+# the sharded step against the single-device one, in bf16 compute: the
+# batch split and the column split change GEMM shapes (and cuBLAS's and
+# cuDNN's algorithms), and a Dense input's gradient is summed from two
+# bf16 partials.  Each loss within 1e-4 relative (readings up to 1.6e-5);
+# every parameter's change over the steps in relative norm, the Dense
+# layers' within 5e-2 (the bf16 gradient bar), the conv layers' within
+# 1e-1 (their gradients pass through four more bf16 backward layers:
+# 3.1e-2-5.6e-2 in a CPU rehearsal at 64 px, batch 128).  A model-axis
+# all-reduce or a data average left out reads 0.7-1.2 on every conv
+# parameter and 3.6e-3-2.4e-2 on the losses in that rehearsal.
+MD_LOSS_REL = 1e-4
+MD_UPDATE_REL = {"Conv": 1e-1, "Dense": 5e-2}
+MD_NCCL_ARGS = ("--sharded", "--pool", "pallas", "--batch", "256",
+                "--steps", "3", "--warmup", "1")
+MD_TIMEOUT_S = 300
+
+
+def _md_zero(fa, mp) -> None:
+    for w in (fa.flash_attention_cuda, fa.flash_attention_dq_cuda,
+              fa.flash_attention_dkv_cuda, mp.max_pool_fwd_cuda,
+              mp.max_pool_bwd_cuda):
+        w.launches = 0
+        for mode in getattr(w, "modes", {}):
+            w.modes[mode] = 0
+
+
+def _md_ring(torch, dist, fa, mp, ra, transformer, say):
+    """This rank's part of the ring: every impl and layout, causal, on the
+    whole sequence made alike on every rank; rank 0 holds the gathered
+    output and gradients against the single-device flash attention (K4;
+    K4 with its lse, K5 and K6 under autograd).  Returns the launches of
+    each run and whether all held."""
+    rank, n = dist.get_rank(), dist.get_world_size()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    qs, hkv = MD_QUERY
+    q, k, v, do = _attention_inputs(torch, gen, qs, qs[1], hkv,
+                                    torch.bfloat16)
+    kr, vr = (transformer.repeat_kv(x, qs[2]) for x in (k, v))
+    refs = {}
+    if rank == 0:
+        for name, (kk, vv) in (("einsum", (k, v)), ("flash", (kr, vr))):
+            leaves = [x.detach().requires_grad_() for x in (q, kk, vv)]
+            grads = torch.autograd.grad(
+                fa.flash_attention(*leaves, causal=True), leaves, do)
+            refs[name] = (fa.flash_attention_cuda(q, kk, vv, True), grads)
+    ok, launches = True, {}
+    for impl, layout in MD_RING:
+        kk, vv = (k, v) if impl == "einsum" else (kr, vr)
+        fn, sharding = ra.make_ring_attention(None, causal=True,
+                                              layout=layout, impl=impl)
+        zz = layout == "zigzag"
+        order = (lambda x: ra.zigzag_permute(x, n)) if zz else (lambda x: x)
+        back = (lambda x: ra.zigzag_unpermute(x, n)) if zz \
+            else (lambda x: x)
+        ql, kl, vl = (sharding.scatter(order(x)).requires_grad_()
+                      for x in (q, kk, vv))
+        dol = sharding.scatter(order(do))
+        dist.barrier()
+        torch.cuda.synchronize()
+        _md_zero(fa, mp)
+        t0 = time.perf_counter()
+        out = fn(ql, kl, vl)
+        grads = torch.autograd.grad(out, (ql, kl, vl), dol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"K4": fa.flash_attention_cuda.launches,
+               "K5_f32out": fa.flash_attention_dq_cuda.modes["f32out"],
+               "K6_f32out": fa.flash_attention_dkv_cuda.modes["f32out"],
+               "K5_bf16": fa.flash_attention_dq_cuda.modes["bf16"],
+               "K6_bf16": fa.flash_attention_dkv_cuda.modes["bf16"]}
+        # blocks a rank runs: contiguous causal, r + 1; zig-zag, the
+        # diagonal step's 3 tiles and 1 a step after; einsum, none
+        blocks = 0 if impl == "einsum" else (
+            rank + 1 if layout == "contiguous" else 3 + (n - 1))
+        want = {"K4": blocks, "K5_f32out": blocks, "K6_f32out": blocks,
+                "K5_bf16": 0, "K6_bf16": 0}
+        name = f"{impl}-{layout}"
+        launches[name] = got
+        say(f"ring {name} rank {rank}: forward and backward {wall:.3f} s "
+            f"(4 ranks time-slice the card); launches {got}, expected "
+            f"{want}")
+        ok = ok and got == want
+        whole = [back(sharding.gather(x)) for x in (out.detach(), *grads)]
+        if rank == 0:
+            want_o, want_g = refs[impl]
+            held = {"o": _held(torch, whole[0], want_o, MD_TOL["o"],
+                               BLOCK_REL["bfloat16"])}
+            for gname, g, w in zip(("dq", "dk", "dv"), whole[1:], want_g):
+                held[gname] = _held(torch, g, w, MD_TOL["grad"],
+                                    BLOCK_REL["bfloat16"])
+            say(f"ring {name}: q {list(qs)} kv {list(kk.shape)} bf16 causal "
+                f"over {n} ranks against the single-device flash attention: "
+                + ", ".join(_held_line(hn, r) for hn, r in held.items())
+                + f" (o {MD_TOL['o']}, gradients {MD_TOL['grad']} x (block "
+                f"rms + |want|); block bar {BLOCK_REL['bfloat16']})")
+            ok = ok and not any(r["mismatches"] for r in held.values())
+        del out, grads, whole, ql, kl, vl, dol
+        torch.cuda.empty_cache()
+    return launches, ok
+
+
+def _md_alexnet(torch, dist, alexnet, parallel, fa, mp, say):
+    """This rank's part of the (2, 2) AlexNet: rank 0 runs the
+    single-device step first on the same weights and batch; then every
+    rank runs the sharded step, and rank 0 holds its losses and every
+    gathered parameter against the single-device ones."""
+    rank = dist.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images, labels = alexnet.synthetic_batch(gen, MD_ALEX_BATCH, s2d=True)
+    ref = None
+    if rank == 0:
+        model, opt = alexnet.create_train_state(seed=0, s2d=True,
+                                                pool="pallas", device="cuda")
+        w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        losses = [float(alexnet.train_step(model, opt, images, labels))
+                  for _ in range(MD_ALEX_STEPS)]
+        ref = (losses, w0, {k: v.detach().clone()
+                            for k, v in model.state_dict().items()})
+        del model, opt
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = parallel.make_mesh(model_parallel=MD_MESH[1], device="cuda")
+    model, opt = alexnet.create_train_state(seed=0, s2d=True, pool="pallas",
+                                            device="cuda")
+    step, model, opt, (img_sh, lbl_sh) = parallel.make_sharded_train_step(
+        model, opt, mesh)
+    x, y = img_sh.local(images), lbl_sh.local(labels)
+    del images, labels
+    torch.cuda.synchronize()
+    _md_zero(fa, mp)
+    t0 = time.perf_counter()
+    losses = [float(step(x, y)) for _ in range(MD_ALEX_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"K1": mp.max_pool_fwd_cuda.launches,
+           "K2": mp.max_pool_bwd_cuda.launches}
+    want = {"K1": 3 * MD_ALEX_STEPS, "K2": 3 * MD_ALEX_STEPS}
+    shape = parallel.mesh_shape(mesh)
+    say(f"alexnet (2, 2) rank {rank} (data {mesh.get_local_rank('data')}, "
+        f"model {mesh.get_local_rank('model')}): local batch {x.shape[0]}, "
+        f"{MD_ALEX_STEPS} steps in {wall:.3f} s; launches {got}, expected "
+        f"{want}")
+    ok = got == want and shape == {"data": MD_MESH[0], "model": MD_MESH[1]}
+    full = parallel.gather_params(model, mesh)
+    if rank == 0:
+        ref_losses, w0, w3 = ref
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        upd = {k: float((full[k] - w3[k]).norm() / (w3[k] - w0[k]).norm())
+               for k in w3}
+        say(f"alexnet {shape} mesh, global batch {MD_ALEX_BATCH}, pool "
+            f"pallas: losses {losses} against the single-device step's "
+            f"{ref_losses} (relative differences {[f'{r:.3e}' for r in rel]}"
+            f", limit {MD_LOSS_REL}); every gathered parameter after "
+            f"{MD_ALEX_STEPS} steps, |w - w_single| / |w_single - w_0|: "
+            + ", ".join(f"{k} {u:.3e}" for k, u in upd.items())
+            + f" (limits {MD_UPDATE_REL})")
+        ok = ok and max(rel) <= MD_LOSS_REL and all(
+            math.isfinite(u) and u <= MD_UPDATE_REL[k.split("_")[0]]
+            for k, u in upd.items()) \
+            and all(math.isfinite(v) for v in losses)
+    return got, ok
+
+
+def md_rank_child() -> int:
+    """``chip_smoke.py --worker md-rank``: one rank of the multi-device
+    phase, on a gloo group from its env (the ranks share the one card,
+    and NCCL refuses two ranks on one GPU: ``PERF.md`` §6); the kernels
+    are already built by the parent.  Prints its lines, then one JSON
+    line: its launches and whether its checks held."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_k8s_device_plugin_torch.workloads import (
+        alexnet, parallel, transformer)
+    from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
+    from tpu_k8s_device_plugin_torch.workloads import pool as mp
+    from tpu_k8s_device_plugin_torch.workloads import ring_attention as ra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+
+    def say(line):
+        print(f"[rank {rank}] {line}", flush=True)
+
+    try:
+        ring, ring_ok = _md_ring(torch, dist, fa, mp, ra, transformer, say)
+        alex, alex_ok = _md_alexnet(torch, dist, alexnet, parallel, fa, mp,
+                                    say)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "ring": ring, "alexnet": alex,
+                      "ok": ring_ok and alex_ok}), flush=True)
+    return 0
+
+
+def multi_device_path(card):
+    """Phase 4b, multi-device: MD_RANKS rank children (``--worker
+    md-rank``) on one gloo group on this card run the ring in every impl
+    and layout and the (2, 2) AlexNet; beside them one NCCL rank runs
+    ``bench_main --sharded`` under torchrun's env (world size 1: the one
+    form of NCCL this machine allows).  Every child's failure fails the
+    phase.  Returns the ring's and the AlexNet's launches by rank."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT")}
+    port, nccl_port = _free_port(), _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", "md-rank"],
+        env={**base, "RANK": str(r), "WORLD_SIZE": str(MD_RANKS),
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root) for r in range(MD_RANKS)]
+    procs.append(subprocess.Popen(
+        [sys.executable, "-m", "tpu_k8s_device_plugin_torch.workloads."
+         "bench_main", *MD_NCCL_ARGS],
+        env={**base, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(nccl_port)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root))
+    outs = []
+    try:
+        deadline = time.perf_counter() + MD_TIMEOUT_S
+        for p in procs:
+            out, _ = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            outs.append((p.returncode, out))
+    except subprocess.TimeoutExpired:
+        fail(f"the multi-device phase ran past {MD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for i, (rc, out) in enumerate(outs):
+        lines = out.strip().splitlines()
+        what = f"rank {i}" if i < MD_RANKS else "the NCCL rank"
+        for line in lines[:-1]:
+            print(line, flush=True)
+        try:
+            last = json.loads(lines[-1]) if lines else None
+        except ValueError:
+            last = None
+        if rc != 0 or last is None:
+            fail(f"multi-device: {what} failed ({rc}):\n{out[-4000:]}")
+        results.append(last)
+    for r in results[:MD_RANKS]:
+        if not r["ok"]:
+            fail(f"multi-device: rank {r['rank']}'s checks failed (see its "
+                 "lines above)")
+    nccl = results[MD_RANKS]["extra"]
+    print(f"multi-device, bench_main --sharded under torchrun's env: backend "
+          f"{nccl['backend']}, mesh {nccl['mesh']}, "
+          f"{nccl['total_images_per_sec']:.1f} images/s at batch "
+          f"{nccl['batch']} (pool {nccl['pool']}; beside the 4 gloo ranks "
+          f"on this card: not a speed)", flush=True)
+    if nccl["backend"] != "nccl" or nccl["mesh"] != {"data": 1, "model": 1}:
+        fail(f"multi-device: the NCCL rank ran {nccl}")
+    print(f"multi-device: phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"with the children's start; {card}", flush=True)
+    ring = {r["rank"]: r["ring"] for r in results[:MD_RANKS]}
+    return {"ring": ring,
+            "alexnet": {r["rank"]: r["alexnet"] for r in results[:MD_RANKS]},
+            "f32out": {k: sum(ring[r][f"{impl}-{layout}"][f"{k}_f32out"]
+                              for r in ring for impl, layout in MD_RING)
+                       for k in ("K5", "K6")},
+            "K4": sum(ring[r][f"flash-{layout}"]["K4"] for r in ring
+                      for layout in ("contiguous", "zigzag"))}
+
+
 def main() -> int:
     import torch
 
@@ -4777,7 +5236,16 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     for library, names, instruction in BUILD_CHECKS:
         check_build(build, library, names, instruction)
+    # each phase's wall, printed at the end: the host's speed varies from
+    # machine to machine, and these say where a slow run lost its time
+    laps = [("start", t_start)]
+
+    def lap(name):
+        laps.append((name, time.perf_counter()))
+
+    lap("build")
     device_plugin_path(card)
+    lap("device plugin")
 
     counts = Counts(flash_attn_fwd=fa.flash_attention_cuda,
                     flash_attn_dq=fa.flash_attention_dq_cuda,
@@ -4787,24 +5255,36 @@ def main() -> int:
                     conv_pool_fwd=cp.conv_pool_cuda)
     flash = check_flash(torch, fa)
     flash_train = check_flash_training(torch, fa)
+    flash_f32 = check_flash_f32_modes(torch, fa,
+                                      flash_train["dq"]["library_ms"])
     pool = check_pool(torch, mp)
     conv_pool = check_conv_pool(torch, cp)
+    _fresh(torch)
+    lap("kernels")
+    multi = multi_device_path(card)
+    lap("multi-device")
     launches, bf16, engine = main_path(torch, counts, inference, llama,
                                        bench_serving, serving, grammar, obs,
                                        scheduler, card)
     _fresh(torch)
+    lap("generation to http")
     train, train_modes = training_path(torch, counts, alexnet, bench_main)
     _fresh(torch)
+    lap("alexnet")
     lm = lm_training_path(torch, counts, fa, llama, transformer,
                           bench_serving)
     _fresh(torch)
+    lap("lm training")
     rest = rest_of_model_path(torch, counts, fa, inference, llama,
                               transformer, bench_serving, serving, scheduler,
                               speculative, obs, bf16, engine, card)
     _fresh(torch)
+    lap("rest of the model")
     fleet_path(torch, llama.LLAMA3_8B, engine["scheduler"], card)
     _fresh(torch)
+    lap("fleet")
     ckpt = checkpoint_path(torch, counts, engine["scheduler"], card)
+    lap("checkpointing")
 
     csrc = "tpu_k8s_device_plugin_torch/csrc/"
     ref = "tpu_k8s_device_plugin/workloads/"
@@ -4827,6 +5307,7 @@ def main() -> int:
                                "train_launches"]["flash_attn_fwd"],
                            launches_checkpoint_lm=ckpt["lm"][
                                "flash_attn_fwd"],
+                           launches_ring=multi["K4"],
                            **flash_train["lse"])),
         dict(name="flash_attn_dq", route="cuda",
              source=csrc + "flash_attn_bwd.cu",
@@ -4848,10 +5329,26 @@ def main() -> int:
              note="plain_ms is the plain backward (dQ, dK and dV) at the "
                   "head slice; library_ms is sdpa's whole backward, the "
                   "yardstick for K5 and K6 together"),
+        dict(name="flash_attn_dq_f32out", route="cuda",
+             source=csrc + "flash_attn_bwd.cu",
+             replaces=ref + "flash_attention.py:351",
+             launches=multi["f32out"]["K5"], **flash_f32["dq"],
+             note="K5's f32 output mode (the block form's dQ partials, "
+                  "the reference's keep_f32): launches summed over the "
+                  "ring phase's 4 ranks, contiguous and zig-zag flash "
+                  "rings; ms at the full call beside bf16_mode_ms"),
+        dict(name="flash_attn_dkv_f32out", route="cuda",
+             source=csrc + "flash_attn_bwd.cu",
+             replaces=ref + "flash_attention.py:377",
+             launches=multi["f32out"]["K6"], **flash_f32["dkv"],
+             note="K6's f32 output mode (the block form's dK/dV "
+                  "partials): launches summed over the ring phase's 4 "
+                  "ranks, contiguous and zig-zag flash rings"),
         dict(name="maxpool_fwd", route="cuda", source=csrc + "maxpool.cu",
              replaces=ref + "pool.py:150",
              launches=train["pallas"]["maxpool_fwd"], **pool["fwd"],
              launches_checkpoint_elastic=ckpt["elastic"]["maxpool_fwd"],
+             launches_sharded_rank0=multi["alexnet"][0]["K1"],
              load_modes=train_modes["pallas"]["maxpool_fwd"]),
         dict(name="maxpool_bwd", route="cuda", source=csrc + "maxpool.cu",
              replaces=ref + "pool.py:169",
@@ -4860,6 +5357,7 @@ def main() -> int:
                   "are under launches_fused",
              launches_fused=train["fused"]["maxpool_bwd"],
              launches_checkpoint_elastic=ckpt["elastic"]["maxpool_bwd"],
+             launches_sharded_rank0=multi["alexnet"][0]["K2"],
              load_modes=train_modes["pallas"]["maxpool_bwd"],
              load_modes_fused=train_modes["fused"]["maxpool_bwd"]),
         dict(name="conv_pool_fwd", route="cuda",
@@ -4867,6 +5365,9 @@ def main() -> int:
              replaces=ref + "convpool.py:83",
              launches=train["fused"]["conv_pool_fwd"], **conv_pool),
     ]
+    print("chip_smoke: phase walls " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f} s"
+        for i, (name, t) in enumerate(laps[1:])), flush=True)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

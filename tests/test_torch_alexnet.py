@@ -20,6 +20,7 @@ import optax
 import pytest
 import torch
 
+import torch_gloo_ranks
 from tpu_k8s_device_plugin.workloads import alexnet as jalex
 from tpu_k8s_device_plugin_torch.convert import (
     alexnet_params_from_jax,
@@ -217,16 +218,29 @@ def test_bench_main_prints_one_json_line(capsys):
 
 
 def test_bench_main_unported_modes(tmp_path, monkeypatch, capsys):
-    """``--sharded`` raises naming item 6; ``--checkpoint-dir`` (item 7)
-    runs the elastic loop (AlexNet cut to 64 px and 10 classes here) and
-    leaves the final step's checkpoint."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        bench_main.main(["--device", "cpu", "--sharded"])
+    """``--sharded`` (item 6.1) initialises a gloo group from torchrun's
+    env under ``--device cpu`` and prints one JSON line for the mesh;
+    ``--checkpoint-dir`` (item 7) runs the elastic loop and leaves the
+    final step's checkpoint (AlexNet cut to 64 px and 10 classes
+    here)."""
     small = dict(image_size=64, num_classes=10)
     monkeypatch.setattr(bench_main, "create_train_state", functools.partial(
         talex.create_train_state, **small))
     monkeypatch.setattr(bench_main, "synthetic_batch", functools.partial(
         talex.synthetic_batch, **small))
+    for name, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                        ("LOCAL_RANK", "0"), ("MASTER_ADDR", "127.0.0.1"),
+                        ("MASTER_PORT", str(torch_gloo_ranks.free_port()))):
+        monkeypatch.setenv(name, value)
+    assert bench_main.main(["--device", "cpu", "--sharded", "--batch", "2",
+                            "--steps", "1", "--warmup", "0"]) == 0
+    assert not torch.distributed.is_initialized()
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["value"] > 0 and rec["extra"]["sharded"] is True
+    assert rec["extra"]["mesh"] == {"data": 1, "model": 1}
+    assert rec["extra"]["backend"] == "gloo"
     ckpt = tmp_path / "ckpt"
     assert bench_main.main(["--device", "cpu", "--batch", "2", "--steps",
                             "1", "--checkpoint-dir", str(ckpt),

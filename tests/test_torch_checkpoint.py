@@ -35,6 +35,8 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+import torch_gloo_ranks  # noqa: E402
+
 from tpu_k8s_device_plugin_torch.workloads import checkpoint as ckpt_mod  # noqa: E402,E501
 from tpu_k8s_device_plugin_torch.workloads import llama  # noqa: E402
 from tpu_k8s_device_plugin_torch.workloads.bench_serving import (  # noqa: E402,E501
@@ -338,16 +340,27 @@ def test_quantize_after_restore_serves(tmp_path):
 
 
 def test_shardings_raise_naming_item_6(tmp_path):
-    """The reference's two mesh restores (onto a mesh, onto another mesh
-    shape) wait for multi-device training: ``shardings=`` raises."""
+    """``shardings=`` (item 6.1) restores each leaf onto a mesh's
+    placement, here the (1, 1) mesh of a gloo group of this process
+    alone (``tests/test_torch_parallel.py`` holds the reference's two
+    mesh restores on 8 ranks); ``load_checkpoint_params``'s ``mesh``
+    waits for TP serving and raises naming item 6.4."""
+    from tpu_k8s_device_plugin_torch.workloads import parallel
+
     model, _, _ = _setup()
-    save_checkpoint(str(tmp_path), 0, {"params": model.state_dict()})
-    for step in (None, 0):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            restore_checkpoint(str(tmp_path), step=step,
-                               template={"params": model.state_dict()},
-                               shardings={"params": {}})
-    with pytest.raises(NotImplementedError, match="item 6"):
+    state = model.state_dict()
+    with torch_gloo_ranks.solo_group():
+        mesh = parallel.make_mesh(device="cpu")
+        shardings = {"params": parallel.tree_shardings(mesh, state)}
+        save_checkpoint(str(tmp_path), 0, {"params": state},
+                        shardings=shardings)
+        for step in (None, 0):
+            restored = restore_checkpoint(str(tmp_path), step=step,
+                                          template={"params": state},
+                                          shardings=shardings)
+            for key, value in state.items():
+                assert torch.equal(restored["params"][key], value), key
+    with pytest.raises(NotImplementedError, match="item 6.4"):
         load_checkpoint_params("tiny", 64, False, str(tmp_path),
                                device="cpu", mesh=object())
 

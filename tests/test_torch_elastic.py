@@ -18,6 +18,7 @@ import re
 import pytest
 import torch
 
+import torch_gloo_ranks
 from tpu_k8s_device_plugin.slice.state import Membership, save_membership
 from tpu_k8s_device_plugin_torch.workloads import alexnet as talex
 from tpu_k8s_device_plugin_torch.workloads import bench_main
@@ -168,9 +169,18 @@ def test_bench_main_cli_routes_to_run_elastic(small_port, tmp_path,
     assert _masked(capsys.readouterr().out) == [
         "slice reshaped to gen 2 (1 worker(s)); checkpointed step 1; "
         "exiting 77 for restart under the new identity"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        bench_main.run_elastic(2, 1, ckpt, 0, str(state), sharded=True,
-                               device="cpu")
+    # sharded (item 6.1), on a gloo group of this process alone: the
+    # unsharded step_1 restores onto the (1, 1) mesh, the next step sees
+    # the reshape, saves and returns 77
+    with torch_gloo_ranks.solo_group():
+        rc = bench_main.run_elastic(2, 2, ckpt, 0, str(state), sharded=True,
+                                    device="cpu")
+    assert rc == tckpt.RESHAPE_EXIT_CODE
+    assert tckpt.list_steps(ckpt) == [1, 2]
+    assert _masked(capsys.readouterr().out) == [
+        "resumed from checkpoint step 1",
+        "slice reshaped to gen 2 (1 worker(s)); checkpointed step 2; "
+        "exiting 77 for restart under the new identity"]
 
 
 def _signal_case(case, ReshapeSignal, membership_cls, tmp_path,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
 K4 (flash attention, with and without its lse residual), K5 and K6 (the
-flash backward), K1 and K2 (max-pool forward and backward) and K3 (fused
-conv+pool).
+flash backward, with bf16 or f32 outputs), the block forms and a ring of
+one rank over them, K1 and K2 (max-pool forward and backward) and K3
+(fused conv+pool).
 
 These need a CUDA device and the CUDA toolkit (the kernels build from
 ``tpu_k8s_device_plugin_torch/csrc`` at first use); elsewhere they skip.
@@ -299,9 +300,143 @@ def test_backward_kernels_refuse(gen):
                                    delta, True)
     with pytest.raises(TypeError):
         fa.flash_attention_dkv_cuda(q, k, v, do.float(), lse, delta, True)
+    with pytest.raises(TypeError, match="writes"):
+        fa.flash_attention_dq_cuda(q, k, v, do, lse, delta, True,
+                                   out_dtype=torch.float16)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_dkv_cuda(q[..., :24], k[..., :24], v[..., :24],
                                     do[..., :24], lse, delta, True)
+
+
+# the f32 output mode of the bf16 K5 and K6 (ring attention's partials):
+# causal and not, Tq != Tk, grouped heads, a padded head dim
+F32OUT_CASES = [BWD_CASES[i] for i in (0, 3, 5, 8, 9)]
+
+
+def _modes():
+    return (dict(fa.flash_attention_dq_cuda.modes),
+            dict(fa.flash_attention_dkv_cuda.modes))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("q_shape,tk,hkv,causal", F32OUT_CASES)
+def test_backward_kernels_f32_output_mode(gen, q_shape, tk, hkv, causal,
+                                          dtype):
+    """``out_dtype=f32``: the same sums stored unrounded, within the
+    plain version's bars; for bf16 inputs, the bf16 mode's result is the
+    f32 mode's rounded to bf16, bit for bit."""
+    q, k, v, do, lse, delta = _bwd_inputs(gen, q_shape, tk, hkv, dtype,
+                                          causal)
+    before = _modes()
+    f32 = torch.float32
+    dq = fa.flash_attention_dq_cuda(q, k, v, do, lse, delta, causal,
+                                    out_dtype=f32)
+    dk, dv = fa.flash_attention_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                         out_dtype=f32)
+    torch.cuda.synchronize()
+    mode = "f32out" if dtype == torch.bfloat16 else "f32"
+    after = _modes()
+    assert [a[mode] - b[mode] for a, b in zip(after, before)] == [1, 1]
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal)
+    tol = GRAD_TOL[dtype]
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == f32 and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+        _assert_blocks_close(got, ref, tol, BLOCK_REL[dtype])
+    if dtype == torch.bfloat16:
+        rounded = (fa.flash_attention_dq_cuda(q, k, v, do, lse, delta,
+                                              causal),
+                   *fa.flash_attention_dkv_cuda(q, k, v, do, lse, delta,
+                                                causal))
+        for r, g in zip(rounded, (dq, dk, dv)):
+            assert r.dtype == torch.bfloat16
+            assert torch.equal(r, g.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("tq,tk,causal", [
+    (128, 128, True),    # a diagonal block
+    (100, 100, True),    # ragged
+    (128, 64, False),    # the zig-zag ring's Tq = 2 Tk tile
+    (64, 200, False),    # Tq < Tk
+    (64, 0, False),      # no key: lse -inf, o 0
+])
+def test_block_forms_match_plain(gen, tq, tk, causal, dtype):
+    """``flash_block_forward`` (K4 with its lse, [B, T, H]) and
+    ``flash_block_grads`` (K5 and K6 in their f32 mode, given the global
+    lse and delta as [B, T, H]) against the plain versions."""
+    q, k, v = _qkv(gen, (2, tq, 4, 64), tk, 4, dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda", dtype=dtype)
+    launches = fa.flash_attention_cuda.launches
+    o, lse = fa.flash_block_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == launches + 1
+    want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    assert lse.shape == (2, tq, 4) and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), want_o.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse.transpose(1, 2), atol=1e-4,
+                               rtol=1e-5)
+    if tk == 0:
+        assert torch.isneginf(lse).all() and not o.any()
+        return
+    delta = fa.attention_delta(do, want_o)
+    before = _modes()
+    got = fa.flash_block_grads(q, k, v, do, want_lse.transpose(1, 2),
+                               delta.transpose(1, 2), causal)
+    torch.cuda.synchronize()
+    mode = "f32out" if dtype == torch.bfloat16 else "f32"
+    assert [a[mode] - b[mode] for a, b in zip(_modes(), before)] == [1, 1]
+    want = fa.flash_attention_bwd_plain(q, k, v, do, want_lse, delta,
+                                        causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=GRAD_TOL[dtype],
+                                   rtol=GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("layout,impl", [("contiguous", "einsum"),
+                                         ("contiguous", "flash"),
+                                         ("zigzag", "flash")])
+def test_ring_of_one_rank_on_the_card(gen, layout, impl):
+    """Ring attention on a gloo group of this process alone, CUDA
+    tensors: the flash impl launches K4 and K5/K6 in their f32 mode (one
+    block each), and output and gradients agree with the single-device
+    flash attention."""
+    import torch_gloo_ranks
+    from tpu_k8s_device_plugin_torch.workloads import ring_attention as ra
+
+    q, k, v = (x.requires_grad_() for x in
+               _qkv(gen, (1, 256, 4, 64), 256, 4, torch.bfloat16))
+    do = torch.randn(q.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    launches = fa.flash_attention_cuda.launches
+    before = _modes()
+    with torch_gloo_ranks.solo_group():
+        fn, sharding = ra.make_ring_attention(causal=True, layout=layout,
+                                              impl=impl)
+        order = (lambda x: ra.zigzag_permute(x, 1)) if layout == "zigzag" \
+            else (lambda x: x)
+        out = fn(*(sharding.scatter(order(x)) for x in (q, k, v)))
+        got = torch.autograd.grad(out, (q, k, v), order(do))
+    torch.cuda.synchronize()
+    flash = impl == "flash"
+    # zig-zag at one rank: the diagonal step's three tiles
+    blocks = 3 if layout == "zigzag" else 1
+    assert fa.flash_attention_cuda.launches - launches == \
+        (blocks if flash else 0)
+    assert [a["f32out"] - b["f32out"] for a, b in zip(_modes(), before)] \
+        == ([blocks] * 2 if flash else [0, 0])
+    want_o = fa.flash_attention_plain(q, k, v, True)
+    want = torch.autograd.grad(want_o, (q, k, v), do)
+    tol = TOL[torch.bfloat16]
+    _assert_blocks_close(out.detach(), order(want_o).detach(), tol,
+                         BLOCK_REL[torch.bfloat16])
+    for g, w in zip(got, want):
+        _assert_blocks_close(g, w, GRAD_TOL[torch.bfloat16],
+                             BLOCK_REL[torch.bfloat16])
 
 
 def test_lm_train_step_runs_k4_k5_k6_per_layer(gen):

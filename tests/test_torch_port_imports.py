@@ -58,6 +58,8 @@ def test_port_files_exist():
     assert "tpu_k8s_device_plugin_torch/workloads/speculative.py" in names
     assert "tpu_k8s_device_plugin_torch/workloads/checkpoint.py" in names
     assert "tpu_k8s_device_plugin_torch/types/constants.py" in names
+    for module in ("parallel", "ring_attention", "collectives"):
+        assert f"tpu_k8s_device_plugin_torch/workloads/{module}.py" in names
     for agent in AGENT_MODULES:
         assert agent in names, agent
     assert all(p.exists() for p in _port_files())
@@ -170,6 +172,25 @@ def test_training_entry_points_refuse_cpu_fallback(monkeypatch, entry):
     assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
+def test_multi_device_entry_points_refuse_cpu_fallback(monkeypatch):
+    """The mesh is CUDA's unless the caller asks for the CPU; the flash
+    block forms take the plain versions only for CPU tensors."""
+    from tpu_k8s_device_plugin_torch.workloads import bench_main, parallel
+    from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.make_mesh(ranks=[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_main.run_sharded(2, 1, 0)
+    q = torch.zeros(1, 8, 2, 16)
+    o, lse = fa.flash_block_forward(q, q, q)
+    assert o.device.type == "cpu" and lse.shape == (1, 8, 2)
+    meta = q.to("meta")
+    with pytest.raises(ValueError, match="no path"):
+        fa.flash_block_forward(meta, meta, meta)
+
+
 def test_serving_engine_refuses_cpu_fallback(monkeypatch):
     """Without CUDA, an engine over a CPU model runs only where the
     caller asks for the CPU; a device that is not the model's raises."""
@@ -214,6 +235,8 @@ def test_http_tier_imports_nothing_of_jax():
             "import tpu_k8s_device_plugin_torch.workloads.speculative\n"
             "import tpu_k8s_device_plugin_torch.workloads.checkpoint\n"
             "import tpu_k8s_device_plugin_torch.workloads.bench_main\n"
+            "import tpu_k8s_device_plugin_torch.workloads.parallel\n"
+            "import tpu_k8s_device_plugin_torch.workloads.ring_attention\n"
             "import tpu_k8s_device_plugin_torch.types.constants\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"

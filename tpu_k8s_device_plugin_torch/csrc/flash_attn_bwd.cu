@@ -82,6 +82,13 @@
 // from -inf; rows past T in a ragged last tile load as 0, contribute
 // exactly 0 to every sum and are not written.  An f32 path with plain
 // FMAs serves f32 inputs.
+//
+// Output mode.  The bf16 kernels store dQ, dK and dV either in bf16 or in
+// f32 (a template flag): ring attention sums the partials of its blocks
+// before one rounding, which is the TPU path's `keep_f32` (its dQ and
+// dK/dV pallas_calls at flash_attention.py:351 and :377 with f32 outputs).
+// The accumulation is f32 in both; only the epilogue's stores differ, so a
+// bf16 output is the f32 one rounded to nearest even, bit for bit.
 
 #include "hopper.cuh"
 
@@ -102,7 +109,7 @@ constexpr int F_QT = 16;   // f32 dK/dV: query rows per shared-memory tile
 
 // ---------------------------------------------------------------- K5 --
 
-template <int DP>
+template <int DP, bool F32OUT>
 __global__ void __launch_bounds__(NT, 1)
     flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tdo,
@@ -110,7 +117,7 @@ __global__ void __launch_bounds__(NT, 1)
                          const __grid_constant__ CUtensorMap tv,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         uint16_t* __restrict__ dq, int D, int Tq, int Tk,
+                         void* __restrict__ dq, int D, int Tq, int Tk,
                          int group, Strides dqs, float scale, int causal) {
   constexpr int QB = BM * DP * 2, KB = BN * DP * 2;  // tile bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -244,16 +251,24 @@ __global__ void __launch_bounds__(NT, 1)
   wgmma_wait<0>();
   fence_regs(acc);
 
+  // the epilogue: the same f32 values, stored as bf16 pairs or, in the
+  // f32 output mode (the ring's partials), as f32 pairs
 #pragma unroll
   for (int n8 = 0; n8 < DP / 8; ++n8) {
     if (n8 * 8 >= D) break;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= Tq) continue;
-      uint16_t* out = dq + b * dqs.b + static_cast<long long>(row[i]) * dqs.t +
-                      h * dqs.h + n8 * 8 + t4 * 2;
-      *reinterpret_cast<uint32_t*>(out) = pack_bf16(
-          acc[n8 * 4 + 2 * i] * scale, acc[n8 * 4 + 2 * i + 1] * scale);
+      const long long off = b * dqs.b + static_cast<long long>(row[i]) * dqs.t +
+                            h * dqs.h + n8 * 8 + t4 * 2;
+      const float lo = acc[n8 * 4 + 2 * i] * scale,
+                  hi = acc[n8 * 4 + 2 * i + 1] * scale;
+      if constexpr (F32OUT)
+        *reinterpret_cast<float2*>(static_cast<float*>(dq) + off) =
+            make_float2(lo, hi);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(dq) + off) =
+            pack_bf16(lo, hi);
     }
   }
 }
@@ -336,7 +351,7 @@ __global__ void __launch_bounds__(F_BQ)
 
 // ---------------------------------------------------------------- K6 --
 
-template <int DP>
+template <int DP, bool F32OUT>
 __global__ void __launch_bounds__(NT, 1)
     flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
@@ -344,7 +359,7 @@ __global__ void __launch_bounds__(NT, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                          void* __restrict__ dk, void* __restrict__ dv,
                           int D, int Tq, int Tk, int H, int group, Strides dks,
                           Strides dvs, float scale, int causal) {
   constexpr int KB = BM * DP * 2, QB = BN * DP * 2;  // tile bytes
@@ -505,6 +520,7 @@ __global__ void __launch_bounds__(NT, 1)
   fence_regs(dka);
   fence_regs(dva);
 
+  // the epilogue: bf16 pairs, or f32 pairs in the f32 output mode
 #pragma unroll
   for (int n8 = 0; n8 < DP / 8; ++n8) {
     if (n8 * 8 >= D) break;
@@ -512,14 +528,26 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = 0; i < 2; ++i) {
       if (key[i] >= Tk) continue;
       const int col = n8 * 8 + t4 * 2;
-      uint16_t* kout = dk + b * dks.b + static_cast<long long>(key[i]) * dks.t +
-                       hk * dks.h + col;
-      uint16_t* vout = dv + b * dvs.b + static_cast<long long>(key[i]) * dvs.t +
-                       hk * dvs.h + col;
-      *reinterpret_cast<uint32_t*>(kout) = pack_bf16(
-          dka[n8 * 4 + 2 * i] * scale, dka[n8 * 4 + 2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vout) =
-          pack_bf16(dva[n8 * 4 + 2 * i], dva[n8 * 4 + 2 * i + 1]);
+      const long long koff = b * dks.b +
+                             static_cast<long long>(key[i]) * dks.t +
+                             hk * dks.h + col;
+      const long long voff = b * dvs.b +
+                             static_cast<long long>(key[i]) * dvs.t +
+                             hk * dvs.h + col;
+      const float k_lo = dka[n8 * 4 + 2 * i] * scale,
+                  k_hi = dka[n8 * 4 + 2 * i + 1] * scale;
+      const float v_lo = dva[n8 * 4 + 2 * i], v_hi = dva[n8 * 4 + 2 * i + 1];
+      if constexpr (F32OUT) {
+        *reinterpret_cast<float2*>(static_cast<float*>(dk) + koff) =
+            make_float2(k_lo, k_hi);
+        *reinterpret_cast<float2*>(static_cast<float*>(dv) + voff) =
+            make_float2(v_lo, v_hi);
+      } else {
+        *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(dk) + koff) =
+            pack_bf16(k_lo, k_hi);
+        *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(dv) + voff) =
+            pack_bf16(v_lo, v_hi);
+      }
     }
   }
 }
@@ -633,8 +661,9 @@ int make_maps(CUtensorMap (&m)[4], const void* q, const void* k,
   return r == CUDA_SUCCESS ? 0 : TMA_ERROR + static_cast<int>(r);
 }
 
-// bf16: the head dim padded to DP = 64 or 128 in shared memory
-template <int DP>
+// bf16: the head dim padded to DP = 64 or 128 in shared memory; dQ (and
+// dK, dV) in bf16, or in f32 with F32OUT
+template <int DP, bool F32OUT>
 int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int B, int Tq, int Tk, int H, int Hkv, int D,
@@ -645,16 +674,16 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
       make_maps(m, q, k, v, dout, B, Tq, Tk, H, Hkv, D, st, BM, BN);
   if (err) return err;
   const int smem = 1024 + (2 * BM + NS * 2 * BN) * DP * 2 + (1 + 2 * NS) * 8;
-  cudaError_t e = set_smem(flash_dq_bf16_kernel<DP>, smem);
+  cudaError_t e = set_smem(flash_dq_bf16_kernel<DP, F32OUT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(H, (Tq + BM - 1) / BM, B);
-  flash_dq_bf16_kernel<DP><<<grid, NT, smem, stream>>>(
-      m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(dq), D, Tq,
-      Tk, H / Hkv, at(st, 4), scale, causal);
+  flash_dq_bf16_kernel<DP, F32OUT><<<grid, NT, smem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, dq, D, Tq, Tk, H / Hkv, at(st, 4),
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <int DP, bool F32OUT>
 int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, int B, int Tq, int Tk, int H, int Hkv,
@@ -667,13 +696,12 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   const int smem = 1024 + (2 * BM + NS * 2 * BN) * DP * 2 +
                    NS * 2 * BN * static_cast<int>(sizeof(float)) +
                    (1 + 2 * NS) * 8;
-  cudaError_t e = set_smem(flash_dkv_bf16_kernel<DP>, smem);
+  cudaError_t e = set_smem(flash_dkv_bf16_kernel<DP, F32OUT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(Hkv, (Tk + BM - 1) / BM, B);
-  flash_dkv_bf16_kernel<DP><<<grid, NT, smem, stream>>>(
-      m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(dk),
-      static_cast<uint16_t*>(dv), D, Tq, Tk, H, H / Hkv, at(st, 4), at(st, 5),
-      scale, causal);
+  flash_dkv_bf16_kernel<DP, F32OUT><<<grid, NT, smem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, dk, dv, D, Tq, Tk, H, H / Hkv,
+      at(st, 4), at(st, 5), scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -720,28 +748,61 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
 #define FLASH_BWD_CASES(CALL) \
   CALL(16) CALL(32) CALL(48) CALL(64) CALL(80) CALL(96) CALL(112) CALL(128)
 
+namespace {
+
+// the bf16 kernels at DP = 64 or 128, with bf16 or f32 outputs
+template <bool F32OUT>
+int dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+            const float* l, const float* dl, void* dq, int B, int Tq, int Tk,
+            int H, int Hkv, int D, const long long* st, float scale,
+            int causal, cudaStream_t stream) {
+  return D <= 64 ? launch_dq_bf16<64, F32OUT>(q, k, v, dout, l, dl, dq, B,
+                                               Tq, Tk, H, Hkv, D, st, scale,
+                                               causal, stream)
+                 : launch_dq_bf16<128, F32OUT>(q, k, v, dout, l, dl, dq, B,
+                                                Tq, Tk, H, Hkv, D, st, scale,
+                                                causal, stream);
+}
+
+template <bool F32OUT>
+int dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+             const float* l, const float* dl, void* dk, void* dv, int B,
+             int Tq, int Tk, int H, int Hkv, int D, const long long* st,
+             float scale, int causal, cudaStream_t stream) {
+  return D <= 64 ? launch_dkv_bf16<64, F32OUT>(q, k, v, dout, l, dl, dk, dv,
+                                                B, Tq, Tk, H, Hkv, D, st,
+                                                scale, causal, stream)
+                 : launch_dkv_bf16<128, F32OUT>(q, k, v, dout, l, dl, dk, dv,
+                                                 B, Tq, Tk, H, Hkv, D, st,
+                                                 scale, causal, stream);
+}
+
+}  // namespace
+
 // K5.  q/dout/dq [B, Tq, H, D], k/v [B, Tk, Hkv, D], all with unit stride
 // on D; lse and delta [B, H, Tq] f32 contiguous.  `strides` holds the
 // (batch, time, head) element strides of q, k, v, dout, dq.  dtype 0 =
-// bf16, 1 = f32.  Launches on `stream` without synchronising.  Returns 0,
-// a cudaError_t, -1 for an unsupported D, or TMA_ERROR (10000) + the
-// CUresult of a bf16 tensor map that could not be encoded.
+// bf16, 1 = f32 inputs; out_dtype the same for dq: bf16 inputs may write
+// f32 (the ring's partials: the same accumulation, another store), f32
+// inputs write f32.  Launches on `stream` without synchronising.  Returns
+// 0, a cudaError_t, -1 for an unsupported D or dtype pair, or TMA_ERROR
+// (10000) + the CUresult of a bf16 tensor map that could not be encoded.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int dtype,
-                                 int B, int Tq, int Tk, int H, int Hkv, int D,
-                                 const long long* strides, float scale,
-                                 int causal, void* stream) {
+                                 int out_dtype, int B, int Tq, int Tk, int H,
+                                 int Hkv, int D, const long long* strides,
+                                 float scale, int causal, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D < 16 || D > 128 || D % 16) return -1;
+  if (D < 16 || D > 128 || D % 16 || out_dtype < dtype || out_dtype > 1)
+    return -1;
   if (dtype == 0)
-    return static_cast<int>(
-        D <= 64 ? launch_dq_bf16<64>(q, k, v, dout, l, dl, dq, B, Tq, Tk, H,
+    return out_dtype ? dq_bf16<true>(q, k, v, dout, l, dl, dq, B, Tq, Tk, H,
                                      Hkv, D, strides, scale, causal, st)
-                : launch_dq_bf16<128>(q, k, v, dout, l, dl, dq, B, Tq, Tk, H,
-                                      Hkv, D, strides, scale, causal, st));
+                     : dq_bf16<false>(q, k, v, dout, l, dl, dq, B, Tq, Tk, H,
+                                      Hkv, D, strides, scale, causal, st);
   switch (D) {
 #define DQ_CASE(DD)                                                          \
   case DD:                                                                   \
@@ -761,20 +822,21 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv,
-                                  int dtype, int B, int Tq, int Tk, int H,
-                                  int Hkv, int D, const long long* strides,
-                                  float scale, int causal, void* stream) {
+                                  int dtype, int out_dtype, int B, int Tq,
+                                  int Tk, int H, int Hkv, int D,
+                                  const long long* strides, float scale,
+                                  int causal, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D < 16 || D > 128 || D % 16) return -1;
+  if (D < 16 || D > 128 || D % 16 || out_dtype < dtype || out_dtype > 1)
+    return -1;
   if (dtype == 0)
-    return static_cast<int>(
-        D <= 64 ? launch_dkv_bf16<64>(q, k, v, dout, l, dl, dk, dv, B, Tq, Tk,
-                                      H, Hkv, D, strides, scale, causal, st)
-                : launch_dkv_bf16<128>(q, k, v, dout, l, dl, dk, dv, B, Tq,
-                                       Tk, H, Hkv, D, strides, scale, causal,
-                                       st));
+    return out_dtype
+               ? dkv_bf16<true>(q, k, v, dout, l, dl, dk, dv, B, Tq, Tk, H,
+                                Hkv, D, strides, scale, causal, st)
+               : dkv_bf16<false>(q, k, v, dout, l, dl, dk, dv, B, Tq, Tk, H,
+                                 Hkv, D, strides, scale, causal, st);
   switch (D) {
 #define DKV_CASE(DD)                                                         \
   case DD:                                                                   \

@@ -17,8 +17,15 @@ it resumes from the newest whole checkpoint under DIR, saves every
 ``--checkpoint-every`` steps, and when the slice membership file
 (``--slice-state``) moves past the generation in
 ``$TPU_SLICE_GENERATION``, saves and exits with 77 so that the
-orchestrator restarts it under the new identity.  ``--sharded`` is not
-yet ported.
+orchestrator restarts it under the new identity.
+
+``--sharded`` trains over a ``data`` x ``model`` mesh of every rank
+(``parallel.make_mesh``) with ``--batch`` a data rank, so the global
+batch is ``--batch`` times the data axis.  It runs one process a rank
+under torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) and initialises the group from it:
+NCCL on CUDA, one rank a GPU (``LOCAL_RANK`` picks it), gloo under
+``--device cpu``.  Rank 0 prints the line.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from typing import Callable, Optional
 import torch
 
 from .alexnet import create_train_state, synthetic_batch, train_step
-from .transformer import _unported, resolve_device
+from .transformer import resolve_device
 from ..types import constants
 
 # dense bf16 tensor-core peaks in FLOP/s (NVIDIA data sheets), matched
@@ -103,6 +110,30 @@ def run_single(batch: int, steps: int, warmup: int, s2d: bool = True,
     return ips
 
 
+def run_sharded(batch: int, steps: int, warmup: int, s2d: bool = True,
+                pool: Optional[str] = None, device=None) -> float:
+    """Images/sec of the sharded step over ``make_mesh`` of every rank of
+    the initialised group, counting the global batch: *batch* a data
+    rank, so the batch is multiplied by the data axis and each chip keeps
+    its per-device batch.  Every rank
+    makes the global batch from seed 0 and takes its slice.  Runs on CUDA
+    unless *device* is given."""
+    from .parallel import make_mesh, make_sharded_train_step, mesh_shape
+
+    device = resolve_device(device)
+    mesh = make_mesh(device=device)
+    batch *= mesh_shape(mesh)["data"]
+    model, opt = create_train_state(seed=0, s2d=s2d,
+                                    pool=_resolve_pool(pool), device=device)
+    step, model, opt, (img_sh, lbl_sh) = make_sharded_train_step(
+        model, opt, mesh)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    images, labels = synthetic_batch(gen, batch, s2d=s2d)
+    images, labels = img_sh.local(images), lbl_sh.local(labels)
+    return _timed_loop(lambda: step(images, labels), batch, steps, warmup)
+
+
 def run_elastic(
     batch: int,
     steps: int,
@@ -125,10 +156,13 @@ def run_elastic(
     loss.  The state is ``{"params": model.state_dict(), "opt_state":
     opt.state_dict()}``; the batch is the same synthetic one every step,
     from seed 0, so a resumed run ends where an uninterrupted one does.
+    With *sharded*, the step is the sharded one over ``make_mesh`` of the
+    initialised group (*batch* is then the global batch, split on
+    ``data``), each rank saves its pieces and a restore puts them onto
+    this run's mesh, whatever the shape of the one that saved them.
     Runs on CUDA unless *device* is given."""
     from . import checkpoint as ckpt
 
-    _unported(sharded=sharded)
     device = resolve_device(device)
     if signal is None:
         signal = ckpt.ReshapeSignal(slice_state)
@@ -137,12 +171,26 @@ def run_elastic(
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     images, labels = synthetic_batch(gen, batch, s2d=s2d)
+    shardings = None
+    if sharded:
+        from .parallel import (make_mesh, make_sharded_train_step,
+                               train_state_shardings)
+
+        mesh = make_mesh(device=device)
+        step_fn, model, opt, (img_sh, lbl_sh) = make_sharded_train_step(
+            model, opt, mesh)
+        images, labels = img_sh.local(images), lbl_sh.local(labels)
+        shardings = train_state_shardings(mesh, model,
+                                          ckpt.optimizer_template(opt))
+    else:
+        def step_fn(images, labels):
+            return train_step(model, opt, images, labels)
 
     start = 0
     if ckpt.latest_step(checkpoint_dir) is not None:
         start, restored = ckpt.restore_latest(checkpoint_dir, template={
             "params": model.state_dict(),
-            "opt_state": ckpt.optimizer_template(opt)})
+            "opt_state": ckpt.optimizer_template(opt)}, shardings=shardings)
         model.load_state_dict(restored["params"])
         opt.load_state_dict(restored["opt_state"])
         del restored
@@ -152,11 +200,11 @@ def run_elastic(
         ckpt.save_checkpoint(
             checkpoint_dir, done_steps,
             {"params": model.state_dict(), "opt_state": opt.state_dict()},
-            keep_last=3)
+            keep_last=3, shardings=shardings)
 
     loss = None
     for i in range(start, steps):
-        loss = train_step(model, opt, images, labels)
+        loss = step_fn(images, labels)
         done = i + 1
         membership = signal.check()
         if membership is not None:
@@ -194,7 +242,8 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without it)")
     p.add_argument("--sharded", action="store_true",
-                   help="not yet ported (ROADMAP queue 1, item 6)")
+                   help="train over a data x model mesh of every rank "
+                        "(one process a rank, torchrun's env)")
     p.add_argument("--checkpoint-dir", default="",
                    help="elastic mode: checkpoint/resume under this dir "
                         "(PVC mount); on a slice reshape the loop saves "
@@ -209,15 +258,35 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.steps < 1:
         p.error("--steps must be >= 1")
-    _unported(sharded=args.sharded)
     device = resolve_device(args.device)
+    if args.sharded:
+        _init_group(device)
+        try:
+            return _main(args, device)
+        finally:
+            torch.distributed.destroy_process_group()
+    return _main(args, device)
+
+
+def _init_group(device: torch.device) -> None:
+    """The process group from torchrun's environment: NCCL for CUDA
+    ranks (the one ``LOCAL_RANK`` names), gloo on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    torch.distributed.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo", init_method="env://")
+
+
+def _main(args, device: torch.device) -> int:
     if args.checkpoint_dir:
         return run_elastic(
             args.batch, args.steps, args.checkpoint_dir,
             args.checkpoint_every,
             args.slice_state or constants.SLICE_STATE_FILE,
-            pool=args.pool, device=device)
+            sharded=args.sharded, pool=args.pool, device=device)
     pool = _resolve_pool(args.pool)
+    if args.sharded:
+        return _print_sharded(args, pool, device)
     ips, flops = run_single(args.batch, args.steps, args.warmup,
                             want_flops=True, pool=pool, device=device)
     per_image = flops // args.batch
@@ -231,6 +300,29 @@ def main(argv=None) -> int:
                   "mfu": None if peak is None else ips * per_image / peak,
                   "flops_per_image": per_image, "device": name}}),
           flush=True)
+    return 0
+
+
+def _print_sharded(args, pool: str, device: torch.device) -> int:
+    """``--sharded``: rank 0 prints images/sec over the whole mesh and a
+    chip's share of it."""
+    from .parallel import default_model_parallel
+
+    ips = run_sharded(args.batch, args.steps, args.warmup, pool=pool,
+                      device=device)
+    world = torch.distributed.get_world_size()
+    model = default_model_parallel(world)
+    if torch.distributed.get_rank() == 0:
+        name = torch.cuda.get_device_name(device) \
+            if device.type == "cuda" else str(device)
+        print(json.dumps({
+            "metric": "alexnet_images_per_sec_per_gpu", "value": ips / world,
+            "unit": "images/sec",
+            "extra": {"pool": pool, "batch": args.batch, "sharded": True,
+                      "mesh": {"data": world // model, "model": model},
+                      "backend": torch.distributed.get_backend(),
+                      "total_images_per_sec": ips, "device": name}}),
+              flush=True)
     return 0
 
 

@@ -36,9 +36,16 @@ nested dicts, lists and tuples whose leaves are tensors or plain values.
 Torch optimizers make their state at their first step, so a fresh
 optimizer's ``state_dict`` has nothing to hold a checkpoint against:
 :func:`optimizer_template` gives the state dict it will have, on the
-``meta`` device.  Restoring each leaf onto a mesh placement
-(``shardings``) waits for multi-device training (ROADMAP.md, queue 1,
-item 6).
+``meta`` device.
+
+* **Sharded state** (``shardings``: a tree of
+  :class:`.parallel.Sharding` beside the state).  Torch tensors do not
+  carry their placement as JAX arrays do, so a sharded save names it:
+  each rank writes its own pieces, and the marker records the mesh's
+  axis sizes and each split leaf's spec.  A restore with ``shardings``
+  puts each leaf together from the payloads that hold its pieces (or
+  takes it whole from an unsharded save) and gives every rank its piece
+  under the new placement, on a mesh of the same shape or another.
 """
 
 from __future__ import annotations
@@ -55,7 +62,6 @@ import torch
 
 from ..slice.state import Membership, load_membership
 from ..types import constants
-from .transformer import _unported
 
 log = logging.getLogger(__name__)
 
@@ -221,7 +227,27 @@ def _write_payload(path: str, state: Any) -> None:
         os.fsync(f.fileno())
 
 
-def _write_metadata(tmp: str, step: int, state: Any) -> None:
+def _placement(shardings: Any) -> Optional[Dict[str, Any]]:
+    """The marker's record of a sharded save: the mesh's axis sizes (in
+    mesh order: a rank's payload is its row-major place on the mesh) and
+    the spec of each split leaf."""
+    if shardings is None:
+        return None
+    mesh, specs = None, {}
+    for key, sh in _leaves(shardings):
+        if sh is None:
+            continue
+        mesh = sh.mesh
+        if any(axis is not None for axis in sh.spec):
+            specs[key] = list(sh.spec)
+    if mesh is None:
+        return None
+    return {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "specs": specs}
+
+
+def _write_metadata(tmp: str, step: int, state: Any,
+                    placement: Optional[Dict[str, Any]] = None) -> None:
     payloads = {name: os.path.getsize(os.path.join(tmp, name))
                 for name in sorted(os.listdir(tmp))
                 if _PAYLOAD_RE.match(name)}
@@ -231,6 +257,8 @@ def _write_metadata(tmp: str, step: int, state: Any) -> None:
         "leaves": [{"key": k, **rec} for k, rec in _describe(state).items()],
         "payloads": payloads,
     }
+    if placement is not None:
+        meta["placement"] = placement
     with open(os.path.join(tmp, _METADATA), "w", encoding="utf-8") as f:
         json.dump(meta, f)
         f.flush()
@@ -239,7 +267,7 @@ def _write_metadata(tmp: str, step: int, state: Any) -> None:
 
 def save_checkpoint(
     base_dir: str, step: int, state: Dict[str, Any],
-    keep_last: Optional[int] = None,
+    keep_last: Optional[int] = None, shardings: Any = None,
 ) -> str:
     """Atomically save *state* (typically ``{"params": ...,
     "opt_state": ...}``) under ``base_dir/step_<n>``.
@@ -256,7 +284,9 @@ def save_checkpoint(
     (``.step-tmp-<step>``), and only process 0 sweeps orphans, writes
     the commit marker, renames the dir into place and garbage-collects
     old steps — each mutation fenced by a barrier so no rank returns
-    before the step dir exists."""
+    before the step dir exists.  *shardings* (a tree of
+    :class:`.parallel.Sharding` beside *state*) says how each rank's
+    leaves are pieces of the whole ones; the marker records it."""
     if step < 0:
         raise ValueError(f"step must be >= 0, got {step}")
     if keep_last is not None and keep_last < 1:
@@ -280,7 +310,7 @@ def save_checkpoint(
         # every process's payload must be durable before the commit
         _barrier(f"ckpt_save_written_{step}")
         if primary:
-            _write_metadata(tmp, step, host)
+            _write_metadata(tmp, step, host, _placement(shardings))
             _fsync_dir(tmp)
             if os.path.isdir(final):
                 # overwrite: os.replace onto a non-empty dir raises
@@ -340,18 +370,19 @@ def restore_checkpoint(
     ``template`` is a tree like the saved one (``model.state_dict()``,
     :func:`optimizer_template`): the restored tree must have its keys,
     and each tensor its shape and dtype, and lands on its tensor's
-    device.  ``shardings`` raises ``NotImplementedError`` (ROADMAP.md,
-    queue 1, item 6)."""
-    _unported(shardings=shardings)
+    device.  With ``shardings`` (a tree of :class:`.parallel.Sharding`
+    beside the template) each rank restores its piece of every leaf
+    under that placement, whatever the mesh the checkpoint was saved
+    from; the template then holds the pieces' shapes."""
     if step is not None:
         path = os.path.abspath(_step_dir(base_dir, step))
         if not os.path.isdir(path):
             raise FileNotFoundError(f"no checkpoint at {path!r}")
-        return _restore_one(path, template)
-    return restore_latest(base_dir, template)[1]
+        return _restore_one(path, template, shardings)
+    return restore_latest(base_dir, template, shardings)[1]
 
 
-def restore_latest(base_dir: str, template: Any = None
+def restore_latest(base_dir: str, template: Any = None, shardings: Any = None
                    ) -> Tuple[int, Dict[str, Any]]:
     """``(step, state)`` of the newest restorable checkpoint, falling
     back over torn ones as :func:`restore_checkpoint` does: a resuming
@@ -363,7 +394,7 @@ def restore_latest(base_dir: str, template: Any = None
     for cand in reversed(candidates):
         path = os.path.abspath(_step_dir(base_dir, cand))
         try:
-            return cand, _restore_one(path, template)
+            return cand, _restore_one(path, template, shardings)
         except Exception as e:
             # a structurally-complete dir that still fails to load is
             # torn below the marker (or not this template's tree): fall
@@ -392,21 +423,71 @@ def _check_tree(got: Dict[str, Dict], want: Dict[str, Dict],
                              f"wants {rec}")
 
 
-def _restore_one(path: str, template: Any) -> Dict[str, Any]:
+def _load_payload(path: str, meta: Dict[str, Any], rank: int) -> Any:
+    """The tree of *rank*'s payload (rank 0's where *rank* wrote none),
+    checked against the marker."""
+    name = _payload_name(rank)
+    if name not in meta["payloads"]:
+        name = _payload_name(0)
+    tree = torch.load(os.path.join(path, name), map_location="cpu",
+                      weights_only=True)
+    _check_tree(_describe(tree), {rec["key"]: {k: v for k, v in rec.items()
+                                               if k != "key"}
+                                  for rec in meta["leaves"]},
+                "its commit marker")
+    return tree
+
+
+def _reshard(path: str, meta: Dict[str, Any], shardings: Any) -> Any:
+    """This rank's pieces under *shardings*: each leaf put together from
+    the payloads holding its pieces (the marker's placement; an unsharded
+    save's rank 0 holds it whole), then cut for this rank."""
+    placement = meta.get("placement") or {"mesh": {}, "specs": {}}
+    axes = list(placement["mesh"].items())
+    first = _load_payload(path, meta, 0)
+    loaded: Dict[int, Dict[str, Any]] = {0: dict(_leaves(first))}
+
+    def piece(key: str, coord) -> torch.Tensor:
+        rank = 0
+        for c, (_, size) in zip(coord, axes):
+            rank = rank * size + c
+        if rank not in loaded:
+            loaded[rank] = dict(_leaves(_load_payload(path, meta, rank)))
+        return loaded[rank][key]
+
+    def whole(key: str, spec, coord=()) -> torch.Tensor:
+        if len(coord) == len(axes):
+            return piece(key, coord)
+        axis, size = axes[len(coord)]
+        if axis not in spec:
+            return whole(key, spec, coord + (0,))
+        return torch.cat([whole(key, spec, coord + (c,))
+                          for c in range(size)], dim=spec.index(axis))
+
+    targets = dict(_leaves(shardings))
+
+    def place(key, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        full = whole(key, placement["specs"].get(key, []))
+        sh = targets.get(key)
+        return full if sh is None else sh.local(full)
+
+    return _map_leaves(first, place)
+
+
+def _restore_one(path: str, template: Any,
+                 shardings: Any = None) -> Dict[str, Any]:
     meta = _whole_metadata(path)
     if meta is None:
         raise FileNotFoundError(
             f"no whole checkpoint at {path!r}: {_METADATA} is missing or "
             "unreadable, or a payload is not the size it records")
-    name = _payload_name(_process_index())
-    if name not in meta["payloads"]:
-        name = _payload_name(0)
-    tree = torch.load(os.path.join(path, name), map_location="cpu",
-                      weights_only=True)
+    if shardings is None:
+        tree = _load_payload(path, meta, _process_index())
+    else:
+        tree = _reshard(path, meta, shardings)
     got = _describe(tree)
-    _check_tree(got, {rec["key"]: {k: v for k, v in rec.items()
-                                   if k != "key"}
-                      for rec in meta["leaves"]}, "its commit marker")
     if template is None:
         return tree
     _check_tree(got, _describe(template), "the template")

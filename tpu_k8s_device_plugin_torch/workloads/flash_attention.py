@@ -22,6 +22,12 @@ residuals ``lse`` and ``delta`` are [B, H, Tq] f32 (the TPU's 128-lane
 broadcast is not kept).  dK and dV come out at the grouped shape, summed
 over each KV head's query heads.
 
+K5 and K6 write their gradients in the input dtype, or in f32 on request
+(``out_dtype``): the same f32 sums, stored unrounded.  The block forms
+that ring attention composes, :func:`flash_block_forward` (K4 with its
+lse, as [B, T, H]) and :func:`flash_block_grads` (K5 and K6 writing f32
+from the global lse and delta), are at the end of the module.
+
 The kernels read q, k, v and dO through their (batch, time, head)
 strides, so the fused-projection views the model passes need no copy;
 the backward copies dO only when its strides are ones the kernels do not
@@ -153,12 +159,12 @@ _SIGNATURES = {  # C function: (source, argtypes)
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "flash_attn_bwd_dq": (
         "flash_attn_bwd",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
         + [ctypes.POINTER(_LL), ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p]),
     "flash_attn_bwd_dkv": (
         "flash_attn_bwd",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.POINTER(_LL), ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p]),
 }
@@ -267,58 +273,89 @@ def _stride_array(*xs: torch.Tensor):
     return (_LL * len(vals))(*vals)
 
 
-def flash_attention_dq_cuda(q, k, v, do, lse, delta, causal=False):
-    """Launch K5 on CUDA tensors: dQ in q's dtype, [B, Tq, H, D].
-    ``flash_attention_dq_cuda.launches`` counts launches."""
+# launches of K5 and K6 by mode: bf16 in and out, bf16 in and f32 out (the
+# block form's partials), f32 in and out
+BWD_MODES = ("bf16", "f32out", "f32")
+
+
+def _out_dtype(name: str, x: torch.Tensor, out_dtype) -> torch.dtype:
+    """The gradients' dtype: *x*'s by default; bf16 inputs may ask for
+    f32 (the f32 output mode), f32 inputs give f32."""
+    out = x.dtype if out_dtype is None else out_dtype
+    if out not in (x.dtype, torch.float32):
+        raise TypeError(f"{name} writes {x.dtype} or f32 for {x.dtype} "
+                        f"inputs, not {out}")
+    return out
+
+
+def _count_bwd(wrapper, x: torch.Tensor, out: torch.dtype) -> None:
+    wrapper.launches += 1
+    wrapper.modes["f32" if x.dtype == torch.float32 else
+                  "f32out" if out == torch.float32 else "bf16"] += 1
+
+
+def flash_attention_dq_cuda(q, k, v, do, lse, delta, causal=False,
+                            out_dtype=None):
+    """Launch K5 on CUDA tensors: dQ [B, Tq, H, D] in *out_dtype*, which
+    is q's dtype by default; bf16 inputs may ask for f32 (the same sums,
+    stored unrounded).  ``flash_attention_dq_cuda.launches`` counts
+    launches, ``.modes`` them by mode (``BWD_MODES``)."""
     _check_shapes(q, k, v, causal)
     _check_cuda("flash dq kernel", q, k, v, do)
     _check_rows("flash dq kernel", q, lse, delta)
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} must be q's shape")
+    out = _out_dtype("flash dq kernel", q, out_dtype)
     B, Tq, H, D = q.shape
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dq = torch.empty(q.shape, dtype=out, device=q.device)
     if dq.numel() == 0 or k.shape[1] == 0:
         return dq.zero_()
     with torch.cuda.device(q.device):
         _launch(
             "flash_attn_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _KERNEL_DTYPES[q.dtype], B, Tq, k.shape[1], H, k.shape[2], D,
-            _stride_array(q, k, v, do, dq), _scale(D), int(causal),
-            _stream(q))
-    flash_attention_dq_cuda.launches += 1
+            _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[out], B, Tq, k.shape[1],
+            H, k.shape[2], D, _stride_array(q, k, v, do, dq), _scale(D),
+            int(causal), _stream(q))
+    _count_bwd(flash_attention_dq_cuda, q, out)
     return dq
 
 
 flash_attention_dq_cuda.launches = 0
+flash_attention_dq_cuda.modes = dict.fromkeys(BWD_MODES, 0)
 
 
-def flash_attention_dkv_cuda(q, k, v, do, lse, delta, causal=False):
-    """Launch K6 on CUDA tensors: ``(dk, dv)`` in k's dtype at the
-    grouped shape [B, Tk, Hkv, D].  ``flash_attention_dkv_cuda.launches``
-    counts launches."""
+def flash_attention_dkv_cuda(q, k, v, do, lse, delta, causal=False,
+                             out_dtype=None):
+    """Launch K6 on CUDA tensors: ``(dk, dv)`` at the grouped shape
+    [B, Tk, Hkv, D] in *out_dtype* (k's dtype by default; f32 for bf16
+    inputs on request).  ``flash_attention_dkv_cuda.launches`` counts
+    launches, ``.modes`` them by mode."""
     _check_shapes(q, k, v, causal)
     _check_cuda("flash dkv kernel", q, k, v, do)
     _check_rows("flash dkv kernel", q, lse, delta)
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} must be q's shape")
+    out = _out_dtype("flash dkv kernel", k, out_dtype)
     B, Tq, H, D = q.shape
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dk = torch.empty(k.shape, dtype=out, device=k.device)
+    dv = torch.empty(v.shape, dtype=out, device=v.device)
     if dk.numel() == 0 or Tq == 0:
         return dk.zero_(), dv.zero_()
     with torch.cuda.device(q.device):
         _launch(
             "flash_attn_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _KERNEL_DTYPES[q.dtype], B, Tq, k.shape[1], H,
-            k.shape[2], D, _stride_array(q, k, v, do, dk, dv), _scale(D),
-            int(causal), _stream(q))
-    flash_attention_dkv_cuda.launches += 1
+            dv.data_ptr(), _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[out], B,
+            Tq, k.shape[1], H, k.shape[2], D,
+            _stride_array(q, k, v, do, dk, dv), _scale(D), int(causal),
+            _stream(q))
+    _count_bwd(flash_attention_dkv_cuda, k, out)
     return dk, dv
 
 
 flash_attention_dkv_cuda.launches = 0
+flash_attention_dkv_cuda.modes = dict.fromkeys(BWD_MODES, 0)
 
 
 def _path(x: torch.Tensor) -> str:
@@ -380,3 +417,52 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
     as they are."""
     del positions
     return flash_attention(q, k, v, causal=True)
+
+
+# --- block forms, for ring attention -------------------------------------
+#
+# The JAX package's block-level entry points onto its kernels
+# (``flash_block_forward``, ``flash_block_grads``), on [B, T, H, D] with
+# the per-row statistics as [B, T, H] f32.  They are not differentiable
+# themselves: ring attention wraps the whole rotation in one
+# ``torch.autograd.Function``.  CPU tensors take the plain versions; CUDA
+# tensors launch K4, K5 and K6, or raise.  The reference's ``block_q`` and
+# ``block_k`` are not taken: the Hopper kernels' tiles are fixed when they
+# are compiled, and no tile size changes the function.
+
+
+def flash_block_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False):
+    """One attention block pair, [B, Tq, H, D] x [B, Tk, H, D] (Tq != Tk
+    allowed when not causal): returns ``(o, lse)``, *o* in q's dtype
+    normalised over *this* K/V block only, *lse* the per-row logsumexp
+    [B, Tq, H] f32 (-inf, with *o* 0, for a row with no visible key).
+    Partials merge exactly: ``o = sum_s exp(lse_s - lse_tot) o_s``."""
+    if _path(q) == "cuda":
+        o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+    else:
+        o, lse = flash_attention_fwd_plain(q, k, v, causal)
+    return o, lse.transpose(1, 2)
+
+
+def flash_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, causal: bool = False):
+    """One block pair's gradient terms given the *global* softmax
+    statistics (``lse`` and ``delta = sum_d dO * O``, [B, Tq, H] f32):
+    ``(dq, dk, dv)`` in **f32** on the inputs' shapes, whatever their
+    dtype.  Summing dq over K/V blocks and dk/dv over query blocks gives
+    the dense gradient; the partials are summed unrounded and rounded
+    once by the caller.  On CUDA, K5 and K6 in their f32 output mode."""
+    lse_t, delta_t = (r.to(torch.float32).transpose(1, 2).contiguous()
+                      for r in (lse, delta))
+    if _path(q) == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, lse_t, delta_t, causal)
+    if not _kernel_takes(do):
+        do = do.contiguous()
+    f32 = torch.float32
+    dq = flash_attention_dq_cuda(q, k, v, do, lse_t, delta_t, causal,
+                                 out_dtype=f32)
+    dk, dv = flash_attention_dkv_cuda(q, k, v, do, lse_t, delta_t, causal,
+                                      out_dtype=f32)
+    return dq, dk, dv

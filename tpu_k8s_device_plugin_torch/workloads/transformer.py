@@ -90,16 +90,14 @@ def _unported(**features) -> None:
     yet, naming where ROADMAP.md puts it."""
     later = {
         "tp": "tensor-parallel serving arrives with multi-device "
-              "(ROADMAP.md, queue 1, item 6)",
+              "serving (ROADMAP.md, queue 1, item 6.4)",
         # the serving engine's and load_checkpoint_params's arguments
         "mesh": "tensor-parallel serving arrives with multi-device "
-                "(ROADMAP.md, queue 1, item 6)",
-        # restore_checkpoint's (workloads/checkpoint.py)
-        "shardings": "restoring onto a mesh arrives with multi-device "
-                     "training (ROADMAP.md, queue 1, item 6)",
-        # bench_main's run_elastic and --sharded
-        "sharded": "data-parallel training arrives with multi-device "
-                   "training (ROADMAP.md, queue 1, item 6)",
+                "serving (ROADMAP.md, queue 1, item 6.4)",
+        # make_ring_attention's (workloads/ring_attention.py): batch or
+        # heads on mesh axes other than the sequence's
+        "spec": "ring attention inside a mesh of other axes arrives with "
+                "the LM mesh (ROADMAP.md, queue 1, item 6.3)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
