@@ -76,9 +76,24 @@ Phases, each fatal on failure:
    zig-zag: 6); the data x model AlexNet on a (2, 2) mesh at the
    training path's size (global batch 1024, ``pool="pallas"``), 3 steps
    whose losses and every gathered parameter are held against the
-   single-device step's, K1 and K2 three times a step on each rank; and
-   beside them one NCCL rank, ``bench_main --sharded`` under torchrun's
-   env at world size 1;
+   single-device step's, K1 and K2 three times a step on each rank; the
+   LM mesh (``make_lm_train_step``, one step from seed 0): Llama-3-8B's
+   widths, 1 layer, on (data 1, expert 1, seq 2, model 2) with the
+   zig-zag ring at batch 1 x 4096, and Mixtral-8x7B's widths, 1 layer, on
+   (data 1, expert 2, seq 1, model 2) at batch 2 x 4096 (each rank's
+   expert stacks [4, 4096, 7168]), each in bf16 compute (the loss within
+   2e-2 of the single-device ``lm_train_step``'s, run alone on the card
+   first) and in f32 compute (the loss, and the gathered updates and
+   gradients of qkv, out_proj, the down projection and lm_head within
+   5e-2 in relative norm); GPipe (``make_pipeline``): 8 Llama-3-8B
+   blocks with flash attention over 4 pipe stages, 4 microbatches of
+   [1, 2048, 4096] bf16, forward and backward against the blocks run one
+   after another on rank 0 (forward within 1e-5, bit-equality printed;
+   gradients within 1e-4), K4, K5 and K6 counted on each stage; and
+   beside them two NCCL ranks at world size 1 under torchrun's env,
+   ``bench_main --sharded`` and ``make_lm_train_step`` on a (1, 1, 1, 1)
+   mesh at the reference tests' tiny config (its loss sums real NCCL
+   calls, the loss falling over 3 steps);
 5. the generation path: Llama-3-8B at full width and depth, bf16, random
    weights from a seed, through ``greedy_generate`` (batch 4, prompt
    1024, 32 new tokens): the launch counts are zeroed just before and
@@ -161,9 +176,10 @@ Phases, each fatal on failure:
    K6 four times each); the loss finite and lower after 5 steps on the
    same batch; tokens/s and MFU over 5 steps after 2 warmup, the peak
    memory, and a profile of one step by kernel;
-8. the rest of the model, with no other model resident: Llama-3-8B with
-   int8 and with int4 projections (``random_quantized_params``, seed 0;
-   the int4 unpack on the card against the CPU's for every byte):
+8. the rest of the model, with no other model resident: Llama-3-8B's
+   widths at 8 of its 32 layers with int8 and with int4 projections
+   (``random_quantized_params``, seed 0; the int4 unpack on the card
+   against the CPU's for every byte):
    ``greedy_generate`` at the main path's shapes with K4 once a layer,
    the captured decode against the op-by-op loop, prefill ms, decode
    tokens/s and the bytes a step must read beside the bf16 figures, and
@@ -176,7 +192,8 @@ Phases, each fatal on failure:
    and ``bench_serving --spec``'s figures; in bf16 a divergence passes
    only at a near tie of the plain path (its two logits within 4 bf16
    ulps: a verify of gamma + 1 rows rounds otherwise than a step), then
-   both models in f32, where ``speculative_generate``'s ids must equal
+   both models in f32 at 4 layers each, where ``speculative_generate``'s
+   ids must equal
    ``greedy_generate``'s and the target as its own draft must accept
    every proposal; LoRA (4 adapters of rank 8, B stacks from a seed):
    the engine phase's requests with no adapter give its ids, finish
@@ -241,6 +258,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2898,6 +2916,10 @@ def fleet_path(torch, cfg, sched, card):
 # near tie: the plain path's logits of the two tokens within
 # NEAR_TIE_ULPS bf16 ulps of the larger
 QUANT_KINDS = (("int8", True), ("int4", "int4"))
+# depth cut, to pay for phase 4b's LM mesh and pipeline: the int8 and
+# int4 models at 8 of Llama-3-8B's 32 layers (full width), and the f32
+# speculative exactness check's target and draft at 4 layers each
+QUANT_LAYERS, SPEC_F32_LAYERS = 8, 4
 SPEC_GAMMA, SPEC_DRAFT = 4, "llama3-1b"
 LORA_ADAPTERS, LORA_RANK, LORA_B_SD = 4, 8, 0.05
 LORA_SLOT_ADAPTERS = (0, 1, 2, 3, None, 0, 1, 2)
@@ -2953,21 +2975,25 @@ def first_divergence(torch, inference, model, prompt, want, got, what):
 
 
 def quant_path(torch, counts, inference, bench_serving, bf16, card):
-    """Phase 8a: Llama-3-8B with int8 and with int4 projections, all 32
-    layers, weights from ``random_quantized_params`` (seed 0) through
-    ``build_model_and_params``: ``greedy_generate`` at the main path's
-    shapes (K4 once a layer in the prefill; the captured decode gives
-    the op-by-op loop's ids), prefill ms, decode tokens/s and the bytes a
-    step must read beside the bf16 figures, and ``bench_serving
+    """Phase 8a: Llama-3-8B's widths with int8 and with int4 projections,
+    QUANT_LAYERS of its 32 layers, weights from
+    ``random_quantized_params`` (seed 0), as ``build_model_and_params``
+    builds them: ``greedy_generate`` at the main path's shapes (K4 once a
+    layer in the prefill; the captured decode gives the op-by-op loop's
+    ids), prefill ms, decode tokens/s and the bytes a step must read
+    beside the bf16 figures (32 layers), and ``bench_serving
     --engine``'s tokens/s at 8 prompts of 128."""
     out = {}
-    cfg = bench_serving.CONFIGS["llama3-8b"]
+    llama = bench_serving.llama
+    full = bench_serving.CONFIGS["llama3-8b"]
+    cfg = dataclasses.replace(full, n_layers=QUANT_LAYERS)
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(1))
     prompt = prompt.to("cuda")
     depth = PROMPT + NEW_TOKENS // 2
     kv = kv_bytes(cfg, BATCH, depth)
-    bf16_bytes = (cfg.n_params() - cfg.vocab * cfg.d_model) * 2 + kv
+    bf16_bytes = (full.n_params() - full.vocab * full.d_model) * 2 + \
+        kv_bytes(full, BATCH, depth)
     # the int4 unpack shifts int8 on the card as on the CPU: every byte
     every = torch.arange(-128, 128, dtype=torch.int8).reshape(16, 16)
     if not torch.equal(inference.unpack_int4(every.cuda()).cpu(),
@@ -2975,11 +3001,15 @@ def quant_path(torch, counts, inference, bench_serving, bf16, card):
         fail("unpack_int4 on the card differs from the CPU's")
     for kind, flag in QUANT_KINDS:
         t0 = time.perf_counter()
-        _, model = bench_serving.build_model_and_params(
-            "llama3-8b", MAX_LEN, device="cuda", seed=0, quantized=flag)
+        model = llama.decoder(cfg, max_len=MAX_LEN, quantized=flag,
+                              device="cuda")
+        model.load_state_dict(llama.random_quantized_params(
+            cfg, seed=0, bits=4 if flag == "int4" else 8,
+            device=model.device))
         torch.cuda.synchronize()
         wbytes = weight_bytes(model)
-        print(f"llama3-8b {kind}: weights built in "
+        print(f"llama3-8b {kind}, {cfg.n_layers} of {full.n_layers} layers: "
+              f"weights built in "
               f"{time.perf_counter() - t0:.1f} s, {wbytes / 1e9:.3f} GB of "
               f"projections and scales, "
               f"{model.embed.weight.numel() * 2 / 1e9:.3f} GB of bf16 "
@@ -3004,8 +3034,9 @@ def quant_path(torch, counts, inference, bench_serving, bf16, card):
                                             rounds=3)
         step_ms = 1e3 * BATCH / stats["tokens_per_sec"]
         need = wbytes + kv
-        print(f"llama3-8b {kind}: prefill {stats['prefill_ms']:.3f} ms "
-              f"(bf16 {bf16['prefill_ms']:.3f}); decode "
+        print(f"llama3-8b {kind}, {cfg.n_layers} layers: prefill "
+              f"{stats['prefill_ms']:.3f} ms (bf16 at {full.n_layers} "
+              f"layers {bf16['prefill_ms']:.3f}); decode "
               f"{stats['tokens_per_sec']:.1f} tokens/s at batch {BATCH} "
               f"(bf16 {bf16['tokens_per_sec']:.1f}), {step_ms:.3f} ms a "
               f"step; a step must read {need / 1e9:.3f} GB (bf16 "
@@ -3133,16 +3164,21 @@ def spec_path(torch, np, obs, inference, llama, bench_serving, serving,
     # agree far below any gap: the ids must be equal, and the target as
     # its own draft must accept every proposal
     dt = torch.float32
-    target = llama.decoder(cfg, max_len=MAX_LEN, dtype=dt, device="cuda")
+    target = llama.decoder(
+        dataclasses.replace(cfg, n_layers=SPEC_F32_LAYERS), max_len=MAX_LEN,
+        dtype=dt, device="cuda")
     bench_serving.random_init_(target, seed=0)
-    draft = llama.decoder(dcfg, max_len=MAX_LEN, dtype=dt, device="cuda")
+    draft = llama.decoder(
+        dataclasses.replace(dcfg, n_layers=SPEC_F32_LAYERS),
+        max_len=MAX_LEN, dtype=dt, device="cuda")
     bench_serving.random_init_(draft, seed=1)
     want = inference.greedy_generate(target, [prompt], NEW_TOKENS)[0]
     want = want[0].tolist()
     for name, d in ((SPEC_DRAFT, draft), ("self", target)):
         ids, rate = speculative.speculative_generate(
             target, d, prompt, NEW_TOKENS, gamma=SPEC_GAMMA)
-        print(f"speculative_generate (f32, {name} draft): accept rate "
+        print(f"speculative_generate (f32, {SPEC_F32_LAYERS} layers each, "
+              f"{name} draft): accept rate "
               f"{rate:.4f}, ids equal to greedy_generate's: "
               f"{ids.tolist() == want}; {card}", flush=True)
         if ids.tolist() != want:
@@ -3430,17 +3466,23 @@ def rest_of_model_path(torch, counts, fa, inference, llama, transformer,
     import numpy as np
 
     t0 = time.perf_counter()
-    out = dict(
-        quant=quant_path(torch, counts, inference, bench_serving, bf16,
-                         card),
-        spec=spec_path(torch, np, obs, inference, llama, bench_serving,
-                       serving, scheduler, speculative, engine, card),
-        lora=lora_path(torch, np, inference, bench_serving, serving, engine,
-                       card),
-        moe=moe_path(torch, counts, fa, inference, transformer, serving,
-                     bench_serving, card))
-    print(f"rest of the model: phase wall {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    out, walls = {}, []
+    for name, run in (
+            ("quant", lambda: quant_path(torch, counts, inference,
+                                         bench_serving, bf16, card)),
+            ("spec", lambda: spec_path(torch, np, obs, inference, llama,
+                                       bench_serving, serving, scheduler,
+                                       speculative, engine, card)),
+            ("lora", lambda: lora_path(torch, np, inference, bench_serving,
+                                       serving, engine, card)),
+            ("moe", lambda: moe_path(torch, counts, fa, inference,
+                                     transformer, serving, bench_serving,
+                                     card))):
+        t = time.perf_counter()
+        out[name] = run()
+        walls.append(f"{name} {time.perf_counter() - t:.1f} s")
+    print(f"rest of the model: phase wall {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(walls)})", flush=True)
     return out
 
 
@@ -3520,6 +3562,8 @@ def worker(argv) -> int:
         return rank_child()
     if argv[:1] == ["md-rank"]:
         return md_rank_child()
+    if argv[:1] == ["md-nccl-lm"]:
+        return md_nccl_lm_child()
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4940,7 +4984,7 @@ MD_LOSS_REL = 1e-4
 MD_UPDATE_REL = {"Conv": 1e-1, "Dense": 5e-2}
 MD_NCCL_ARGS = ("--sharded", "--pool", "pallas", "--batch", "256",
                 "--steps", "3", "--warmup", "1")
-MD_TIMEOUT_S = 300
+MD_TIMEOUT_S = 480
 
 
 def _md_zero(fa, mp) -> None:
@@ -5089,6 +5133,338 @@ def _md_alexnet(torch, dist, alexnet, parallel, fa, mp, say):
     return got, ok
 
 
+# item 6.3 on the card, in the same children: the LM mesh at Llama-3-8B's
+# widths (meta-llama/Meta-Llama-3-8B; 1 layer: the depth cut, the widths
+# full) on (data 1, expert 1, seq 2, model 2), zig-zag ring, batch 1 x
+# 4096; at Mixtral-8x7B's (MIXTRAL, 1 layer) on (data 1, expert 2, seq 1,
+# model 2), batch 2 x 4096, local attention; each one step from seed 0
+# against the single-device lm_train_step on the same weights and batch,
+# run alone on the card first (its f32 weights, gradients and Adam
+# moments do not fit beside the ranks').  In bf16 compute (the LM path;
+# Llama-3-8B's widths) the loss is held at the reference test's 2e-2; in
+# f32 compute (both) also the gathered updates and gradients (Adam's
+# first moment after one step, 0.1 g) of the leaves in MD_LM_KEEP, at
+# MD_LM_REL in relative norm: in bf16 Adam's first update is about
+# lr * sign(g), and rounding flips the sign of near-zero gradient
+# entries (bf16 updates 9.0e-2-3.3e-1 from the single-device step's at
+# these widths, gradients 7.2e-3-6.4e-2; f32 updates 6.8e-5-7.3e-4,
+# gradients 2.7e-6-7.0e-6 on this card)
+LLAMA3_8B_WIDTHS = dict(vocab=128256, d_model=4096, n_heads=32,
+                        n_kv_heads=8, d_ff=14336, ffn="swiglu",
+                        rope_theta=500000.0)
+MD_LM = (
+    ("llama3-8b", dict(LLAMA3_8B_WIDTHS, n_layers=1), (1, 2, 2),
+     dict(batch=1, seq_len=4096, seq_axis="seq", attn_layout="zigzag"),
+     ("bfloat16", "float32")),
+    ("mixtral", dict(MIXTRAL, n_layers=1), (2, 1, 2),
+     dict(batch=2, seq_len=4096, seq_axis=None), ("float32",)),
+)
+MD_LM_KEEP = {
+    "llama3-8b": ("block_0.qkv.weight", "block_0.out_proj.weight",
+                  "block_0.mlp_down.weight", "lm_head.weight"),
+    "mixtral": ("block_0.qkv.weight", "block_0.out_proj.weight",
+                "block_0.moe.experts_down", "lm_head.weight"),
+}
+MD_LM_LR, MD_LM_LOSS_RTOL, MD_LM_REL = 1e-3, 2e-2, 5e-2
+# each rank's expert stacks at Mixtral's widths on expert 2 x model 2
+MD_MOE_LOCAL = {"block_0.moe.experts_up": (4, 4096, 7168),
+                "block_0.moe.experts_down": (4, 7168, 4096)}
+# GPipe: 8 Llama-3-8B blocks (f32 parameters, flash attention) over 4
+# pipe stages, 2 a stage, 4 microbatches of [1, 2048, 4096] bf16, forward
+# and backward (a seeded cotangent) against the same blocks run one after
+# another on one rank: the forward within 1e-5 (and whether it is
+# bit-equal), each gathered gradient within 1e-4 in relative norm
+MD_PIPE_LAYERS, MD_PIPE_MICRO, MD_PIPE_MB = 8, 4, (1, 2048)
+MD_PIPE_FWD, MD_PIPE_GRAD = 1e-5, 1e-4
+
+
+@contextlib.contextmanager
+def _compute_dtype(transformer, dtype):
+    """``make_lm_train_step`` building its model in *dtype* compute, for
+    the f32 arm (``make_lm_train_step`` takes the reference's arguments,
+    and so no dtype of its own)."""
+    import functools
+
+    orig = transformer.TransformerLM
+    transformer.TransformerLM = functools.partial(orig, dtype=dtype)
+    try:
+        yield
+    finally:
+        transformer.TransformerLM = orig
+
+
+def _gather0(torch, dist, sh, local):
+    """The whole tensor of *local* pieces under the ``parallel.Sharding``
+    *sh*, on rank 0's host (None on the others).  Only the ranks at
+    rank 0's place on every axis the tensor is not split on send their
+    piece, once: the others hold copies, and ``sh.gather`` would give
+    every rank every piece."""
+    rank = dist.get_rank()
+    grid, names = sh.mesh.mesh, sh.mesh.mesh_dim_names
+    split = [(d, a if isinstance(a, tuple) else (a,))
+             for d, a in enumerate(sh.spec) if a is not None]
+    split_axes = {a for _, axes in split for a in axes}
+
+    def coord(r):
+        return dict(zip(names, (grid == r).nonzero()[0].tolist()))
+
+    owners = [r for r in grid.flatten().tolist()
+              if all(c == 0 for a, c in coord(r).items()
+                     if a not in split_axes)]
+    local = local.detach().to("cpu").contiguous()
+    if rank != 0:
+        if rank in owners:
+            dist.send(local, dst=0)
+        return None
+    sizes = dict(zip(names, grid.shape))
+    shape = list(local.shape)
+    for d, axes in split:
+        shape[d] *= math.prod(sizes[a] for a in axes)
+    full = torch.empty(shape, dtype=local.dtype)
+    for r in owners:
+        piece = local
+        if r != 0:
+            piece = torch.empty_like(local)
+            dist.recv(piece, src=r)
+        at = coord(r)
+        idx = [slice(None)] * len(shape)
+        for d, axes in split:
+            i = 0
+            for a in axes:
+                i = i * sizes[a] + at[a]
+            idx[d] = slice(i * local.shape[d], (i + 1) * local.shape[d])
+        full[tuple(idx)] = piece
+    return full
+
+
+def _rel(torch, got, want, base=None) -> float:
+    """``|got - want| / |want - base|`` (or ``/ |want|``), in f32 norms."""
+    ref = want if base is None else want - base
+    return float((got - want).float().norm() / ref.float().norm())
+
+
+def _md_lm_arm(torch, dist, transformer, bench_serving, name, cfg, shape,
+               kw, dtype, say):
+    """One LM mesh arm: rank 0 runs the single-device step alone first;
+    then every rank runs the sharded step, and rank 0 holds its loss (and
+    in f32 its gathered updates and gradients) against it.  Returns the
+    arm's figures and whether they held."""
+    rank = dist.get_rank()
+    keep = MD_LM_KEEP[name]
+    ref = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model = transformer.TransformerLM(device="cuda", dtype=dtype, **cfg)
+        bench_serving.random_init_(model, 0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = transformer.synthetic_lm_batch(gen, kw["batch"],
+                                               kw["seq_len"], cfg["vocab"])
+        params = dict(model.named_parameters())
+
+        def host(x):
+            return x.detach().to("cpu", copy=True)
+
+        w0 = {k: host(params[k]) for k in keep}
+        opt = torch.optim.Adam(model.parameters(), lr=MD_LM_LR,
+                               foreach=False)
+        loss = float(transformer.lm_train_step(model, opt, *batch))
+        ref = (loss, w0, {k: host(params[k]) for k in keep},
+               {k: host(opt.state[params[k]]["exp_avg"]) for k in keep},
+               torch.cuda.max_memory_allocated(), time.perf_counter() - t0)
+        del model, opt, params, batch
+        _fresh(torch)
+    dist.barrier()
+    e, s, m = shape
+    t_build = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = transformer.make_lm_mesh(seq=s, model=m, expert=e)
+    with _compute_dtype(transformer, dtype):
+        step, state, place = transformer.make_lm_train_step(
+            mesh, learning_rate=MD_LM_LR, **cfg, **kw)
+    placed = place(*state["batch"])
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_build = t0 - t_build
+    loss = float(step(*placed))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model, sh, opt = state["model"], state["shardings"], state["opt"]
+    params = dict(model.named_parameters())
+    local = {k: tuple(p.shape) for k, p in params.items()}
+    got = {k: tuple(_gather0(torch, dist, sh[k], x) for x in (
+        params[k], opt.state[params[k]]["exp_avg"])) for k in keep}
+    t_gather = time.perf_counter() - t0 - wall
+    tag = f"{name} {'f32' if dtype == torch.float32 else 'bf16'}"
+    say(f"lm mesh {tag} rank {rank} ({dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+        f"): build {t_build:.1f} s, one step {wall:.3f} s (4 ranks "
+        f"time-slice the card, gloo stages through the host), gathers "
+        f"{t_gather:.1f} s, peak {peak / 2**30:.2f} GiB; "
+        f"local {', '.join(f'{k} {list(local[k])}' for k in keep)}")
+    ok = math.isfinite(loss)
+    if name == "mixtral":
+        ok = ok and all(local[k] == v for k, v in MD_MOE_LOCAL.items())
+    result = {"loss": loss, "wall_s": wall, "peak_gib": peak / 2**30}
+    del state, step, model, opt, params, placed
+    _fresh(torch)
+    if rank == 0:
+        t_cmp = time.perf_counter()
+        want, w0, w1, m1, ref_peak, ref_wall = ref
+        rel_loss = abs(loss - want) / abs(want)
+        upd = {k: _rel(torch, got[k][0], w1[k], w0[k]) for k in keep}
+        grad = {k: _rel(torch, got[k][1], m1[k]) for k in keep}
+        held = dtype == torch.float32
+        say(f"lm mesh {tag}: {cfg['n_layers']} layer at full width, batch "
+            f"{kw['batch']} x {kw['seq_len']}: loss {loss:.6f} against the "
+            f"single-device step's {want:.6f} (relative {rel_loss:.3e}, "
+            f"limit {MD_LM_LOSS_RTOL}; that step {ref_wall:.1f} s with its "
+            f"init, peak {ref_peak / 2**30:.2f} GiB alone); gathered "
+            f"updates |w - w_single| / |w_single - w_0|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in upd.items())
+            + "; gradients (Adam's first moment): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in grad.items())
+            + (f" (limit {MD_LM_REL})" if held else
+               " (bf16: reported, not held)"))
+        ok = ok and rel_loss <= MD_LM_LOSS_RTOL
+        if held:
+            ok = ok and all(v <= MD_LM_REL for v in (*upd.values(),
+                                                     *grad.values()))
+        result.update(rel_loss=rel_loss, updates=upd, gradients=grad)
+        say(f"lm mesh {tag}: comparison {time.perf_counter() - t_cmp:.1f} s")
+    return result, ok
+
+
+def _md_lm(torch, dist, transformer, bench_serving, say):
+    """The LM mesh arms of MD_LM, each printing its wall time."""
+    out, ok = {}, True
+    for name, cfg, shape, kw, dtypes in MD_LM:
+        for dtype in dtypes:
+            t0 = time.perf_counter()
+            r, good = _md_lm_arm(torch, dist, transformer, bench_serving,
+                                 name, cfg, shape, kw,
+                                 getattr(torch, dtype), say)
+            r["arm_s"] = time.perf_counter() - t0
+            say(f"lm mesh {name} {dtype}: arm wall {r['arm_s']:.1f} s (the "
+                "single-device step, the sharded build and step, the "
+                "gathers and the comparison)")
+            out[f"{name}-{dtype}"] = r
+            ok = ok and good
+    return out, ok
+
+
+def _md_pipeline(torch, dist, transformer, pipeline, parallel,
+                 bench_serving, fa, mp, say):
+    """GPipe over the 4 ranks: rank 0 runs the blocks one after another
+    first (each microbatch forward and backward alone), then every rank
+    runs the pipeline; rank 0 holds the pipeline's output and gathered
+    gradients against its own.  Returns the launches of each rank's
+    stage and whether all held."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    t_arm = time.perf_counter()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    w = LLAMA3_8B_WIDTHS
+    block_kw = dict(n_kv_heads=w["n_kv_heads"], ffn="swiglu",
+                    rope_theta=w["rope_theta"],
+                    attn_fn=fa.flash_causal_attention)
+    blk = transformer.Block(w["d_model"], w["n_heads"], w["d_ff"],
+                            device="meta", **block_kw)
+    mb, T = MD_PIPE_MB
+    positions = torch.arange(T, dtype=torch.int32,
+                             device="cuda").expand(mb, T)
+
+    def layer_fn(p, x):
+        return torch.func.functional_call(blk, p, (x, positions))
+
+    def build_stack(layers):
+        # a stage reads only its own layers of the stack: the others are
+        # left unfilled on the ranks that do not run the sequential blocks
+        stacked = {k: torch.empty((MD_PIPE_LAYERS, *p.shape),
+                                  device="cuda")
+                   for k, p in blk.named_parameters()}
+        for i in layers:
+            layer = transformer.Block(w["d_model"], w["n_heads"], w["d_ff"],
+                                      device="cuda", **block_kw)
+            bench_serving.random_init_(layer, 100 + i)
+            for k, p in layer.named_parameters():
+                stacked[k][i].copy_(p.detach())
+            del layer
+        return stacked
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x, dy = (torch.randn((MD_PIPE_MICRO, mb, T, w["d_model"]), generator=gen,
+                         device="cuda").to(torch.bfloat16) for _ in range(2))
+    ref = None
+    if rank == 0:
+        stacked = build_stack(range(MD_PIPE_LAYERS))
+        leaves = {k: v.requires_grad_() for k, v in stacked.items()}
+        outs = []
+        for m in range(MD_PIPE_MICRO):
+            h = x[m]
+            for i in range(MD_PIPE_LAYERS):
+                h = layer_fn({k: v[i] for k, v in leaves.items()}, h)
+            outs.append(h.detach())
+            h.backward(dy[m])
+        ref = (torch.stack(outs), {k: v.grad for k, v in leaves.items()})
+        stacked = {k: v.detach() for k, v in leaves.items()}
+        del leaves, outs, h
+        _fresh(torch)
+    dist.barrier()
+    if rank != 0:
+        per = MD_PIPE_LAYERS // n
+        stacked = build_stack(range(rank * per, (rank + 1) * per))
+    mesh = DeviceMesh("cuda", torch.arange(n).reshape(1, n),
+                      mesh_dim_names=("data", "pipe"))
+    apply, params, in_sh = pipeline.make_pipeline(mesh, layer_fn, stacked)
+    del stacked
+    _fresh(torch)
+    xl, dyl = in_sh.local(x), in_sh.local(dy)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _md_zero(fa, mp)
+    t0 = time.perf_counter()
+    out = apply(params, xl)
+    out.backward(dyl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"K4": fa.flash_attention_cuda.launches,
+           "K5": fa.flash_attention_dq_cuda.launches,
+           "K6": fa.flash_attention_dkv_cuda.launches}
+    per_stage = MD_PIPE_LAYERS // n * MD_PIPE_MICRO
+    want = {"K4": per_stage, "K5": per_stage, "K6": per_stage}
+    say(f"pipeline rank {rank}: stage of {MD_PIPE_LAYERS // n} blocks, "
+        f"{MD_PIPE_MICRO} microbatches forward and backward in {wall:.3f} s "
+        f"(4 ranks time-slice the card), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{got}, expected {want}")
+    ok = got == want and bool(torch.isfinite(out).all())
+    stage = parallel.Sharding(mesh, ("pipe",))
+    grads = {}
+    for k, p in params.items():
+        g = _gather0(torch, dist, stage, p.grad)
+        if rank == 0:
+            grads[k] = _rel(torch, g, ref[1][k].cpu())
+        del g
+    if rank == 0:
+        diff = float((out.float() - ref[0].float()).abs().max())
+        say(f"pipeline: {MD_PIPE_LAYERS} Llama-3-8B blocks over {n} stages, "
+            f"{MD_PIPE_MICRO} microbatches of {[*MD_PIPE_MB, w['d_model']]} "
+            f"bf16, against the blocks one after another on one rank: "
+            f"forward max |diff| {diff:.3e} (limit {MD_PIPE_FWD}; bit-equal "
+            f"{bool(torch.equal(out, ref[0]))}), gathered gradients "
+            f"|g - g_seq| / |g_seq|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
+            + f" (limit {MD_PIPE_GRAD})")
+        ok = ok and diff <= MD_PIPE_FWD and all(
+            v <= MD_PIPE_GRAD for v in grads.values())
+    del out, params, ref
+    _fresh(torch)
+    say(f"pipeline: arm wall {time.perf_counter() - t_arm:.1f} s")
+    return got, ok
+
+
 def md_rank_child() -> int:
     """``chip_smoke.py --worker md-rank``: one rank of the multi-device
     phase, on a gloo group from its env (the ranks share the one card,
@@ -5100,7 +5476,7 @@ def md_rank_child() -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_k8s_device_plugin_torch.workloads import (
-        alexnet, parallel, transformer)
+        alexnet, bench_serving, parallel, pipeline, transformer)
     from tpu_k8s_device_plugin_torch.workloads import flash_attention as fa
     from tpu_k8s_device_plugin_torch.workloads import pool as mp
     from tpu_k8s_device_plugin_torch.workloads import ring_attention as ra
@@ -5118,40 +5494,86 @@ def md_rank_child() -> int:
         ring, ring_ok = _md_ring(torch, dist, fa, mp, ra, transformer, say)
         alex, alex_ok = _md_alexnet(torch, dist, alexnet, parallel, fa, mp,
                                     say)
+        _fresh(torch)
+        lm, lm_ok = _md_lm(torch, dist, transformer, bench_serving, say)
+        pipe, pipe_ok = _md_pipeline(torch, dist, transformer, pipeline,
+                                     parallel, bench_serving, fa, mp, say)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     print(json.dumps({"rank": rank, "ring": ring, "alexnet": alex,
-                      "ok": ring_ok and alex_ok}), flush=True)
+                      "lm": lm, "pipeline": pipe,
+                      "ok": ring_ok and alex_ok and lm_ok and pipe_ok}),
+          flush=True)
+    return 0
+
+
+def md_nccl_lm_child() -> int:
+    """``chip_smoke.py --worker md-nccl-lm``: ``make_lm_train_step`` on a
+    (1, 1, 1, 1) mesh over NCCL at world size 1 (torchrun's env), the
+    reference tests' tiny config, 3 steps: the loss's sums over the
+    token axes are real NCCL calls.  Prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_k8s_device_plugin_torch.workloads import transformer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="env://")
+    try:
+        mesh = transformer.make_lm_mesh(seq=1, model=1, expert=1)
+        step, state, place = transformer.make_lm_train_step(
+            mesh, vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+            seq_len=32, batch=4)
+        batch = place(*state["batch"])
+        losses = [float(step(*batch)) for _ in range(3)]
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"backend": backend, "losses": losses,
+                      "mesh": list(mesh.shape),
+                      "ok": all(map(math.isfinite, losses))
+                      and losses[-1] < losses[0]}), flush=True)
     return 0
 
 
 def multi_device_path(card):
     """Phase 4b, multi-device: MD_RANKS rank children (``--worker
     md-rank``) on one gloo group on this card run the ring in every impl
-    and layout and the (2, 2) AlexNet; beside them one NCCL rank runs
-    ``bench_main --sharded`` under torchrun's env (world size 1: the one
+    and layout, the (2, 2) AlexNet, the LM mesh arms (MD_LM) and GPipe;
+    beside them two NCCL ranks run ``bench_main --sharded`` and
+    ``--worker md-nccl-lm`` under torchrun's env (world size 1: the one
     form of NCCL this machine allows).  Every child's failure fails the
-    phase.  Returns the ring's and the AlexNet's launches by rank."""
+    phase.  Returns the ring's, the AlexNet's and the pipeline's launches
+    by rank."""
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items()
             if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                          "MASTER_PORT")}
     port, nccl_port = _free_port(), _free_port()
+    # the ranks share the card: expandable segments keep what one rank's
+    # allocator has cached from holding memory another needs
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker", "md-rank"],
         env={**base, "RANK": str(r), "WORLD_SIZE": str(MD_RANKS),
-             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)},
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+             "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"},
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=root) for r in range(MD_RANKS)]
-    procs.append(subprocess.Popen(
-        [sys.executable, "-m", "tpu_k8s_device_plugin_torch.workloads."
-         "bench_main", *MD_NCCL_ARGS],
-        env={**base, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(nccl_port)},
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=root))
+    nccl_lm_port = _free_port()
+    for argv, nport in (
+            (["-m", "tpu_k8s_device_plugin_torch.workloads.bench_main",
+              *MD_NCCL_ARGS], nccl_port),
+            ([os.path.abspath(__file__), "--worker", "md-nccl-lm"],
+             nccl_lm_port)):
+        procs.append(subprocess.Popen(
+            [sys.executable, *argv],
+            env={**base, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(nport)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=root))
     outs = []
     try:
         deadline = time.perf_counter() + MD_TIMEOUT_S
@@ -5169,7 +5591,8 @@ def multi_device_path(card):
     results = []
     for i, (rc, out) in enumerate(outs):
         lines = out.strip().splitlines()
-        what = f"rank {i}" if i < MD_RANKS else "the NCCL rank"
+        what = f"rank {i}" if i < MD_RANKS else ("the NCCL rank", "the NCCL "
+                                                  "LM rank")[i - MD_RANKS]
         for line in lines[:-1]:
             print(line, flush=True)
         try:
@@ -5191,6 +5614,12 @@ def multi_device_path(card):
           f"on this card: not a speed)", flush=True)
     if nccl["backend"] != "nccl" or nccl["mesh"] != {"data": 1, "model": 1}:
         fail(f"multi-device: the NCCL rank ran {nccl}")
+    nccl_lm = results[MD_RANKS + 1]
+    print(f"multi-device, make_lm_train_step on a {nccl_lm['mesh']} mesh "
+          f"over {nccl_lm['backend']} at world size 1, the tiny config: "
+          f"losses {nccl_lm['losses']}", flush=True)
+    if nccl_lm["backend"] != "nccl" or not nccl_lm["ok"]:
+        fail(f"multi-device: the NCCL LM rank ran {nccl_lm}")
     print(f"multi-device: phase wall {time.perf_counter() - t_phase:.1f} s "
           f"with the children's start; {card}", flush=True)
     ring = {r["rank"]: r["ring"] for r in results[:MD_RANKS]}
@@ -5200,7 +5629,9 @@ def multi_device_path(card):
                               for r in ring for impl, layout in MD_RING)
                        for k in ("K5", "K6")},
             "K4": sum(ring[r][f"flash-{layout}"]["K4"] for r in ring
-                      for layout in ("contiguous", "zigzag"))}
+                      for layout in ("contiguous", "zigzag")),
+            "pipeline": {k: sum(r["pipeline"][k] for r in results[:MD_RANKS])
+                         for k in ("K4", "K5", "K6")}}
 
 
 def main() -> int:
@@ -5308,6 +5739,7 @@ def main() -> int:
                            launches_checkpoint_lm=ckpt["lm"][
                                "flash_attn_fwd"],
                            launches_ring=multi["K4"],
+                           launches_pipeline=multi["pipeline"]["K4"],
                            **flash_train["lse"])),
         dict(name="flash_attn_dq", route="cuda",
              source=csrc + "flash_attn_bwd.cu",
@@ -5316,6 +5748,7 @@ def main() -> int:
              launches_moe_train=rest["moe"]["train_launches"][
                  "flash_attn_dq"],
              launches_checkpoint_lm=ckpt["lm"]["flash_attn_dq"],
+             launches_pipeline=multi["pipeline"]["K5"],
              note="plain_ms is the plain backward (dQ, dK and dV) at the "
                   "head slice; library_ms is sdpa's whole backward, the "
                   "yardstick for K5 and K6 together"),
@@ -5326,6 +5759,7 @@ def main() -> int:
              launches_moe_train=rest["moe"]["train_launches"][
                  "flash_attn_dkv"],
              launches_checkpoint_lm=ckpt["lm"]["flash_attn_dkv"],
+             launches_pipeline=multi["pipeline"]["K6"],
              note="plain_ms is the plain backward (dQ, dK and dV) at the "
                   "head slice; library_ms is sdpa's whole backward, the "
                   "yardstick for K5 and K6 together"),

@@ -11,6 +11,8 @@ On the GPU machine:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -437,6 +439,25 @@ def test_ring_of_one_rank_on_the_card(gen, layout, impl):
     for g, w in zip(got, want):
         _assert_blocks_close(g, w, GRAD_TOL[torch.bfloat16],
                              BLOCK_REL[torch.bfloat16])
+
+
+def test_lm_mesh_step_of_one_rank_on_nccl(gen):
+    """``make_lm_train_step`` on a (1, 1, 1, 1) mesh over NCCL at world
+    size 1, the reference tests' tiny config: its collectives (the loss's
+    sums over the token axes) are real NCCL calls on the card, and the
+    loss is finite and falls."""
+    import torch_gloo_ranks
+    from tpu_k8s_device_plugin_torch.workloads import transformer as tr
+
+    with torch_gloo_ranks.solo_group("nccl"):
+        mesh = tr.make_lm_mesh(seq=1, model=1, expert=1)
+        step, state, place = tr.make_lm_train_step(
+            mesh, vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+            seq_len=32, batch=4)
+        batch = place(*state["batch"])
+        losses = [float(step(*batch)) for _ in range(3)]
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+    assert next(state["model"].parameters()).is_cuda
 
 
 def test_lm_train_step_runs_k4_k5_k6_per_layer(gen):

@@ -240,13 +240,14 @@ class TestZigzagFlash:
 
 
 def test_errors(pool):
-    """The reference's errors, and what stays for later: a ``spec`` with
-    another axis than the sequence's names item 6.3."""
+    """The reference's errors; and a ``spec`` with the batch on another
+    axis of a mesh, which runs (each rank's block of a (data 4, seq 2)
+    mesh) and agrees with the oracle's block."""
     seen = pool.run("ring_errors", ALL)[0]
     assert seen["layout"][0] == "ValueError"
     assert seen["zigzag_non_causal"][0] == "ValueError"
     assert seen["impl"][0] == "ValueError"
     assert seen["heads"][0] == "ValueError" and "repeat_kv" in \
         seen["heads"][1]
-    assert seen["spec"][0] == "NotImplementedError"
-    assert "item 6.3" in seen["spec"][1]
+    assert seen["spec"][0] == (1, 4, 2, 4)
+    assert seen["spec"][1] <= F32_OUT

@@ -1,5 +1,7 @@
 """The rank side of the port's multi-process tests (``GlooPool`` in
-``tests/test_torch_parallel.py``): each rank is a process started with
+``tests/test_torch_parallel.py``; also ``tests/test_torch_ring_attention.py``,
+``test_torch_lm_mesh.py`` and ``test_torch_pipeline.py``): each rank is a
+process started with
 the ``spawn`` context, joins one gloo group, and runs the cases the
 pytest parent sends it through its queue, answering with numpy arrays.
 It imports torch and numpy only (and the port), never JAX: the parent
@@ -51,11 +53,11 @@ def free_port() -> int:
 
 
 @contextlib.contextmanager
-def solo_group():
-    """A gloo group of this process alone (world size 1), destroyed on
-    exit."""
+def solo_group(backend: str = "gloo"):
+    """A group of this process alone (world size 1) on *backend*,
+    destroyed on exit."""
     dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
         world_size=1)
     try:
         yield
@@ -249,13 +251,27 @@ def ring_errors(ranks):
     for name, kw in (("layout", dict(layout="diagonal")),
                      ("zigzag_non_causal", dict(layout="zigzag",
                                                 causal=False)),
-                     ("impl", dict(impl="fused")),
-                     ("spec", dict(spec=("data", "seq", None, None)))):
+                     ("impl", dict(impl="fused"))):
         try:
             ra.make_ring_attention(group, **kw)
             seen[name] = None
         except (ValueError, NotImplementedError) as e:
             seen[name] = (type(e).__name__, str(e))
+    # batch on another axis of a mesh: the ring runs over "seq" only
+    from tpu_k8s_device_plugin_torch.workloads import parallel
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh("cpu", torch.tensor(ranks).reshape(-1, 2),
+                      mesh_dim_names=("data", "seq"))
+    spec = ("data", "seq", None, None)
+    fn, sharding = ra.make_ring_attention(mesh, causal=True, spec=spec,
+                                          seq_axis="seq")
+    x = torch.randn(4, 8, 2, 4, generator=torch.Generator().manual_seed(0))
+    local = sharding.scatter(x)
+    want = parallel.Sharding(mesh, spec).local(
+        ra.full_attention(x, x, x, causal=True))
+    seen["spec"] = (tuple(local.shape),
+                    float((fn(local, local, local) - want).abs().max()))
     fn, _ = ra.make_ring_attention(group, causal=True, impl="flash",
                                    spec=(None, "seq", None, None))
     q = torch.zeros(1, 8, 4, 16)
@@ -266,3 +282,191 @@ def ring_errors(ranks):
         seen["heads"] = (type(e).__name__, str(e))
     return seen
 
+
+
+# --- item 6.3: the LM mesh and the pipeline ------------------------------
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """``make_lm_train_step`` building its model in *dtype* compute (a
+    name; None keeps bf16): where parameter updates are compared, f32,
+    since bf16 rounding flips the sign of near-zero gradient entries and
+    Adam's first update is about ``lr * sign(g)``."""
+    import functools
+
+    from tpu_k8s_device_plugin_torch.workloads import transformer as tr
+
+    orig = tr.TransformerLM
+    if dtype is not None:
+        tr.TransformerLM = functools.partial(orig,
+                                             dtype=getattr(torch, dtype))
+    try:
+        yield
+    finally:
+        tr.TransformerLM = orig
+
+
+def lm_mesh(shape, ranks=None):
+    """``make_lm_mesh`` with ``(expert, seq, model)`` *shape* over *ranks*
+    (every rank by default), or ``("legacy", data, seq, model)``: a
+    3-axis ``data x seq x model`` mesh, which has no expert axis."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from tpu_k8s_device_plugin_torch.workloads import transformer as tr
+
+    if shape[0] == "legacy":
+        grid = torch.arange(dist.get_world_size()).reshape(shape[1:])
+        return DeviceMesh("cpu", grid,
+                          mesh_dim_names=("data", "seq", "model"))
+    expert, seq, model = shape
+    return tr.make_lm_mesh(ranks, seq=seq, model=model, expert=expert,
+                           device="cpu")
+
+
+def lm_steps(shape, kw, params, batch, steps, dtype=None, ranks=None,
+             keep=()):
+    """``make_lm_train_step`` on the mesh *shape* (see :func:`lm_mesh`)
+    with the whole parameters *params* (numpy, the port's names) loaded
+    into this rank's pieces, then *steps* steps on the whole
+    natural-order *batch*: the losses, the gathered parameters named in
+    *keep* after the steps, and each parameter's local shape and spec.
+    None on a rank outside *ranks*."""
+    from tpu_k8s_device_plugin_torch.workloads import transformer as tr
+
+    mesh = lm_mesh(shape, ranks)
+    if ranks is not None and dist.get_rank() not in ranks:
+        return None
+    with compute_dtype(dtype):
+        step, state, place = tr.make_lm_train_step(mesh, **kw)
+    model, sh = state["model"], state["shardings"]
+    model.load_state_dict({k: sh[k].local(torch.from_numpy(v))
+                           for k, v in params.items()})
+    placed = place(*(torch.from_numpy(b) for b in batch))
+    losses = [float(step(*placed)) for _ in range(steps)]
+    local = model.state_dict()
+    after = {k: np32(sh[k].gather(local[k])) for k in keep}
+    return (losses, after, {k: tuple(v.shape) for k, v in local.items()},
+            {k: sh[k].spec for k in local})
+
+
+def lm_specs(params, quantized):
+    """``lm_tree_shardings``' specs of the whole tree *params* (numpy) on
+    a ``(seq 1, model 2)`` mesh of every rank, and of *quantized* (the
+    int8 tree)."""
+    from tpu_k8s_device_plugin_torch.workloads import transformer as tr
+
+    mesh = lm_mesh((1, 1, 2))
+    return [{k: s.spec for k, s in tr.lm_tree_shardings(
+        mesh, {k: torch.from_numpy(v) for k, v in tree.items()}).items()}
+        for tree in (params, quantized)]
+
+
+def lm_restore(params, base, sharded_save, model_parallel, kw, batch):
+    """Save the whole LM tree *params* (or, with *sharded_save*, each
+    rank's pieces on a model=2 mesh), restore it with
+    ``lm_tree_shardings`` onto a ``(seq 1, model *model_parallel*)``
+    mesh: this rank's restored pieces of ``mlp_gate`` and ``out_proj``,
+    its model coordinate, and the loss of one step of the restored tree
+    there."""
+    from tpu_k8s_device_plugin_torch.workloads import checkpoint
+    from tpu_k8s_device_plugin_torch.workloads import transformer as tr
+
+    whole = {k: torch.from_numpy(v) for k, v in params.items()}
+    if sharded_save:
+        mesh1 = lm_mesh((1, 1, 2))
+        sh1 = tr.lm_tree_shardings(mesh1, whole)
+        checkpoint.save_checkpoint(
+            base, 0, {"params": {k: sh1[k].local(v)
+                                 for k, v in whole.items()}},
+            shardings={"params": sh1})
+    else:
+        checkpoint.save_checkpoint(base, 0, {"params": whole})
+    mesh2 = lm_mesh((1, 1, model_parallel))
+    step, state, place = tr.make_lm_train_step(mesh2, **kw)
+    sh2 = state["shardings"]
+    template = {"params": state["model"].state_dict()}
+    restored = checkpoint.restore_checkpoint(
+        base, template=template, shardings={"params": sh2})
+    state["model"].load_state_dict(restored["params"])
+    loss = float(step(*place(*(torch.from_numpy(b) for b in batch))))
+    pieces = {k: np32(restored["params"][k]) for k in
+              ("block_0.mlp_gate.weight", "block_0.out_proj.weight",
+               "embed.weight")}
+    dist.barrier()
+    return pieces, mesh2.get_local_rank("model"), loss
+
+
+def sharding_cases():
+    """``parallel.Sharding`` with a joint spec entry on a (data 2,
+    expert 2, seq 2, model 1) mesh: this rank's piece of an [8, 6]
+    arange, its coordinates, whether ``gather`` gives the whole back; and
+    ``fit_spec`` on splits that do and do not fit."""
+    from tpu_k8s_device_plugin_torch.workloads import parallel
+
+    mesh = lm_mesh((2, 2, 1))
+    x = torch.arange(48.0).reshape(8, 6)
+    sh = parallel.Sharding(mesh, (("data", "expert"), "seq"))
+    local = sh.local(x)
+    coord = tuple(mesh.get_local_rank(a) for a in ("data", "expert", "seq"))
+    fits = [parallel.fit_spec(mesh, spec, shape) for spec, shape in (
+        ((("data", "expert"), "seq"), (8, 6)),
+        ((("data", "expert"), "seq"), (6, 6)),
+        (("seq", "model"), (3, 5)),
+        (("pipe", None), (4, 4)))]
+    return np32(local), coord, bool(torch.equal(sh.gather(local), x)), fits
+
+
+def mlp_layer(p, x):
+    """``tests/test_pipeline.py``'s layer."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pipe_mesh(data=2, pipe=4):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cpu", torch.arange(data * pipe).reshape(data, pipe),
+                      mesh_dim_names=("data", "pipe"))
+
+
+def pipeline_run(stacked, x, grads):
+    """``make_pipeline`` of :func:`mlp_layer` over a (data 2, pipe 4) mesh
+    on *stacked* (numpy, whole) and the whole microbatches *x*: the
+    gathered output, each rank's stage params' and input block's shapes,
+    and with *grads* the gathered gradients of ``sum(out ** 2)``."""
+    from tpu_k8s_device_plugin_torch.workloads import parallel
+    from tpu_k8s_device_plugin_torch.workloads import pipeline as pl
+
+    mesh = pipe_mesh()
+    apply, params, in_sh = pl.make_pipeline(
+        mesh, mlp_layer, {k: torch.from_numpy(v) for k, v in stacked.items()})
+    placed = in_sh.local(torch.from_numpy(x))
+    out = apply(params, placed)
+    result = {"out": np32(in_sh.gather(out.detach())),
+              "params": {k: tuple(v.shape) for k, v in params.items()},
+              "in": tuple(placed.shape), "in_spec": in_sh.spec}
+    if grads:
+        (out ** 2).sum().backward()
+        stage = parallel.Sharding(mesh, ("pipe",))
+        result["grads"] = {k: np32(stage.gather(v.grad))
+                           for k, v in params.items()}
+    return result
+
+
+def pipeline_errors(stacked):
+    """What ``make_pipeline`` raises for 6 layers over 4 stages, and for
+    an explicit batch axis the mesh lacks."""
+    from tpu_k8s_device_plugin_torch.workloads import pipeline as pl
+
+    mesh = pipe_mesh()
+    seen = {}
+    six = {k: torch.from_numpy(v[:6]) for k, v in stacked.items()}
+    whole = {k: torch.from_numpy(v) for k, v in stacked.items()}
+    for name, args, kw in (("layers", (six,), {}),
+                           ("batch_axes", (whole,), {"batch_axes": "model"})):
+        try:
+            pl.make_pipeline(mesh, mlp_layer, *args, **kw)
+            seen[name] = None
+        except ValueError as e:
+            seen[name] = str(e)
+    return seen

@@ -2,12 +2,13 @@
 ``torch.distributed`` group that the caller has initialised.
 
 The JAX package leaves its collectives to XLA (``psum``, all-gathers
-placed by shardings, ``lax.ppermute``).  The port calls them itself, and
-only those that every backend it runs on has: all-reduce, all-gather and
-point-to-point sends.  The backend is the caller's choice, made where the
-group is initialised (NCCL for one rank a GPU; gloo for ranks on the CPU,
-or for several ranks sharing one GPU, which NCCL refuses); nothing here
-chooses or changes it.
+and all-to-alls placed by shardings, ``lax.ppermute``).  The port calls
+them itself, and only those that every backend it runs on has:
+all-reduce, all-gather, all-to-all and point-to-point sends.  The
+backend is the caller's choice, made where the group is initialised
+(NCCL for one rank a GPU; gloo for ranks on the CPU, or for several
+ranks sharing one GPU, which NCCL refuses); nothing here chooses or
+changes it.
 
 Gloo's point-to-point calls take host tensors, so on a gloo group a CUDA
 tensor travels through a pinned host buffer: copied out, sent or reduced,
@@ -22,12 +23,19 @@ The differentiable ones are the port's own ``torch.autograd.Function``s:
 - :func:`gather_from_group`: all-gather forward, backward that keeps this
   rank's slice (everything downstream is replicated over the group, so
   every rank holds the whole gradient and no communication is needed);
+- :func:`reduce_from_group`: all-reduce forward, identity backward (the
+  output of a row-parallel layer, and a sum that broadcasts what one rank
+  holds: every rank then computes on the same copy, and only the rank
+  that held it needs the gradient);
 - :func:`ring_rotate`: send to ``rank + 1``, receive from ``rank - 1``;
-  its backward rotates the other way (``lax.ppermute``'s transpose).
+  its backward rotates the other way (``lax.ppermute``'s transpose);
+- :func:`all_to_all`: each rank's pieces scattered to the group's ranks;
+  its backward is the reverse all-to-all.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -60,14 +68,17 @@ def _from_wire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return w.to(like.device)
 
 
-def _empty_wire(like: torch.Tensor, staged: bool) -> torch.Tensor:
+def _empty_wire(like: torch.Tensor, staged: bool,
+                shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """A receive buffer for a tensor of *like*'s dtype and device (of
+    *shape*, *like*'s when None), as :func:`_to_wire` would send it."""
+    shape = like.shape if shape is None else shape
     if staged or like.device.type == "cpu":
-        w = torch.empty(like.shape, dtype=like.dtype,
-                        pin_memory=staged)
+        w = torch.empty(shape, dtype=like.dtype, pin_memory=staged)
         if w.element_size() == 2 and w.is_floating_point():
             w = w.view(torch.uint8)
         return w
-    return torch.empty_like(like, memory_format=torch.contiguous_format)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -90,6 +101,50 @@ def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, w, group=group)
     return torch.cat([_from_wire(p, x) for p in parts], dim=dim)
+
+
+def _split_sizes(n: int, size: int, sizes: Optional[Sequence[int]]
+                 ) -> List[int]:
+    if sizes is None:
+        if size % n:
+            raise ValueError(f"a dim of size {size} does not split evenly "
+                             f"over {n} ranks")
+        return [size // n] * n
+    if len(sizes) != n or sum(sizes) != size:
+        raise ValueError(f"split sizes {list(sizes)} do not cover a dim of "
+                         f"size {size} over {n} ranks")
+    return list(sizes)
+
+
+def all_to_all_dims(x: torch.Tensor, group=None, split_dim: int = 0,
+                    cat_dim: int = 0,
+                    send: Optional[Sequence[int]] = None,
+                    recv: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """*x* split along *split_dim* into one piece a rank of *group*
+    (sizes *send*, even when None), piece j sent to rank j; returns the
+    pieces received from ranks 0, 1, ... concatenated along *cat_dim*
+    (sizes *recv* along *split_dim*, *send*'s when None: what rank i
+    sends here must have the size this rank expects)."""
+    n = dist.get_world_size(group)
+    send = _split_sizes(n, x.shape[split_dim], send)
+    recv = send if recv is None else list(recv)
+    pieces = x.split(send, split_dim)
+    shapes = []
+    for size in recv:
+        shape = list(x.shape)
+        shape[split_dim] = size
+        shapes.append(shape)
+    # one flat buffer each way (gloo's list all-to-all wants equal
+    # pieces; the single-tensor form takes split sizes)
+    staged = _staged(group, x)
+    out = _to_wire(torch.cat([p.reshape(-1) for p in pieces]), staged)
+    per = x.element_size() // out.element_size()  # wire elements a value
+    inc = _empty_wire(x, staged, (sum(math.prod(s) for s in shapes),))
+    dist.all_to_all_single(
+        inc, out, [math.prod(s) * per for s in shapes],
+        [p.numel() * per for p in pieces], group=group)
+    got = _from_wire(inc, x).split([math.prod(s) for s in shapes])
+    return torch.cat([g.view(s) for g, s in zip(got, shapes)], dim=cat_dim)
 
 
 def _peer(group, shift: int) -> int:
@@ -144,6 +199,49 @@ class _GatherFromGroup(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * ctx.width, ctx.width), None, None
 
 
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim, send, recv):
+        n = dist.get_world_size(group)
+        send = _split_sizes(n, x.shape[split_dim], send)
+        recv = send if recv is None else list(recv)
+        ctx.args = (group, split_dim, cat_dim, send, recv)
+        return all_to_all_dims(x, group, split_dim, cat_dim, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        # each received piece's gradient goes back to its sender, who puts
+        # it where the piece came from
+        group, split_dim, cat_dim, send, recv = ctx.args
+        if split_dim == cat_dim:
+            g = all_to_all_dims(g, group, split_dim, split_dim, recv, send)
+        else:
+            g = all_to_all_dims(g, group, cat_dim, split_dim)
+        return g, None, None, None, None, None
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, like, *xs):
+        ctx.shapes = [(x.shape, x.dtype, x.device) for x in xs]
+        return torch.zeros_like(like)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(torch.zeros(s, dtype=d, device=dev)
+                        for s, d, dev in ctx.shapes))
+
+
 class _RingRotate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, shift, *xs):
@@ -168,11 +266,40 @@ def gather_from_group(x: torch.Tensor, group=None,
     return _GatherFromGroup.apply(x, group, dim % x.dim())
 
 
+def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """All-reduce (sum) forward; the gradient passes through as it is."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group=None, split_dim: int = 0,
+               cat_dim: int = 0, send: Optional[Sequence[int]] = None,
+               recv: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """:func:`all_to_all_dims`, differentiable: the gradient goes back to
+    the senders by the reverse all-to-all.  Uneven pieces (*send*,
+    *recv*) need ``split_dim == cat_dim``."""
+    split_dim, cat_dim = split_dim % x.dim(), cat_dim % x.dim()
+    if split_dim != cat_dim and (send is not None or recv is not None):
+        raise ValueError("uneven all-to-all pieces need split_dim == "
+                         "cat_dim")
+    return _AllToAll.apply(x, group, split_dim, cat_dim,
+                           None if send is None else tuple(send),
+                           None if recv is None else tuple(recv))
+
+
 def ring_rotate(xs: Sequence[torch.Tensor], group=None,
                 shift: int = 1) -> List[torch.Tensor]:
     """:func:`ring_pass`, differentiable: the gradients go back round the
     ring the other way."""
     return list(_RingRotate.apply(group, shift, *xs))
+
+
+def tie(like: torch.Tensor, *xs: torch.Tensor) -> torch.Tensor:
+    """Zeros of *like*'s shape that depend on *xs* with zero gradient.
+    Added to a result, it keeps the last of a chain of ring passes on
+    every rank's graph, so every rank runs every pass's backward, in the
+    chain's order: a rank whose result does not otherwise depend on a
+    pass would skip its backward, which its neighbours wait on."""
+    return _Tie.apply(like, *xs)
 
 
 def seq_chunk(x: torch.Tensor, group=None, dim: int = 1,
@@ -184,4 +311,7 @@ def seq_chunk(x: torch.Tensor, group=None, dim: int = 1,
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
                          f"evenly over {n} ranks")
-    return x.chunk(n, dim)[index].contiguous()
+    # a clone, not .contiguous(): a chunk along dim 0 is contiguous
+    # already, and a view would keep the whole tensor's storage alive
+    return x.chunk(n, dim)[index].clone(
+        memory_format=torch.contiguous_format)

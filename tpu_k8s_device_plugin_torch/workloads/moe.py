@@ -86,6 +86,15 @@ def top_k_routing(router_logits: torch.Tensor, k: int, capacity: int,
     earlier choice first; *priority* [B, T] overrides the token order
     (lower claims first), so the LM's positions make the dropped tokens
     independent of the storage layout."""
+    dispatch, combine, probs, gate_idx = _plan(router_logits, k, capacity,
+                                               priority)
+    return dispatch, combine, _aux_loss(probs, gate_idx, k)
+
+
+def _plan(router_logits: torch.Tensor, k: int, capacity: int,
+          priority: Optional[torch.Tensor] = None):
+    """:func:`top_k_routing`'s dispatch and combine, with the
+    probabilities and chosen experts its aux loss is made from."""
     B, T, E = router_logits.shape
     probs, gate_vals, gate_idx = _top_k_gates(router_logits, k)
     choice = F.one_hot(gate_idx, E).to(torch.float32)  # [B, T, k, E]
@@ -118,7 +127,7 @@ def top_k_routing(router_logits: torch.Tensor, k: int, capacity: int,
     dispatch = torch.einsum("btke,btkc->btec", choice, slot_route)
     combine = torch.einsum("btke,btkc->btec", choice,
                            slot_route * gate_vals[..., None])
-    return dispatch, combine, _aux_loss(probs, gate_idx, k)
+    return dispatch, combine, probs, gate_idx
 
 
 class MoEFFN(nn.Module):
@@ -227,6 +236,123 @@ class MoEFFN(nn.Module):
         # the combine is an f32 contraction, as in the JAX package
         y = torch.einsum("btec,becd->btd", combine,
                          out.to(torch.float32))
+        return y.to(x.dtype)
+
+
+class ExpertParallelMoEFFN(nn.Module):
+    """This rank's part of a trained (f32, unquantized) :class:`MoEFFN`
+    on a mesh (``transformer.make_lm_mesh``): the router replicated, the
+    stacks split as *shardings* say (``experts_up [E/e, D, F/m]``,
+    ``experts_down [E/e, F/m, D]`` on the ``expert`` and ``model``
+    axes); its input is this rank's tokens, split over ``(data,
+    expert)`` and over *seq_axis*.  One forward:
+
+    1. the router logits [B, T/s, E] and the positions are gathered over
+       *seq_axis* (capacity slots go by position over the whole
+       sequence, and under the zig-zag layout another rank's tokens may
+       come first), the plan is made on the whole sequence, and this
+       rank keeps its rows;
+    2. the local dispatch; over *seq_axis* each slot is filled on the
+       one rank holding its token, so the partial [B, E, C, D] are
+       summed (a sum with zeros: exact);
+    3. the all-to-all over ``expert``: each rank gets its experts' slots
+       of every expert rank's rows, [e B, E/e, C, D];
+    4. up, GELU, down, the down projection's partials summed over
+       ``model``;
+    5. the all-to-all back, and the combine of this rank's tokens.
+
+    The aux loss's route fractions and mean probabilities are summed
+    over the batch axes before their product, so it is the whole
+    batch's, the same on every rank.  Sums that every rank then uses
+    alike pass their gradient through unchanged
+    (``collectives.reduce_from_group``): a rank's combine reads only the
+    slots of its own tokens, and its aux gradient reaches only its own
+    rows, so the gradients summed over the token axes afterwards count
+    each token once."""
+
+    def __init__(self, moe: MoEFFN, mesh, shardings, seq_axis):
+        super().__init__()
+        from . import parallel
+
+        if moe.quantized:
+            raise ValueError("expert parallelism trains f32 stacks, not "
+                             "quantized ones")
+        sizes = parallel.mesh_shape(mesh)
+        self.n_experts, self.k = moe.n_experts, moe.k
+        self.capacity_factor, self.capacity = moe.capacity_factor, \
+            moe.capacity
+        self.aux_weight, self.dtype = moe.aux_weight, moe.dtype
+        self.keep_aux, self.aux = moe.keep_aux, None
+        for name in ("router", "experts_up", "experts_down"):
+            setattr(self, name, nn.Parameter(
+                shardings[name].local(getattr(moe, name).detach())))
+
+        def group(axis, split=True):
+            if not split or sizes.get(axis, 1) == 1:
+                return None
+            return mesh.get_group(axis)
+
+        spec = shardings["experts_up"].spec
+        self.expert_group = group("expert", "expert" in spec)
+        self.model_group = group("model", "model" in spec)
+        self.seq_group = group(seq_axis) if seq_axis else None
+        self.seq_rank = mesh.get_local_rank(seq_axis) \
+            if self.seq_group is not None else 0
+        self.batch_groups = [group(a) for a in ("data", "expert")
+                             if group(a) is not None]
+        self.batch_ranks = math.prod(sizes.get(a, 1)
+                                     for a in ("data", "expert"))
+
+    def forward(self, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                capacity: Optional[int] = None) -> torch.Tensor:
+        from . import collectives
+
+        B, t, D = x.shape
+        E, k, dt = self.n_experts, self.k, self.dtype
+        logits = torch.einsum("btd,de->bte", x.to(torch.float32),
+                              self.router)
+        if self.seq_group is not None:
+            logits = collectives.gather_from_group(logits, self.seq_group,
+                                                   dim=1)
+            if positions is not None:
+                positions = collectives.all_gather(positions,
+                                                   self.seq_group, dim=1)
+        T = logits.shape[1]
+        cap = capacity if capacity is not None else self.capacity
+        if cap is None:
+            cap = moe_capacity(T, E, k, self.capacity_factor)
+        dispatch, combine, probs, gate_idx = _plan(logits, k, cap,
+                                                   positions)
+        stats = torch.stack([
+            F.one_hot(gate_idx, E).to(torch.float32).sum(dim=(0, 1, 2)) / k,
+            probs.sum(dim=(0, 1))])
+        for g in self.batch_groups:
+            stats = collectives.reduce_from_group(stats, g)
+        n = B * T * self.batch_ranks
+        if self.keep_aux:
+            self.aux = self.aux_weight * E * (
+                (stats[0] / n) * (stats[1] / n)).sum()
+        rows = slice(self.seq_rank * t, (self.seq_rank + 1) * t)
+        dispatch, combine = dispatch[:, rows], combine[:, rows]
+
+        xin = torch.einsum("btec,btd->becd", dispatch.to(dt), x.to(dt))
+        if self.seq_group is not None:
+            xin = collectives.reduce_from_group(xin, self.seq_group)
+        if self.expert_group is not None:
+            xin = collectives.all_to_all(xin, self.expert_group,
+                                         split_dim=1, cat_dim=0)
+        if self.model_group is not None:
+            xin = collectives.copy_to_group(xin, self.model_group)
+        h = F.gelu(torch.einsum("becd,edf->becf", xin,
+                                self.experts_up.to(dt)), approximate="tanh")
+        out = torch.einsum("becf,efd->becd", h, self.experts_down.to(dt))
+        if self.model_group is not None:
+            out = collectives.reduce_from_group(out, self.model_group)
+        if self.expert_group is not None:
+            out = collectives.all_to_all(out, self.expert_group,
+                                         split_dim=0, cat_dim=1)
+        y = torch.einsum("btec,becd->btd", combine, out.to(torch.float32))
         return y.to(x.dtype)
 
 

@@ -25,13 +25,16 @@ need collectives that gloo does not have for CUDA tensors (a
 reduce-scatter among them), and ranks that share one GPU can only use
 gloo.  A :class:`Sharding` says where a tensor lives (its ``spec`` names
 the mesh axis each dim is split on, as a JAX ``PartitionSpec`` does), and
-gives this rank's slice of a whole tensor or gathers one back.
+gives this rank's slice of a whole tensor or gathers one back, on any
+``DeviceMesh`` (the LM's 4-axis one and the pipeline's among them), and
+:func:`fit_spec` turns a split that a dim cannot take into replication.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+import math
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -80,35 +83,73 @@ def make_mesh(ranks: Optional[Sequence[int]] = None,
 
 
 def mesh_shape(mesh: DeviceMesh) -> Dict[str, int]:
-    """``{"data": d, "model": m}``, as the JAX mesh's ``shape``."""
+    """``{axis: size}`` in mesh order, as the JAX mesh's ``shape``."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device on *mesh*: the current CUDA device for a CUDA
+    mesh, else the mesh's device type."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _axes(axis) -> Tuple[str, ...]:
+    """A spec entry's axes: one name, or a tuple of names split jointly
+    (the first outermost)."""
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def fit_spec(mesh: DeviceMesh, spec: Sequence, shape: Sequence[int]
+             ) -> Tuple:
+    """*spec* for a tensor of *shape* on *mesh*: each split whose axes the
+    mesh lacks, or whose axes' sizes do not divide the dim, becomes
+    replication (always numerically valid), as the JAX package's
+    ``lm_tree_shardings`` degrades it."""
+    sizes = mesh_shape(mesh)
+    fixed = []
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            if not all(a in sizes for a in _axes(axis)):
+                axis = None
+            elif shape[dim] % math.prod(sizes[a] for a in _axes(axis)):
+                axis = None
+        fixed.append(axis)
+    return tuple(fixed)
 
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
-    """Where a tensor lives on *mesh*: ``spec[i]`` names the axis that
-    dim *i* is split on evenly, or is None; dims past the spec and an
+    """Where a tensor lives on *mesh*: ``spec[i]`` names the mesh axis
+    that dim *i* is split on evenly (a tuple of axes splits it over them
+    jointly, the first outermost), or is None; dims past the spec and an
     empty spec are replicated."""
 
     mesh: DeviceMesh
-    spec: Tuple[Optional[str], ...] = ()
+    spec: Tuple = ()
 
     def _split(self):
-        return [(i, a) for i, a in enumerate(self.spec) if a is not None]
+        return [(i, _axes(a)) for i, a in enumerate(self.spec)
+                if a is not None]
 
     def local(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's piece of the whole tensor *full* (a copy)."""
-        for dim, axis in self._split():
-            full = collectives.seq_chunk(
-                full, dim=dim, n=self.mesh.size(AXES.index(axis)),
-                index=self.mesh.get_local_rank(axis))
+        sizes = mesh_shape(self.mesh)
+        for dim, axes in self._split():
+            n, index = 1, 0
+            for a in axes:
+                n, index = n * sizes[a], index * sizes[a] + \
+                    self.mesh.get_local_rank(a)
+            full = collectives.seq_chunk(full, dim=dim, n=n, index=index)
         return full.contiguous()
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The whole tensor, from every rank's piece."""
-        for dim, axis in self._split():
-            local = collectives.all_gather(local, self.mesh.get_group(axis),
-                                           dim)
+        for dim, axes in self._split():
+            for a in reversed(axes):
+                local = collectives.all_gather(
+                    local, self.mesh.get_group(a), dim)
         return local
 
 
@@ -128,9 +169,12 @@ def _pspec(name: str, leaf) -> Tuple[Optional[str], ...]:
 
 
 def tree_shardings(mesh: DeviceMesh, tree: Any,
-                   param_names: Sequence[str] = ()) -> Any:
+                   param_names: Sequence[str] = (),
+                   rule: Callable[[str, torch.Tensor], Tuple] = _pspec
+                   ) -> Any:
     """A tree of :class:`Sharding` mirroring *tree* (dicts, lists and
-    tuples) under the :func:`_pspec` rule, None for a leaf that is not a
+    tuples) under *rule* (a leaf's name and the leaf to its spec; the
+    AlexNet's :func:`_pspec` by default), None for a leaf that is not a
     tensor.  A torch optimizer's state dict names parameters by index:
     *param_names* (``[n for n, _ in model.named_parameters()]``) maps
     those indices back to names."""
@@ -148,7 +192,7 @@ def tree_shardings(mesh: DeviceMesh, tree: Any,
         named = [param_names[p] for p in path
                  if isinstance(p, int) and p < len(param_names)]
         name = named[0] if named else "/".join(map(str, path))
-        return Sharding(mesh, _pspec(name, node))
+        return Sharding(mesh, rule(name, node))
 
     return walk(tree, ())
 
@@ -185,7 +229,7 @@ class ColumnParallelDense(nn.Module):
 def _average_over_data(params, mesh: DeviceMesh) -> None:
     """Every gradient summed over ``data`` and divided by its size, in
     one all-reduce of the flattened f32 gradients."""
-    d = mesh.size(AXES.index("data"))
+    d = mesh_shape(mesh)["data"]
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
@@ -217,7 +261,7 @@ def make_sharded_train_step(model: AlexNet, opt: torch.optim.Optimizer,
     params = list(model.parameters())
     opt = type(opt)(params, **opt.defaults)
     data_group = mesh.get_group("data")
-    d = mesh.size(AXES.index("data"))
+    d = mesh_shape(mesh)["data"]
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         opt.zero_grad(set_to_none=True)

@@ -49,7 +49,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from . import collectives
 from .flash_attention import flash_block_forward, flash_block_grads
-from .transformer import _unported, f32_rsqrt, repeat_kv
+from .transformer import f32_rsqrt, repeat_kv
 
 _NEG_INF = float("-inf")
 
@@ -97,24 +97,6 @@ def _normalise(o, l, dtype):
     return (o / denom[..., None]).to(dtype)
 
 
-class _Tie(torch.autograd.Function):
-    """Zeros of *like*'s shape that depend on *xs* with zero gradient.
-    Added to an einsum ring's output, it keeps the last rotated K/V on
-    every rank's graph: a rank whose last blocks were causally skipped
-    would otherwise never run those rotations' backward, which its
-    neighbours wait on."""
-
-    @staticmethod
-    def forward(ctx, like, *xs):
-        ctx.shapes = [(x.shape, x.dtype, x.device) for x in xs]
-        return torch.zeros_like(like)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (None, *(torch.zeros(s, dtype=d, device=dev)
-                        for s, d, dev in ctx.shapes))
-
-
 def _rotate_kv(k_blk, v_blk, s: int, n: int, group, differentiable: bool):
     """One ring hop for the K/V pair, skipping the dead last one (its
     result is never read); the skip depends on the step alone, so every
@@ -148,7 +130,7 @@ def _ring_attention_shard(q, k, v, group, causal: bool):
                                              mask)
         k_blk, v_blk = _rotate_kv(k_blk, v_blk, s, n, group, True)
     out = _normalise(o, l, q.dtype)
-    return out + _Tie.apply(out, k_blk, v_blk)
+    return out + collectives.tie(out, k_blk, v_blk)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +225,7 @@ def _ring_attention_shard_zigzag(q, k, v, group):
         k_blk, v_blk = _rotate_kv(k_blk, v_blk, s, n, group, True)
     out = torch.cat([_normalise(lo[0], lo[1], q.dtype),
                      _normalise(hi[0], hi[1], q.dtype)], dim=1)
-    return out + _Tie.apply(out, k_blk, v_blk)
+    return out + collectives.tie(out, k_blk, v_blk)
 
 
 # ---------------------------------------------------------------------------
@@ -458,38 +440,56 @@ def _ring_attention_shard_zigzag_flash(q, k, v, group):
 @dataclasses.dataclass(frozen=True)
 class SequenceSharding:
     """[B, T, H, D] tensors with T split evenly over *group*'s ranks, in
-    rank order (the JAX ``NamedSharding`` with ``spec``)."""
+    rank order (the JAX ``NamedSharding`` with ``spec``); on a *mesh* of
+    several axes, batch and heads split as *spec* names them too."""
 
     group: object = None
     spec: tuple = (None, "seq", None, None)
+    mesh: Optional[DeviceMesh] = None
 
     def scatter(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole sequence *x* (a copy)."""
+        if self.mesh is not None:
+            from .parallel import Sharding
+
+            return Sharding(self.mesh, self.spec).local(x)
         return collectives.seq_chunk(x, self.group, dim=1)
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The whole sequence, from every rank's block (on every rank)."""
+        if self.mesh is not None:
+            from .parallel import Sharding
+
+            return Sharding(self.mesh, self.spec).gather(local)
         return collectives.all_gather(local, self.group, dim=1)
 
 
-def _resolve_group(group):
-    """A process group, from a group, a 1-D ``DeviceMesh`` or None (the
-    default group); and the sequence axis's name."""
+def _resolve_group(group, seq_axis: Optional[str]):
+    """A process group, from a group, a ``DeviceMesh`` (its *seq_axis*;
+    a 1-D mesh's only axis when None) or None (the default group); and
+    the sequence axis's name."""
     if isinstance(group, DeviceMesh):
-        if group.ndim != 1:
-            raise ValueError("ring attention runs over a 1-D mesh (its "
-                             "sequence axis); pass mesh[axis]")
-        return group.get_group(), group.mesh_dim_names[0] \
-            if group.mesh_dim_names else "seq"
-    return group, "seq"
+        names = group.mesh_dim_names
+        if seq_axis is None:
+            if group.ndim != 1:
+                raise ValueError("ring attention over a mesh of several "
+                                 "axes needs the name of its seq_axis")
+            seq_axis = names[0] if names else "seq"
+        return group.get_group(seq_axis if names else None), seq_axis
+    return group, seq_axis or "seq"
 
 
 def make_ring_attention(group=None, causal: bool = False,
                         layout: str = "contiguous",
-                        spec: Optional[Sequence[Optional[str]]] = None,
-                        impl: str = "einsum"):
-    """Ring attention over *group* (a process group, a 1-D ``DeviceMesh``
-    or None for the default group): returns ``(fn, sharding)``.
+                        spec: Optional[Sequence] = None,
+                        impl: str = "einsum",
+                        seq_axis: Optional[str] = None):
+    """Ring attention over *group* (a process group, a ``DeviceMesh`` or
+    None for the default group): returns ``(fn, sharding)``.  On a mesh
+    of several axes the ring runs over *seq_axis* (the JAX package's
+    argument), and *spec* may put batch and heads on its other axes, as
+    the LM mesh's ``(batch_axes, "seq", head_axis, None)``: the other
+    axes only shrink the local block.
 
     ``fn(q, k, v)`` takes this rank's blocks [B, T/n, H, D] (K/V may
     carry fewer, grouped heads under ``impl="einsum"``) and returns this
@@ -499,19 +499,24 @@ def make_ring_attention(group=None, causal: bool = False,
 
     ``layout="zigzag"`` (causal only) expects inputs permuted with
     :func:`zigzag_permute` over n shards and returns the output in the
-    same order.  *spec* may only split T: batch and heads on other mesh
-    axes arrive with the LM mesh.  ``impl="flash"`` runs the flash
-    kernels' block forms."""
+    same order.  ``impl="flash"`` runs the flash kernels' block forms."""
     if layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown layout {layout!r}")
     if layout == "zigzag" and not causal:
         raise ValueError("zigzag layout only pays off for causal attention")
     if impl not in ("einsum", "flash"):
         raise ValueError(f"unknown impl {impl!r}")
-    group, axis = _resolve_group(group)
-    if spec is not None and any(a is not None
-                                for i, a in enumerate(spec) if i != 1):
-        _unported(spec=tuple(spec))
+    mesh = group if isinstance(group, DeviceMesh) and group.ndim > 1 \
+        else None
+    group, axis = _resolve_group(group, seq_axis)
+    spec = (None, axis, None, None) if spec is None else tuple(spec)
+    if len(spec) != 4 or spec[1] != axis or spec[3] is not None:
+        raise ValueError(f"spec {spec} must split T on the sequence axis "
+                         f"{axis!r} and leave the head dim whole")
+    if mesh is None and any(a is not None for i, a in enumerate(spec)
+                            if i != 1):
+        raise ValueError(f"spec {spec} puts batch or heads on mesh axes: "
+                         "pass the mesh")
     if layout == "zigzag" and impl == "flash":
         def fn(q, k, v):
             return _ring_attention_shard_zigzag_flash(q, k, v, group)
@@ -524,7 +529,7 @@ def make_ring_attention(group=None, causal: bool = False,
     else:
         def fn(q, k, v):
             return _ring_attention_shard(q, k, v, group, causal)
-    return fn, SequenceSharding(group, (None, axis, None, None))
+    return fn, SequenceSharding(group, spec, mesh)
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -15,6 +15,15 @@ with its f32 ``param_dtype``); the logits come back in f32.  The serving
 model builds the same layers with its parameters stored in the compute
 dtype and gradients off.
 
+Sharded training (the JAX package's ``data x expert x seq x model``
+mesh): ``make_lm_mesh``, ``lm_tree_shardings`` and ``make_lm_train_step``
+run one process a rank on a ``torch.distributed`` group that the caller
+has initialised, each rank holding its pieces of the parameters as
+plain ``Parameter``s (``parallel.Sharding``): the projections
+Megatron-style on ``model``, the expert stacks on ``expert``
+(``moe.ExpertParallelMoEFFN``), the sequence on ``seq`` through ring
+attention, the batch on ``(data, expert)``.
+
 Every entry point runs on CUDA unless the caller passes ``device="cpu"``;
 without CUDA and without that argument it raises.
 """
@@ -94,10 +103,6 @@ def _unported(**features) -> None:
         # the serving engine's and load_checkpoint_params's arguments
         "mesh": "tensor-parallel serving arrives with multi-device "
                 "serving (ROADMAP.md, queue 1, item 6.4)",
-        # make_ring_attention's (workloads/ring_attention.py): batch or
-        # heads on mesh axes other than the sequence's
-        "spec": "ring attention inside a mesh of other axes arrives with "
-                "the LM mesh (ROADMAP.md, queue 1, item 6.3)",
     }
     for name, value in features.items():
         if isinstance(value, torch.Tensor) or value not in (None, False, 0):
@@ -319,8 +324,9 @@ class Block(nn.Module):
         expert FFN takes *positions* as its slot priority and *capacity*
         in place of its own."""
         B, T, _ = x.shape
-        x = x + self.proj("out_proj", att.reshape(B, T, self.d_model),
-                          adapter_ids)
+        # the heads' width: d_model, or this rank's share of it when the
+        # heads are split over a mesh's model axis
+        x = x + self.proj("out_proj", att.reshape(B, T, -1), adapter_ids)
         h = self.mlp_norm(x)
         if self.n_experts > 0:
             return x + self.moe(h, positions, capacity)
@@ -443,3 +449,376 @@ def synthetic_lm_batch(gen: torch.Generator, batch: int, seq_len: int,
     positions = torch.arange(seq_len, dtype=torch.int32,
                              device=tokens.device).expand(batch, seq_len)
     return tokens, labels, positions
+
+
+# ---------------------------------------------------------------------------
+# sharded training over a data x expert x seq x model mesh
+# ---------------------------------------------------------------------------
+
+LM_AXES = ("data", "expert", "seq", "model")
+
+# the projections whose output dim the model axis splits (column
+# parallel), and those whose input dim it splits (row parallel)
+_COLUMN = ("qkv", "mlp_up", "mlp_gate", "lm_head")
+_ROW = ("out_proj", "mlp_down")
+
+
+def make_lm_mesh(ranks=None, seq: int = 2, model: int = 2, expert: int = 1,
+                 device=None):
+    """``data x expert x seq x model`` mesh (a ``DeviceMesh``) over *ranks*
+    (default: every rank of the default group, which the caller has
+    initialised): data parallelism outermost, expert next (tokens are
+    split over ``(data, expert)`` jointly), sequence and tensor
+    parallelism innermost.  Raises ``ValueError`` when the rank count
+    does not divide; the mesh's device type is CUDA unless *device* says
+    otherwise."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if ranks is None:
+        if not torch.distributed.is_initialized():
+            raise RuntimeError(
+                "make_lm_mesh needs an initialised torch.distributed group")
+        ranks = range(torch.distributed.get_world_size())
+    ranks = list(ranks)
+    n, inner = len(ranks), expert * seq * model
+    if n % inner:
+        raise ValueError(f"{n} ranks not divisible by "
+                         f"expert*seq*model={inner}")
+    device = resolve_device(device)
+    grid = torch.tensor(ranks).reshape(n // inner, expert, seq, model)
+    return DeviceMesh(device.type, grid, mesh_dim_names=LM_AXES)
+
+
+def _lm_pspec(name: str, leaf, axes=LM_AXES) -> tuple:
+    """Megatron-style tensor parallelism on ``model`` by a leaf's
+    state-dict name, in the port's layouts: qkv, mlp_gate/up and lm_head
+    column-split (a ``weight [out, in]`` on dim 0), out_proj and mlp_down
+    row-split (on dim 1), embeddings and norms replicated; the expert
+    stacks ``[E, D, F]`` / ``[E, F, D]`` split on ``expert`` over E and
+    on ``model`` over F, their int8 scales by the out channel they scale.
+    The quantized leaves keep the JAX package's ``[in, out]`` layout and
+    so its spec: ``kernel_int8`` / ``kernel_int4`` and the int4 group
+    scales split the out dim of a column layer and the in dim of a row
+    one, a 1-D ``scale`` follows a column layer's out dim.  A split on an
+    axis the mesh lacks is replication (a legacy 3-axis mesh keeps
+    working with experts)."""
+    ex = "expert" if "expert" in axes else None
+    mdl = "model" if "model" in axes else None
+    dim = leaf.dim()
+    if dim == 3 and "experts" in name:
+        return (ex, None, mdl) if "experts_up" in name else (ex, mdl, None)
+    if dim == 2 and "experts" in name:
+        return (ex, mdl) if "experts_up" in name else (ex, None)
+    column = any(k in name for k in _COLUMN)
+    row = any(k in name for k in _ROW)
+    if dim == 2 and (column or row):
+        # the JAX [in, out] layout's spec; a torch weight is [out, in]
+        spec = (None, mdl) if column else (mdl, None)
+        return spec[::-1] if name.endswith("weight") else spec
+    if dim == 1 and name.endswith("scale") and column:
+        return (mdl,)
+    return ()
+
+
+def lm_tree_shardings(mesh, tree, param_names=()):
+    """A tree of ``parallel.Sharding`` mirroring *tree* (a state dict of
+    whole tensors, or an optimizer's state dict with *param_names*) under
+    :func:`_lm_pspec`, each split that the whole dim does not allow
+    degraded to replication (``parallel.fit_spec``)."""
+    from . import parallel
+
+    axes = tuple(mesh.mesh_dim_names)
+    return parallel.tree_shardings(
+        mesh, tree, param_names,
+        rule=lambda name, leaf: parallel.fit_spec(
+            mesh, _lm_pspec(name, leaf, axes), leaf.shape))
+
+
+class _ModelParallelDense(nn.Module):
+    """This rank's piece of a :class:`Dense` on the mesh's ``model`` axis
+    (its ``weight`` is the piece, f32, cast at use as ``Dense`` casts),
+    run in one of four modes:
+
+    - ``"column"``: the weight split on its out dim; the input enters
+      through ``copy_to_group`` and the output stays split (the next
+      layer is row-parallel);
+    - ``"gather"``: the same, with the output gathered (everything after
+      it is replicated);
+    - ``"regroup"``: the fused qkv, whose stored piece is a contiguous
+      run of its out dim and so not whole heads: the piece's rows are
+      taken in the order of the ranks whose heads they hold (a fixed
+      permutation of the local weight) and one all-to-all sends each
+      rank its heads' columns, so each rank ends with ``q | k | v`` of
+      its own query and KV heads (*regroup*: the rows to send, and the
+      columns to receive from each rank);
+    - ``"row"``: the weight split on its in dim; the input is this
+      rank's part and the partial outputs are summed over the group.
+    """
+
+    def __init__(self, dense: Dense, sharding, group, mode: str,
+                 regroup=None):
+        super().__init__()
+        self.dtype, self.group, self.mode = dense.dtype, group, mode
+        self.weight = nn.Parameter(sharding.local(dense.weight.detach()))
+        if regroup is not None:
+            order, self.send, self.recv = regroup
+            self.register_buffer("order", order.to(self.weight.device),
+                                 persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from . import collectives
+
+        w = self.weight
+        if self.mode == "row":
+            y = F.linear(x.to(self.dtype), w.to(self.dtype))
+            return collectives.reduce_from_group(y, self.group)
+        x = collectives.copy_to_group(x, self.group)
+        if self.mode == "regroup":
+            w = w.index_select(0, self.order)
+        y = F.linear(x.to(self.dtype), w.to(self.dtype))
+        if self.mode == "gather":
+            return collectives.gather_from_group(y, self.group, dim=-1)
+        if self.mode == "regroup":
+            return collectives.all_to_all(y, self.group, -1, -1, self.send,
+                                          self.recv)
+        return y
+
+
+class _GatheredDense(nn.Module):
+    """A :class:`Dense` whose stored weight is split on the model axis
+    where its neighbours cannot use the split: the weight is gathered at
+    each use and the layer runs whole (replicated)."""
+
+    def __init__(self, dense: Dense, sharding, group):
+        super().__init__()
+        self.dtype, self.group = dense.dtype, group
+        self.dim = next(i for i, a in enumerate(sharding.spec) if a)
+        self.weight = nn.Parameter(sharding.local(dense.weight.detach()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from . import collectives
+
+        w = collectives.gather_from_group(self.weight, self.group, self.dim)
+        return F.linear(x.to(self.dtype), w.to(self.dtype))
+
+
+def _qkv_regroup(n_heads: int, n_kv: int, head_dim: int, m: int, r: int):
+    """For rank *r* of *m* on the model axis: the order of its stored qkv
+    rows (a contiguous 1/m of ``q | k | v``) by destination rank, the
+    rows it sends each rank, and the rows it receives from each.  Rank j
+    computes query heads ``[j H/m, (j+1) H/m)`` and KV heads ``[j Hkv/m,
+    (j+1) Hkv/m)``."""
+    hq, hk = n_heads // m, n_kv // m
+
+    def owner(head: int) -> int:
+        if head < n_heads:
+            return head // hq
+        return (head - n_heads) % n_kv // hk
+
+    per = (n_heads + 2 * n_kv) // m     # heads a rank stores
+    owners = [owner(h) for h in range(n_heads + 2 * n_kv)]
+    mine = owners[r * per:(r + 1) * per]
+    order = sorted(range(per), key=lambda i: mine[i])  # stable: ascending
+    rows = torch.tensor([(i * head_dim + d) for i in order
+                         for d in range(head_dim)])
+    send = [mine.count(j) * head_dim for j in range(m)]
+    recv = [owners[i * per:(i + 1) * per].count(r) * head_dim
+            for i in range(m)]
+    return rows, send, recv
+
+
+def _shard_lm_(model: TransformerLM, mesh, shardings, attn_fn: AttnFn,
+               seq_axis: Optional[str]) -> None:
+    """Replace *model*'s layers, in place, with this rank's pieces under
+    *shardings* (the names stay): the projections model-parallel as
+    :class:`_ModelParallelDense` where the split pairs up (qkv with
+    out_proj when the query and KV heads divide the model axis, the MLP's
+    column layers with mlp_down, lm_head gathered), gathered at use
+    (:class:`_GatheredDense`) where it does not; the expert FFNs
+    expert-parallel (``moe.ExpertParallelMoEFFN``); every block's
+    attention *attn_fn*."""
+    from . import parallel
+
+    sizes = parallel.mesh_shape(mesh)
+    m = sizes.get("model", 1)
+    group = mesh.get_group("model") if m > 1 else None
+    r = mesh.get_local_rank("model") if m > 1 else 0
+
+    def split(name):
+        return m > 1 and "model" in shardings[name + ".weight"].spec
+
+    def piece(name, layer, mode=None, regroup=None):
+        sh = shardings[name + ".weight"]
+        if mode is None:
+            return _GatheredDense(layer, sh, group)
+        return _ModelParallelDense(layer, sh, group, mode, regroup)
+
+    for i in range(model.n_layers):
+        pre = f"block_{i}"
+        blk = getattr(model, pre)
+        blk.attn_fn = attn_fn
+        heads = (m > 1 and blk.n_heads % m == 0 and blk.n_kv % m == 0)
+        if heads:
+            blk.qkv = piece(pre + ".qkv", blk.qkv, "regroup", _qkv_regroup(
+                blk.n_heads, blk.n_kv, blk.head_dim, m, r))
+            blk.n_heads, blk.n_kv = blk.n_heads // m, blk.n_kv // m
+            blk.out_proj = piece(pre + ".out_proj", blk.out_proj, "row")
+        else:
+            if split(pre + ".qkv"):
+                blk.qkv = piece(pre + ".qkv", blk.qkv, "gather")
+            if split(pre + ".out_proj"):
+                blk.out_proj = piece(pre + ".out_proj", blk.out_proj)
+        if blk.n_experts > 0:
+            from .moe import ExpertParallelMoEFFN
+
+            blk.moe = ExpertParallelMoEFFN(
+                blk.moe, mesh, {k: shardings[f"{pre}.moe.{k}"] for k in
+                                ("router", "experts_up", "experts_down")},
+                seq_axis)
+        elif split(pre + ".mlp_down"):
+            for name in ("mlp_gate", "mlp_up"):
+                if hasattr(blk, name):
+                    setattr(blk, name, piece(f"{pre}.{name}",
+                                             getattr(blk, name), "column"))
+            blk.mlp_down = piece(pre + ".mlp_down", blk.mlp_down, "row")
+    if split("lm_head"):
+        model.lm_head = piece("lm_head", model.lm_head, "gather")
+
+
+def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """*x* summed over the mesh *axes* (one all-reduce an axis)."""
+    from . import collectives
+
+    for a in axes:
+        x = collectives.all_reduce(x, mesh.get_group(a))
+    return x
+
+
+def make_lm_train_step(
+    mesh,
+    vocab: int = 512,
+    d_model: int = 256,
+    n_heads: int = 4,
+    n_layers: int = 2,
+    d_ff: int = 1024,
+    seq_axis: Optional[str] = "seq",
+    attn_layout: str = "zigzag",
+    learning_rate: float = 1e-2,
+    rng=None,
+    batch: int = 4,
+    seq_len: int = 64,
+    n_experts: int = 0,
+    moe_k: int = 2,
+    moe_capacity_factor: float = 1.25,
+    n_kv_heads: Optional[int] = None,
+    ffn: str = "gelu",
+    rope_theta: float = 10000.0,
+):
+    """A sharded LM train step over *mesh* (``make_lm_mesh``, or any
+    ``DeviceMesh`` with some of its axes), on this rank's device (the
+    mesh's type: the current CUDA device, or the CPU): returns ``(step,
+    state, place)``.
+
+    The model is initialised whole from *rng* (an int seed, 0 by
+    default; ``bench_serving.random_init_``'s scales), the same on every
+    rank, and each rank keeps its pieces (``lm_tree_shardings``).  With
+    *seq_axis*, attention is causal ring attention over that axis
+    (*attn_layout* "contiguous" or "zigzag"; the heads split on ``model``
+    when the query and KV head counts both divide it); without it, the
+    local einsum attention.  Tokens are split over ``(data, expert)``
+    jointly and over *seq_axis*; ``n_experts > 0`` makes the MLPs routed
+    expert FFNs on the ``expert`` axis.
+
+    ``place(tokens, labels, positions)`` takes the whole natural-order
+    batch, applies the zig-zag permutation when it is selected and gives
+    this rank's block.  ``step(tokens, labels, positions)`` takes those
+    blocks, runs the forward and backward (the cross entropy summed over
+    this rank's labels over the global count of valid ones), sums each
+    gradient over the token axes that its leaf is not split on, steps
+    ``torch.optim.Adam(learning_rate)`` (optax's ``adam``) on this
+    rank's pieces in place, and returns the global loss.  ``state`` holds
+    ``model`` (this rank's pieces, under the whole model's names),
+    ``opt``, ``batch`` (the whole natural-order batch), ``mesh`` and
+    ``shardings`` (one ``parallel.Sharding`` a parameter)."""
+    from . import parallel
+    from .bench_serving import random_init_
+    from .ring_attention import make_ring_attention, zigzag_permute
+
+    sizes = parallel.mesh_shape(mesh)
+    device = parallel.mesh_device(mesh)
+    seed = 0 if rng is None else int(rng)
+    n_seq = sizes[seq_axis] if seq_axis else 1
+    batch_axes = tuple(a for a in ("data", "expert") if a in sizes)
+    token_axes = batch_axes + ((seq_axis,) if seq_axis else ())
+
+    if seq_axis:
+        m = sizes.get("model", 1)
+        n_kv = n_kv_heads or n_heads
+        head_axis = "model" if n_heads % m == 0 and n_kv % m == 0 else None
+        ring_fn, _ = make_ring_attention(
+            mesh, causal=True, layout=attn_layout, seq_axis=seq_axis,
+            spec=(batch_axes or None, seq_axis, head_axis, None))
+
+        def attn(q, k, v, positions):
+            del positions  # causality comes from the ring layout
+            return ring_fn(q, k, v)
+    else:
+        attn = local_causal_attention
+
+    model = TransformerLM(
+        vocab=vocab, d_model=d_model, n_heads=n_heads, n_layers=n_layers,
+        d_ff=d_ff, n_kv_heads=n_kv_heads, ffn=ffn, rope_theta=rope_theta,
+        n_experts=n_experts, moe_k=moe_k,
+        moe_capacity_factor=moe_capacity_factor, device=device)
+    random_init_(model, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    whole = synthetic_lm_batch(gen, batch, seq_len, vocab)
+    shardings = lm_tree_shardings(mesh, model.state_dict())
+    _shard_lm_(model, mesh, shardings, attn, seq_axis)
+    # one leaf at a time (not torch's multi-tensor form): the step's
+    # scratch is then one leaf's size, not a copy of every piece, which
+    # matters where ranks share a card
+    opt = torch.optim.Adam(model.parameters(), lr=learning_rate,
+                           foreach=False)
+
+    # the token axes each gradient is summed over: those of size > 1 that
+    # its leaf is not split on
+    reduce_over = []
+    for name, p in model.named_parameters():
+        split = {a for entry in shardings[name].spec if entry
+                 for a in (entry if isinstance(entry, tuple) else (entry,))}
+        axes = tuple(a for a in token_axes
+                     if sizes[a] > 1 and a not in split)
+        if axes:
+            reduce_over.append((p, axes))
+
+    def step(tokens, labels, positions):
+        opt.zero_grad(set_to_none=True)
+        labels = labels.long().masked_fill(labels < 0, -1)
+        total = F.cross_entropy(model(tokens, positions).flatten(0, 1),
+                                labels.flatten(), ignore_index=-1,
+                                reduction="sum")
+        count = _sum_over((labels >= 0).sum(), mesh, token_axes)
+        ce = total / count.clamp(min=1)
+        aux = model.aux_loss().to(ce.device)
+        (ce + aux).backward()
+        # leaf by leaf: the scratch is one leaf's, not a flat copy of them
+        for p, axes in reduce_over:
+            if p.grad is not None:
+                p.grad.copy_(_sum_over(p.grad, mesh, axes))
+        opt.step()
+        return _sum_over(ce.detach(), mesh, token_axes) + aux.detach()
+
+    tok_sh = parallel.Sharding(mesh, (batch_axes or None, seq_axis))
+
+    def place(tokens, labels, positions):
+        out = []
+        for x in (tokens, labels, positions):
+            if seq_axis and attn_layout == "zigzag":
+                x = zigzag_permute(x, n_seq, axis=1)
+            out.append(tok_sh.local(x.to(device)))
+        return tuple(out)
+
+    state = {"model": model, "opt": opt, "batch": whole, "mesh": mesh,
+             "shardings": shardings}
+    return step, state, place
