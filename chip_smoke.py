@@ -2916,10 +2916,11 @@ def fleet_path(torch, cfg, sched, card):
 # near tie: the plain path's logits of the two tokens within
 # NEAR_TIE_ULPS bf16 ulps of the larger
 QUANT_KINDS = (("int8", True), ("int4", "int4"))
-# depth cut, to pay for phase 4b's LM mesh and pipeline: the int8 and
-# int4 models at 8 of Llama-3-8B's 32 layers (full width), and the f32
+# depth cuts, to pay for phase 4b's LM mesh and pipeline (PR 17: 32 to
+# 8) and its tensor-parallel serving (PR 18: 8 to 4): the int8 and int4
+# models at 4 of Llama-3-8B's 32 layers (full width), and the f32
 # speculative exactness check's target and draft at 4 layers each
-QUANT_LAYERS, SPEC_F32_LAYERS = 8, 4
+QUANT_LAYERS, SPEC_F32_LAYERS = 4, 4
 SPEC_GAMMA, SPEC_DRAFT = 4, "llama3-1b"
 LORA_ADAPTERS, LORA_RANK, LORA_B_SD = 4, 8, 0.05
 LORA_SLOT_ADAPTERS = (0, 1, 2, 3, None, 0, 1, 2)
@@ -3561,7 +3562,7 @@ def worker(argv) -> int:
     if argv[:1] == ["rank"]:
         return rank_child()
     if argv[:1] == ["md-rank"]:
-        return md_rank_child()
+        return md_rank_child(argv[1:])
     if argv[:1] == ["md-nccl-lm"]:
         return md_nccl_lm_child()
     import torch
@@ -5169,12 +5170,13 @@ MD_LM_LR, MD_LM_LOSS_RTOL, MD_LM_REL = 1e-3, 2e-2, 5e-2
 # each rank's expert stacks at Mixtral's widths on expert 2 x model 2
 MD_MOE_LOCAL = {"block_0.moe.experts_up": (4, 4096, 7168),
                 "block_0.moe.experts_down": (4, 7168, 4096)}
-# GPipe: 8 Llama-3-8B blocks (f32 parameters, flash attention) over 4
-# pipe stages, 2 a stage, 4 microbatches of [1, 2048, 4096] bf16, forward
+# GPipe: 4 Llama-3-8B blocks (f32 parameters, flash attention) over 4
+# pipe stages, 1 a stage (2 until PR 18: a depth cut to pay for the
+# tensor-parallel arm), 4 microbatches of [1, 2048, 4096] bf16, forward
 # and backward (a seeded cotangent) against the same blocks run one after
 # another on one rank: the forward within 1e-5 (and whether it is
 # bit-equal), each gathered gradient within 1e-4 in relative norm
-MD_PIPE_LAYERS, MD_PIPE_MICRO, MD_PIPE_MB = 8, 4, (1, 2048)
+MD_PIPE_LAYERS, MD_PIPE_MICRO, MD_PIPE_MB = 4, 4, (1, 2048)
 MD_PIPE_FWD, MD_PIPE_GRAD = 1e-5, 1e-4
 
 
@@ -5465,12 +5467,237 @@ def _md_pipeline(torch, dist, transformer, pipeline, parallel,
     return got, ok
 
 
-def md_rank_child() -> int:
-    """``chip_smoke.py --worker md-rank``: one rank of the multi-device
-    phase, on a gloo group from its env (the ranks share the one card,
-    and NCCL refuses two ranks on one GPU: ``PERF.md`` §6); the kernels
-    are already built by the parent.  Prints its lines, then one JSON
-    line: its launches and whether its checks held."""
+# tensor-parallel serving (phase 4b, after GPipe): Llama-3-8B at full
+# width, cut in depth, on a (1, 1, 1, 4) mesh of the four gloo ranks (op
+# by op: gloo stages CUDA tensors through host buffers, which a CUDA
+# graph cannot hold).  In bf16 at MD_TP_LAYERS layers: greedy_generate
+# of a 1024-token prompt (K4 on each rank's 8 query and 2 KV heads,
+# MD_TP_LAYERS launches a rank), its last prefill logits within
+# MD_TP_BAR of the single-device model's and each step's id the
+# single-device argmax of the same prefix or within MD_TP_BAR of it (the
+# ranks' partial sums are added in another order than one device's
+# dots); the engine's four requests (greedy with logprobs, greedy with a
+# stop id, two seeded sampled) the same on every rank, and the greedy
+# ones the single-device engine's up to the first step whose top-2
+# logprob gap there is under MD_TP_BAR; then an EngineServer on rank 0
+# over the engine (tp_driver) answers two HTTP requests.  In f32 at
+# MD_TP_F32_LAYERS layers, every id of all of it equals the
+# single-device run's.
+MD_TP_LAYERS, MD_TP_F32_LAYERS = 4, 2
+MD_TP_PROMPT, MD_TP_STEPS, MD_TP_MAXLEN = 1024, 16, 1280
+MD_TP_REQ_PROMPT, MD_TP_NEW = 64, 16
+# 16 bf16 ulps at the logits' scale (about 4 at these random weights):
+# the four ranks' bf16 partial sums, added in f32 and rounded once, part
+# from one device's dots by a few ulps a layer
+MD_TP_BAR = 0.25
+
+
+def _tp_requests(torch, vocab, stop):
+    """The engine arm's four requests: (prompt, admit keywords)."""
+    gen = torch.Generator().manual_seed(19)
+    prompts = [torch.randint(0, vocab, (MD_TP_REQ_PROMPT,),
+                             generator=gen).tolist() for _ in range(4)]
+    return [(prompts[0], dict(logprobs=2)),
+            (prompts[1], dict(logprobs=2, stop=[stop])),
+            (prompts[2], dict(logprobs=2, temperature=0.8, top_p=0.95,
+                              seed=7)),
+            (prompts[3], dict(logprobs=2, temperature=1.0, top_k=50,
+                              presence_penalty=0.5, seed=8))]
+
+
+def _tp_serve(eng, reqs):
+    """Admit every request and decode one window of MD_TP_NEW steps; per
+    request its ids, finish reason and top-2 logprobs a step.  The slots
+    are released."""
+    slots = [eng.admit(p, **kw) for p, kw in reqs]
+    eng.run_scan(MD_TP_NEW)
+    out = [(eng.output(s), eng.finish_reason(s),
+            [[lp for _, lp in top] for _, top in eng.token_logprobs(s)])
+           for s in slots]
+    for s in slots:
+        eng.release(s)
+    return out
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def _md_tp(torch, dist, fa, mp, say):
+    """This rank's part of tensor-parallel serving (see MD_TP_LAYERS).
+    Returns its K4 launches on the bf16 and f32 prefills, whether its
+    checks held, and the arm's figures (rank 0's)."""
+    from tpu_k8s_device_plugin_torch.workloads import (
+        bench_serving, inference, llama, serving, tp_driver, transformer)
+    from tpu_k8s_device_plugin_torch.workloads import server as srv_mod
+
+    t_arm = time.perf_counter()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = transformer.make_lm_mesh(seq=1, model=n, expert=1)
+    ctrl = dist.new_group(backend="gloo")
+    cfg0 = llama.LLAMA3_8B
+    prompt = torch.randint(0, cfg0.vocab, (1, MD_TP_PROMPT),
+                           generator=torch.Generator().manual_seed(18))
+    ok, launches, figures = True, {}, {}
+    for dtype, layers in (("bfloat16", MD_TP_LAYERS),
+                          ("float32", MD_TP_F32_LAYERS)):
+        dt = getattr(torch, dtype)
+        cfg = dataclasses.replace(cfg0, n_layers=layers)
+        ref = None
+        box = [None]
+        if rank == 0:
+            t0 = time.perf_counter()
+            _, whole = bench_serving.build_model_and_params(
+                cfg, MD_TP_MAXLEN, "cuda", dtype=dt)
+            ids, logits = inference.greedy_generate(whole, prompt,
+                                                    MD_TP_STEPS)
+            box[0] = int(inference.greedy_generate(
+                whole, [_tp_requests(torch, cfg.vocab, 0)[1][0]], 5)[0][0, 4])
+            reqs = _tp_requests(torch, cfg.vocab, box[0])
+            eng = serving.ServingEngine(whole, n_slots=4, logprobs_k=2,
+                                        device=whole.device)
+            ref = (ids[0].tolist(), logits[0, -1].float().cpu(),
+                   _tp_serve(eng, reqs))
+            del eng
+            say(f"tp {dtype}: the single-device reference in "
+                f"{time.perf_counter() - t0:.1f} s")
+        dist.broadcast_object_list(box, src=0)
+        reqs = _tp_requests(torch, cfg.vocab, box[0])
+        t0 = time.perf_counter()
+        _, tp = bench_serving.build_model_and_params(
+            cfg, MD_TP_MAXLEN, "cuda", dtype=dt, mesh=mesh)
+        build_s = time.perf_counter() - t0
+        dist.barrier()
+        torch.cuda.synchronize()
+        _md_zero(fa, mp)
+        t0 = time.perf_counter()
+        tp_ids, tp_logits = inference.greedy_generate(tp, prompt,
+                                                      MD_TP_STEPS)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        k4 = fa.flash_attention_cuda.launches
+        launches[dtype] = k4
+        ok = ok and k4 == layers
+        eng = serving.ServingEngine(tp, n_slots=4, logprobs_k=2, mesh=mesh,
+                                    device=tp.device)
+        t0 = time.perf_counter()
+        outs = _tp_serve(eng, reqs)
+        serve_s = time.perf_counter() - t0
+        say(f"tp {dtype} rank {rank}: {layers} of 32 layers, pieces built "
+            f"in {build_s:.1f} s; greedy_generate (prompt {MD_TP_PROMPT}, "
+            f"{MD_TP_STEPS} tokens) {gen_s:.2f} s with K4 x{k4} (expected "
+            f"{layers}); the engine's 4 requests {serve_s:.2f} s, steps "
+            f"{eng.stats()['tp_steps']}")
+        mine = (tp_ids[0].tolist(), [(o[0], o[1]) for o in outs])
+        every = [None] * n
+        dist.all_gather_object(every, mine)
+        ok = ok and all(e == every[0] for e in every)
+        if rank == 0:
+            ids, last, ref_outs = ref
+            got = tp_ids[0].tolist()
+            if any(e != every[0] for e in every):
+                say(f"tp {dtype}: the ranks' ids differ: {every}")
+            if dtype == "float32":
+                held = got == ids and all(
+                    o[0] == r[0] and o[1] == r[1]
+                    for o, r in zip(outs, ref_outs))
+                say(f"tp float32: greedy_generate's {len(got)} ids and the "
+                    f"4 requests' ids and finish reasons equal the "
+                    f"single-device run's: {held}")
+                ok = ok and held
+            else:
+                diff = float((tp_logits[0, -1].float().cpu() - last)
+                             .abs().max())
+                seq = torch.cat([prompt[0], torch.tensor(got[:-1])])[None]
+                # each step's single-device logits on the TP ids' prefix
+                with torch.no_grad():
+                    full, _ = inference._prefill(
+                        whole, seq.to(whole.device),
+                        inference._positions(1, seq.shape[1], whole.device))
+                rows = full[0, MD_TP_PROMPT - 1:].float().cpu()
+                gaps = []
+                for t, tok in enumerate(got):
+                    top = int(rows[t].argmax())
+                    if tok != top:
+                        gaps.append((t, float(rows[t, top] - rows[t, tok])))
+                del full
+                eng_held, notes = True, []
+                for i, (o, r) in enumerate(zip(outs, ref_outs)):
+                    d = _first_diff(o[0], r[0])
+                    if i < 2 and d is not None and d < len(r[2]):
+                        top2 = r[2][d]
+                        gap = top2[0] - top2[1] if len(top2) > 1 else 0.0
+                        near = gap <= MD_TP_BAR
+                        eng_held = eng_held and near
+                        notes.append(f"request {i} parts at step {d} "
+                                     f"(single-device top-2 gap {gap:.4f})")
+                    elif d is not None:
+                        notes.append(f"request {i} parts at step {d}")
+                held = (diff <= MD_TP_BAR and eng_held
+                        and all(g <= MD_TP_BAR for _, g in gaps))
+                figures.update(tp_logit_diff=diff, tp_gaps=gaps)
+                say(f"tp bfloat16: last prefill logits max |tp - single| "
+                    f"{diff:.4f} (bar {MD_TP_BAR}); greedy ids against the "
+                    f"single-device argmax of each prefix: "
+                    f"{len(got) - len(gaps)} of {len(got)} equal, the rest "
+                    f"within {max([g for _, g in gaps], default=0.0):.4f} "
+                    f"of it; first difference from the single-device "
+                    f"greedy_generate at step {_first_diff(got, ids)}; "
+                    f"engine: {'; '.join(notes) or 'every request equal'}; "
+                    f"held: {held}")
+                ok = ok and held
+        if dtype == "bfloat16":
+            served = None
+            if rank == 0:
+                leader = tp_driver.EngineLeader(eng, ctrl)
+                srv = srv_mod.EngineServer(leader, window=8,
+                                           max_new_tokens=MD_TP_NEW)
+                srv.start(host="127.0.0.1", port=0)
+                try:
+                    t0 = time.perf_counter()
+                    served = []
+                    for p, kw in reqs[:2]:
+                        status, _, body = _http(srv.port, "POST",
+                                                "/generate", {
+                                                    "tokens": p,
+                                                    "max_new_tokens": 8,
+                                                    "stop": kw.get("stop"),
+                                                    "stream": False})
+                        served.append((status, json.loads(body)))
+                    http_s = time.perf_counter() - t0
+                finally:
+                    srv.stop()
+                    leader.close()
+                # the stop request may end sooner on the wire, where the
+                # stop id is not sent
+                got_http = [b.get("tokens") or [] for _, b in served]
+                held = (all(s == 200 for s, _ in served)
+                        and got_http[0] == outs[0][0][:8]
+                        and len(got_http[1]) >= 1
+                        and got_http[1] == outs[1][0][:len(got_http[1])])
+                say(f"tp EngineServer on rank 0 over the TP engine: 2 "
+                    f"requests in {http_s:.2f} s, statuses "
+                    f"{[s for s, _ in served]}, ids equal to the engine's "
+                    f"own: {held}")
+                ok = ok and held
+            else:
+                tp_driver.follow(eng, ctrl)
+        del eng, tp
+        whole = None
+        _fresh(torch)
+        dist.barrier()
+    say(f"tp: arm wall {time.perf_counter() - t_arm:.1f} s")
+    return launches, ok, figures
+
+
+def md_rank_child(arms=()) -> int:
+    """``chip_smoke.py --worker md-rank [ARM ...]``: one rank of the
+    multi-device phase, on a gloo group from its env (the ranks share the
+    one card, and NCCL refuses two ranks on one GPU: ``PERF.md`` §6); the
+    kernels are already built by the parent.  Runs every arm (ring,
+    alexnet, lm, pipeline, tp), or the named ones.  Prints its lines,
+    then one JSON line: its launches and whether its checks held."""
     import torch
     import torch.distributed as dist
 
@@ -5490,21 +5717,25 @@ def md_rank_child() -> int:
     def say(line):
         print(f"[rank {rank}] {line}", flush=True)
 
+    runs = {
+        "ring": lambda: _md_ring(torch, dist, fa, mp, ra, transformer, say),
+        "alexnet": lambda: _md_alexnet(torch, dist, alexnet, parallel, fa,
+                                       mp, say),
+        "lm": lambda: _md_lm(torch, dist, transformer, bench_serving, say),
+        "pipeline": lambda: _md_pipeline(torch, dist, transformer, pipeline,
+                                         parallel, bench_serving, fa, mp,
+                                         say),
+        "tp": lambda: _md_tp(torch, dist, fa, mp, say)[:2]}
+    result, ok = {"rank": rank}, True
     try:
-        ring, ring_ok = _md_ring(torch, dist, fa, mp, ra, transformer, say)
-        alex, alex_ok = _md_alexnet(torch, dist, alexnet, parallel, fa, mp,
-                                    say)
-        _fresh(torch)
-        lm, lm_ok = _md_lm(torch, dist, transformer, bench_serving, say)
-        pipe, pipe_ok = _md_pipeline(torch, dist, transformer, pipeline,
-                                     parallel, bench_serving, fa, mp, say)
+        for name in arms or runs:
+            result[name], held = runs[name]()
+            ok = ok and held
+            _fresh(torch)
         dist.barrier()
     finally:
         dist.destroy_process_group()
-    print(json.dumps({"rank": rank, "ring": ring, "alexnet": alex,
-                      "lm": lm, "pipeline": pipe,
-                      "ok": ring_ok and alex_ok and lm_ok and pipe_ok}),
-          flush=True)
+    print(json.dumps({**result, "ok": ok}), flush=True)
     return 0
 
 
@@ -5517,6 +5748,7 @@ def md_nccl_lm_child() -> int:
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_k8s_device_plugin_torch import dryrun
     from tpu_k8s_device_plugin_torch.workloads import transformer
 
     torch.cuda.set_device(0)
@@ -5529,24 +5761,97 @@ def md_nccl_lm_child() -> int:
         batch = place(*state["batch"])
         losses = [float(step(*batch)) for _ in range(3)]
         backend = dist.get_backend()
+        t0 = time.perf_counter()
+        line = dryrun.dryrun_multichip(1, "cuda")
+        dryrun_s = time.perf_counter() - t0
+        captured = _nccl_captured_step(torch)
     finally:
         dist.destroy_process_group()
     print(json.dumps({"backend": backend, "losses": losses,
-                      "mesh": list(mesh.shape),
+                      "mesh": list(mesh.shape), "dryrun": line,
+                      "dryrun_s": dryrun_s, "captured": captured,
                       "ok": all(map(math.isfinite, losses))
-                      and losses[-1] < losses[0]}), flush=True)
+                      and losses[-1] < losses[0]
+                      and "steps captured" in line
+                      and captured["ok"]}), flush=True)
     return 0
 
 
-def multi_device_path(card):
+def _nccl_captured_step(torch):
+    """A TP engine on a model axis of one NCCL rank (the tiny config,
+    bf16): its decode step captured as a CUDA graph with the row pieces'
+    all-reduces and the LM head's all-gather inside (counted as they are
+    called while the stream captures), its replays giving the ids of the
+    same engine's op-by-op steps.  The NCCL kernels a replay runs under
+    ``torch.profiler`` are reported (NCCL may run a group of one's sums
+    without a kernel of its own)."""
+    import torch.distributed as dist
+
+    from tpu_k8s_device_plugin_torch.workloads import (
+        bench_serving, serving, transformer)
+
+    mesh = transformer.make_lm_mesh(seq=1, model=1, expert=1)
+    _, model = bench_serving.build_model_and_params("tiny", 128, "cuda",
+                                                    mesh=mesh)
+    in_capture = {"all_reduce": 0, "all_gather": 0}
+    orig = {name: getattr(dist, name) for name in in_capture}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                in_capture[name] += 1
+            return orig[name](*args, **kwargs)
+        return call
+
+    outs, kernels = [], {}
+    for graphs in (True, False):
+        eng = serving.ServingEngine(model, n_slots=4, mesh=mesh,
+                                    device=model.device)
+        eng._use_graphs = graphs
+        slots = [eng.admit([5 + i, 17, 3, 70, 2]) for i in range(4)]
+        if graphs:
+            for name in in_capture:
+                setattr(dist, name, counted(name))
+            try:
+                eng.run_scan(8)
+            finally:
+                for name, fn in orig.items():
+                    setattr(dist, name, fn)
+            replays = eng.graph_replays
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                eng.step()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if "nccl" in e.key.lower():
+                    kernels[e.key[:60]] = e.count
+            mode = eng.stats()["tp_steps"]
+            replays = eng.graph_replays - replays
+        else:
+            eng.run_scan(8)
+            eng.step()
+        outs.append([eng.output(s) for s in slots])
+    # a step: 2 row sums a layer and the LM head's gather
+    want = {"all_reduce": 2 * model.n_layers, "all_gather": 1}
+    return {"mode": mode, "replays": replays, "calls_in_capture":
+            in_capture, "calls_per_step": want, "nccl_kernels": kernels,
+            "ids_equal": outs[0] == outs[1],
+            "ok": mode == "captured" and replays >= 1 and outs[0] == outs[1]
+            and all(in_capture[k] >= v for k, v in want.items())}
+
+
+def multi_device_path(card, arms=()):
     """Phase 4b, multi-device: MD_RANKS rank children (``--worker
     md-rank``) on one gloo group on this card run the ring in every impl
-    and layout, the (2, 2) AlexNet, the LM mesh arms (MD_LM) and GPipe;
-    beside them two NCCL ranks run ``bench_main --sharded`` and
-    ``--worker md-nccl-lm`` under torchrun's env (world size 1: the one
-    form of NCCL this machine allows).  Every child's failure fails the
-    phase.  Returns the ring's, the AlexNet's and the pipeline's launches
-    by rank."""
+    and layout, the (2, 2) AlexNet, the LM mesh arms (MD_LM), GPipe and
+    tensor-parallel serving (MD_TP_LAYERS); beside them two NCCL ranks
+    run ``bench_main --sharded`` and ``--worker md-nccl-lm`` (the LM
+    step, the dry run analog and a TP engine's captured step) under
+    torchrun's env (world size 1: the one form of NCCL this machine
+    allows).  *arms* runs only the rank arms named (then without
+    ``bench_main --sharded`` unless the AlexNet is one).  Every child's
+    failure fails the phase.  Returns the ring's, the AlexNet's, the
+    pipeline's and the TP prefills' launches by rank."""
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items()
@@ -5556,18 +5861,22 @@ def multi_device_path(card):
     # the ranks share the card: expandable segments keep what one rank's
     # allocator has cached from holding memory another needs
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--worker", "md-rank"],
+        [sys.executable, os.path.abspath(__file__), "--worker", "md-rank",
+         *arms],
         env={**base, "RANK": str(r), "WORLD_SIZE": str(MD_RANKS),
              "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
              "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"},
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=root) for r in range(MD_RANKS)]
     nccl_lm_port = _free_port()
-    for argv, nport in (
-            (["-m", "tpu_k8s_device_plugin_torch.workloads.bench_main",
-              *MD_NCCL_ARGS], nccl_port),
-            ([os.path.abspath(__file__), "--worker", "md-nccl-lm"],
-             nccl_lm_port)):
+    nccl_children = [
+        (["-m", "tpu_k8s_device_plugin_torch.workloads.bench_main",
+          *MD_NCCL_ARGS], nccl_port),
+        ([os.path.abspath(__file__), "--worker", "md-nccl-lm"],
+         nccl_lm_port)]
+    if arms and "alexnet" not in arms:
+        nccl_children = nccl_children[1:]
+    for argv, nport in nccl_children:
         procs.append(subprocess.Popen(
             [sys.executable, *argv],
             env={**base, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
@@ -5591,8 +5900,7 @@ def multi_device_path(card):
     results = []
     for i, (rc, out) in enumerate(outs):
         lines = out.strip().splitlines()
-        what = f"rank {i}" if i < MD_RANKS else ("the NCCL rank", "the NCCL "
-                                                  "LM rank")[i - MD_RANKS]
+        what = f"rank {i}" if i < MD_RANKS else f"NCCL child {i - MD_RANKS}"
         for line in lines[:-1]:
             print(line, flush=True)
         try:
@@ -5606,24 +5914,40 @@ def multi_device_path(card):
         if not r["ok"]:
             fail(f"multi-device: rank {r['rank']}'s checks failed (see its "
                  "lines above)")
-    nccl = results[MD_RANKS]["extra"]
-    print(f"multi-device, bench_main --sharded under torchrun's env: backend "
-          f"{nccl['backend']}, mesh {nccl['mesh']}, "
-          f"{nccl['total_images_per_sec']:.1f} images/s at batch "
-          f"{nccl['batch']} (pool {nccl['pool']}; beside the 4 gloo ranks "
-          f"on this card: not a speed)", flush=True)
-    if nccl["backend"] != "nccl" or nccl["mesh"] != {"data": 1, "model": 1}:
-        fail(f"multi-device: the NCCL rank ran {nccl}")
-    nccl_lm = results[MD_RANKS + 1]
+    if len(nccl_children) == 2:
+        nccl = results[MD_RANKS]["extra"]
+        print(f"multi-device, bench_main --sharded under torchrun's env: "
+              f"backend {nccl['backend']}, mesh {nccl['mesh']}, "
+              f"{nccl['total_images_per_sec']:.1f} images/s at batch "
+              f"{nccl['batch']} (pool {nccl['pool']}; beside the 4 gloo "
+              f"ranks on this card: not a speed)", flush=True)
+        if nccl["backend"] != "nccl" or nccl["mesh"] != {"data": 1,
+                                                         "model": 1}:
+            fail(f"multi-device: the NCCL rank ran {nccl}")
+    nccl_lm = results[-1]
+    cap = nccl_lm["captured"]
     print(f"multi-device, make_lm_train_step on a {nccl_lm['mesh']} mesh "
           f"over {nccl_lm['backend']} at world size 1, the tiny config: "
           f"losses {nccl_lm['losses']}", flush=True)
+    print(f"multi-device, the dry run analog over NCCL at world size 1 in "
+          f"{nccl_lm['dryrun_s']:.1f} s: {nccl_lm['dryrun']}", flush=True)
+    print(f"multi-device, a TP engine (tiny, bf16) on a model axis of one "
+          f"NCCL rank: steps {cap['mode']}; NCCL calls made while its "
+          f"graphs were captured {cap['calls_in_capture']} (a step makes "
+          f"{cap['calls_per_step']}); {cap['replays']} replay(s) of one "
+          f"step() ran NCCL kernels {cap['nccl_kernels'] or 'none'}; ids "
+          f"equal to its op-by-op steps: {cap['ids_equal']}; {card}",
+          flush=True)
     if nccl_lm["backend"] != "nccl" or not nccl_lm["ok"]:
         fail(f"multi-device: the NCCL LM rank ran {nccl_lm}")
     print(f"multi-device: phase wall {time.perf_counter() - t_phase:.1f} s "
           f"with the children's start; {card}", flush=True)
-    ring = {r["rank"]: r["ring"] for r in results[:MD_RANKS]}
-    return {"ring": ring,
+    ranks = results[:MD_RANKS]
+    out = {"tp": {r["rank"]: r["tp"] for r in ranks if "tp" in r}}
+    if arms:
+        return out
+    ring = {r["rank"]: r["ring"] for r in ranks}
+    return {**out, "ring": ring,
             "alexnet": {r["rank"]: r["alexnet"] for r in results[:MD_RANKS]},
             "f32out": {k: sum(ring[r][f"{impl}-{layout}"][f"{k}_f32out"]
                               for r in ring for impl, layout in MD_RING)
@@ -5728,11 +6052,16 @@ def main() -> int:
                   "the lse write; under lse_mode, the same for one "
                   "lm_train_step, whose forward writes the lse; the "
                   "launches_* keys count the same kernel on the int8, int4 "
-                  "and MoE prefills and the MoE training step",
+                  "and MoE prefills, each rank's tensor-parallel prefills "
+                  "(bf16 and f32) and the MoE training step",
              launches_int8_prefill=rest["quant"]["int8"]["launches"],
              launches_int4_prefill=rest["quant"]["int4"]["launches"],
              launches_moe_prefill=rest["moe"]["serve_launches"][
                  "flash_attn_fwd"],
+             launches_tp_prefill_by_rank={
+                 r: v["bfloat16"] for r, v in multi["tp"].items()},
+             launches_tp_f32_prefill_by_rank={
+                 r: v["float32"] for r, v in multi["tp"].items()},
              lse_mode=dict(launches=lm["flash_attn_fwd"],
                            launches_moe_train=rest["moe"][
                                "train_launches"]["flash_attn_fwd"],

@@ -94,20 +94,27 @@ def test_server_cli_options_match_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "item 6"), (["--checkpoint", "DIR"], "item 7"),
+    (["--tp", "4"], "item 6"), (["--checkpoint", "DIR"], "item 7"),
     (["--quantized"], "item 1b"), (["--int4"], "item 1b"),
     (["--draft-config", "tiny-draft"], "item 1b"),
     (["--spec-ngram", "3"], "item 1b")])
 def test_server_cli_unported_options_raise(flags, item, monkeypatch,
                                            tmp_path):
-    """``--tp`` (item 6) raises naming its ROADMAP item before a model is
-    built.  The options of items 1b and 7 are ported: each builds its
-    engine (int8 or int4 weights, a draft model, n-gram speculation,
-    weights restored from a checkpoint), which the CLI hands to the
-    server it starts (stopped here at the start)."""
+    """The options of items 1b, 6 and 7 are ported.  ``--tp`` (item 6)
+    checks its mesh before a model is built: 4 ranks do not divide the
+    tiny config's 2 KV heads, an argparse error
+    (``tests/test_torch_tp_serving.py`` serves ``--tp 2``).  The others
+    each build their engine (int8 or int4 weights, a draft model, n-gram
+    speculation, weights restored from a checkpoint), which the CLI hands
+    to the server it starts (stopped here at the start)."""
     if item == "item 6":
-        with pytest.raises(NotImplementedError, match=item):
+        def no_build(*a, **k):
+            raise AssertionError("a model was built")
+
+        monkeypatch.setattr(tbench, "build_model_and_params", no_build)
+        with pytest.raises(SystemExit) as exc:
             tserver.main(["--config", "tiny", "--device", "cpu", *flags])
+        assert exc.value.code == 2
         return
     if item == "item 7":
         from tpu_k8s_device_plugin_torch.workloads.checkpoint import (

@@ -344,8 +344,15 @@ def test_shardings_raise_naming_item_6(tmp_path):
     placement, here the (1, 1) mesh of a gloo group of this process
     alone (``tests/test_torch_parallel.py`` holds the reference's two
     mesh restores on 8 ranks); ``load_checkpoint_params``'s ``mesh``
-    waits for TP serving and raises naming item 6.4."""
+    (item 6.4, no longer raising) restores this rank's pieces of the
+    serving model on a model axis of that one rank: every leaf equal to
+    the meshless restore's, each projection ending in its collective
+    (``tests/test_torch_tp_serving.py`` restores onto 2 ranks)."""
     from tpu_k8s_device_plugin_torch.workloads import parallel
+    from tpu_k8s_device_plugin_torch.workloads.inference import (
+        greedy_generate)
+    from tpu_k8s_device_plugin_torch.workloads.transformer import (
+        make_lm_mesh)
 
     model, _, _ = _setup()
     state = model.state_dict()
@@ -360,9 +367,18 @@ def test_shardings_raise_naming_item_6(tmp_path):
                                           shardings=shardings)
             for key, value in state.items():
                 assert torch.equal(restored["params"][key], value), key
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        load_checkpoint_params("tiny", 64, False, str(tmp_path),
-                               device="cpu", mesh=object())
+        lm_mesh = make_lm_mesh(seq=1, model=1, expert=1, device="cpu")
+        _, split = load_checkpoint_params("tiny", 64, False, str(tmp_path),
+                                          device="cpu", mesh=lm_mesh)
+        _, whole = load_checkpoint_params("tiny", 64, False, str(tmp_path),
+                                          device="cpu")
+        got, want = dict(split.named_parameters()), whole.state_dict()
+        assert split.tp_size == 1 and got.keys() == want.keys()
+        assert all(torch.equal(got[k], v) for k, v in want.items())
+        assert split.block_0.out_proj.tp_mode == "row"
+        assert torch.equal(
+            greedy_generate(split, [[1, 2, 3]], 4)[0],
+            greedy_generate(whole, [[1, 2, 3]], 4)[0])
 
 
 def test_save_drains_the_device_first(tmp_path, monkeypatch):

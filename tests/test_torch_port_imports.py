@@ -58,6 +58,8 @@ def test_port_files_exist():
     assert "tpu_k8s_device_plugin_torch/workloads/speculative.py" in names
     assert "tpu_k8s_device_plugin_torch/workloads/checkpoint.py" in names
     assert "tpu_k8s_device_plugin_torch/types/constants.py" in names
+    assert "tpu_k8s_device_plugin_torch/dryrun.py" in names
+    assert "tpu_k8s_device_plugin_torch/workloads/tp_driver.py" in names
     for module in ("parallel", "ring_attention", "collectives", "pipeline"):
         assert f"tpu_k8s_device_plugin_torch/workloads/{module}.py" in names
     for agent in AGENT_MODULES:

@@ -579,19 +579,38 @@ def test_engine_level_errors_match_reference(gelu):
             eng.scan_dispatch(1)
 
 
+class _ModelAxisOf8:
+    """A mesh's face with a model axis of 8 ranks: the engine checks the
+    heads against it before it makes any collective."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return (1, 8)[dim]
+
+    def get_group(self, axis):
+        return None
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 6"),
+    (dict(mesh=_ModelAxisOf8()), "item 6"),
     (dict(draft="ngram"), "item 1b"),
     (dict(grammar=object()), "item 4.2"),
     (dict(kv_paging=True), "item 4.2"),
     (dict(kv_dtype="int8"), "item 4.2"),
 ])
 def test_unported_engine_arguments_raise(gelu, kw, item):
-    """``mesh`` (item 6) raises naming its ROADMAP item; the arguments of
-    items 4.2 (grammars, the paged pool, int8 pages) and 1b (a draft)
-    are ported now and build an engine that decodes."""
+    """Every argument is ported now.  ``mesh`` (item 6) refuses a model
+    axis its 4 heads do not divide with ``ValueError`` naming the model
+    axis, as the reference's ``test_tp_engine_rejects_unshardable_kv_heads``
+    (``tests/test_torch_tp_serving.py`` serves on real meshes); the
+    arguments of items 4.2 (grammars, the paged pool, int8 pages) and 1b
+    (a draft) build an engine that decodes."""
     if item == "item 6":
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="model"):
             _port(gelu[2], n_slots=1, **kw)
         return
     if item == "item 1b":

@@ -470,3 +470,10 @@ def pipeline_errors(stacked):
         except ValueError as e:
             seen[name] = str(e)
     return seen
+
+
+def call(module, name, *args):
+    """A case of another rank-side module: ``module.name(*args)``."""
+    import importlib
+
+    return getattr(importlib.import_module(module), name)(*args)

@@ -71,43 +71,64 @@ def random_init_(model: torch.nn.Module, seed: int = 0) -> None:
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    # the adapter stacks draw last, so a model's base weights are those
-    # of the same model without adapters from the same seed
-    params = sorted(model.named_parameters(),
-                    key=lambda kv: "_lora_" in kv[0])
-    for name, p in params:
-        leaf = name.rpartition(".")[2]
-        if p.dtype == torch.int8 or leaf.endswith("_scale") or (
-                leaf == "scale" and not name.endswith("_norm.scale")):
-            raise ValueError(f"{name}: quantized models take "
-                             "llama.random_quantized_params")
-        if name.endswith("_norm.scale"):
-            p.fill_(1.0)
-        elif name == "embed.weight":
-            _fill_(p, gen, 1.0 / math.sqrt(p.shape[1]), truncated=False)
-        elif leaf.endswith("_lora_A"):
-            _fill_(p, gen, 0.01, truncated=False)
-        elif leaf.endswith("_lora_B"):
-            p.zero_()
-        elif leaf in ("router", "experts_up", "experts_down"):
-            # [D, E], [E, D, F], [E, F, D]: fan-in is the dim before last
-            _fill_(p, gen, 1.0 / math.sqrt(p.shape[-2]), truncated=True)
-        else:  # Dense weight [out, in]
-            _fill_(p, gen, 1.0 / math.sqrt(p.shape[1]), truncated=True)
+    for name, p in _init_order(model):
+        _init_leaf_(name, p, gen)
+
+
+def _init_order(model: torch.nn.Module):
+    """*model*'s ``(name, parameter)`` pairs in the order
+    :func:`random_init_` draws them: the adapter stacks last, so a
+    model's base weights are those of the same model without adapters
+    from the same seed."""
+    return sorted(model.named_parameters(), key=lambda kv: "_lora_" in kv[0])
+
+
+def _init_leaf_(name: str, p: torch.Tensor, gen: torch.Generator) -> None:
+    """Fill the whole leaf *name* in place as :func:`random_init_` does."""
+    leaf = name.rpartition(".")[2]
+    if p.dtype == torch.int8 or leaf.endswith("_scale") or (
+            leaf == "scale" and not name.endswith("_norm.scale")):
+        raise ValueError(f"{name}: quantized models take "
+                         "llama.random_quantized_params")
+    if name.endswith("_norm.scale"):
+        p.fill_(1.0)
+    elif name == "embed.weight":
+        _fill_(p, gen, 1.0 / math.sqrt(p.shape[1]), truncated=False)
+    elif leaf.endswith("_lora_A"):
+        _fill_(p, gen, 0.01, truncated=False)
+    elif leaf.endswith("_lora_B"):
+        p.zero_()
+    elif leaf in ("router", "experts_up", "experts_down"):
+        # [D, E], [E, D, F], [E, F, D]: fan-in is the dim before last
+        _fill_(p, gen, 1.0 / math.sqrt(p.shape[-2]), truncated=True)
+    else:  # Dense weight [out, in]
+        _fill_(p, gen, 1.0 / math.sqrt(p.shape[1]), truncated=True)
 
 
 def build_model_and_params(config: str, max_len: int, device=None,
-                           seed: int = 0, quantized=False):
-    """``(cfg, model)`` for a named config with random weights built
-    directly on *device* (CUDA unless given): bf16, or with *quantized*
-    (True for int8, ``"int4"``) the quantized layout from
+                           seed: int = 0, quantized=False, mesh=None,
+                           dtype=None):
+    """``(cfg, model)`` for a named config (or a ``llama.LlamaConfig``)
+    with random weights built directly on *device* (CUDA unless given):
+    bf16 (or *dtype*), or with
+    *quantized* (True for int8, ``"int4"``) the quantized layout from
     ``llama.random_quantized_params``, so no bf16 copy is made.  The
     model holds its weights, so there is no separate params tree
-    (``load_checkpoint_params`` gives the same pair from a
-    checkpoint)."""
-    cfg = CONFIGS[config]
+    (``load_checkpoint_params`` gives the same pair from a checkpoint).
+
+    With *mesh* the model is this rank's split over its ``model`` axis
+    (``inference.tp_twin``), built one leaf at a time: each leaf is
+    drawn whole, in the order and from the generator the whole model's
+    are, and only this rank's piece of it is kept, so the pieces equal
+    the slices of the whole model from the same seed and the peak is
+    one whole leaf."""
+    cfg = CONFIGS[config] if isinstance(config, str) else config
+    kw = {} if dtype is None else {"dtype": dtype}
+    if mesh is not None:
+        return cfg, _build_split(cfg, max_len, device, seed, quantized,
+                                 mesh, kw)
     model = llama.decoder(cfg, max_len=max_len, quantized=quantized,
-                          device=device)
+                          device=device, **kw)
     if quantized:
         params = llama.random_quantized_params(
             cfg, seed=seed, bits=4 if quantized == "int4" else 8,
@@ -117,6 +138,52 @@ def build_model_and_params(config: str, max_len: int, device=None,
     else:
         random_init_(model, seed)
     return cfg, model
+
+
+@torch.no_grad()
+def _fill_split(whole_model, model, leaves) -> None:
+    """Copy this rank's piece of each ``(name, whole leaf)`` of *leaves*
+    into the split *model* (``inference.tp_twin`` of *whole_model*),
+    one leaf at a time; every parameter must be named once."""
+    from .inference import tp_piece
+
+    params = dict(model.named_parameters())
+    m, r = model.tp_size, model.tp_rank
+    for name, whole in leaves:
+        params.pop(name).copy_(tp_piece(whole_model, name, whole, m, r))
+    if params:
+        raise ValueError(f"leaves missing from the tree: "
+                         f"{sorted(params)[:5]}")
+
+
+@torch.no_grad()
+def _build_split(cfg, max_len: int, device, seed: int, quantized, mesh,
+                 kw) -> torch.nn.Module:
+    """:func:`build_model_and_params`'s split model (see there)."""
+    from .inference import tp_twin
+
+    device = resolve_device(device)
+    whole = llama.decoder(cfg, max_len=max_len, quantized=quantized,
+                          device="meta", **kw)
+    model = tp_twin(whole, mesh, device="meta")
+    model.to_empty(device=device)
+    if quantized:
+        leaves = llama.random_quantized_leaves(
+            cfg, seed=seed, bits=4 if quantized == "int4" else 8,
+            device=device)
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+
+        def drawn():
+            for name, p in _init_order(whole):
+                leaf = torch.empty(p.shape, dtype=p.dtype, device=device)
+                _init_leaf_(name, leaf, gen)
+                yield name, leaf
+
+        leaves = drawn()
+    _fill_split(whole, model, leaves)
+    return model
 
 
 def _train_init(cfg, device="meta"):
@@ -140,22 +207,43 @@ def load_checkpoint_params(config: str, max_len: int, quantized,
     the serving tree reaches the card and every key is consumed.  The
     train model's keys are the decoder's (``train_model`` and
     ``decoder`` build the same layers), so no mapping is needed; the
-    load casts each f32 leaf to its parameter's dtype once.  *mesh*
-    raises ``NotImplementedError`` (ROADMAP.md, queue 1, item 6)."""
+    load casts each f32 leaf to its parameter's dtype once.
+
+    With *mesh* the model is this rank's split over its ``model`` axis,
+    as :func:`build_model_and_params` gives it: each restored leaf is
+    quantized on the host (for *quantized*: quantize first, slice
+    after) and only this rank's piece of it goes to *device*."""
     from .checkpoint import restore_checkpoint
     from .inference import quantize_lm_params, quantize_lm_params_int4
-    from .transformer import _unported
 
-    _unported(mesh=mesh)
     cfg = CONFIGS[config]
     device = resolve_device(device)
     restored = restore_checkpoint(
         checkpoint_dir, step=step, template={"params": _train_init(cfg)})
     params = restored.pop("params")
+    quant = None
     if quantized == "int4":
-        params = quantize_lm_params_int4(params)
+        quant = quantize_lm_params_int4
     elif quantized:
-        params = quantize_lm_params(params)
+        quant = quantize_lm_params
+    if mesh is not None:
+        from .inference import tp_twin
+
+        whole = llama.decoder(cfg, max_len=max_len, quantized=quantized,
+                              device="meta")
+        model = tp_twin(whole, mesh, device="meta")
+        model.to_empty(device=device)
+
+        def leaves():
+            while params:
+                key, leaf = params.popitem()
+                yield from (quant({key: leaf}) if quant
+                            else {key: leaf}).items()
+
+        _fill_split(whole, model, leaves())
+        return cfg, model
+    if quant is not None:
+        params = quant(params)
     model = llama.decoder(cfg, max_len=max_len, quantized=quantized,
                           device=device)
     model.load_state_dict(params, strict=True)

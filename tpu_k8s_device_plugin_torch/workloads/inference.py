@@ -26,6 +26,9 @@ The JAX package's ``workloads/inference.py`` in PyTorch:
   (``n_adapters``, ``attach_lora``).  The JAX package leaves these
   matmuls to XLA, and here they are torch ops: an int8 or int4 kernel
   is converted to the compute dtype at each call.
+* tensor parallelism (``shard_decoder``): this rank's pieces of the
+  projections on a mesh's ``model`` axis, each ending in the collective
+  it needs (see the section below); the caches hold the rank's KV heads.
 
 The decode loop takes the first token from the prefill logits, then
 runs ``n_steps - 1`` extends.  On CUDA the step (extend and pick) is
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import copy
 import gc
+import math
 import threading
 import time
 from typing import Dict, Optional, Tuple
@@ -141,13 +145,16 @@ class Quant4Dense(nn.Module):
     rows go through in chunks that bound the partial sums to
     ``_INT4_PARTIAL_BYTES``, each chunk by the same operations."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device):
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device,
+                 group: Optional[int] = None):
         super().__init__()
         if d_out % 2:
             raise ValueError(
                 f"int4 packing needs an even output dim, got {d_out}")
         self.dtype = dtype
-        g = _int4_group(d_in)
+        # a tensor-parallel row piece passes the group its share of the
+        # whole layer's inputs falls into (see tp_piece)
+        g = self.group = group or _int4_group(d_in)
         self.kernel_int4 = nn.Parameter(torch.zeros(
             d_in, d_out // 2, dtype=torch.int8, device=device),
             requires_grad=False)
@@ -157,7 +164,7 @@ class Quant4Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         din = x.shape[-1]
-        g = _int4_group(din)
+        g = self.group
         n_g = din // g
         f = self.scale.shape[-1]
         wg = unpack_int4(self.kernel_int4).to(self.dtype).reshape(n_g, g, f)
@@ -359,8 +366,12 @@ class CachedBlock(Block):
         """The projection plus, with adapters and *adapter_ids*, each
         row's LoRA delta: its adapter's stacks gathered by id, the delta
         ``(x A) B`` in f32 scaled by ``lora_scale`` (0 where the id is
-        -1), cast to the projection's dtype and added."""
-        y = getattr(self, name)(x)
+        -1), cast to the projection's dtype and added.  A tensor-parallel
+        piece (see :func:`shard_decoder`) adds its share of the delta
+        before its collective: a row piece's partial sums and its rows of
+        A give a partial delta, summed with them."""
+        layer = getattr(self, name)
+        y = layer(x)
         if self.n_adapters > 0 and adapter_ids is not None:
             sel = adapter_ids.clamp(min=0).long()
             gate = (adapter_ids >= 0).to(torch.float32) * self.lora_scale
@@ -370,7 +381,7 @@ class CachedBlock(Block):
             delta = torch.einsum("btr,bro->bto", mid, b) \
                 * gate[:, None, None]
             y = y + delta.to(y.dtype)
-        return y
+        return _tp_finish(layer, y)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 layer_cache: Dict[str, torch.Tensor],
@@ -549,6 +560,11 @@ class DecodeTransformerLM(nn.Module):
         self.vocab, self.d_model, self.n_heads = vocab, d_model, n_heads
         self.n_layers, self.max_len, self.dtype = n_layers, max_len, dtype
         self.n_kv_heads = n_kv_heads or n_heads
+        self.d_ff = d_ff
+        # the model axis this model's projections are split over (see
+        # shard_decoder): None, or its mesh, group, size and this rank
+        self.tp_mesh, self.tp_group = None, None
+        self.tp_size, self.tp_rank = 1, 0
         self.quantized = quantized
         self.n_experts = n_experts
         self.n_adapters, self.lora_rank = n_adapters, lora_rank
@@ -570,6 +586,12 @@ class DecodeTransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.weight.device
+
+    @property
+    def local_kv_heads(self) -> int:
+        """The KV heads this rank's cache holds (all of them unless the
+        model is split over a model axis)."""
+        return self.n_kv_heads // self.tp_size
 
     def clone(self, **fields) -> "DecodeTransformerLM":
         """A twin of this model over the same weights with *fields*
@@ -608,7 +630,7 @@ class DecodeTransformerLM(nn.Module):
                 x, positions, cache[f"block_{i}"], decode, block_tables,
                 attend_rows, adapter_ids)
         x = self.final_norm(x)
-        return self.lm_head(x).to(torch.float32)
+        return _tp_finish(self.lm_head, self.lm_head(x)).to(torch.float32)
 
 
 def make_decoder(
@@ -647,11 +669,272 @@ def make_decoder(
     )
 
 
+# -- tensor-parallel serving -------------------------------------------------
+#
+# The JAX package serves on a mesh by placing the training side's
+# Megatron shardings on the decoder's tree and letting XLA put the
+# collectives in.  Here each rank of the mesh's ``model`` axis holds its
+# pieces of the projections as plain tensors and calls the collectives
+# itself: the fused qkv keeps the columns of this rank's query and KV
+# heads (``q | k | v`` of its heads, so no collective follows it), the
+# attention runs on those heads, ``out_proj`` takes the matching input
+# rows and sums its partial outputs over the axis; the FFN's gate and up
+# keep a slice of d_ff and ``mlp_down`` its rows, summed likewise; the
+# LM head keeps a slice of the vocabulary and gathers the logits, so
+# every rank holds the whole logits and picks the same tokens.
+# Embeddings, norms and expert FFNs are whole on every rank.
+
+
+def _tp_finish(layer: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """A projection's output after the collective its piece needs: the
+    sum over the model axis for a row piece, the gather of the columns
+    for the LM head's; as it is otherwise."""
+    mode = layer.__dict__.get("tp_mode")
+    if mode == "row":
+        from . import collectives
+
+        return collectives.all_reduce(y, layer.tp_group)
+    if mode == "gather":
+        from . import collectives
+
+        return collectives.all_gather(y, layer.tp_group, dim=-1)
+    return y
+
+
+def capturable(model: DecodeTransformerLM) -> bool:
+    """Whether *model*'s steps are captured as CUDA graphs: on CUDA, and
+    for a model split over a model axis only when that axis runs NCCL.
+    Gloo stages CUDA tensors through host buffers, which a capture
+    cannot hold, so a split over gloo runs its steps op by op: a stated
+    mode, chosen here and nowhere else."""
+    if model.device.type != "cuda":
+        return False
+    if model.tp_group is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_backend(model.tp_group) == "nccl"
+
+
+def tp_axis(mesh) -> Tuple[object, int, int]:
+    """``(group, size, rank)`` of *mesh*'s ``model`` axis."""
+    if "model" not in (mesh.mesh_dim_names or ()):
+        raise ValueError("a serving mesh needs a 'model' axis")
+    return (mesh.get_group("model"), mesh.size(
+        mesh.mesh_dim_names.index("model")), mesh.get_local_rank("model"))
+
+
+def check_tp(model: DecodeTransformerLM, m: int, what: str = "") -> None:
+    """Raise ``ValueError`` (naming the model axis) unless *model*'s query
+    and KV head counts both divide a model axis of *m* ranks."""
+    if model.n_kv_heads % m or model.n_heads % m:
+        raise ValueError(
+            f"{what}n_kv_heads={model.n_kv_heads} and n_heads="
+            f"{model.n_heads} must divide the mesh's model axis ({m}) to "
+            "shard the heads and the KV cache")
+
+
+def _tp_modes(model: DecodeTransformerLM, m: int) -> Dict[str, str]:
+    """Each split projection's scope (``block_i.qkv``, ``lm_head``) and
+    its mode on a model axis of *m*: ``"heads"`` (qkv), ``"row"``,
+    ``"column"`` or ``"gather"``; a projection not named stays whole
+    (the FFN when d_ff does not split, the LM head when the vocabulary
+    does not; an int4 column piece also needs an even width)."""
+    int4 = model.quantized == "int4"
+
+    def splits(n: int) -> bool:
+        return n % m == 0 and not (int4 and (n // m) % 2)
+
+    modes = {}
+    for i in range(model.n_layers):
+        b = f"block_{i}"
+        modes[f"{b}.qkv"], modes[f"{b}.out_proj"] = "heads", "row"
+        if model.n_experts == 0 and splits(model.d_ff):
+            for name in ("mlp_gate", "mlp_up"):
+                if name in model._modules[b]._modules:
+                    modes[f"{b}.{name}"] = "column"
+            modes[f"{b}.mlp_down"] = "row"
+    if splits(model.vocab):
+        modes["lm_head"] = "gather"
+    return modes
+
+
+def _proj_dims(model: DecodeTransformerLM, name: str) -> Tuple[int, int]:
+    """``(d_in, d_out)`` of the whole projection *name* (its last part)."""
+    d, hd = model.d_model, model.d_model // model.n_heads
+    return {"qkv": (d, (model.n_heads + 2 * model.n_kv_heads) * hd),
+            "out_proj": (d, d), "mlp_gate": (d, model.d_ff),
+            "mlp_up": (d, model.d_ff), "mlp_down": (model.d_ff, d),
+            "lm_head": (d, model.vocab)}[name]
+
+
+def _tp_columns(model: DecodeTransformerLM, scope: str, mode: str, m: int,
+                r: int) -> torch.Tensor:
+    """The output columns rank *r* keeps of a column-type piece: the
+    columns of its query heads, then its K heads', then its V heads'
+    for the qkv, an even slice otherwise."""
+    name = scope.rpartition(".")[2]
+    d_out = _proj_dims(model, name)[1]
+    if mode != "heads":
+        n = d_out // m
+        return torch.arange(r * n, (r + 1) * n)
+    hd = model.d_model // model.n_heads
+    hq, hk = model.n_heads // m, model.n_kv_heads // m
+    q0, k0 = model.n_heads * hd, (model.n_heads + model.n_kv_heads) * hd
+    return torch.cat([torch.arange(r * hq * hd, (r + 1) * hq * hd),
+                      torch.arange(q0 + r * hk * hd, q0 + (r + 1) * hk * hd),
+                      torch.arange(k0 + r * hk * hd, k0 + (r + 1) * hk * hd)])
+
+
+def _row_span(model: DecodeTransformerLM, scope: str, m: int, r: int
+              ) -> Tuple[int, int, int, int]:
+    """``(first input, inputs, whole group, local group)`` of rank *r*'s
+    row piece: the int4 group of the whole layer, and the group the
+    piece runs with, which divides both the piece's width and the
+    whole group (the piece's inputs may fill part of one group)."""
+    d_in = _proj_dims(model, scope.rpartition(".")[2])[0]
+    width = d_in // m
+    g = _int4_group(d_in)
+    return r * width, width, g, math.gcd(width, g)
+
+
+def _lora_scope(name: str) -> Tuple[str, str]:
+    """``("block_i.qkv", "A")`` for ``block_i.qkv_lora_A``; else
+    ``(scope, leaf)`` of the name."""
+    scope, _, leaf = name.rpartition(".")
+    for ab in ("A", "B"):
+        if leaf.endswith(f"_lora_{ab}"):
+            return f"{scope}.{leaf[:-len('_lora_A')]}", f"lora_{ab}"
+    return scope, leaf
+
+
+def tp_piece(model: DecodeTransformerLM, name: str, whole: torch.Tensor,
+             m: int, r: int) -> torch.Tensor:
+    """Rank *r*'s piece (a copy) of the leaf *name* of *model*'s whole
+    state dict, on a model axis of *m* (see :func:`shard_decoder`); a
+    leaf that stays whole comes back as it is.  Quantized leaves keep
+    the JAX package's ``[in, out]`` layout: an int4 kernel's columns are
+    bytes of two columns each, and a row piece's int4 scales are the
+    rows of the groups its inputs fall in, one per local group."""
+    scope, leaf = _lora_scope(name)
+    mode = _tp_modes(model, m).get(scope)
+    if mode is None:
+        return whole
+    if mode == "row":
+        lo, width, g, local = _row_span(model, scope, m, r)
+        if leaf == "weight":
+            out = whole.narrow(1, lo, width)
+        elif leaf in ("kernel_int8", "kernel_int4"):
+            out = whole.narrow(0, lo, width)
+        elif leaf == "scale" and whole.dim() == 2:
+            rows = (lo + torch.arange(width // local) * local) // g
+            out = whole.index_select(0, rows.to(whole.device))
+        elif leaf == "lora_A":
+            out = whole.narrow(1, lo, width)
+        else:  # an int8 scale or lora_B: by output channel, whole
+            return whole
+        return out.contiguous().clone()
+    cols = _tp_columns(model, scope, mode, m, r).to(whole.device)
+    if leaf == "weight":
+        out = whole.index_select(0, cols)
+    elif leaf == "kernel_int4":
+        out = whole.index_select(1, cols[0::2] // 2)
+    elif leaf == "scale":
+        out = whole.index_select(whole.dim() - 1, cols)
+    elif leaf in ("kernel_int8", "lora_B"):
+        out = whole.index_select(whole.dim() - 1, cols)
+    else:  # lora_A: by input, whole
+        return whole
+    return out.contiguous()
+
+
+def _shallow(module: nn.Module) -> nn.Module:
+    """A copy of *module* sharing its submodules and tensors, whose own
+    tables of them can be changed without touching *module*."""
+    twin = copy.copy(module)
+    for table in ("_modules", "_parameters", "_buffers"):
+        setattr(twin, table, dict(getattr(module, table)))
+    return twin
+
+
+def tp_twin(model: DecodeTransformerLM, mesh, device=None
+            ) -> DecodeTransformerLM:
+    """*model* as rank ``mesh.get_local_rank("model")`` holds it on
+    *mesh*: a new model sharing *model*'s whole leaves (embedding, norms,
+    expert FFNs) whose split projections and adapter stacks are new,
+    uninitialised layers of the piece's shapes on *device* (*model*'s
+    unless given); :func:`shard_decoder` and the sharded builders of
+    ``bench_serving`` fill them with :func:`tp_piece`.  Raises
+    ``ValueError`` when the heads do not divide the axis."""
+    group, m, r = tp_axis(mesh)
+    check_tp(model, m)
+    if model.tp_mesh is not None:
+        raise ValueError("the model is split over a mesh already")
+    device = model.device if device is None else torch.device(device)
+    cls = _dense_cls(model.quantized)
+    twin = _shallow(model)
+    for scope, mode in _tp_modes(model, m).items():
+        owner_name, _, name = scope.rpartition(".")
+        owner = twin
+        if owner_name:
+            # a block's own copy, made at its first split projection
+            if twin._modules[owner_name] is model._modules[owner_name]:
+                twin._modules[owner_name] = _shallow(
+                    model._modules[owner_name])
+            owner = twin._modules[owner_name]
+        d_in, d_out = _proj_dims(model, name)
+        extra = {}
+        if mode == "row":
+            _, d_in, _, local = _row_span(model, scope, m, r)
+            if cls is Quant4Dense:
+                extra["group"] = local
+        else:
+            d_out = len(_tp_columns(model, scope, mode, m, r))
+        layer = cls(d_in, d_out, model.dtype, device, **extra)
+        layer.requires_grad_(False)
+        layer.tp_mode, layer.tp_group = mode, group
+        owner._modules[name] = layer
+        # the adapter stack on the split dim: A's inputs for a row piece,
+        # B's outputs otherwise; the other stays whole
+        ab, dim, width = ("A", 1, d_in) if mode == "row" else \
+            ("B", 2, d_out)
+        key = f"{name}_lora_{ab}"
+        if key in owner._parameters:
+            shape = list(owner._parameters[key].shape)
+            shape[dim] = width
+            owner._parameters[key] = nn.Parameter(torch.empty(
+                shape, dtype=torch.float32, device=device),
+                requires_grad=False)
+    for i in range(model.n_layers):
+        blk = twin._modules[f"block_{i}"]
+        blk.n_heads, blk.n_kv = blk.n_heads // m, blk.n_kv // m
+    twin.tp_mesh, twin.tp_group, twin.tp_size, twin.tp_rank = (
+        mesh, group, m, r)
+    return twin
+
+
+@torch.no_grad()
+def shard_decoder(model: DecodeTransformerLM, mesh) -> DecodeTransformerLM:
+    """This rank's model on *mesh*'s ``model`` axis, from a whole
+    *model* (left as it is): :func:`tp_twin` with every split leaf
+    filled by its piece (:func:`tp_piece`).  The pieces are built on any
+    axis size, 1 among them (then every projection still ends in its
+    collective over a group of one).  Raises ``ValueError`` naming the
+    model axis when the query or KV heads do not divide it."""
+    group, m, r = tp_axis(mesh)
+    twin = tp_twin(model, mesh)
+    whole = dict(model.named_parameters())
+    for name, p in twin.named_parameters():
+        if p is not whole[name]:
+            p.copy_(tp_piece(model, name, whole[name], m, r))
+    return twin
+
+
 def init_cache(model: DecodeTransformerLM, batch: int) -> Cache:
     """Fresh all-zero cache for a *batch*-sized request, with the JAX
     package's keys and shapes."""
     head_dim = model.d_model // model.n_heads
-    kv = (batch, model.max_len, model.n_kv_heads, head_dim)
+    kv = (batch, model.max_len, model.local_kv_heads, head_dim)
     dev = model.device
     return {
         f"block_{i}": {
@@ -673,7 +956,7 @@ def init_pool_cache(model: DecodeTransformerLM, batch: int, n_pages: int,
     alongside.  Block tables live with the allocator
     (``kv_pool.PagePool``), not in the cache."""
     head_dim = model.d_model // model.n_heads
-    kv = (n_pages + 1, page_size, model.n_kv_heads, head_dim)
+    kv = (n_pages + 1, page_size, model.local_kv_heads, head_dim)
     dev = model.device
     pool_dtype = torch.int8 if kv_quant else model.dtype
     out = {}
@@ -1010,7 +1293,7 @@ def _decode_loop(model: DecodeTransformerLM, cache: Cache,
     On CUDA the step is captured as a CUDA graph and replayed (counted
     in ``_decode_loop.graph_replays``); *eager* runs it op by op
     instead, which the CPU always does."""
-    graph = model.device.type == "cuda" and not eager
+    graph = capturable(model) and not eager
     steps = _DecodeSteps(model, cache, pick, top_k, temperature,
                          0 if key is None else key, n_steps, graph)
     return steps.run(prefill_logits_last, pos0, n_steps)
@@ -1094,7 +1377,7 @@ def decode_throughput(
     run_cache = {name: {key: t.clone() for key, t in layer.items()}
                  for name, layer in cache.items()}
     steps = _DecodeSteps(model, run_cache, _greedy_pick, None, 1.0, 0,
-                         n_steps, graph=model.device.type == "cuda")
+                         n_steps, graph=capturable(model))
 
     best = None
     for r in range(rounds + 1):

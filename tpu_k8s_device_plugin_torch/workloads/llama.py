@@ -135,6 +135,15 @@ def random_quantized_params(cfg: LlamaConfig, seed: int = 0,
     *dtype* (the decoder stores it so) and norm scales 1.  The values
     come from a torch generator seeded with *seed*, not from JAX's
     keys; only their layout and distribution are the reference's."""
+    return dict(random_quantized_leaves(cfg, seed, dtype, bits, device))
+
+
+def random_quantized_leaves(cfg: LlamaConfig, seed: int = 0,
+                            dtype: torch.dtype = COMPUTE_DTYPE,
+                            bits: int = 8, device=None):
+    """:func:`random_quantized_params`'s ``(name, leaf)`` pairs, each drawn
+    when it is asked for, in the order of the whole dict: a sharded
+    build keeps its piece of one leaf before the next is drawn."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     from .transformer import resolve_device
@@ -167,16 +176,15 @@ def random_quantized_params(cfg: LlamaConfig, seed: int = 0,
     for r0 in range(0, v, rows):
         emb[r0:r0 + rows] = torch.randn(
             (min(rows, v - r0), d), generator=gen, **f32) * 0.02
-    params = {"embed.weight": emb,
-              "final_norm.scale": torch.ones(d, **f32)}
-    params.update(kern("lm_head", d, v))
+    yield "embed.weight", emb
+    del emb
+    yield "final_norm.scale", torch.ones(d, **f32)
+    yield from kern("lm_head", d, v).items()
     for i in range(cfg.n_layers):
         b = f"block_{i}"
-        params[f"{b}.attn_norm.scale"] = torch.ones(d, **f32)
-        params[f"{b}.mlp_norm.scale"] = torch.ones(d, **f32)
-        params.update(kern(f"{b}.qkv", d, qkv_out))
-        params.update(kern(f"{b}.out_proj", d, d))
-        params.update(kern(f"{b}.mlp_gate", d, f))
-        params.update(kern(f"{b}.mlp_up", d, f))
-        params.update(kern(f"{b}.mlp_down", f, d))
-    return params
+        yield f"{b}.attn_norm.scale", torch.ones(d, **f32)
+        yield f"{b}.mlp_norm.scale", torch.ones(d, **f32)
+        for name, din, dout in (("qkv", d, qkv_out), ("out_proj", d, d),
+                                ("mlp_gate", d, f), ("mlp_up", d, f),
+                                ("mlp_down", f, d)):
+            yield from kern(f"{b}.{name}", din, dout).items()

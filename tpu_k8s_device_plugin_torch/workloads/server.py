@@ -129,6 +129,7 @@ import itertools
 import json
 import logging
 import queue
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -3707,10 +3708,19 @@ def main(argv=None) -> int:
     """CLI: build a Llama-family engine and serve it, on CUDA unless
     ``--device cpu`` is given (without CUDA and without that flag it
     raises rather than serving on the CPU).  The JAX server's options,
-    plus ``--device``; those of features the port does not have yet
-    raise ``NotImplementedError`` naming their ROADMAP item."""
+    plus ``--device``.
+
+    ``--tp N`` runs one process a rank over a model axis of N
+    (:func:`_tp_start`): under torchrun's environment each process is
+    its rank, else this process is rank 0 and starts the other N - 1
+    itself.  Each rank builds its pieces of the model
+    (``build_model_and_params(mesh=)``) and its engine; rank 0 serves
+    HTTP through ``tp_driver.EngineLeader`` and the others replay its
+    engine calls (``tp_driver.follow``).  NCCL on CUDA (one device a
+    rank), gloo under ``--device cpu``.  A rank that fails stops the
+    server; stopping rank 0 stops every rank."""
     from .bench_serving import CONFIGS, build_model_and_params
-    from .transformer import _unported, resolve_device
+    from .transformer import resolve_device
 
     p = argparse.ArgumentParser(prog="tpu-serve")
     p.add_argument("--config", choices=sorted(CONFIGS), default="tiny")
@@ -3721,9 +3731,9 @@ def main(argv=None) -> int:
     p.add_argument("--n-slots", type=int, default=8)
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ways: shard params/KV over a "
-                        "model-axis mesh of the first N visible chips "
-                        "(the native analog of vLLM's "
-                        "--tensor-parallel-size)")
+                        "model-axis mesh of N ranks, one process and "
+                        "one visible CUDA device each (the native "
+                        "analog of vLLM's --tensor-parallel-size)")
     p.add_argument("--max-len", type=int, default=2048)
     p.add_argument("--max-new-tokens", type=int, default=256,
                    help="default per-request budget")
@@ -4091,15 +4101,38 @@ def main(argv=None) -> int:
     if args.profiler_hz <= 0:
         p.error("--profiler-hz must be > 0")
 
-    # the modes of the JAX server that the port has not yet: each
-    # raises naming its ROADMAP item, before the model is built
-    _unported(tp=args.tp if args.tp > 1 else 0)
     cache_dir = (args.compile_cache_dir
                  or _pd_os.environ.get("TPU_DP_COMPILE_CACHE_DIR"))
     if cache_dir:
         enable_compile_cache(cache_dir)
     quantized = "int4" if args.int4 else args.quantized
     device = resolve_device(args.device)
+    mesh = ctrl = None
+    rank, tp_procs = 0, []
+    if args.tp < 1:
+        p.error("--tp must be >= 1")
+    if args.tp > 1:
+        # validated BEFORE any weight is built: a bad --tp fails in
+        # milliseconds with an argparse error
+        import torch
+
+        for name in filter(None, (args.config, args.draft_config)):
+            c = CONFIGS[name]
+            n_kv = getattr(c, "n_kv_heads", None) or c.n_heads
+            if n_kv % args.tp or c.n_heads % args.tp:
+                p.error(f"--tp {args.tp} must divide {name}'s {n_kv} KV "
+                        f"heads and {c.n_heads} query heads (the heads "
+                        "and the cache shard on them)")
+        if device.type == "cuda" and torch.cuda.device_count() < args.tp:
+            p.error(f"--tp {args.tp} needs {args.tp} visible CUDA devices "
+                    f"(NCCL takes one a rank), found "
+                    f"{torch.cuda.device_count()}")
+        world = _pd_os.environ.get("WORLD_SIZE")
+        if world is not None and int(world) != args.tp:
+            p.error(f"--tp {args.tp} under a launcher's WORLD_SIZE "
+                    f"{world}")
+        rank, device, mesh, ctrl, tp_procs = _tp_start(
+            args.tp, device, sys.argv[1:] if argv is None else argv)
     if args.checkpoint:
         from .bench_serving import load_checkpoint_params
 
@@ -4107,7 +4140,7 @@ def main(argv=None) -> int:
         try:
             cfg, model = load_checkpoint_params(
                 args.config, args.max_len, quantized, args.checkpoint,
-                step=args.checkpoint_step, device=device)
+                step=args.checkpoint_step, device=device, mesh=mesh)
         except FileNotFoundError as e:
             p.error(str(e))
         print(f"restored {args.checkpoint} in "
@@ -4115,14 +4148,15 @@ def main(argv=None) -> int:
               f"quantize, load onto {device})", flush=True)
     else:
         cfg, model = build_model_and_params(args.config, args.max_len,
-                                            device, quantized=quantized)
+                                            device, quantized=quantized,
+                                            mesh=mesh)
     draft = None
     if args.draft_config:
         # greedy requests decode in spec rounds; sampled ones turn the
         # scheduler to windows
         _, draft = build_model_and_params(args.draft_config, args.max_len,
                                           device, seed=1,
-                                          quantized=quantized)
+                                          quantized=quantized, mesh=mesh)
     elif args.spec_ngram:
         draft = "ngram"
     engine = ServingEngine(model, n_slots=args.n_slots,
@@ -4138,7 +4172,20 @@ def main(argv=None) -> int:
                            kv_dtype=args.kv_dtype,
                            prefix_registry_max=args.prefix_registry_max,
                            fused_decode=args.fused_decode,
-                           device=device)
+                           mesh=mesh, device=device)
+    leader = None
+    if mesh is not None:
+        from . import tp_driver
+
+        if rank != 0:
+            tp_driver.follow(engine, ctrl)
+            return 0
+        stopping = threading.Event()
+        leader = engine = tp_driver.EngineLeader(
+            engine, ctrl, on_lost=lambda err: _tp_lost(err, stopping))
+        _tp_watch(tp_procs, stopping)
+        print(f"tensor parallel: {args.tp} ranks, steps "
+              f"{engine.stats()['tp_steps']}", flush=True)
     tokenizer = None
     if args.tokenizer:
         try:
@@ -4207,11 +4254,122 @@ def main(argv=None) -> int:
           f"http://{args.host}:{srv.port}  "
           f"[POST /generate, POST /v1/completions, GET /healthz, "
           f"GET /stats, GET /metrics]", flush=True)
+    if leader is not None:
+        import signal
+
+        def _term(signum, frame):
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _term)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
         srv.stop()
+        if leader is not None:
+            _tp_stop(leader, tp_procs, stopping)
     return 0
+
+
+def _tp_start(n: int, device, argv):
+    """Join (or start) the ranks of a ``--tp n`` server: ``(rank, device,
+    mesh, control group, started processes)``.  Under torchrun's
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) this process is its rank; else it is rank 0 and
+    starts ranks 1..n-1 as this CLI with the same *argv* and that
+    environment, their standard output dropped.  A started rank exits
+    when its parent does.  Each rank takes CUDA device ``LOCAL_RANK``
+    (NCCL), or the CPU (gloo); the control group, which carries rank
+    0's engine calls, is gloo and waits as long as the server idles."""
+    import datetime
+    import os
+    import socket
+    import subprocess
+
+    import torch
+    import torch.distributed as dist
+
+    from .transformer import make_lm_mesh
+
+    procs, rank, local, init = [], 0, 0, "env://"
+    if "RANK" in os.environ:
+        rank = int(os.environ["RANK"])
+        local = int(os.environ.get("LOCAL_RANK", rank))
+    else:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        init = f"tcp://127.0.0.1:{port}"
+        env = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), TPU_DP_TP_PARENT=str(os.getpid()))
+        for r in range(1, n):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", __package__ + ".server", *argv],
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                stdout=subprocess.DEVNULL))
+    if device.type == "cuda":
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=init, rank=rank, world_size=n)
+    mesh = make_lm_mesh(seq=1, model=n, expert=1, device=device)
+    ctrl = dist.new_group(backend="gloo",
+                          timeout=datetime.timedelta(days=365))
+    parent = os.environ.get("TPU_DP_TP_PARENT")
+    if parent is not None and rank != 0:
+        def watch():
+            while os.getppid() == int(parent):
+                time.sleep(1.0)
+            os._exit(1)
+
+        threading.Thread(target=watch, name="tp-parent", daemon=True).start()
+    return rank, device, mesh, ctrl, procs
+
+
+def _tp_lost(err: BaseException, stopping: threading.Event) -> None:
+    """A tensor-parallel rank is gone: the server stops, it never serves
+    on the ranks that are left (unless it is *stopping* already)."""
+    import os
+
+    if stopping.is_set():
+        return
+    log.error("tensor-parallel control group failed (%s); stopping", err)
+    os._exit(1)
+
+
+def _tp_watch(procs, stopping: threading.Event) -> None:
+    """Stop this server when a rank it started exits before it is
+    *stopping*."""
+    import os
+
+    def wait(proc):
+        rc = proc.wait()
+        if not stopping.is_set():
+            log.error("tensor-parallel rank (pid %d) exited with %s; "
+                      "stopping", proc.pid, rc)
+            os._exit(1)
+
+    for proc in procs:
+        threading.Thread(target=wait, args=(proc,), name="tp-rank",
+                         daemon=True).start()
+
+
+def _tp_stop(leader, procs, stopping: threading.Event,
+             timeout: float = 30.0) -> None:
+    """End the other ranks' replay loops and wait for the ranks this
+    process started (killed after *timeout*)."""
+    import subprocess
+
+    stopping.set()
+    try:
+        leader.close()
+    except Exception as e:  # a rank already gone: kill what is left
+        log.error("tensor-parallel close failed: %s", e)
+    for proc in procs:
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
 
 
 if __name__ == "__main__":

@@ -65,8 +65,20 @@ draw the same numbers, and a seeded request ignores its neighbours.
   of the admission extend's, written in place; prefixes are bound to
   the adapter they were prefilled with.
 
-Not ported yet: tensor-parallel meshes (``mesh`` raises
-``NotImplementedError`` naming ROADMAP item 6).
+* **tensor parallelism** (``mesh=``, a ``DeviceMesh`` with a ``model``
+  axis, one process a rank): the model and the draft are split over
+  that axis (``inference.shard_decoder``: this rank's heads and FFN
+  columns, the collectives after the row pieces and the LM head), and
+  the caches and pools hold this rank's KV heads.  Every rank runs the
+  same engine calls in the same order (the logits are gathered, so
+  their picks agree); ``tp_driver`` replays rank 0's calls on the other
+  ranks where rank 0 alone decides them (a scheduler, a server).  The
+  steps are captured as CUDA graphs when the axis runs NCCL and run op
+  by op when it runs gloo (``stats()["tp_steps"]``).  What leaves the
+  engine (``preempt``, ``demote_session``) holds the whole KV in global
+  head order, gathered over the axis; ``resume`` and ``resume_session``
+  take such a state on every rank and keep their heads of it, so a
+  state moves between split and whole engines.
 """
 
 from __future__ import annotations
@@ -81,6 +93,7 @@ from .inference import (
     Cache,
     DecodeTransformerLM,
     cache_lens,
+    capturable,
     capture_step,
     dequantize_kv_rows,
     extend_step,
@@ -96,7 +109,7 @@ from .inference import (
 )
 from .kv_pool import PagePool, PagePoolExhausted
 from .speculative import _draft_propose
-from .transformer import _unported, resolve_device
+from .transformer import resolve_device
 
 # Upper bound for the auto-selected prefill chunk; the resolved chunk is
 # always a divisor of max_len, so padded admission never overflows the
@@ -127,6 +140,19 @@ _IROWS = ("tok", "pos", "slot_draws", "emitted", "topks", "min_toks",
 _SCALARS = ("draws", "step", "key", "budget")
 # rows of its f32 block
 _FROWS = ("temps", "topps", "minps", "pres", "freqs", "reps")
+
+
+def _on_mesh(model: DecodeTransformerLM, mesh, what: str = ""
+             ) -> DecodeTransformerLM:
+    """*model* split over *mesh*'s model axis: as it is when it was built
+    so, else ``inference.shard_decoder`` of it.  ``ValueError`` naming
+    the model axis when its heads do not divide it."""
+    from .inference import check_tp, shard_decoder, tp_axis
+
+    check_tp(model, tp_axis(mesh)[1], what)
+    if model.tp_mesh is mesh:
+        return model
+    return shard_decoder(model, mesh)
 
 
 def _resolve_chunk(max_len: int,
@@ -313,19 +339,33 @@ def _paged_gather_mini(cache: Cache, table_row, dtype, put) -> Cache:
     return out
 
 
-def _paged_gather_raw(cache: Cache, table_row, put) -> Dict[str, dict]:
+def _paged_gather_raw(cache: Cache, table_row, put, group=None
+                      ) -> Dict[str, dict]:
     """One slot's pool pages in storage form (``[n_tables, page, ...]``,
     int8 and scales when quantized), copied to the host: the snapshot a
-    preemption keeps.  numpy arrays, except bf16 pools, which stay
-    torch tensors (numpy has no bfloat16)."""
+    preemption keeps, with the KV heads of every rank of the model axis
+    *group* when one is given.  numpy arrays, except bf16 pools, which
+    stay torch tensors (numpy has no bfloat16)."""
     row = put(np.asarray(table_row, np.int64))
     out = {}
     for layer, buf in cache.items():
         keys = (("k", "cached_k"), ("v", "cached_v"))
         if "k_scale" in buf:
             keys += (("ks", "k_scale"), ("vs", "v_scale"))
-        out[layer] = {name: _to_host(buf[key][row]) for name, key in keys}
+        out[layer] = {name: _to_host(_whole_heads(buf[key][row], group))
+                      for name, key in keys}
     return out
+
+
+def _whole_heads(t: torch.Tensor, group) -> torch.Tensor:
+    """A pool slice ``[..., page, Hkv(, Dh)]`` with every rank's KV heads,
+    in global order: gathered over the model axis *group* (dim 2), as it
+    is without one."""
+    if group is None:
+        return t
+    from . import collectives
+
+    return collectives.all_gather(t, group, dim=2)
 
 
 def _to_host(t: torch.Tensor):
@@ -334,10 +374,12 @@ def _to_host(t: torch.Tensor):
 
 
 def _paged_restore_raw(cache: Cache, raw, targets, scratch: int,
-                       slot: int, new_len: int, put) -> None:
+                       slot: int, new_len: int, put, heads=(1, 0)) -> None:
     """Scatter a preemption snapshot back into freshly allocated pages
     (*targets*, the scratch page beyond the restored length, which is
-    skipped): the inverse of ``_paged_gather_raw``, storage-exact."""
+    skipped): the inverse of ``_paged_gather_raw``, storage-exact.  A
+    pool that holds rank *r* of *m*'s KV heads (*heads* ``(m, r)``)
+    takes its heads of the whole snapshot."""
     keys = (("k", "cached_k"), ("v", "cached_v"), ("ks", "k_scale"),
             ("vs", "v_scale"))
     idx, pages = _owned(put, targets, scratch)
@@ -345,7 +387,10 @@ def _paged_restore_raw(cache: Cache, raw, targets, scratch: int,
         for name, key in keys:
             if key not in buf:
                 continue
-            src = torch.as_tensor(raw[layer][name]).to(pages.device)
+            src = torch.as_tensor(raw[layer][name])
+            if heads[0] > 1:
+                src = src.chunk(heads[0], dim=2)[heads[1]]
+            src = src.to(pages.device)
             if src.dtype != buf[key].dtype:
                 raise ValueError(
                     f"checkpoint {layer}/{name} is {src.dtype}, the pool "
@@ -823,7 +868,11 @@ class ServingEngine:
     reference's ``(model, params)`` pair, whose second entry the port
     ignores: the model holds its weights) or ``"ngram"``; ``gamma``
     tokens are proposed a round, ``ngram_n`` is the prompt-lookup
-    n-gram.
+    n-gram.  ``mesh`` splits the model (and the draft) over its
+    ``model`` axis (``inference.shard_decoder``; a model built split,
+    as ``bench_serving.build_model_and_params(mesh=)`` builds it, is
+    taken as it is); it raises ``ValueError`` naming the model axis
+    when the query or KV heads do not divide it.
     """
 
     def __init__(
@@ -852,7 +901,6 @@ class ServingEngine:
         fused_decode: bool = False,
         device=None,
     ):
-        _unported(mesh=mesh)
         device = resolve_device(device)
         if device.type != model.device.type or (
                 device.index is not None and device != model.device):
@@ -899,6 +947,9 @@ class ServingEngine:
             raise ValueError("prefix_registry_max must be >= 1")
         if jump_len < 1:
             raise ValueError("jump_len must be >= 1")
+        self.mesh = mesh
+        if mesh is not None:
+            model = _on_mesh(model, mesh)
         self.model = model
         self.device = device
         self.n_slots = n_slots
@@ -1041,7 +1092,7 @@ class ServingEngine:
         # the captured decode steps by static variant, their count of
         # replays and the ms all captures took; on the CPU the step runs
         # op by op
-        self._use_graphs = device.type == "cuda"
+        self._use_graphs = capturable(model)
         self._graphs: Dict[tuple, "torch.cuda.CUDAGraph"] = {}
         self._capture_stream = None
         self.graph_replays = 0
@@ -1111,6 +1162,8 @@ class ServingEngine:
             if draft_model.device != device:
                 raise ValueError(f"the draft lives on {draft_model.device},"
                                  f" the target on {device}")
+            if mesh is not None:
+                draft_model = _on_mesh(draft_model, mesh, "draft ")
             self._draft_model = draft_model
             self._draft_cache = init_cache(draft_model, n_slots)
 
@@ -1327,7 +1380,8 @@ class ServingEngine:
             pool.map(slot, idx, p)
         _paged_restore_raw(self.cache, raw,
                            self._table_targets(slot, 0, len(got)),
-                           pool.scratch, slot, new_len, self._stage.put)
+                           pool.scratch, slot, new_len, self._stage.put,
+                           (self.model.tp_size, self.model.tp_rank))
 
     def _free_slot_for_restore(self) -> int:
         free = self.free_slots()
@@ -1354,7 +1408,7 @@ class ServingEngine:
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not active")
         raw = _paged_gather_raw(self.cache, self._pool.tables[slot],
-                                self._stage.put)
+                                self._stage.put, self.model.tp_group)
         rec = self._slot_prompts[slot]
         if rec is not None and isinstance(rec[3], torch.Tensor):
             rec = rec[:3] + (rec[3].to("cpu").numpy(),) + rec[4:]
@@ -1544,7 +1598,7 @@ class ServingEngine:
             "canon": int(rec[2]),
             "adapter": int(rec[1]),
             "kv": _paged_gather_raw(self.cache, self._pool.tables[slot],
-                                    self._stage.put),
+                                    self._stage.put, self.model.tp_group),
         }
         self._pool.clear_slot(slot)
         self._slot_prompts[slot] = None
@@ -3213,6 +3267,10 @@ class ServingEngine:
             out.update(self._pool.stats())
             out["kv_preemptions"] = self._kv_preemptions
             out["kv_sessions_parked"] = len(self.session_slots())
+        if self.mesh is not None:
+            out["tp_size"] = self.model.tp_size
+            # captured over NCCL, op by op over gloo (or on the CPU)
+            out["tp_steps"] = "captured" if self._use_graphs else "eager"
         return out
 
     def release(self, slot: int) -> None:

@@ -94,22 +94,6 @@ def _fill_(w: torch.Tensor, gen: torch.Generator, std: float,
         part.copy_(x)
 
 
-def _unported(**features) -> None:
-    """Raise for a feature of the JAX models that the port does not have
-    yet, naming where ROADMAP.md puts it."""
-    later = {
-        "tp": "tensor-parallel serving arrives with multi-device "
-              "serving (ROADMAP.md, queue 1, item 6.4)",
-        # the serving engine's and load_checkpoint_params's arguments
-        "mesh": "tensor-parallel serving arrives with multi-device "
-                "serving (ROADMAP.md, queue 1, item 6.4)",
-    }
-    for name, value in features.items():
-        if isinstance(value, torch.Tensor) or value not in (None, False, 0):
-            raise NotImplementedError(f"{name}: not yet ported; "
-                                      f"{later[name]}")
-
-
 def f32_rsqrt(n: int) -> float:
     """``1 / sqrt(n)`` rounded as f32 arithmetic rounds it (the JAX
     package's ``1.0 / jnp.sqrt(jnp.array(n, f32))``), as a Python float:
