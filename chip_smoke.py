@@ -251,7 +251,20 @@ Phases, each fatal on failure:
    each answering the scheduler phase's greedy requests with the ids of
    an in-process engine over the same weights loaded without a
    checkpoint, each boot's restore seconds printed;
-11. print the ``kernels`` JSON line, then the result line.
+11. chaos, in a child (``--worker chaos``): the chaos soak's episodes
+   5 (a ``serve.step`` crash), 6 (a ``serve.schedule`` hang past the
+   schedule watchdog), 9 (a tenant burst under KV page pressure) and 11
+   (a kill in a packed prefill) on an ``EngineServer`` over Llama-3-8B
+   at full width, bf16, 4 of 32 layers, captured steps; 5 and 6 restart
+   three times on one server, and after each restart a greedy control
+   request gives the baseline's ids bit for bit, replays a captured
+   step, ``torch.cuda.synchronize()`` raises nothing and
+   ``memory_allocated`` does not grow from the previous restart;
+   episode 17 (a spilled session through a SIGKILL) on server CLI
+   replicas of Llama-3.2-1B at full width and depth, whose respawned
+   replica's next turn equals the control replica's; one line an
+   episode (restart ms, ids, replays, memory delta);
+12. print the ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2573,14 +2586,17 @@ REPLAY_REQUESTS = 16
 # routable replicas, placed so that they never wait together: the degraded
 # reshape at the peak's first request (it fires when the scaled-out
 # replica is ready, about 17 s in) and the SIGKILL at 23 s of trace time
-# (it waits through the rolling drain that the reshape starts, and lands
-# on two fresh replicas after the trace is served: no stream to tear);
-# scale-in after 45 s of calm (the reference's 2 s would drain a ready
-# replica while others boot; a replica boots in 11-15 s); the settle
-# bound (the loop leaves as soon as the fleet is back at its floor)
+# (it waits through the rolling drain that the reshape starts, which
+# keeps the second stale replica in rotation until the first one's
+# replacement serves, and lands on a replica of the new generation after
+# the trace is served: no stream to tear); scale-in after 30 s of calm
+# (the reference's 2 s would drain a ready replica while others boot; a
+# replica boots in 11-15 s; cut from 60 s, then 45, to pay for the
+# multi-device and chaos phases); the settle bound (the loop leaves as soon as the
+# fleet is back at its floor and no chaos hook is still waiting)
 EPISODE_RAMP = dict(calm_requests=4, peak_requests=12, tail_requests=40,
                     calm_rate=2.0, peak_rate=10.0)
-EPISODE_KILL_AT_MS, EPISODE_DOWN_STABLE_S = 23000.0, 45.0
+EPISODE_KILL_AT_MS, EPISODE_DOWN_STABLE_S = 23000.0, 30.0
 EPISODE_SETTLE_S = 240.0
 
 
@@ -2799,10 +2815,13 @@ def fleet_episode(fleet, work: str, card):
         max_new_tokens=128, prefix_chunk=16, slo=None,
         compile_cache_dir="", device=None, server_extra_args=FLEET_ARGS)
     t0 = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         report, rc = fleet.run_episode(args)
     wall = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    failed = [line for line in err.getvalue().splitlines()
+              if line.startswith("FLEET GATE FAIL")]
     gate = [line for line in buf.getvalue().splitlines()
             if line.startswith("fleet gate ok")]
     f, c = report["fleet"], report["chaos"]
@@ -2827,8 +2846,12 @@ def fleet_episode(fleet, work: str, card):
     if rc:
         for e in f["journal"]:
             print(f"  journal: {e['name']} {e['attrs']}", flush=True)
-        fail("fleet episode: --assert-fleet failed (see the FLEET GATE FAIL "
-             "lines above)")
+        fail(f"fleet episode: --assert-fleet failed: {'; '.join(failed)}; "
+             f"killed {c['killed_replica']}, journal "
+             + ", ".join(f"{e['attrs'].get('action') or e['name'][10:]} "
+                         f"{e['attrs'].get('replica') or ''}"
+                         f"({e['attrs'].get('reason', '')})"
+                         for e in f["journal"]))
 
 
 def fleet_cold_start(bench_serving, card):
@@ -3565,6 +3588,8 @@ def worker(argv) -> int:
         return md_rank_child(argv[1:])
     if argv[:1] == ["md-nccl-lm"]:
         return md_nccl_lm_child()
+    if argv[:1] == ["chaos"]:
+        return chaos_child(argv[1:])
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3834,19 +3859,53 @@ def ckpt_elastic(torch, counts, alexnet, bench_main, checkpoint, work,
     return launches
 
 
-def ckpt_lm_resume(torch, counts, fa, llama, transformer, bench_serving,
-                   checkpoint, work, card):
-    """The LM resume: the uninterrupted 5 steps in this process (K4 with
-    its lse, K5 and K6 counted); a worker takes 2 steps, saves and
-    SIGKILLs itself; a fresh worker restores and takes 3 more, whose
-    losses must be this process's last 3, bit for bit.  Returns the
-    launches of the 5 steps."""
-    import shutil
+def _lm_workers(work, running, result):
+    """The LM resume's two worker processes, one after the other: the
+    first takes 2 steps, saves and SIGKILLs itself; the second restores
+    and takes 3 more.  Each one's (completed process, wall seconds) goes
+    into *result* under "crash" and "resume"; the running one's Popen
+    into *running*, so a failed phase can kill it."""
+    base = os.path.join(work, "lm")
+    me = [sys.executable, os.path.abspath(__file__), "--worker"]
+    for key, args in (("crash", ["lm-crash", base]),
+                      ("resume", ["lm-resume", base,
+                                  os.path.join(work, "lm_resumed.json")])):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(me + args, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running["proc"] = proc
+        try:
+            out, err = proc.communicate(timeout=CKPT_RUN_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        result[key] = (subprocess.CompletedProcess(
+            proc.args, proc.returncode, out, err),
+            time.perf_counter() - t0)
+        if key == "crash" and (proc.returncode != -9 or not any(
+                l.startswith("saved ") for l in out.splitlines())):
+            return
+
+
+def ckpt_lm_start(torch, counts, fa, llama, transformer, bench_serving,
+                  work):
+    """The LM resume's first half: its two workers start in a thread
+    (:func:`_lm_workers`), and meanwhile this process takes the
+    uninterrupted 5 steps (K4 with its lse, K5 and K6 counted; the
+    workers' launches are their own processes').  The workers then run
+    beside the elastic AlexNet loop, whose runs are processes too.
+    Returns what :func:`ckpt_lm_finish` checks."""
+    import threading
 
     cfg, model, opt, batch = _lm_resume_setup(torch, fa, llama, transformer,
                                               bench_serving)
     n_params = sum(p.numel() for p in model.parameters())
     _room(work, 12 * n_params + 2**30, "LM resume")
+    lm = dict(running={}, result={})
+    lm["thread"] = threading.Thread(
+        target=_lm_workers, args=(work, lm["running"], lm["result"]),
+        name="lm-workers", daemon=True)
+    lm["thread"].start()
     counts.zero()
     losses = [float(transformer.lm_train_step(model, opt, *batch))
               for _ in range(CKPT_LM_STEPS)]
@@ -3861,28 +3920,42 @@ def ckpt_lm_resume(torch, counts, fa, llama, transformer, bench_serving,
         fail(f"LM resume launches {launches}, expected {want}")
     del model, opt, batch
     _fresh(torch)
-    base = os.path.join(work, "lm")
-    out = os.path.join(work, "lm_resumed.json")
-    me = [sys.executable, os.path.abspath(__file__), "--worker"]
-    t0 = time.perf_counter()
-    crash = subprocess.run(me + ["lm-crash", base], capture_output=True,
-                           text=True, timeout=CKPT_RUN_S)
-    crash_wall = time.perf_counter() - t0
+    lm.update(losses=losses, launches=launches)
+    return lm
+
+
+def ckpt_lm_stop(lm) -> None:
+    """Kill the LM resume's running worker, if any, and wait for its
+    thread: a failed phase leaves no process behind."""
+    proc = lm["running"].get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+    lm["thread"].join(timeout=60)
+
+
+def ckpt_lm_finish(checkpoint, work, lm, card):
+    """The LM resume's second half: wait for the workers; the resumed
+    worker's 3 losses must be this process's last 3, bit for bit.
+    Returns the launches of the uninterrupted 5 steps."""
+    import shutil
+
+    lm["thread"].join(timeout=2 * CKPT_RUN_S + 60)
+    losses, result = lm["losses"], lm["result"]
+    if "crash" not in result:
+        fail("LM crash worker: no result within its time limit")
+    crash, crash_wall = result["crash"]
     saved = [l for l in crash.stdout.splitlines() if l.startswith("saved ")]
     if crash.returncode != -9 or not saved:
         fail(f"LM crash worker: exit {crash.returncode}, output "
              f"{crash.stdout[-2000:]} {crash.stderr[-4000:]}")
+    base = os.path.join(work, "lm")
     nbytes = _payload_bytes(checkpoint, base, CKPT_LM_SAVE_AT)
     save_s = float(saved[0].split()[1])
-    t0 = time.perf_counter()
-    resume = subprocess.run(me + ["lm-resume", base, out],
-                            capture_output=True, text=True,
-                            timeout=CKPT_RUN_S)
-    resume_wall = time.perf_counter() - t0
+    resume, resume_wall = result["resume"]
     if resume.returncode != 0:
         fail(f"LM resume worker: exit {resume.returncode}, "
              f"{resume.stderr[-4000:]}")
-    with open(out) as f:
+    with open(os.path.join(work, "lm_resumed.json")) as f:
         data = json.load(f)
     print(f"checkpointing, LM resume: the worker took {CKPT_LM_SAVE_AT} "
           f"steps, saved ({_rate(nbytes, save_s)}) and was SIGKILLed (exit "
@@ -3890,14 +3963,14 @@ def ckpt_lm_resume(torch, counts, fa, llama, transformer, bench_serving,
           f"restored step {data['step']} into its model and Adam "
           f"({_rate(nbytes, data['restore_s'])}) and took "
           f"{len(data['losses'])} steps ({resume_wall:.2f} s): losses "
-          f"{data['losses']} against {losses[CKPT_LM_SAVE_AT:]}; {card}",
-          flush=True)
+          f"{data['losses']} against {losses[CKPT_LM_SAVE_AT:]}; both "
+          f"workers ran beside the elastic loop; {card}", flush=True)
     if data["step"] != CKPT_LM_SAVE_AT or \
             data["losses"] != losses[CKPT_LM_SAVE_AT:]:
         fail("LM resume: the resumed losses are not the uninterrupted "
              "run's")
     shutil.rmtree(base)
-    return launches
+    return lm["launches"]
 
 
 def ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
@@ -4023,12 +4096,13 @@ def ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
 def checkpoint_path(torch, counts, sched, card):
     """Phase 10, checkpointing, with no other model resident: the elastic
     AlexNet loop (SIGKILL, resume, a reshape exit, resume, a bit-equal
-    final step), the LM resume across processes (bit-equal losses) and
-    the server CLI serving from a checkpoint (bf16, int8, int4 with the
-    in-process ids), under a temporary directory whose free bytes are
-    printed first; each checkpoint is deleted once checked.  Returns the
-    launches of the elastic loop and the LM steps.  Every check is
-    fatal."""
+    final step), the LM resume across processes (bit-equal losses; its
+    workers run beside the elastic loop's, since both are mostly process
+    start) and the server CLI serving from a checkpoint (bf16, int8, int4
+    with the in-process ids), under a temporary directory whose free
+    bytes are printed first; each checkpoint is deleted once checked.
+    Returns the launches of the elastic loop and the LM steps.  Every
+    check is fatal."""
     import shutil
     import tempfile
 
@@ -4043,16 +4117,19 @@ def checkpoint_path(torch, counts, sched, card):
     print(f"checkpointing: {shutil.disk_usage(work).free} bytes free under "
           f"{work}", flush=True)
     before = _ckpt_numerics(torch)
+    lm_run = None
     try:
+        lm_run = ckpt_lm_start(torch, counts, fa, llama, transformer,
+                               bench_serving, work)
         elastic = ckpt_elastic(torch, counts, alexnet, bench_main,
                                checkpoint, work, card)
         _fresh(torch)
-        lm = ckpt_lm_resume(torch, counts, fa, llama, transformer,
-                            bench_serving, checkpoint, work, card)
-        _fresh(torch)
+        lm = ckpt_lm_finish(checkpoint, work, lm_run, card)
         ckpt_serving(torch, llama, bench_serving, checkpoint, serving,
                      scheduler, obs, sched, work, card)
     finally:
+        if lm_run is not None:
+            ckpt_lm_stop(lm_run)
         for (mod, name), value in before.items():
             setattr(mod, name, value)
         shutil.rmtree(work, ignore_errors=True)
@@ -5958,6 +6035,198 @@ def multi_device_path(card, arms=()):
                          for k in ("K4", "K5", "K6")}}
 
 
+# the chaos phase: the soak's in-process serving episodes over Llama-3-8B
+# at full width, bf16, CHAOS_LAYERS of its 32 layers, with captured steps,
+# each restarting episode CHAOS_ROUNDS times on one server; episode 17 on
+# replicas of the server CLI serving Llama-3.2-1B at full width and depth
+CHAOS_LAYERS, CHAOS_MAX_LEN, CHAOS_ROUNDS = 4, 80, 3
+CHAOS_SPILL_CONFIG, CHAOS_SPILL_LEN = "llama3-1b", 256
+# on the card a stream of 8 tokens ends before the burst lands: episode
+# 9's batch stream decodes 48 (the pool, pages of 8 rows, holds one
+# full-length sequence of CHAOS_MAX_LEN, 10 pages, and not the batch's
+# and both interactive prompts' 12), episode 11's anchor 64
+CHAOS_BATCH_TOKENS, CHAOS_KV_PAGES, CHAOS_ANCHOR_TOKENS = 48, 10, 64
+CHAOS_CONTROL = [1, 91, 64, 15, 98, 37]
+CHAOS_TIMEOUT_S = 420
+
+
+class RestartProbe:
+    """The chaos episodes' ``probe(server, stage)``: once the baseline
+    answered ("before"), and after each supervised restart before any
+    other request reaches the restarted loop, send one greedy control
+    request (retried past a restart still draining) and read what the
+    restart left: the ids (equal to the baseline's, bit for bit), the
+    captured-step replays that request made (on CUDA at least one: the
+    restarted loop replays its captured steps, it does not run eagerly),
+    a ``torch.cuda.synchronize()`` that must raise nothing, and
+    ``torch.cuda.memory_allocated()`` (no growth from one restart to the
+    next).  ``rows`` keeps one entry a stage for the episode's line:
+    ``restart_ms`` from the crash to the supervisor's restart (both
+    journaled), ``recover_ms`` from the crash to the control request's
+    answer."""
+
+    def __init__(self, torch, cuda: bool, capture_lock):
+        self.torch, self.cuda, self.capture_lock = torch, cuda, capture_lock
+        self.reset()
+
+    def reset(self):
+        self.rows, self._ids, self._mem, self._base = [], None, None, 0
+
+    def _control(self, srv):
+        import http.client
+
+        deadline = time.monotonic() + 60.0
+        while True:
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                              timeout=120)
+            try:
+                conn.request("POST", "/generate", json.dumps(
+                    {"tokens": CHAOS_CONTROL, "max_new_tokens": 8,
+                     "ignore_eos": True, "stream": False}),
+                    {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                status, body = resp.status, resp.read()
+            finally:
+                conn.close()
+            if status == 200:
+                return json.loads(body)["tokens"]
+            if time.monotonic() > deadline:
+                fail(f"chaos: the control request answered {status} for "
+                     f"60 s after the restart: {body[:200]!r}")
+            time.sleep(0.1)
+
+    def __call__(self, srv, stage):
+        import gc
+        import threading
+
+        torch, eng = self.torch, srv.engine
+        replays, captures = eng.graph_replays, eng.graph_captures
+        ids = self._control(srv)
+        t_answer = time.time()
+        replays = eng.graph_replays - replays
+        # a worker the schedule watchdog abandoned holds its iteration's
+        # tensors until its hang ends and it bails at the supersession
+        # check: wait for it (and for it to make no CUDA call that
+        # breaks the synchronize below)
+        for th in threading.enumerate():
+            if th.name.startswith("watchdog-"):
+                th.join(timeout=60)
+        if self.cuda:
+            torch.cuda.synchronize()
+        # what a crashed iteration's frames hold sits in reference
+        # cycles until the collector runs: collect first, under the
+        # capture lock (a collection inside a capture would break it)
+        with self.capture_lock:
+            gc.collect()
+        mem = torch.cuda.memory_allocated() if self.cuda else 0
+        row = dict(stage=stage, replays=replays,
+                   captures=eng.graph_captures - captures, mem=mem)
+        if stage == "before":
+            self._ids, self._base = ids, mem
+        else:
+            crash = srv.recorder.events(name="tpu_serve_scheduler_crash")
+            back = srv.recorder.events(name="tpu_serve_scheduler_restart")
+            k = len(self.rows) - 1
+            row.update(
+                ids_equal=ids == self._ids, mem_delta=mem - self._base,
+                restart_ms=1e3 * (back[k]["t_wall"] - crash[k]["t_wall"]),
+                recover_ms=1e3 * (t_answer - crash[k]["t_wall"]))
+            if not row["ids_equal"]:
+                fail(f"chaos: {stage}: the control request gave {ids}, "
+                     f"{self._ids} before the fault")
+            if self.cuda and replays < 1:
+                fail(f"chaos: {stage}: the control request replayed no "
+                     "captured step (the restarted loop ran eagerly)")
+            if self._mem is not None and mem > self._mem:
+                fail(f"chaos: {stage}: memory_allocated grew from "
+                     f"{self._mem} to {mem} bytes since the last restart "
+                     f"(stages so far: {self.rows + [row]})")
+            self._mem = mem
+        self.rows.append(row)
+
+
+def chaos_child(argv) -> int:
+    """``chip_smoke.py --worker chaos [DEVICE]``: the soak's episodes 5
+    (``serve.step`` crash), 6 (``serve.schedule`` hang), 9 (a tenant
+    burst under page pressure) and 11 (a kill in a packed prefill) on
+    an ``EngineServer`` over Llama-3-8B at CHAOS_LAYERS layers, and 17
+    (a session spilled through a SIGKILL) on server CLI replicas of
+    CHAOS_SPILL_CONFIG; prints one line an episode, then a JSON
+    summary.  ``cpu`` rehearses it with the soak's tiny decoder."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_k8s_device_plugin_torch.tools import chaos_soak as cs
+    from tpu_k8s_device_plugin_torch.workloads import (bench_serving,
+                                                       inference, llama)
+
+    device = argv[0] if argv else "cuda"
+    cuda = device == "cuda"
+    if cuda:
+        cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=CHAOS_LAYERS)
+        _, model = bench_serving.build_model_and_params(cfg, CHAOS_MAX_LEN,
+                                                        device)
+        spill, batch_kw, anchor = CHAOS_SPILL_CONFIG, dict(
+            batch_new_tokens=CHAOS_BATCH_TOKENS,
+            kv_pages=CHAOS_KV_PAGES), CHAOS_ANCHOR_TOKENS
+    else:
+        model = cs.tiny_model(device, 64)
+        spill, batch_kw, anchor = "tiny", {}, 40
+    probe = RestartProbe(torch, cuda, inference.CAPTURE_LOCK)
+    episodes = [
+        (5, lambda: cs.episode_scheduler_crash(
+            1, device, model, rounds=CHAOS_ROUNDS, probe=probe)),
+        (6, lambda: cs.episode_scheduler_hang(
+            1, device, model, rounds=CHAOS_ROUNDS, probe=probe)),
+        (9, lambda: cs.episode_tenant_burst_page_pressure(
+            1, device, model, **batch_kw)),
+        (11, lambda: cs.episode_packed_prefill_kill(
+            1, device, model, anchor_new_tokens=anchor, probe=probe)),
+        (17, lambda: cs.episode_session_spill_crash_resume(
+            1, device, spill, CHAOS_SPILL_LEN)),
+    ]
+    out = []
+    for n, run in episodes:
+        probe.reset()
+        t0 = time.perf_counter()
+        run()
+        row = dict(episode=n, name=cs.EPISODE_TITLES[n],
+                   wall_s=round(time.perf_counter() - t0, 3),
+                   restarts=[r for r in probe.rows
+                             if r["stage"] != "before"])
+        if cuda:
+            torch.cuda.synchronize()
+        print("chaos: " + json.dumps(row), flush=True)
+        out.append(row)
+    print(json.dumps({"episodes": out}), flush=True)
+    return 0
+
+
+def chaos_path(card):
+    """The chaos phase, in a ``--worker chaos`` child (its servers,
+    replicas and abandoned watchdog workers end with it).  Prints the
+    child's lines and returns its summary."""
+    t_phase = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             "chaos"], capture_output=True, text=True,
+            timeout=CHAOS_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        fail(f"the chaos phase ran past {CHAOS_TIMEOUT_S} s:\n"
+             f"{(e.stdout or '')[-3000:]}{(e.stderr or '')[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if out.returncode != 0 or not lines:
+        fail(f"the chaos phase failed ({out.returncode}):\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-6000:]}")
+    result = json.loads(lines[-1])
+    print(f"chaos: phase wall with the child's start "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -6040,6 +6309,9 @@ def main() -> int:
     lap("fleet")
     ckpt = checkpoint_path(torch, counts, engine["scheduler"], card)
     lap("checkpointing")
+    _fresh(torch)
+    chaos_path(card)
+    lap("chaos")
 
     csrc = "tpu_k8s_device_plugin_torch/csrc/"
     ref = "tpu_k8s_device_plugin/workloads/"

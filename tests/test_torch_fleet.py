@@ -231,6 +231,23 @@ def test_degraded_drain_keys_on_generation_not_flag():
                        requests_served=3)).actions == ()
 
 
+def test_rolling_drain_waits_for_the_replacement_to_serve():
+    """After a degraded drain stops its replica and spawns the
+    replacement, the next stale replica stays in rotation until the
+    replacement is ready: draining it while the replacement boots would
+    leave the router nothing to route to."""
+    p = FleetPlanner(CFG)
+    reshaped = (SliceCapacity("s0", 2, 4, degraded=True),)
+    booting = (_rv("fleet-2", t0=1.0), _rv("fleet-3", state="starting",
+                                           t0=12.0, gen=2))
+    assert p.plan(_obs(13.0, booting, slices=reshaped,
+                       requests_served=3)).actions == ()
+    served = (_rv("fleet-2", t0=1.0), _rv("fleet-3", t0=12.0, gen=2))
+    plan = p.plan(_obs(14.0, served, slices=reshaped, requests_served=4))
+    assert [(a.kind, a.reason, a.rid) for a in plan.actions] \
+        == [("drain", "degraded", "fleet-2")]
+
+
 def test_drain_completion_respawns_on_the_new_generation():
     p = FleetPlanner(CFG)
     reshaped = (SliceCapacity("s0", 2, 4),)
@@ -591,6 +608,24 @@ def test_kill_serving_spares_drained_starting_and_stale(tmp_path):
         == ["serving"]
     # a corpse is not a victim twice
     assert controller.kill_serving() is None
+
+
+def test_shutdown_mid_cycle_spawns_and_drains_nothing(monkeypatch):
+    """A spawn or a drain that a cycle plans as ``shutdown()`` lands is
+    aborted before its first attempt: nothing is started or posted, and
+    the call returns instead of raising out of the reconcile loop."""
+    import subprocess
+
+    monkeypatch.setattr(subprocess, "Popen", _Spawned)
+    controller = FleetController("http://127.0.0.1:1")
+    controller.shutdown()
+    assert controller._spawn(Action(kind="spawn", reason="floor",
+                                    slice_id="s0", generation=1)) is None
+    controller._drain(Action(kind="drain", reason="degraded",
+                             rid="fleet-1"))
+    assert controller.managed() == []
+    assert [e["name"] for e in controller.recorder.events()
+            if str(e["name"]).startswith("tpu_fleet_replica")] == []
 
 
 # ---------------------------------------------------------------------------

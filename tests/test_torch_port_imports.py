@@ -13,7 +13,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "tpu_k8s_device_plugin")
+             "tpu_k8s_device_plugin",
+             # the repository's own tools (tpulint, promlint, the
+             # reference's drivers): the port keeps its own copies
+             "tools")
 
 
 def _port_files():
@@ -64,6 +67,9 @@ def test_port_files_exist():
         assert f"tpu_k8s_device_plugin_torch/workloads/{module}.py" in names
     for agent in AGENT_MODULES:
         assert agent in names, agent
+    for tool in ("chaos_soak", "trace_smoke", "alert_smoke",
+                 "incident_smoke", "obs_query", "promlint", "fake_kubelet"):
+        assert f"tpu_k8s_device_plugin_torch/tools/{tool}.py" in names
     assert all(p.exists() for p in _port_files())
 
 
@@ -240,9 +246,14 @@ def test_http_tier_imports_nothing_of_jax():
             "import tpu_k8s_device_plugin_torch.workloads.parallel\n"
             "import tpu_k8s_device_plugin_torch.workloads.ring_attention\n"
             "import tpu_k8s_device_plugin_torch.types.constants\n"
+            "import tpu_k8s_device_plugin_torch.tools.chaos_soak\n"
+            "import tpu_k8s_device_plugin_torch.tools.trace_smoke\n"
+            "import tpu_k8s_device_plugin_torch.tools.alert_smoke\n"
+            "import tpu_k8s_device_plugin_torch.tools.incident_smoke\n"
+            "import tpu_k8s_device_plugin_torch.tools.obs_query\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
-            "        'tpu_k8s_device_plugin')]\n"
+            "        'tpu_k8s_device_plugin', 'tools')]\n"
             "print(' '.join(sorted(bad)) or 'clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, check=True, cwd=ROOT

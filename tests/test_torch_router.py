@@ -34,6 +34,10 @@ import time
 import pytest
 
 from tpu_k8s_device_plugin_torch import obs
+from tpu_k8s_device_plugin_torch.resilience import (
+    BREAKER_CLOSED,
+    BREAKER_OPEN,
+)
 from tpu_k8s_device_plugin_torch.workloads.router import (
     DEFAULT_PREFIX_CHUNK,
     RouterServer,
@@ -134,6 +138,56 @@ def test_pick_skips_dead_scheduler_and_open_breaker():
     rep, _ = rt.pick(None)
     assert rep is None
     assert not rt.healthy()
+
+
+def test_torn_statz_body_fails_the_poll_and_frees_the_probe_slot():
+    """A replica that dies mid-answer tears its /statz body
+    (``http.client.IncompleteRead``, not an OSError): the poll records a
+    failure, so a half-open probe slot is freed and the poller goes on,
+    and the replica is routable again once it answers whole."""
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(8)
+    port = srv.getsockname()[1]
+    whole = {"on": False}
+
+    def answer():
+        while True:
+            try:
+                conn, _ = srv.accept()
+            except OSError:
+                return
+            conn.recv(65536)
+            body = b'{"scheduler_alive": true}'
+            if whole["on"]:
+                conn.sendall(b"HTTP/1.1 200 OK\r\nContent-Length: "
+                             + str(len(body)).encode() + b"\r\n\r\n"
+                             + body)
+            else:
+                conn.sendall(b"HTTP/1.1 200 OK\r\nContent-Length: 100"
+                             b"\r\n\r\n" + body[:10])
+            conn.close()
+
+    threading.Thread(target=answer, daemon=True).start()
+    rt = _mk_router(breaker_reset_s=0.05)
+    try:
+        rt.register({"address": f"127.0.0.1:{port}", "replica_id": "a"})
+        with rt._lock:
+            brk = rt._replicas["a"].breaker
+        for _ in range(rt.breaker_threshold):
+            rt._poll_once()      # torn bodies: failures, no exception
+        assert brk.state == BREAKER_OPEN
+        time.sleep(0.1)
+        rt._poll_once()          # the half-open probe tears too
+        assert brk.state == BREAKER_OPEN
+        whole["on"] = True
+        time.sleep(0.1)
+        rt._poll_once()
+        assert brk.state == BREAKER_CLOSED
+        rep, _ = rt.pick(None)
+        assert rep is not None and rep.rid == "a"
+    finally:
+        srv.close()
 
 
 def test_stale_replica_evicted():

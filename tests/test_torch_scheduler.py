@@ -649,6 +649,30 @@ def test_supersede_abandons_ahead_window(setup):
     assert len(eng.output(s)) >= 4
 
 
+def test_crash_in_ahead_iteration_leaves_window_to_supersede(setup):
+    """An iteration that crashes (or is abandoned by the watchdog) at its
+    fault hook still holds the window dispatched ahead: the supervisor's
+    supersede abandons it, so the restarted loop can dispatch again."""
+    eng = _engine(setup[0], n_slots=1, chunk=4, max_new_tokens=16)
+    sched = IterationScheduler(eng, window=4, overlap=True,
+                               sync_dwell_s=0.0)
+    sched.begin(prompt=[3, 14, 15, 92, 65])
+    sched.iterate()
+    assert sched._ahead is not None and eng.scan_inflight
+    faults.install("serve.step:error:1", seed=0)
+    try:
+        with pytest.raises(faults.InjectedFault):
+            sched.iterate()
+    finally:
+        faults.uninstall()
+    sched.supersede()
+    assert sched._ahead is None and not eng.scan_inflight
+    eng.release(0)
+    s = eng.admit([2, 71, 82])
+    eng.run_scan(4)
+    assert len(eng.output(s)) >= 4
+
+
 def test_packing_conflict_defers_shared_prefix(setup):
     eng = _engine(setup[0], n_slots=2, chunk=4, max_new_tokens=4,
                   auto_prefix_min=4)

@@ -613,6 +613,30 @@ def test_priority_order_and_multi_completion_head(models):
     assert srv._head is None and len(srv._pending) == 1
 
 
+def test_resume_into_the_last_slot_defers_fresh_admissions(models):
+    """A migrated checkpoint that resumes into the last free slot ends
+    that round of intake: the fresh request queued behind it waits for a
+    slot, and is not rejected with the engine's "no free slots"."""
+    _, tm = models
+    donor = ServingEngine(tm, n_slots=1, kv_paging=True, device="cpu")
+    slot = donor.admit([1, 2, 3, 4], ignore_eos=True)
+    donor.step()
+    state = donor.preempt(slot)
+    srv = tserver.EngineServer(
+        ServingEngine(tm, n_slots=1, kv_paging=True, device="cpu"),
+        max_new_tokens=8)
+    moved = srv._parse_request({"tokens": [1, 2, 3, 4],
+                                "ignore_eos": True})
+    srv._attach_migration(moved, state, 8)
+    srv._enqueue(moved)
+    fresh = srv._parse_request({"tokens": [5, 6], "max_new_tokens": 4})
+    srv._enqueue(fresh)
+    srv._admit_pending()
+    assert list(srv._running.values()) == [(moved, 0)]
+    assert fresh.admitted == 0 and fresh.events.empty()
+    assert srv.stats()["pending_requests"] == 1
+
+
 def test_stop_drains_inflight_and_rejects_engine_budget(models):
     _, tm = models
     with pytest.raises(ValueError, match="per-request"):

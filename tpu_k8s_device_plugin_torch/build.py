@@ -27,6 +27,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+from .resilience import faults
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
@@ -93,6 +95,10 @@ def _start(name: str):
     tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
            *NVCC_LIBS]
+    # chaos hook: a compiler that fails or stalls here takes the
+    # caller's build-failure path
+    if faults.ACTIVE is not None:
+        faults.ACTIVE.fire("build.compile")
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp
 
@@ -170,7 +176,10 @@ def load_host(name: str) -> ctypes.CDLL:
                 tmp = path.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [cxx_path(), *CXX_FLAGS, "-o", str(tmp),
                        str(CSRC / f"{name}.cpp")]
+                if faults.ACTIVE is not None:
+                    faults.ACTIVE.fire("build.compile")
                 try:
+                    # tpulint: disable=C2 -- one build at a time is the design: a second caller of the library must wait for it, not compile the same output again; the compile is bounded by its timeout
                     subprocess.run(cmd, check=True, capture_output=True,
                                    text=True, timeout=120)
                 except subprocess.CalledProcessError as e:

@@ -18,6 +18,7 @@ import threading
 from typing import Optional
 
 from .. import build
+from ..resilience import suppressed
 
 log = logging.getLogger(__name__)
 
@@ -112,13 +113,10 @@ class DirWatcher:
         self.close()
 
     def __del__(self):
+        # an exception raised here is printed and ignored by the
+        # interpreter, never raised to a caller: the suppressed counter
+        # accounts the failure while the process lives
         try:
             self.close()
         except Exception as e:
-            # interpreter teardown: the accounting is best-effort, but a
-            # live process gets the DEBUG line and the suppressed counter
-            try:
-                from ..resilience import suppressed
-                suppressed("gpuprobe.dirwatcher_del", e, logger=log)
-            except Exception:  # noqa: BLE001 -- a __del__ must not raise
-                pass
+            suppressed("gpuprobe.dirwatcher_del", e, logger=log)

@@ -310,8 +310,9 @@ class FleetPlanner:
        generation.
     3. **degraded rolling drain**: one ready replica whose slice
        generation no longer matches advertised capacity is drained
-       (at most one in flight at a time — a reshape must roll, not
-       thundering-herd the fleet).
+       (at most one in flight at a time, and none while a replica is
+       still starting — a reshape must roll, not thundering-herd the
+       fleet or drain it empty while the replacement boots).
     4. **floor**: below ``min_replicas``, spawn (no cooldown — the
        floor is an invariant, not a preference).
     5. **scale up**: pressure above the high watermark (or a class
@@ -512,8 +513,12 @@ class FleetPlanner:
                     if sid:
                         occupied[sid] = occupied.get(sid, 0) + 1
 
-        # 3. degraded rolling drain — one at a time, oldest first
-        if not draining:
+        # 3. degraded rolling drain — one at a time, oldest first, and
+        # only once no replica is still starting: a replacement that
+        # boots is capacity the fleet does not have yet, and draining
+        # the next stale replica meanwhile can leave nothing routable
+        if not draining and not any(r.state == STATE_STARTING
+                                    for r in active):
             stale = sorted(
                 (r for r in active
                  if r.state == STATE_READY
@@ -958,7 +963,10 @@ class FleetController:
             proc = self._retry.call(
                 popen, op="fleet.spawn", retry_on=(OSError,),
                 metrics=self._rmetrics, stop=self._stop)
-        except OSError as e:
+        # a shutdown that lands mid-cycle aborts the retry before its
+        # first attempt: nothing was spawned, and the loop must end
+        # quietly, not die on the abort
+        except (OSError, resilience.CircuitOpenError) as e:
             resilience.suppressed("fleet.spawn", e, logger=log,
                                   metrics=self._rmetrics)
             return None
@@ -1011,7 +1019,8 @@ class FleetController:
                              retry_on=(OSError,
                                        http.client.HTTPException),
                              metrics=self._rmetrics, stop=self._stop)
-        except (OSError, http.client.HTTPException) as e:
+        except (OSError, http.client.HTTPException,
+                resilience.CircuitOpenError) as e:
             resilience.suppressed("fleet.drain", e, logger=log,
                                   metrics=self._rmetrics)
             return
@@ -1346,8 +1355,18 @@ def run_episode(args: argparse.Namespace) -> Tuple[
         degrade_first = not args.no_degrade \
             and degrade_at_ms <= kill_at_ms
         degrade_fired: Dict[str, Optional[float]] = {}
+        # set while the kill hook waits for its victim: the settle
+        # below must not end the episode under a kill still to land
+        kill_waiting = threading.Event()
 
         def kill_one() -> None:
+            kill_waiting.set()
+            try:
+                find_victim()
+            finally:
+                kill_waiting.clear()
+
+        def find_victim() -> None:
             await_live_fleet("SIGKILL")
             # both hooks can wake on the same routable fleet: the victim
             # is a serving replica, chosen after an earlier reshape has
@@ -1402,8 +1421,9 @@ def run_episode(args: argparse.Namespace) -> Tuple[
         # the journal BEFORE the harvest below reads it
         wait_alerts = bool(getattr(args, "settle_on_alerts", False))
         while time.monotonic() < settle_deadline:
-            pending = not args.no_degrade \
-                and "t" not in degrade_fired
+            pending = (not args.no_degrade
+                       and "t" not in degrade_fired) \
+                or kill_waiting.is_set()
             if degrade_fired.get("t") is not None:
                 settle_deadline = max(
                     settle_deadline,

@@ -1304,7 +1304,11 @@ class RouterServer:
                     continue
             try:
                 snap = self._fetch_statz(rep)
-            except (OSError, ValueError, _UpstreamError) as e:
+            # a body torn by a dying replica is an HTTPException, not an
+            # OSError: it must fail the poll (and free a half-open probe
+            # slot), not end the poller thread
+            except (OSError, ValueError, http.client.HTTPException,
+                    _UpstreamError) as e:
                 rep.breaker.record_failure()
                 resilience.suppressed("router.statz_poll", e,
                                       logger=log,
@@ -1346,7 +1350,7 @@ class RouterServer:
         try:
             conn.request("POST", path, body, headers)
             resp = conn.getresponse()
-        except OSError as e:
+        except (OSError, http.client.HTTPException) as e:
             conn.close()
             rep.breaker.record_failure()
             raise _UpstreamError(f"{rep.rid}: {e}") from e

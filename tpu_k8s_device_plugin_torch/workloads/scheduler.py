@@ -672,11 +672,15 @@ class IterationScheduler:
         device time the host work did not already hide."""
         eng = self.engine
         handle, window = self._ahead
-        self._ahead = None
         if faults.ACTIVE is not None:
             faults.ACTIVE.fire("serve.step")
             faults.ACTIVE.fire("serve.schedule")
         self._check(gen)
+        # taken only now: a crash or a watchdog trip above leaves the
+        # window in ``_ahead``, where the supervisor's ``supersede``
+        # abandons it (else the engine keeps it outstanding and every
+        # dispatch of the restarted loop refuses)
+        self._ahead = None
         fins = self._admit_work(self.prefill_budget)
         t0 = time.perf_counter()
         self.begin_phase("harvest")

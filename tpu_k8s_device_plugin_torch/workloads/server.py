@@ -1318,6 +1318,12 @@ class EngineServer:
                             self._pending,
                             (-req.priority, req._vft,
                              self._pending_seq, req))
+                if not eng.free_slots():
+                    # the resume took the last free slot: a fresh
+                    # admission now would fail in the engine ("no free
+                    # slots") and reject a request that only has to
+                    # wait its turn
+                    return None
                 continue
             if self._sched.packing_conflict(req.tokens):
                 # an in-flight packed admission shares this prompt's
@@ -4302,6 +4308,9 @@ def _tp_start(n: int, device, argv):
         env = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(port), TPU_DP_TP_PARENT=str(os.getpid()))
         for r in range(1, n):
+            # chaos hook: a rank that cannot start fails the boot
+            if faults.ACTIVE is not None:
+                faults.ACTIVE.fire("serve.tp_spawn")
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", __package__ + ".server", *argv],
                 env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),

@@ -30,10 +30,13 @@ call; a server then stops (``on_lost``), it never serves on one rank.
 from __future__ import annotations
 
 import inspect
+import logging
 import threading
 from typing import Any, Callable, Dict, Optional
 
 import torch.distributed as dist
+
+log = logging.getLogger(__name__)
 
 # the engine methods rank 0 sends to the other ranks before it runs them
 REPLAYED = frozenset({
@@ -215,6 +218,9 @@ class _Follower:
             out = getattr(self.engine, name)(*args, **kwargs)
             mine = _outcome(out)
         except Exception as e:
+            # not a swallow: the outcome is held against rank 0's below
+            log.debug("replayed %s raised %s: %s", name,
+                      type(e).__name__, e)
             out, mine = None, ("raised", type(e).__name__)
         if _made_by_engine(out):
             self.objects[self.next] = out
