@@ -1635,19 +1635,20 @@ def run_scheduled(torch, np, obs, scheduler, eng, trace, interleave,
                 arrived[i] = now
         res = sched.iterate()
         t1 = time.perf_counter()
-        for s, toks in res.decoded.items():
-            if s in live and toks:
-                i = live[s]
-                if i in last:
-                    stall[i] = max(stall.get(i, 0.0), t1 - last[i])
-                last[i] = t1
-        for t in res.admitted:
-            live[t.slot] = keys.pop(t)
-            first_at[live[t.slot]] = t.t_done
-        for s in list(live):
-            if eng.finished(s):
-                out[live.pop(s)] = (eng.output(s), eng.finish_reason(s))
-        sched.note_phase("stream", time.perf_counter() - t1)
+        with sched.in_phase("stream"):
+            for s, toks in res.decoded.items():
+                if s in live and toks:
+                    i = live[s]
+                    if i in last:
+                        stall[i] = max(stall.get(i, 0.0), t1 - last[i])
+                    last[i] = t1
+            for t in res.admitted:
+                live[t.slot] = keys.pop(t)
+                first_at[live[t.slot]] = t.t_done
+            for s in list(live):
+                if eng.finished(s):
+                    out[live.pop(s)] = (eng.output(s),
+                                        eng.finish_reason(s))
         if len(out) == len(trace) and not sched.busy():
             break
     torch.cuda.synchronize()

@@ -19,6 +19,7 @@ iteration indices and the dwell is off, so every run is deterministic.
 """
 
 from collections import deque
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -40,8 +41,10 @@ from tpu_k8s_device_plugin_torch.convert import params_from_jax
 from tpu_k8s_device_plugin_torch.resilience import faults
 from tpu_k8s_device_plugin_torch.workloads import grammar as tg
 from tpu_k8s_device_plugin_torch.workloads import inference as tinf
+from tpu_k8s_device_plugin_torch.workloads import scheduler as tsched
 from tpu_k8s_device_plugin_torch.workloads.scheduler import (
     DEFAULT_MAX_PACK,
+    PHASES,
     IterationScheduler,
     SchedulerSuperseded,
 )
@@ -703,7 +706,8 @@ def test_scheduler_metrics_families_render(setup):
                                registry=reg)
     for _ in range(6):
         sched.iterate()
-    sched.note_phase("stream", 0.001)
+    with sched.in_phase("stream"):
+        pass
     body = reg.render()
     for name in ("tpu_serve_prefill_chunk_seconds",
                  "tpu_serve_admit_to_first_step_seconds",
@@ -711,11 +715,206 @@ def test_scheduler_metrics_families_render(setup):
                  "tpu_serve_overlap_idle_seconds",
                  "tpu_serve_overlap_windows_total",
                  'tpu_serve_window_phase_seconds_count{phase="stream"} 1',
-                 "tpu_serve_device_duty_cycle"):
+                 "tpu_serve_device_duty_cycle",
+                 "tpu_serve_first_token_wait_seconds_count 1",
+                 "tpu_serve_prefill_chunk_tokens_total"):
         assert name in body, name
+    # admission's phases are children of the same family: the one
+    # admission began, ran 2 chunks, spliced and read its first token
+    for phase, n in (("begin", 1), ("admit", 2), ("splice", 1),
+                     ("first_token", 1), ("idle", 0)):
+        assert (f'tpu_serve_window_phase_seconds_count{{phase="{phase}"}} '
+                f"{n}") in body, phase
     assert promlint.lint(body) == []
     with pytest.raises(ValueError, match="unknown scheduler phase"):
-        sched.note_phase("nap", 1.0)
+        with sched.in_phase("nap"):
+            pass
+
+
+# engine calls each phase covers, each with its own cost on a fake clock
+# (powers of two, so every phase's sum is exact): (method, cost, phase)
+PHASE_CALLS = (("scan_dispatch", 1.0, "dispatch"),
+               ("scan_harvest", 2.0, "harvest"),
+               ("step", 4.0, "harvest"),
+               ("begin_admit", 8.0, "begin"),
+               ("admit_step", 16.0, "admit"),
+               ("admit_step_packed", 32.0, "admit"),
+               ("_finish_admit_dispatch", 64.0, "splice"),
+               ("_finish_admit_resolve", 128.0, "first_token"))
+
+
+@pytest.mark.parametrize("packed,overlap", [(False, False), (True, True)],
+                         ids=["serial", "packed-overlap"])
+def test_phase_sums_cover_exactly_their_engine_calls(setup, monkeypatch,
+                                                     packed, overlap):
+    """On a clock that moves only inside the engine's calls, each
+    phase's seconds are exactly its calls' cost: dispatch and harvest
+    keep the extents the begin/note pair gave them (the window dispatch;
+    the harvest or endgame step), and admission's phases cover
+    begin_admit, the chunk dispatches, the splice and the first-token
+    read.  The owner's phases see nothing here, and the duty cycle is
+    dispatch + harvest over the four it always read."""
+    clock = [0.0]
+    monkeypatch.setattr(tsched, "time", SimpleNamespace(
+        perf_counter=lambda: clock[0], sleep=lambda s: None))
+    eng = _engine(setup[0], n_slots=2, chunk=4, max_new_tokens=6,
+                  auto_prefix_min=4)
+    calls = {}
+    for name, cost, _ in PHASE_CALLS:
+        real = getattr(eng, name)
+
+        def timed(*a, _real=real, _name=name, _cost=cost, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            clock[0] += _cost
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(eng, name, timed)
+    reg = obs.Registry()
+    intake: deque = deque()
+
+    def pull():
+        return sched.begin(**intake.popleft()) if intake else None
+
+    sched = IterationScheduler(eng, window=4, prefill_budget=2, pull=pull,
+                               packed_prefill=packed, overlap=overlap,
+                               sync_dwell_s=0.0, registry=reg)
+    arrivals = sorted(GREEDY_APC, key=lambda a: a[0])
+    live = 0
+    for i in range(60):
+        intake.extend(a[2] for a in arrivals if a[0] == i)
+        res = sched.iterate()
+        live += len(res.admitted)
+        for slot in range(eng.n_slots):
+            if eng.active[slot] and eng.finished(slot):
+                eng.release(slot)
+    assert live == len(GREEDY_APC) and not sched.busy()
+    want = dict.fromkeys(PHASES, 0.0)
+    for name, cost, phase in PHASE_CALLS:
+        want[phase] += cost * calls.get(name, 0)
+    assert sched._phase_acc == want
+    assert calls["scan_dispatch"] > 0 and calls["_finish_admit_resolve"] \
+        == len(GREEDY_APC)
+    if packed:
+        assert calls.get("admit_step_packed", 0) > 0
+    body = reg.render()
+    assert (f'tpu_serve_window_phase_seconds_count{{phase="dispatch"}} '
+            f'{calls["scan_dispatch"]}') in body
+    duty = [v for n, _, v in obs.parse_exposition(body)
+            if n == "tpu_serve_device_duty_cycle"]
+    assert duty == [1.0]        # no owner time: all dispatch + harvest
+
+
+def _serve_names(prof):
+    evs = sorted((e for e in prof.events() if e.name.startswith("serve.")),
+                 key=lambda e: e.time_range.start)
+    return evs
+
+
+def test_one_iterate_emits_admission_and_window_ranges_in_order(setup):
+    """Under a recording profiler, an iterate that admits a 5-token
+    prompt (2 chunks) and runs a window emits begin, admit (twice),
+    splice, first_token, dispatch and harvest, in that order, none
+    inside another."""
+    eng = _engine(setup[0], n_slots=1, chunk=4, max_new_tokens=6)
+    intake = deque([dict(prompt=[3, 14, 15, 92, 65])])
+
+    def pull():
+        return sched.begin(**intake.popleft()) if intake else None
+
+    sched = IterationScheduler(eng, window=4, pull=pull, overlap=False,
+                               sync_dwell_s=0.0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res = sched.iterate()
+    assert len(res.admitted) == 1 and res.steps == 4
+    evs = _serve_names(prof)
+    assert [e.name for e in evs] == [
+        "serve.begin", "serve.admit", "serve.admit", "serve.splice",
+        "serve.first_token", "serve.dispatch", "serve.harvest"]
+    for a, b in zip(evs, evs[1:]):
+        assert a.time_range.end <= b.time_range.start, (a.name, b.name)
+
+
+def test_no_profiler_call_while_none_records(setup, monkeypatch):
+    """With no profiler recording, neither the scheduler nor the
+    engine enters ``torch.profiler``: a drive with admissions (serial
+    and packed), windows and the owner's phases runs with
+    ``record_function`` made to raise."""
+    def boom(*a, **kw):
+        raise AssertionError("record_function entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", boom)
+    _drive(setup, GREEDY_APC, interleave=True, packed=True, overlap=True)
+    sched = IterationScheduler(_engine(setup[0], n_slots=1))
+    for phase in ("stream", "idle"):
+        with sched.in_phase(phase):
+            pass
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["serial", "packed"])
+def test_ticket_stamps_and_prefill_chunk_tokens(setup, packed):
+    """Every admission's stamps keep their order (begin, splice, first
+    token), and ``tpu_serve_first_token_wait_seconds`` observes each
+    splice-to-first-token wait; the engine's ``prefill_chunk_tokens``
+    counts the prompt tokens extended (pad rows and the prefix cache's
+    reused tokens left out), the same total as ``prefill_tokens``, and
+    ``tpu_serve_prefill_chunk_tokens_total`` renders it."""
+    eng = _engine(setup[0], n_slots=2, chunk=4, max_new_tokens=6,
+                  auto_prefix_min=4)
+    intake: deque = deque()
+    tickets = []
+
+    def pull():
+        if not intake:
+            return None
+        t = sched.begin(**intake.popleft())
+        tickets.append(t)
+        return t
+
+    reg = obs.Registry()
+    sched = IterationScheduler(eng, window=4, prefill_budget=2, pull=pull,
+                               packed_prefill=packed, sync_dwell_s=0.0,
+                               registry=reg)
+    arrivals = sorted(GREEDY_APC, key=lambda a: a[0])
+    for i in range(60):
+        intake.extend(a[2] for a in arrivals if a[0] == i)
+        sched.iterate()
+        for slot in range(eng.n_slots):
+            if eng.active[slot] and eng.finished(slot):
+                eng.release(slot)
+    assert len(tickets) == len(GREEDY_APC) and not sched.busy()
+    extended = 0
+    waits = []
+    for t in tickets:
+        assert t.t_begin <= t.t_splice <= t.t_done
+        waits.append(t.t_done - t.t_splice)
+        src = t.state.auto_src
+        extended += len(t.state.prompt_np[0]) - (src[2] if src else 0)
+    st = eng.stats()
+    assert st["prefix_reused_tokens"] > 0
+    assert eng.prefill_chunk_tokens == extended == st["prefill_tokens"]
+    if packed:
+        assert st["packed_prefill_pad_tokens"] > 0
+    samples = {n: v for n, ls, v in obs.parse_exposition(reg.render())
+               if not ls}
+    assert samples["tpu_serve_first_token_wait_seconds_count"] \
+        == len(tickets)
+    assert samples["tpu_serve_first_token_wait_seconds_sum"] \
+        == pytest.approx(sum(waits))
+    assert samples["tpu_serve_prefill_chunk_tokens_total"] == extended
+
+
+def test_prefill_chunk_tokens_count_at_each_chunk(setup):
+    """The chunk counter moves at each chunk dispatch (its real rows
+    only); ``prefill_tokens`` counts the whole prompt at the first."""
+    eng = _engine(setup[0], n_slots=1, chunk=4)
+    st = eng.begin_admit([3, 14, 15, 92, 65])
+    eng.admit_step(st)
+    assert (eng.prefill_chunk_tokens, eng.stats()["prefill_tokens"]) \
+        == (4, 5)
+    eng.admit_step(st)
+    assert eng.prefill_chunk_tokens == 5
 
 
 # -- against the JAX package -------------------------------------------------

@@ -420,6 +420,14 @@ def test_sampled_answers_keep_reference_shape(pair, body):
         assert len({tuple(c["tokens"]) for c in fin["choices"]}) > 1
 
 
+# the port's scheduler's families that the reference has no counterpart
+# of: the splice-to-first-token wait and the prompt tokens extended
+PORT_ONLY_SAMPLES = {
+    f"tpu_serve_first_token_wait_seconds{s}"
+    for s in ("_bucket", "_sum", "_count")} | {
+    "tpu_serve_prefill_chunk_tokens_total"}
+
+
 @pytest.mark.parametrize("path", [
     "/healthz", "/stats", "/statz", "/metrics", "/alerts",
     "/debug/query?expr=rate(tpu_serving_requests_served_total[2s])",
@@ -430,7 +438,7 @@ def test_get_surfaces_match_reference(pair, path):
     """Each GET surface answers with the reference's status and content
     type, and its JSON with the reference's keys (values that count
     traffic or time differ); /metrics carries the reference's families
-    and nothing else."""
+    and, beyond them, only the port's own (``PORT_ONLY_SAMPLES``)."""
     got = {tag: _request(srv.port, "GET", path)
            for tag, srv in pair.items()}
     (js, jh, jb), (ts, th, tb) = got["jax"], got["torch"]
@@ -441,7 +449,7 @@ def test_get_surfaces_match_reference(pair, path):
         def names(body):
             return {n for n, _, _ in jobs.parse_exposition(body.decode())}
 
-        assert names(tb) == names(jb)
+        assert names(tb) == names(jb) | PORT_ONLY_SAMPLES
     elif jh.get("Content-Type") == "application/json" and js == 200:
         jd, td = json.loads(jb), json.loads(tb)
         assert set(td) == set(jd)
@@ -679,7 +687,9 @@ def test_parse_request_defaults():
 
 def test_debug_profile_writes_a_trace(models, tmp_path):
     """/debug/profile captures a ``torch.profiler`` chrome trace into
-    --profile-dir (CPU activities here), single-flight, bounded."""
+    --profile-dir (CPU activities here), single-flight, bounded; the
+    scheduler thread's phases show in it as ``serve.*`` ranges (an
+    idle server waits under ``serve.idle``)."""
     _, tm = models
     srv = tserver.EngineServer(ServingEngine(tm, n_slots=1, device="cpu"),
                                max_new_tokens=4, profile_dir=str(tmp_path))
@@ -690,7 +700,8 @@ def test_debug_profile_writes_a_trace(models, tmp_path):
         out = json.loads(raw)
         assert status == 200 and out["profile_dir"] == str(tmp_path)
         with open(out["trace"]) as f:
-            assert "traceEvents" in json.load(f)
+            events = json.load(f)["traceEvents"]
+        assert "serve.idle" in {e.get("name") for e in events}
         status, _, _ = _request(srv.port, "GET",
                                 "/debug/profile?seconds=61")
         assert status == 400

@@ -66,11 +66,13 @@ window is abandoned with it).
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from .. import obs
+from ..obs.ranges import device_range
 from ..resilience import faults
 from .serving import AdmitState, ServingEngine, _knobs_live
 
@@ -101,6 +103,17 @@ DEFAULT_SYNC_DWELL_S = 0.002
 # pacing/shutdown-granularity knob, grown windows just amortize it
 ADAPTIVE_WINDOW_FACTOR = 4
 
+# the loop's phases (``IterationScheduler.in_phase``): the four the device
+# duty cycle reads -- dispatch (host-side window dispatch), harvest
+# (blocking device sync: scan harvest, spec/jump rounds, endgame
+# steps), stream (the owner's emit work between iterations), idle (the
+# owner waiting for work) -- then admission's: begin (begin_admit: APC
+# match, slot and page reservation), admit (one prefill chunk dispatch,
+# serial or packed), splice (the finish dispatch) and first_token (the
+# first-token read, the admission's one synchronisation)
+DUTY_PHASES = ("dispatch", "harvest", "stream", "idle")
+PHASES = DUTY_PHASES + ("begin", "admit", "splice", "first_token")
+
 
 class SchedulerSuperseded(RuntimeError):
     """This iteration was invalidated (crash supervisor restarted the
@@ -109,16 +122,20 @@ class SchedulerSuperseded(RuntimeError):
 
 class Ticket:
     """One admission riding the scheduler: an engine
-    :class:`~.serving.AdmitState` plus scheduling stamps.  ``slot`` is
-    reserved from ``begin`` on; the request is live only after the
-    ticket shows up in :class:`IterationResult` ``admitted``."""
+    :class:`~.serving.AdmitState` plus scheduling stamps on the
+    ``perf_counter`` clock: ``t_begin`` after ``begin_admit``,
+    ``t_splice`` just before the splice dispatch, ``t_done`` once the
+    first token is read.  ``slot`` is reserved from ``begin`` on; the
+    request is live only after the ticket shows up in
+    :class:`IterationResult` ``admitted``."""
 
-    __slots__ = ("state", "t_begin", "t_done", "mid_window")
+    __slots__ = ("state", "t_begin", "t_splice", "t_done", "mid_window")
 
     def __init__(self, state: AdmitState, t_begin: float,
                  mid_window: bool):
         self.state = state
         self.t_begin = t_begin
+        self.t_splice = 0.0
         self.t_done = 0.0
         self.mid_window = mid_window
 
@@ -223,29 +240,25 @@ class IterationScheduler:
         self._await_first: List[Ticket] = []  # finalized, pre-1st-step
         self._ahead: Optional[Tuple[object, int]] = None  # (handle, n)
         self._gen = 0                         # supersession counter
-        self._m_chunk = self._m_first = None
+        self._m_chunk = self._m_first = self._m_first_wait = None
+        self._m_chunk_tokens = None
         self._m_overlap_idle = self._m_overlap_windows = None
         self._g_prefill = self._g_decode = None
         # per-window phase breakdown + device duty cycle: cumulative
-        # wall seconds by phase (dispatch = host-side scan_dispatch
-        # work, harvest = blocking device sync incl. spec/jump/step
-        # rounds, stream = the owner's emit work between iterations,
-        # idle = the owner waiting for work).  Single writer (the
+        # wall seconds by phase (PHASES).  Single writer (the
         # scheduler thread); the scrape-time duty collector only reads
-        self._phase_acc: Dict[str, float] = {
-            "dispatch": 0.0, "harvest": 0.0, "stream": 0.0,
-            "idle": 0.0}
-        # the phase executing RIGHT NOW (begin_phase sets it at each
-        # section start) — the continuous profiler's phase_fn reads
-        # this to tag stack samples, so a profile slice can split
-        # "time under dispatch" from "time blocked in harvest".
-        # Single writer (the loop's thread); racy reads are fine, a
-        # sample tagged one phase late is still an honest sample.
+        self._phase_acc: Dict[str, float] = dict.fromkeys(PHASES, 0.0)
+        # the phase entered last (``in_phase`` sets it) — the continuous
+        # profiler's phase_fn reads this to tag stack samples, so a
+        # profile slice can split "time under dispatch" from "time
+        # blocked in harvest".  Single writer (the loop's thread); racy
+        # reads are fine, a sample tagged one phase late is still an
+        # honest sample.
         self.phase: str = "idle"
         self._phase_hist: Dict[str, object] = {}
         self._m_phase = None
         self._g_duty = None
-        self._duty_snap = dict(self._phase_acc)
+        self._duty_snap = dict.fromkeys(DUTY_PHASES, 0.0)
         if registry is not None:
             self._m_chunk = registry.histogram(
                 "tpu_serve_prefill_chunk_seconds",
@@ -259,6 +272,18 @@ class IterationScheduler:
                 "Admission handoff to the slot's first decode-window "
                 "dispatch (prefill + finalize, interleave included).",
                 buckets=obs.LATENCY_BUCKETS_S)
+            self._m_first_wait = registry.histogram(
+                "tpu_serve_first_token_wait_seconds",
+                "An admission's splice dispatch to its first token on "
+                "the host (the first-token read waits for the device "
+                "work queued before it, an open decode window "
+                "included).",
+                buckets=obs.LATENCY_BUCKETS_S)
+            self._m_chunk_tokens = registry.counter(
+                "tpu_serve_prefill_chunk_tokens_total",
+                "Prompt tokens extended by prefill chunk dispatches "
+                "(pad rows and prefix-cache hits left out), counted "
+                "at each dispatch.")
             self._m_overlap_idle = registry.histogram(
                 "tpu_serve_overlap_idle_seconds",
                 "Device time a dispatch-ahead window still had left "
@@ -275,6 +300,8 @@ class IterationScheduler:
             # as zeros — dashboards see ONE schema
             self._m_overlap_idle._default()
             self._m_overlap_windows.inc(0)
+            self._m_first_wait._default()
+            self._m_chunk_tokens.inc(0)
             g = registry.gauge(
                 "tpu_serve_scheduler_queue_depth",
                 "Iteration-scheduler work-queue depth by kind: "
@@ -288,7 +315,11 @@ class IterationScheduler:
                 "window dispatch), harvest (blocking device sync — "
                 "scan harvest, spec/jump rounds, endgame steps), "
                 "stream (the owner's emit/stream-write work between "
-                "iterations), idle (waiting for work).",
+                "iterations), idle (waiting for work), begin "
+                "(begin_admit: prefix match, slot and page "
+                "reservation), admit (one prefill chunk dispatch, "
+                "serial or packed), splice (an admission's finish "
+                "dispatch), first_token (its first-token read).",
                 ("phase",), buckets=obs.FAST_BUCKETS_S)
             # one schema from boot: every phase child renders (zeros)
             # whether or not the loop has reached it yet
@@ -303,6 +334,8 @@ class IterationScheduler:
                 "prefill-gap estimates.")
             self._g_duty.set(0.0)
             registry.on_collect(self._collect_duty)
+            registry.on_collect(lambda: self._m_chunk_tokens._set(
+                self.engine.prefill_chunk_tokens))
 
     # -- intake -------------------------------------------------------------
 
@@ -311,7 +344,8 @@ class IterationScheduler:
         ticket.  Called from inside the owner's *pull* callback (same
         thread as iterate — the engine has one owner).  Raises
         whatever begin_admit raises; nothing is queued then."""
-        st = self.engine.begin_admit(prompt, **admit_kwargs)
+        with self.in_phase("begin"):
+            st = self.engine.begin_admit(prompt, **admit_kwargs)
         t = Ticket(st, time.perf_counter(),
                    mid_window=self.engine.scan_inflight)
         self._pending.append(t)
@@ -428,28 +462,32 @@ class IterationScheduler:
             while self._pending and self._pending[0].state.ready:
                 t = self._finalize_dispatch()
                 if t is not None:
-                    # resolve EAGERLY: the first-token pick depends
-                    # only on the prefill chain, so on runtimes that
-                    # execute independent work concurrently the sync
-                    # lands mid-window and the first token streams
-                    # before the window closes (worst case it waits
-                    # for the window — where it used to wait anyway)
+                    # resolve EAGERLY: the first token streams as soon
+                    # as the device has picked it.  The pick depends
+                    # only on the prefill chain, but the port enqueues
+                    # everything on one CUDA stream, so the read waits
+                    # for all the work dispatched before it, the open
+                    # decode window included: the first token comes
+                    # when that window ends, as it would at the
+                    # harvest, and the host enqueues nothing more
+                    # until then
                     fins += self._finalize_resolve(t)
                 self._pull_tickets()
             if not self._pending or n <= 0:
                 return fins
             group = self._pack_group()
             t0 = time.perf_counter()
-            if len(group) >= 2:
-                # one resident pack session: run until the shortest
-                # member's last chunk (or the budget) — pack/unpack
-                # copies amortize over the whole session
-                rounds = min(n, min(st.gen.remaining for st in group))
-                eng.admit_step_packed(group, rounds)
-                n -= rounds
-            else:
-                eng.admit_step(group[0])
-                n -= 1
+            with self.in_phase("admit"):
+                if len(group) >= 2:
+                    # one resident pack session: run until the shortest
+                    # member's last chunk (or the budget) — pack/unpack
+                    # copies amortize over the whole session
+                    rounds = min(n, min(st.gen.remaining for st in group))
+                    eng.admit_step_packed(group, rounds)
+                    n -= rounds
+                else:
+                    eng.admit_step(group[0])
+                    n -= 1
             if self._m_chunk is not None:
                 self._m_chunk.observe(time.perf_counter() - t0)
 
@@ -458,15 +496,20 @@ class IterationScheduler:
         the first-token pick stays on device until resolve)."""
         if self._pending and self._pending[0].state.ready:
             t = self._pending.pop(0)
-            self.engine._finish_admit_dispatch(t.state)
+            t.t_splice = time.perf_counter()
+            with self.in_phase("splice"):
+                self.engine._finish_admit_dispatch(t.state)
             return t
         return None
 
     def _finalize_resolve(self, t: Optional[Ticket]) -> List[Ticket]:
         if t is None:
             return []
-        self.engine._finish_admit_resolve(t.state)
+        with self.in_phase("first_token"):
+            self.engine._finish_admit_resolve(t.state)
         t.t_done = time.perf_counter()
+        if self._m_first_wait is not None:
+            self._m_first_wait.observe(t.t_done - t.t_splice)
         self._await_first.append(t)
         if self._on_admit is not None:
             self._on_admit(t)
@@ -493,34 +536,34 @@ class IterationScheduler:
                     self._m_first.observe(now - t.t_begin)
         self._await_first.clear()
 
-    def begin_phase(self, phase: str) -> None:
-        """Mark *phase* as the section executing NOW (profiler tag —
-        see ``self.phase``).  Time accounting still happens at section
-        end via :meth:`note_phase`; callers pair the two."""
-        if phase not in self._phase_acc:
-            raise ValueError(f"unknown scheduler phase {phase!r}")
-        self.phase = phase
-
-    def note_phase(self, phase: str, dt: float) -> None:
-        """Account *dt* wall seconds of scheduler-loop time under
-        *phase* (dispatch | harvest | stream | idle).  dispatch and
-        harvest are accounted internally; the loop's OWNER reports its
-        stream-write and idle-wait time through this hook (the
-        scheduler cannot see between its own iterations)."""
-        if phase not in self._phase_acc:
-            raise ValueError(f"unknown scheduler phase {phase!r}")
-        if dt < 0:
-            return
-        self._phase_acc[phase] += dt
-        child = self._phase_hist.get(phase)
+    @contextmanager
+    def in_phase(self, name: str) -> Iterator[None]:
+        """Run the body as scheduler-loop phase *name* (one of
+        ``PHASES``): it becomes ``phase`` (the sampling profiler's
+        tag), its wall seconds are added to the phase's sum and
+        histogram child, and while a torch profiler records it is the
+        range ``serve.<name>`` in the trace.  Phases do not nest.
+        The scheduler times its own; the loop's OWNER runs its
+        stream-write and idle-wait work under ``stream`` and ``idle``
+        (the scheduler cannot see between its own iterations)."""
+        if name not in self._phase_acc:
+            raise ValueError(f"unknown scheduler phase {name!r}")
+        self.phase = name
+        t0 = time.perf_counter()
+        with device_range(f"serve.{name}"):
+            yield
+        dt = time.perf_counter() - t0
+        self._phase_acc[name] += dt
+        child = self._phase_hist.get(name)
         if child is not None:
             child.observe(dt)  # type: ignore[attr-defined]
 
     def _collect_duty(self) -> None:
         """Scrape-time device duty cycle: dispatch+harvest seconds
-        over all phase seconds since the PREVIOUS scrape, falling back
-        to the lifetime ratio on the first (delta-free) scrape."""
-        cur = dict(self._phase_acc)
+        over the seconds of the four DUTY_PHASES since the PREVIOUS
+        scrape, falling back to the lifetime ratio on the first
+        (delta-free) scrape."""
+        cur = {p: self._phase_acc[p] for p in DUTY_PHASES}
         prev = self._duty_snap
         busy = (cur["dispatch"] - prev["dispatch"]
                 + cur["harvest"] - prev["harvest"])
@@ -533,11 +576,8 @@ class IterationScheduler:
             self._g_duty.set(max(0.0, min(1.0, busy / total)))
 
     def _timed_dispatch(self, window: int) -> object:
-        t0 = time.perf_counter()
-        self.begin_phase("dispatch")
-        handle = self.engine.scan_dispatch(window)
-        self.note_phase("dispatch", time.perf_counter() - t0)
-        return handle
+        with self.in_phase("dispatch"):
+            return self.engine.scan_dispatch(window)
 
     def _gauges(self) -> None:
         if self._g_prefill is not None:
@@ -683,10 +723,9 @@ class IterationScheduler:
         self._ahead = None
         fins = self._admit_work(self.prefill_budget)
         t0 = time.perf_counter()
-        self.begin_phase("harvest")
-        decoded = eng.scan_harvest(handle)
+        with self.in_phase("harvest"):
+            decoded = eng.scan_harvest(handle)
         dt = time.perf_counter() - t0
-        self.note_phase("harvest", dt)
         if self._m_overlap_idle is not None:
             self._m_overlap_idle.observe(dt)
         self._maybe_dispatch_ahead(decoded)
@@ -757,17 +796,13 @@ class IterationScheduler:
             admitted += self._drain_admissions()
             self._note_first_step()
             if eng.spec_ready():
-                t0 = time.perf_counter()
-                self.begin_phase("harvest")
-                decoded = eng.spec_round()
-                self.note_phase("harvest", time.perf_counter() - t0)
+                with self.in_phase("harvest"):
+                    decoded = eng.spec_round()
                 self._gauges()
                 return IterationResult(admitted, decoded, 1)
             if eng.forced_pending():
-                t0 = time.perf_counter()
-                self.begin_phase("harvest")
-                decoded = eng.jump_round()
-                self.note_phase("harvest", time.perf_counter() - t0)
+                with self.in_phase("harvest"):
+                    decoded = eng.jump_round()
                 if decoded is not None:
                     self._gauges()
                     return IterationResult(admitted, decoded, 1)
@@ -778,10 +813,8 @@ class IterationScheduler:
         if window < 1:
             # a slot ran out of cache: one step() retires it
             self._note_first_step()
-            t0 = time.perf_counter()
-            self.begin_phase("harvest")
-            decoded = {s: [t] for s, t in eng.step().items()}
-            self.note_phase("harvest", time.perf_counter() - t0)
+            with self.in_phase("harvest"):
+                decoded = {s: [t] for s, t in eng.step().items()}
             self._gauges()
             return IterationResult(admitted, decoded, 1)
         self._note_first_step()
@@ -796,10 +829,8 @@ class IterationScheduler:
             # one window
             self._check(gen)
             fins = self._admit_work(self.prefill_budget)
-        t0 = time.perf_counter()
-        self.begin_phase("harvest")
-        decoded = eng.scan_harvest(handle)
-        self.note_phase("harvest", time.perf_counter() - t0)
+        with self.in_phase("harvest"):
+            decoded = eng.scan_harvest(handle)
         admitted += fins
         self._maybe_dispatch_ahead(decoded)
         self._gauges()

@@ -1759,12 +1759,9 @@ class EngineServer:
                 # priority-then-FIFO; requests stay in the heap).  The
                 # wait is the loop's "idle" phase — the denominator of
                 # the device duty-cycle gauge
-                t_idle = time.perf_counter()
-                sched.begin_phase("idle")
-                self._work.wait(timeout=_IDLE_POLL_S)
-                self._work.clear()
-                sched.note_phase("idle",
-                                 time.perf_counter() - t_idle)
+                with sched.in_phase("idle"):
+                    self._work.wait(timeout=_IDLE_POLL_S)
+                    self._work.clear()
                 continue
             # chaos hooks (serve.step / serve.schedule) fire INSIDE
             # iterate, after admission work and before the decode
@@ -1786,24 +1783,21 @@ class EngineServer:
             # fires mid-window); only decode output is left to stream
             if not res.steps:
                 continue
-            t_stream = time.perf_counter()
-            sched.begin_phase("stream")
-            for slot, (req, idx) in list(self._running.items()):
-                before = req.emitted.get(idx, 0)
-                self._emit(slot, req, idx, eng.output(slot))
-                k = req.emitted.get(idx, 0) - before
-                if k > 0:
-                    # the stream's inter-token latency this window:
-                    # window wall time spread over its k tokens,
-                    # weighted by token count (one bulk observe)
-                    self._m_token.observe_n(win_dt / k, k)
-                    self._mark(req, "tpu_serve_window", win_dt,
-                               tokens=k, slot=slot)
             # the post-harvest emit work is the loop's "stream" phase:
             # with --overlap-dispatch the next window is already on
             # the device underneath it (that is the overlap's win)
-            sched.note_phase("stream",
-                             time.perf_counter() - t_stream)
+            with sched.in_phase("stream"):
+                for slot, (req, idx) in list(self._running.items()):
+                    before = req.emitted.get(idx, 0)
+                    self._emit(slot, req, idx, eng.output(slot))
+                    k = req.emitted.get(idx, 0) - before
+                    if k > 0:
+                        # the stream's inter-token latency this window:
+                        # window wall time spread over its k tokens,
+                        # weighted by token count (one bulk observe)
+                        self._m_token.observe_n(win_dt / k, k)
+                        self._mark(req, "tpu_serve_window", win_dt,
+                                   tokens=k, slot=slot)
         # the scheduler owns _running/_head: it performs the shutdown
         # drain itself so stop() never mutates them while a device step
         # is still in flight (a stuck 5s join used to race here)
@@ -3407,13 +3401,18 @@ class EngineServer:
 
     def _new_profile(self):
         """A ``torch.profiler.profile`` of CPU activities, and of CUDA
-        ones when the engine lives on a card."""
+        ones when the engine lives on a card.  It records every
+        thread's CPU events: the scheduler thread's phases
+        (``serve.*`` ranges) are not the capturing thread's."""
         import torch.profiler as tprof
 
         acts = [tprof.ProfilerActivity.CPU]
         if self.engine.device.type == "cuda":
             acts.append(tprof.ProfilerActivity.CUDA)
-        return tprof.profile(activities=acts)
+        return tprof.profile(
+            activities=acts,
+            experimental_config=tprof._ExperimentalConfig(
+                profile_all_threads=True))
 
     def profile(self, seconds: float) -> dict:
         """Capture one ``torch.profiler`` trace of *seconds* into

@@ -1103,6 +1103,11 @@ class ServingEngine:
         self._batch: Optional[_ChunkBatch] = None
         self.extend_replays = 0
         self.extend_capture_ms = 0.0
+        # prompt tokens extended, counted at each chunk dispatch with the
+        # grid's pad rows left out (``prefill_tokens`` counts a whole
+        # admission at its first extend).  Beside stats(), which keeps the
+        # reference's keys, as the replay counts are
+        self.prefill_chunk_tokens = 0
         # packed-prefill accounting (stats' packed_prefill_* keys)
         self._packed_extends = 0
         self._packed_rows = 0
@@ -2316,6 +2321,7 @@ class ServingEngine:
         lora = self.model.n_adapters > 0
         if self.chunk is None:
             (job,) = jobs
+            self.prefill_chunk_tokens += job.n
             aids = (self._stage.put(np.asarray([job.aid], np.int64))
                     if lora else None)
             logits = self.model(self._stage.put(job.chunk_np()),
@@ -2333,11 +2339,14 @@ class ServingEngine:
             self._stage.copy_into(b.aids, aids)
         inputs = np.zeros(tuple(b.inputs.shape), np.int32)
         for _ in range(rounds):
+            pad = 0
             for i, job in enumerate(jobs):
                 inputs[0, i] = job.chunk_np()[0]
                 inputs[1, i] = job.pos_np()[0]
+                pad += job.pad_rows()
+            self.prefill_chunk_tokens += k * self.chunk - pad
             if packed:
-                self._packed_pad_tokens += sum(j.pad_rows() for j in jobs)
+                self._packed_pad_tokens += pad
                 self._packed_extends += 1
                 self._packed_rows += k
             self._stage.copy_into(b.inputs, inputs)
